@@ -1,10 +1,11 @@
-"""TSX tunnel configuration.
+"""TSX tunnel and strip-footing configurations.
 
-Port of `fem_elastoplasticity_tpu/models/config.py:188 TsxTunnelConfig`
-with the same field names and defaults, so a configuration reads the same
-in both packages.  This slice of the port runs the dense solver on P1
-elements in the "native" f64 and "df32" precisions.  A field whose
-non-default value selects something the slice does not implement raises
+Port of `fem_elastoplasticity_tpu/models/config.py` (`FootingConfig` at
+:39, `TsxTunnelConfig` at :188) with the same field names and defaults, so
+a configuration reads the same in both packages.  The port runs the dense
+solver on P1 elements: the tsx in the "native" f64 and f32 and the "df32"
+precisions, the footing in native f64 and f32.  A field whose non-default
+value selects something the port does not implement raises
 NotImplementedError when the config is built; no field is ignored.
 """
 from __future__ import annotations
@@ -115,10 +116,103 @@ class TsxTunnelConfig:
 
     @classmethod
     def fast_f32(cls, **kw):
-        """Pure-f32 preset: needs the fused return-map kernel (K2)."""
-        raise NotImplementedError("TsxTunnelConfig.fast_f32 is not ported yet")
+        """Pure-f32 preset: the return map in kernel K2, f32 Cholesky with
+        elastic-factor reuse, tolerances at the f32 criterion floor."""
+        kw.setdefault("dtype", "float32")
+        kw.setdefault("newton_tol", 1e-6)
+        kw.setdefault("accept_tol", 1e-5)
+        return cls(**kw)
 
     @classmethod
     def fast_scale(cls, refine_levels: int, **kw):
         """Multigrid-preconditioned scale preset: not ported yet."""
         raise NotImplementedError("TsxTunnelConfig.fast_scale is not ported yet")
+
+
+# fields of the footing's CG, multigrid, damping and df32 paths, which
+# later slices port: only their defaults are accepted
+_FOOTING_NOT_PORTED = dict(
+    solver="dense",
+    assembled_cg=False,
+    tangent_mg=False,
+    cg_eta0=None,
+    cg_tol=None,
+    cg_maxiter=2000,
+    cg_structure="while",
+    cg_cap_relax=None,
+    cg_deflate=0,
+    newton_damping=0,
+    residual_fmt=None,
+    precision="native",
+)
+
+
+@dataclass(frozen=True)
+class FootingConfig:
+    """Drucker-Prager strip footing (`Plasticity2D_DP/pythonFEM.py:901-1157`)."""
+
+    etype: ElementType = ElementType.P1
+    level: int = 1
+    young: float = 1e7
+    poisson: float = 0.48
+    cohesion: float = 450.0
+    friction_angle: float = float(np.pi / 9)
+    size_xy: float = 10.0
+    d_zeta: float = 1e-3
+    d_zeta_min_ratio: float = 1.0 / 1300.0
+    zeta_max: float = 1.0
+    newton_maxit: int = 25
+    newton_tol: float = 1e-12
+    accept_tol: float = 1e-10
+    max_steps: int = 1000  # history buffer length (P:1013)
+    # cap on load-loop trips per stepper invocation
+    max_trips: int = 10000
+    solver: str = "dense"
+    assembled_cg: bool = False
+    tangent_mg: bool = False
+    dense_mode: str = "f64"  # "f64" | "mixed" (f32 Cholesky + f64 refinement)
+    cg_eta0: float = None
+    cg_tol: float = None
+    cg_maxiter: int = 2000
+    cg_structure: str = "while"
+    cg_cap_relax: float = None
+    cg_deflate: int = 0
+    newton_damping: int = 0
+    residual_fmt: str = None
+    # reproduce the reference's apex plastic strain from the trial strain
+    # (reference defect #2, SURVEY.md §2.3) for bit-level comparisons
+    bug_compatible_apex: bool = False
+    dtype: str = "float64"
+    # "native" only: the footing's df32 preset is not ported
+    precision: str = "native"
+
+    def __post_init__(self):
+        for name, default in _FOOTING_NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(f"FootingConfig.{name}={getattr(self, name)!r}")
+        dtype_policy(self.precision, self.dtype)  # raises on what is not ported
+        if self.etype != ElementType.P1:
+            raise NotImplementedError(f"FootingConfig.etype={self.etype}")
+        if self.dense_mode not in ("f64", "mixed"):
+            raise ValueError(f"dense_mode {self.dense_mode!r}")
+
+    @classmethod
+    def fast(cls, **kw):
+        """Double-float preset (f32 hardware, df32 state): not ported yet."""
+        raise NotImplementedError("FootingConfig.fast is not ported yet")
+
+    @classmethod
+    def fast_f32(cls, **kw):
+        """Pure-f32 preset: the return map in kernel K2, f32 Cholesky with
+        elastic-factor reuse, tolerances at the f32 criterion floor.  The
+        adaptive schedule may differ from the f64 one; the limit pressure
+        agrees to ~1e-4."""
+        kw.setdefault("dtype", "float32")
+        kw.setdefault("newton_tol", 1e-6)
+        kw.setdefault("accept_tol", 1e-5)
+        return cls(**kw)
+
+    @classmethod
+    def fast_scale(cls, level: int, **kw):
+        """Tangent-multigrid scale preset: not ported yet."""
+        raise NotImplementedError("FootingConfig.fast_scale is not ported yet")

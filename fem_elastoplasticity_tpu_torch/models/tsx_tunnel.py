@@ -2,9 +2,11 @@
 experiment's unstructured triangle mesh (476 nodes, 887 P1 triangles).
 
 Port of `fem_elastoplasticity_tpu/models/tsx_tunnel.py` for the dense
-solver: `solve` runs the native f64 parity preset or, for
+solver: `solve` runs the native presets, f64 (parity) and f32
+(`TsxTunnelConfig.fast_f32`, the return map in kernel K2), or, for
 `precision="df32"`, the bench preset (`build_df32`).  Anchors: 17 accepted
-load steps, 28 Newton iterations, u[40, 0] = -1.9794499636012143e-03.
+load steps, 28 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the
+f32 preset reaches 17 steps and u[40, 0] within ~1e-5.
 
 The dense path does not permute the mesh, so results come back in the
 mesh's own node and element order.
@@ -25,7 +27,7 @@ from ..ops import assembly_df as adf
 from ..ops.elements import ElementType, volume_element
 from ..ops.spmv import build_residual_csr, csr_matvec, csr_to_device
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
-from ..utils.precision import resolve_device
+from ..utils.precision import dtype_policy, resolve_device
 from .config import TsxTunnelConfig
 from .materials import drucker_prager_fit, elastic_tangent_lanes, lame_moduli
 
@@ -86,22 +88,27 @@ def initial_state(cfg: TsxTunnelConfig):
 
 class _Problem(NamedTuple):
     mesh: Mesh
-    geom: asm.Geometry  # f64
+    geom: asm.Geometry  # in the state dtype
     free_idx: torch.Tensor
     plan: asm.DensePlan
     settings: NewtonSettings
     consts: tuple  # (shear, bulk, eta, c)
-    s0: torch.Tensor  # (4,) f64
-    e0: torch.Tensor  # (4,) f64
+    s0: torch.Tensor  # (4,) in the state dtype
+    e0: torch.Tensor  # (4,) in the state dtype
 
 
-def _problem(cfg: TsxTunnelConfig, device: torch.device) -> _Problem:
-    """Host setup shared by both presets: mesh, f64 geometry, DOF maps."""
+def _problem(cfg: TsxTunnelConfig, device: torch.device,
+             dtype: torch.dtype = torch.float64) -> _Problem:
+    """Host setup shared by the presets: mesh, geometry, DOF maps.
+
+    The geometry is computed from coordinates rounded to `dtype`, as the
+    JAX package's native path does (`models/tsx_tunnel.py:160`); s0 and e0
+    are rounded the same way."""
     mesh = tsx_mesh(cfg.etype, cfg.refine_levels)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
     s0, e0 = initial_state(cfg)
-    coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
+    coords = torch.as_tensor(mesh.coords, dtype=dtype, device=device)
     geom = asm.compute_geometry(coords, mesh.elems, volume_element(cfg.etype))
     fmap, n_free = asm.free_dof_map(mesh.free)
     free_idx = torch.as_tensor(np.nonzero(mesh.free.reshape(-1))[0], device=device)
@@ -115,7 +122,7 @@ def _problem(cfg: TsxTunnelConfig, device: torch.device) -> _Problem:
         step0=0,
         max_trips=cfg.max_trips,
     )
-    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=device)  # noqa: E731
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     return _Problem(
         mesh, geom, free_idx, asm.dense_free_plan(geom, fmap, n_free), settings,
         (shear, bulk, eta, c), as_t(s0), as_t(e0),
@@ -137,19 +144,23 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     """Run the excavation: elastic predictor + load-stepped Newton.
 
     `device`: where to run (`utils.precision.resolve_device`).
-    cfg.precision == "df32" runs the bench preset (`build_df32`).
+    cfg.precision == "df32" runs the bench preset (`build_df32`); native
+    runs in cfg.dtype, float32 with the return map in kernel K2 and the
+    elastic Cholesky factor reused while no point is plastic (the JAX
+    package enables the reuse for f32 only, `models/tsx_tunnel.py:29-41`).
     """
     device = resolve_device(device)
     if cfg.precision == "df32":
         return _solve_df32(cfg, device)
-    p = _problem(cfg, device)
+    dtype = dtype_policy(cfg.precision, cfg.dtype).state
+    p = _problem(cfg, device, dtype)
     shear, bulk, eta, c = p.consts
     geom = p.geom
     n_dofs = 2 * geom.n_nodes
 
     # initial-stress force F0 = B^T (w * s0[:3])  (T:1737)
     f0 = asm.internal_force(geom, p.s0[:3, None].expand(3, geom.n_int))
-    D = elastic_tangent_lanes(shear, bulk, geom.n_int, torch.float64, device)
+    D = elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
     K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), p.plan)
     L = torch.linalg.cholesky(K_free)
     u_elast = _scatter_free(
@@ -158,6 +169,7 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     stepper = build_load_stepper(
         geom, p.free_idx, p.plan, shear, bulk, eta, c, p.settings,
         e0_dir=p.e0, monitor=_monitor(cfg), dense_mode=cfg.dense_mode,
+        elastic_factor=("cho", L) if dtype == torch.float32 else None,
         accumulate_ep=not cfg.bug_compatible_ep_reset,
     )
     res = stepper(cfg.d_zeta * u_elast, 0.0, cfg.d_zeta)

@@ -208,6 +208,16 @@ def internal_force(geom: Geometry, s3: torch.Tensor) -> torch.Tensor:
     return _gather_sum(fk.reshape(-1), geom.gmap)
 
 
+def apply_tangent(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """s = D e per integration point: d (3, 3, n), e (3, n) -> (3, n)."""
+    return (d * e[None, :, :]).sum(dim=1)
+
+
+def tangent_matvec(geom: Geometry, d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Matrix-free K v: gather -> strain -> D -> B^T -> gather-sum."""
+    return internal_force(geom, apply_tangent(d, strains(geom, v)))
+
+
 def element_stiffness(geom: Geometry, d: torch.Tensor) -> torch.Tensor:
     """Per-element stiffness K_e = sum_q w_q B^T D B: (2*n_p, 2*n_p, n_e).
 
@@ -283,6 +293,39 @@ def assemble_dense_free(ke: torch.Tensor, plan: DensePlan) -> torch.Tensor:
     K = ke.new_zeros(plan.n_free * plan.n_free)
     K[plan.target] = _gather_sum(ke.reshape(-1), plan.table)
     return K.reshape(plan.n_free, plan.n_free)
+
+
+# ---------------------------------------------------------------------------
+# integration-point -> node projection
+# ---------------------------------------------------------------------------
+def node_gather_map(geom: Geometry) -> torch.Tensor:
+    """Padded per-node lists of the real elements that touch each node,
+    (n_n, K) int64 on geom's device; padding holds n_elems, the index of
+    an appended zero.  Host-built once, for `project_to_nodes`."""
+    edofs = np.asarray(geom.edofs.cpu(), np.int64)
+    n_e, n_p = edofs.shape[0], geom.n_p2 // 2
+    nodes = edofs[: geom.n_real, ::2].T // 2  # (n_p, n_real)
+    ks, es = np.meshgrid(np.arange(n_p), np.arange(geom.n_real), indexing="ij")
+    pos = (ks * n_e + es).reshape(-1)  # the JAX package's segment order
+    _, table = _grouped_gather(nodes.reshape(-1), pos, n_p * n_e, n_rows=geom.n_nodes)
+    table = np.where(table == n_p * n_e, n_e, table % n_e)
+    return torch.as_tensor(table, device=geom.B.device)
+
+
+def project_to_nodes(geom: Geometry, q_int: torch.Tensor, nmap: torch.Tensor) -> torch.Tensor:
+    """Volume-weighted projection of a point field to nodes: (n_n,).
+
+    Nodal value = sum over the elements touching the node of the
+    element's sum_q w q, over the same sum of w (the reference's
+    `transform`, `tsx-tunnel/pythonFEM.py:1160-1216`).  q_int: (n_int,);
+    nmap: `node_gather_map(geom)`.  A gather with a fixed summation order
+    in place of the JAX package's segment sum: an `index_add_` on the card
+    uses atomics and would move the footing's pressure in its last bits
+    from run to run.
+    """
+    wq = (geom.weight * q_int).reshape(geom.n_elems, geom.n_q).sum(-1)  # (n_e,)
+    wsum = geom.weight.reshape(geom.n_elems, geom.n_q).sum(-1)
+    return _gather_sum(wq, nmap) / _gather_sum(wsum, nmap)
 
 
 # ---------------------------------------------------------------------------

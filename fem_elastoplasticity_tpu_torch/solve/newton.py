@@ -19,18 +19,23 @@ exactly:
 Precisions (`utils/precision.py`): "native" runs everything in the
 geometry's dtype; "df32" keeps the state and the residual in f64 and runs
 the tangent, its solves, dU and the criterion in f32, as the JAX package's
-df32 mode does.
+df32 mode does.  Native float32 runs the return map in kernel K2
+(`ops/return_map.py`) and carries the load factor as a float32 scalar, as
+the JAX package's native loop does: zeta, d_zeta and the stop thresholds
+are rounded to float32 at every step.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.assembly_df import elastic_apply
+from ..ops.return_map import dp_return_map_fused, unpack_tangent
 from ..ops.spmv import csr_matvec
 
 
@@ -122,6 +127,9 @@ def build_load_stepper(
     precision: str = "native",
     accumulate_ep: bool = True,
     residual_op=None,
+    use_kernel: Optional[bool] = None,
+    apex_ep_uses_trial: bool = False,
+    accept_hook: Optional[Callable] = None,
 ):
     """Build the load-stepping solver (dense tangent solves).
 
@@ -134,10 +142,12 @@ def build_load_stepper(
                 e0 = zeta * e0_dir (tsx excavation).  None -> no e0.
       dense_mode: "f64" or "mixed" (f32 Cholesky + f64 refinement) for
                 the fresh factorizations of the native preset.
-      elastic_factor: None (factor the tangent every iteration) or
+      elastic_factor: None (factor the tangent every iteration),
                 ("inv", Ki): the explicit inverse of the elastic K_free in
-                the tangent dtype.  While no point is plastic the tangent
-                equals the elastic stiffness bitwise and dU = Ki @ rhs.
+                the tangent dtype, or ("cho", L): its Cholesky factor.
+                While no point is plastic the tangent equals the elastic
+                stiffness bitwise and dU = Ki @ rhs, or the solve with L;
+                otherwise (no Woodbury cap) the tangent is factored afresh.
       smw_cap:  with ("inv", Ki): plastic iterations solve by the Woodbury
                 identity over the first `smw_cap` plastic points; more
                 plastic points than that take a fresh factor.
@@ -147,6 +157,15 @@ def build_load_stepper(
       residual_op: optional (G, S) `ops.spmv.CsrMatrix` pair: strains and
                 the internal force go through K1 instead of the
                 matrix-free gather path.
+      use_kernel: run the return map in kernel K2 (`ops/return_map.py
+                dp_return_map_fused`, plastic where lam > 0).  None: when
+                the tangent dtype is float32 outside df32, the JAX
+                package's rule for its Pallas kernel (`newton.py:357`).
+      apex_ep_uses_trial: the reference's apex plastic strain from the
+                trial strain (footing `bug_compatible_apex`).
+      accept_hook: (monitor value, aux, criterion) -> (aux', factor),
+                called on every accepted step; d_zeta is scaled by factor
+                (the footing doubles it).  None keeps d_zeta.
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -154,9 +173,9 @@ def build_load_stepper(
     if precision not in ("native", "df32"):
         raise ValueError(f"precision {precision!r}")
     if elastic_factor is not None and not (
-        isinstance(elastic_factor, tuple) and elastic_factor[0] == "inv"
+        isinstance(elastic_factor, tuple) and elastic_factor[0] in ("inv", "cho")
     ):
-        raise NotImplementedError("elastic_factor must be None or ('inv', Ki)")
+        raise NotImplementedError("elastic_factor must be None, ('inv', Ki) or ('cho', L)")
     sdtype = geom.B.dtype
     geom_t = geom.to(torch.float32) if df_mode else geom
     tdtype = geom_t.B.dtype
@@ -164,6 +183,12 @@ def build_load_stepper(
     n_dofs = 2 * geom.n_nodes
     n_int = geom.n_int
     mixed = dense_mode == "mixed" and tdtype == torch.float64
+    if use_kernel is None:
+        use_kernel = tdtype == torch.float32 and not df_mode
+    # the native f32 loop carries zeta as a float32 scalar; f64 and df32
+    # keep Python doubles
+    f32_zeta = sdtype == torch.float32 and not df_mode
+    rnd = (lambda x: float(np.float32(x))) if f32_zeta else (lambda x: x)
 
     def as_tdtype(x: float) -> float:
         # the JAX package compares its criterion in its own dtype against
@@ -180,8 +205,15 @@ def build_load_stepper(
         else:
             e = asm.strains(geom, u)
         e0 = None if e0_dir is None else e0_dir * zeta
+        if use_kernel:
+            s, ds6, lam, ep_ = dp_return_map_fused(
+                e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply,
+                apex_ep_uses_trial=apex_ep_uses_trial,
+            )
+            return s, unpack_tangent(ds6).to(tdtype), lam > 0.0, lam, ep_
         s, ds, ind_p, lam, ep_ = dp_return_map_lanes(
-            e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply
+            e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply,
+            apex_ep_uses_trial=apex_ep_uses_trial,
         )
         return s, ds.to(tdtype), ind_p, lam, ep_
 
@@ -240,6 +272,11 @@ def build_load_stepper(
         rhs = -f_int[free_idx]
         if elastic_factor is None:
             dU_free = fresh(d, rhs)
+        elif elastic_factor[0] == "cho":
+            if n_plastic == 0:
+                dU_free = torch.cholesky_solve(rhs[:, None], elastic_factor[1])[:, 0]
+            else:
+                dU_free = fresh(d, rhs)
         else:
             Ki = elastic_factor[1]
             if n_plastic == 0:
@@ -278,7 +315,7 @@ def build_load_stepper(
         st = dict(
             u=torch.zeros_like(U_it0), u_old=-U_it0, u_it=U_it0,
             ep=torch.zeros((4, n_int), dtype=sdtype, device=device),
-            zeta_old=0.0, d_zeta=float(d_zeta0), d_zeta_old=float(d_zeta0),
+            zeta_old=0.0, d_zeta=rnd(float(d_zeta0)), d_zeta_old=rnd(float(d_zeta0)),
             step=settings.step0, aux=float(aux0),
             zeta_hist=zeros_h, monitor_hist=zeros_h.clone(),
             nits_total=0, ncg_total=0,
@@ -301,20 +338,29 @@ def build_load_stepper(
         zeta_hist, mon_hist = st["zeta_hist"], st["monitor_hist"]
         nits_total, ncg_total = st["nits_total"], st["ncg_total"]
 
+        # stop thresholds, rounded as the JAX package's weakly typed
+        # Python floats are against its dtype scalars
+        zeta_stop = rnd(settings.zeta_max - 1e-12)
+        d_zeta_min = rnd(settings.d_zeta_min)
         trips, done = 0, False
         while not done and trips < settings.max_trips:
-            zeta = zeta_old + d_zeta
+            zeta = rnd(zeta_old + d_zeta)
             U_conv, crit, nits = inner_newton(U_it, ep, zeta)
             if crit < accept_tol:  # False for NaN
                 s_rm, _, _, _, ep_new = return_map(U_conv, ep, zeta, apply=accumulate_ep)
                 idx = min(step, settings.max_steps - 1)
                 zeta_hist[idx] = zeta
-                mon_hist[idx] = monitor(U_conv, s_rm)
+                m = monitor(U_conv, s_rm)
+                mon_hist[idx] = m
+                factor = 1.0
+                if accept_hook is not None:
+                    aux, factor = accept_hook(m, aux, crit)
                 U_old, U = U, U_conv
                 if accumulate_ep:
                     ep = ep_new
                 zeta_old = zeta
                 d_zeta_old = d_zeta
+                d_zeta = d_zeta * factor
                 step += 1
             else:
                 d_zeta = d_zeta * 0.5
@@ -323,7 +369,7 @@ def build_load_stepper(
                 done = (zeta_old - settings.zeta_max) >= -1e-12 or d_zeta < settings.d_zeta_min
             else:
                 U_it = d_zeta * (U - U_old) / d_zeta_old + U
-                done = zeta_old >= settings.zeta_max - 1e-12 or d_zeta < settings.d_zeta_min
+                done = zeta_old >= zeta_stop or d_zeta < d_zeta_min
             nits_total += nits
             trips += 1
 
@@ -332,7 +378,7 @@ def build_load_stepper(
             u=U, ep=ep, zeta_hist=zeta_hist, monitor_hist=mon_hist,
             n_steps=step, n_newton_total=nits_total, zeta=zeta_old,
             d_zeta=d_zeta, n_plastic=n_plastic, n_cg_total=ncg_total,
-            u_old=U_old, u_it=U_it, d_zeta_old=d_zeta_old, aux=aux,
+            u_old=U_old, u_it=U_it, d_zeta_old=d_zeta_old, aux=float(aux),
         )
 
     return run

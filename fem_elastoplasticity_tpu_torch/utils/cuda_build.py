@@ -4,8 +4,8 @@ Kernels have a plain C interface and are bound with `ctypes`: `nvcc` takes
 seconds for such a file, where a source that includes PyTorch's headers takes
 minutes, and this route needs no `ninja`.  The library is built at first
 use into `.torch_ext_build/` beside the package (listed in `.gitignore`),
-under a name that hashes the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.
+under a name that hashes the source and the flags, so an edited source or a
+changed flag is rebuilt and an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+from typing import Sequence
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
@@ -37,20 +38,25 @@ def find_nvcc() -> str:
     return found
 
 
-def build_library(source: pathlib.Path, name: str) -> ctypes.CDLL:
+def build_library(
+    source: pathlib.Path, name: str, extra_flags: Sequence[str] = ()
+) -> ctypes.CDLL:
     """Compile `source` with nvcc for sm_90a (if not built yet) and load it.
 
-    Raises RuntimeError with the compiler's output when the build fails.
-    The ptxas report (registers, spills) is kept beside the library as
+    `extra_flags` follow NVCC_FLAGS on the command line (K2 passes
+    `-fmad=false`) and enter the hash in the library's name.  Raises
+    RuntimeError with the compiler's output when the build fails.  The
+    ptxas report (registers, spills) is kept beside the library as
     `<library>.log`.
     """
     src = pathlib.Path(source)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *extra_flags)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

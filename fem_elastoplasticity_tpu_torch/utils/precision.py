@@ -9,8 +9,9 @@ sets f32 matmul precision to "highest".  TF32 keeps a 10-bit mantissa; the
 f32 products of the df32 preset (`Ki @ rhs`, the Woodbury matmuls) would
 silently drop to it on Hopper and change the Newton iteration counts.
 
-Precisions (`TsxTunnelConfig.precision`):
-  * "native" — every tensor in the config's dtype (float64 for parity).
+Precisions (`TsxTunnelConfig.precision`, `FootingConfig.precision`):
+  * "native" — every tensor in the config's dtype: float64 for parity,
+    float32 for the `fast_f32` presets, whose return map is kernel K2.
   * "df32"   — the JAX package carries this state as two-float32 pairs
     because a TPU has no f64.  The H100 has f64 in hardware, so the port
     carries the same state as float64: the load-stepping state and the
@@ -63,8 +64,9 @@ def dtype_policy(precision: str, dtype: str) -> DtypePolicy:
         return DtypePolicy(state=torch.float64, tangent=torch.float32)
     if precision != "native":
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    if dtype == "float32":
+        # the pure-f32 presets: the return map runs in kernel K2
+        return DtypePolicy(state=torch.float32, tangent=torch.float32)
     if dtype != "float64":
-        # native float32 runs the fused return-map kernel (K2), which a
-        # later slice ports
         raise NotImplementedError(f"precision='native' with dtype={dtype!r}")
     return DtypePolicy(state=torch.float64, tangent=torch.float64)

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: kernel K1 against its plain version.
+"""PyTorch port on the card: kernels K1 and K2 against their plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so on the card's machine (which has none) it runs without the
@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from fem_elastoplasticity_tpu_torch.models import footing
 from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
-from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
+from fem_elastoplasticity_tpu_torch.models.materials import drucker_prager_fit, lame_moduli
 from fem_elastoplasticity_tpu_torch.ops import assembly as asm
+from fem_elastoplasticity_tpu_torch.ops import return_map as rm
 from fem_elastoplasticity_tpu_torch.ops import spmv
 from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
 
@@ -66,3 +69,70 @@ def test_bench_solve_runs_through_k1(cuda):
     assert spmv.LAUNCHES["csr_spmv_f64"] > 0 and spmv.LAUNCHES["csr_spmv_f64_plain"] == 0
     assert (r.n_steps, r.n_newton_total) == (17, 28)
     assert abs(r.u[40, 0] + 1.9794499636012143e-03) / 1.9794499636012143e-03 < 1e-9
+
+
+@pytest.fixture(scope="module")
+def cuda_k2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rm.load_kernel()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [896, 1000])
+@pytest.mark.parametrize("apex", [False, True])
+@pytest.mark.parametrize("apply", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_k2_matches_plain(cuda_k2, dtype, apply, apex, n):
+    """Seeded inputs of the JAX test's distributions, tsx material; n = 1000
+    is no multiple of the block size.  Both are built to round alike
+    (-fmad=false), so the bound is the smoke run's: 1e-6 of max |plain| in
+    f32, 1e-13 in f64."""
+    shear, bulk = lame_moduli(60000.0, 0.2)
+    eta, c = drucker_prager_fit(18.7, 49 * np.pi / 180)
+    rng = np.random.default_rng(n)
+    e3 = torch.as_tensor(rng.normal(0, 2e-3, (3, n)), dtype=dtype, device=cuda_k2)
+    ep = torch.as_tensor(rng.normal(0, 2e-4, (4, n)), dtype=dtype, device=cuda_k2)
+    e0 = torch.as_tensor(rng.normal(0, 1e-3, 4), dtype=dtype, device=cuda_k2)
+    params = rm.make_params(eta, c, e0, dtype, cuda_k2)
+    got = rm.dp_return_map_cuda(e3, ep, params, shear, bulk, apply, apex)
+    exp = rm.dp_return_map_plain(e3, ep, params, shear, bulk, apply, apex)
+    torch.cuda.synchronize()
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    for g, x in zip(got, exp):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert float((g - x).abs().max()) <= tol * float(x.abs().max())
+    assert torch.equal(got[2] > 0, exp[2] > 0)
+    plastic = exp[2] > 0
+    assert 0 < int(plastic.sum()) < n
+    again = rm.dp_return_map_cuda(e3, ep, params, shear, bulk, apply, apex)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_k2_refuses_wrong_inputs(cuda_k2):
+    e3 = torch.zeros((3, 8), device=cuda_k2)
+    ep = torch.zeros((4, 8), device=cuda_k2)
+    params = rm.make_params(0.5, 1.0, None, torch.float32, cuda_k2)
+    with pytest.raises(ValueError):  # dtype mismatch
+        rm.dp_return_map_cuda(e3, ep.double(), params, 1.0, 1.0)
+    with pytest.raises(ValueError):  # shape
+        rm.dp_return_map_cuda(e3, ep[:3], params, 1.0, 1.0)
+    with pytest.raises(ValueError):  # contiguity
+        rm.dp_return_map_cuda(torch.zeros((8, 3), device=cuda_k2).T, ep, params, 1.0, 1.0)
+    with pytest.raises(ValueError):  # device
+        rm.dp_return_map_cuda(e3, ep.cpu(), params, 1.0, 1.0)
+    with pytest.raises(ValueError):  # integer input
+        rm.dp_return_map_cuda(e3.int(), ep.int(), params.int(), 1.0, 1.0)
+
+
+def test_f32_solves_run_through_k2(cuda_k2):
+    rm.LAUNCHES.clear()
+    r = tsx.solve(TsxTunnelConfig.fast_f32(), device=cuda_k2)
+    assert rm.LAUNCHES["dp_return_map"] > 0 and rm.LAUNCHES["dp_return_map_plain"] == 0
+    assert r.n_steps == 17
+    assert abs(r.u[40, 0] + 1.9794499636012143e-03) / 1.9794499636012143e-03 < 1e-5
+    rm.LAUNCHES.clear()
+    rf = footing.solve(FootingConfig.fast_f32(), device=cuda_k2)
+    assert rm.LAUNCHES["dp_return_map"] > 0 and rm.LAUNCHES["dp_return_map_plain"] == 0
+    assert rf.zeta_hist[rf.n_steps] >= 1.0
+    assert abs(rf.pressure_hist[rf.n_steps] - 16.836351573454152) / 16.836351573454152 < 5e-4

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from fem_elastoplasticity_tpu.models import tsx_tunnel as jtsx
+from fem_elastoplasticity_tpu.models.config import FootingConfig as JaxFootingConfig
 from fem_elastoplasticity_tpu.models.config import TsxTunnelConfig as JaxConfig
 from fem_elastoplasticity_tpu.ops import assembly as jasm
 from fem_elastoplasticity_tpu.ops import elements as jel
 from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as ptsx
-from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
 from fem_elastoplasticity_tpu_torch.ops import assembly as pasm
 from fem_elastoplasticity_tpu_torch.ops import elements as pel
 from fem_elastoplasticity_tpu_torch.utils import convert
@@ -84,7 +85,7 @@ def test_config_defaults_match_jax():
         dict(solver="cg"),
         dict(support_pressure=1.0),
         dict(etype=pel.ElementType.P2),
-        dict(dtype="float32"),
+        dict(dtype="bfloat16"),
         dict(assembled_cg=True),
         dict(cg_deflate=4),
         dict(residual_fmt="ell"),
@@ -98,11 +99,50 @@ def test_config_refuses_what_is_not_ported(kw):
 
 def test_config_refuses_unported_presets():
     with pytest.raises(NotImplementedError):
-        TsxTunnelConfig.fast_f32()
-    with pytest.raises(NotImplementedError):
         TsxTunnelConfig.fast_scale(2)
     with pytest.raises(NotImplementedError):
         TsxTunnelConfig.fast(dense_mode="mixed")
+    with pytest.raises(NotImplementedError):
+        FootingConfig.fast()
+    with pytest.raises(NotImplementedError):
+        FootingConfig.fast_scale(4)
+    fast32 = TsxTunnelConfig.fast_f32()
+    assert (fast32.dtype, fast32.precision, fast32.newton_tol, fast32.accept_tol) == (
+        "float32", "native", 1e-6, 1e-5)
+
+
+def test_footing_config_defaults_match_jax():
+    ours = {f.name: f.default for f in dataclasses.fields(FootingConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxFootingConfig)}
+    assert list(ours) == list(theirs)
+    for k in ours:
+        if k == "etype":
+            assert ours[k].name == theirs[k].name
+        else:
+            assert ours[k] == theirs[k], k
+    ours_f32, theirs_f32 = FootingConfig.fast_f32(), JaxFootingConfig.fast_f32()
+    for k in ours:
+        if k != "etype":
+            assert getattr(ours_f32, k) == getattr(theirs_f32, k), k
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(solver="cg"),
+        dict(assembled_cg=True),
+        dict(tangent_mg=True),
+        dict(cg_deflate=16),
+        dict(newton_damping=3),
+        dict(residual_fmt="slot"),
+        dict(precision="df32", dtype="float32"),
+        dict(etype=pel.ElementType.P2),
+    ],
+    ids=lambda kw: next(iter(kw)),
+)
+def test_footing_config_refuses_what_is_not_ported(kw):
+    with pytest.raises(NotImplementedError):
+        FootingConfig(**kw)
 
 
 def test_carry_round_trip():
@@ -127,6 +167,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys, fem_elastoplasticity_tpu_torch\n"
         "import fem_elastoplasticity_tpu_torch.models.tsx_tunnel\n"
+        "import fem_elastoplasticity_tpu_torch.models.footing\n"
+        "import fem_elastoplasticity_tpu_torch.ops.return_map\n"
         "import fem_elastoplasticity_tpu_torch.utils.convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('fem_elastoplasticity_tpu.') or m == 'fem_elastoplasticity_tpu']\n"

@@ -1,9 +1,9 @@
 """PyTorch port: the TSX tunnel Newton solve end to end (CPU).
 
-The f64 presets are held to the repository's anchors; the bench preset is
-held to the JAX package's own df32 output, read from the committed fixtures
-that `tools/make_port_fixtures.py` writes (a JAX solve costs ~30 s of
-compilation, so no test re-runs one).
+The f64 presets are held to the repository's anchors; the bench preset and
+the pure-f32 preset are held to the JAX package's own output, read from the
+committed fixtures that `tools/make_port_fixtures.py` writes (a JAX solve
+costs ~30 s of compilation, so no test re-runs one).
 """
 import pathlib
 
@@ -13,6 +13,7 @@ import torch
 
 from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
 from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+from fem_elastoplasticity_tpu_torch.ops import return_map as rm
 from fem_elastoplasticity_tpu_torch.ops import spmv
 from fem_elastoplasticity_tpu_torch.solve.newton import carry_of
 from fem_elastoplasticity_tpu_torch.utils.convert import carry_from_jax, carry_to_jax
@@ -136,3 +137,22 @@ def test_woodbury_overflow_takes_fresh_factor():
     assert rf.n_plastic > 64
     assert float(rf.zeta_hist.max()) >= 1.0
     assert rel(rf.u, r64.u) < 1e-8
+
+
+def test_fast_f32_preset_matches_jax():
+    """Pure-f32 preset: the return map through K2's plain version on the
+    CPU, f32 Cholesky with elastic-factor reuse, tolerances at the f32
+    criterion floor (the anchor test of tests/test_pallas_return_map.py)."""
+    exp = np.load(FIXTURES / "tsx_f32.npz")
+    rm.LAUNCHES.clear()
+    r = tsx.solve(TsxTunnelConfig.fast_f32(), device="cpu")
+    assert rm.LAUNCHES["dp_return_map_plain"] > 0 and rm.LAUNCHES["dp_return_map"] == 0
+    print(
+        f"tsx f32: port {r.n_steps} steps / {r.n_newton_total} Newton its, "
+        f"JAX {int(exp['n_steps'])} / {int(exp['n_newton_total'])}"
+    )
+    assert r.n_steps == int(exp["n_steps"]) == 17
+    assert abs(r.u[40, 0] - ANCHOR_U40_F64) / abs(ANCHOR_U40_F64) < 1e-5
+    assert rel(r.u, exp["u"]) < 1e-5
+    # zeta is carried in f32: the 17 steps of f32(1/17) end at 1 or above
+    np.testing.assert_array_equal(r.zeta_hist[:17], exp["zeta_hist"][:17])

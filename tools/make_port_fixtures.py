@@ -8,12 +8,19 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
 * tsx_df32_carry9.npz — the bench preset's load-stepping carry after 9 load
   trips (`solve/chunked.py carry_of`, written by `save_checkpoint`);
 * tsx_f64_maxit2.npz — native f64 with newton_maxit=2: plastic steps fail,
-  d_zeta halves until it underflows d_zeta_min (the reject path).
+  d_zeta halves until it underflows d_zeta_min (the reject path);
+* tsx_f32.npz — `TsxTunnelConfig.fast_f32()`, the pure-f32 preset whose
+  return map is the Pallas kernel: u, ep, zeta_hist, displ_hist and the
+  step/Newton/plastic counts;
+* footing_f64.npz — `FootingConfig()`, the strip footing's native f64
+  parity run: u, ep, zeta_hist, pressure_hist and the counts;
+* footing_f32.npz — `FootingConfig.fast_f32()`, the same fields.
 
 The port's tests compare against these files instead of re-running a JAX
-solve (about 30 s of compilation each).  Run from the repository root:
+solve (about 30 s of compilation each).  Run from the repository root,
+optionally naming the files to write (default: all):
 
-    python tools/make_port_fixtures.py
+    python tools/make_port_fixtures.py [tsx_f32 footing_f64 ...]
 """
 from __future__ import annotations
 
@@ -25,18 +32,47 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "fixtures" / "torch_port"
 
 
-def main() -> None:
+def _fields(r, monitor: str) -> dict:
+    import numpy as np
+
+    return dict(
+        u=np.asarray(r.u, np.float64),
+        ep=np.asarray(r.ep, np.float64),
+        zeta_hist=np.asarray(r.zeta_hist, np.float64),
+        **{monitor: np.asarray(getattr(r, monitor), np.float64)},
+        n_steps=r.n_steps,
+        n_newton_total=r.n_newton_total,
+        n_plastic=r.n_plastic,
+    )
+
+
+def main(names) -> None:
     sys.path.insert(0, str(ROOT))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
+    from fem_elastoplasticity_tpu.models import footing
     from fem_elastoplasticity_tpu.models import tsx_tunnel as tsx
-    from fem_elastoplasticity_tpu.models.config import TsxTunnelConfig
+    from fem_elastoplasticity_tpu.models.config import FootingConfig, TsxTunnelConfig
     from fem_elastoplasticity_tpu.solve.chunked import carry_of, save_checkpoint
 
     OUT.mkdir(parents=True, exist_ok=True)
+    names = set(names or FIXTURES)
+    if "tsx_f32" in names:
+        r = tsx.solve(TsxTunnelConfig.fast_f32())
+        np.savez(OUT / "tsx_f32.npz", **_fields(r, "displ_hist"))
+    if "footing_f64" in names:
+        r = footing.solve(FootingConfig())
+        np.savez(OUT / "footing_f64.npz", **_fields(r, "pressure_hist"))
+    if "footing_f32" in names:
+        r = footing.solve(FootingConfig.fast_f32())
+        np.savez(OUT / "footing_f32.npz", **_fields(r, "pressure_hist"))
+    if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
+        _report()
+        return
+
     cfg = TsxTunnelConfig.fast(assembled_cg=True)
     r = tsx.solve(cfg)
     r64 = tsx.solve(TsxTunnelConfig())
@@ -64,9 +100,21 @@ def main() -> None:
 
     run, args, _ = tsx.build_df32(dataclasses.replace(cfg, max_trips=9))
     save_checkpoint(OUT / "tsx_df32_carry9.npz", carry_of(run(args)))
+    _report()
+
+
+def _report() -> None:
     for f in sorted(OUT.glob("*.npz")):
         print(f.relative_to(ROOT), f.stat().st_size, "bytes")
 
 
+FIXTURES = (
+    "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
+    "tsx_f32", "footing_f64", "footing_f32",
+)
+
 if __name__ == "__main__":
-    main()
+    unknown = set(sys.argv[1:]) - set(FIXTURES)
+    if unknown:
+        sys.exit(f"unknown fixtures {sorted(unknown)}; known: {FIXTURES}")
+    main(sys.argv[1:])

@@ -1,12 +1,14 @@
-"""Profile the PyTorch port's TSX solves on one CUDA card.
+"""Profile the PyTorch port's solves on one CUDA card.
 
-Runs each preset once to warm up, then once under `torch.profiler`, and
+The solves: tsx native f64, the tsx bench preset (df32), tsx `fast_f32`
+(kernel K2), and the footing in native f64 and `fast_f32` (K2).  Optional
+tags after OUT pick a subset.  Runs each solve once to warm up, then once under `torch.profiler`, and
 reports the host wall, the device busy time (sum of kernel times on the one
 stream the solver uses), the device idle share, the kernel launch count and
 the kernels that take the most device time.  Writes the profiler tables to
 OUT (default `profile_port_solve.txt`) and prints one JSON summary line.
 
-    python tools/profile_port_solve.py [OUT]
+    python tools/profile_port_solve.py [OUT [TAG ...]]
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ def main() -> int:
         print("profile_port_solve: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from fem_elastoplasticity_tpu_torch.models import footing
     from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
-    from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
     from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device("cuda")
@@ -37,14 +40,17 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     tables, summary = [], {"card": card}
-    for tag, cfg in (
-        ("f64", TsxTunnelConfig()),
-        ("bench", TsxTunnelConfig.fast(assembled_cg=True)),
-    ):
-        if cfg.precision == "df32":
-            run, _ = tsx.build_df32(cfg, device=device)
-        else:
-            run = lambda: tsx.solve(cfg, device=device)  # noqa: E731
+    bench_run, _ = tsx.build_df32(TsxTunnelConfig.fast(assembled_cg=True), device=device)
+    runs = {
+        "f64": lambda: tsx.solve(TsxTunnelConfig(), device=device),
+        "bench": bench_run,
+        "tsx_f32": lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device),
+        "footing_f64": lambda: footing.solve(FootingConfig(), device=device),
+        "footing_f32": lambda: footing.solve(FootingConfig.fast_f32(), device=device),
+    }
+    tags = sys.argv[2:] or list(runs)
+    for tag in tags:
+        run = runs[tag]
         run()
         torch.cuda.synchronize()
         walls = []
