@@ -32,7 +32,8 @@ them against the repository's anchors:
                 at 1.032 (1e-12), the reference's 16 pressures within 1e-4;
   9. footing f32 — `footing.solve(FootingConfig.fast_f32())`: zeta reaches
                 1, the limit pressure within 5e-4 of the f64 run's, K2
-                launched and the plain version not.
+                launched and the plain version not, two runs with equal
+                counts and bit-identical u.
 
 Every phase prints its lines with the card line beside its numbers.  Before
 the last line it prints a JSON line with the kernel table; the last line is
@@ -380,11 +381,12 @@ def main() -> int:
     p32, p64 = float(g1.pressure_hist[g1.n_steps]), float(f1.pressure_hist[16])
     lim_rel = abs(p32 - p64) / p64
     check(lim_rel <= 5e-4, f"footing f32: limit pressure {p32!r} is {lim_rel:.3e} from f64")
-    repeat = counts(g1) == counts(g2) and np.array_equal(g1.u, g2.u)
+    check(counts(g1) == counts(g2), "footing f32: two runs differ in their counts")
+    check(np.array_equal(g1.u, g2.u), "footing f32: two runs differ in u")
     say("footing f32", f"{g1.n_steps} steps / {g1.n_newton_total} its / {g1.n_plastic} plastic, "
         f"zeta {float(g1.zeta_hist[g1.n_steps])!r}, limit pressure {p32!r} (rel {lim_rel:.3e} to f64), "
         f"K2 launches {k2_foot.get('dp_return_map', 0)}, plain "
-        f"{k2_foot.get('dp_return_map_plain', 0)}, repeat bit-identical {repeat}, "
+        f"{k2_foot.get('dp_return_map_plain', 0)}, repeat bit-identical, "
         f"wall first {g_first:.4f} s warm {g_warm:.4f} s | {card}")
 
     l0 = ("G_L0", "S_L0")

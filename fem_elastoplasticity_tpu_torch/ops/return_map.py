@@ -6,7 +6,7 @@ smooth-cone / apex branch, the returned stress, the packed consistent
 tangent, the multiplier lam and, optionally, the updated plastic strain, on
 component-major lanes: e3 (3, n), ep (4, n) -> s (4, n), ds6 (6, n),
 lam (n,), ep (4, n).  It is the constitutive update of the native float32
-Newton path (`solve/newton.py`, `use_kernel`).
+Newton path (`solve/newton.py`).
 
 * `dp_return_map_plain` is the plain PyTorch version.  It follows the
   Pallas kernel's arithmetic line by line (`return_map_pallas.py:33-144`)

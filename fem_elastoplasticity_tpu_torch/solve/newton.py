@@ -20,9 +20,10 @@ Precisions (`utils/precision.py`): "native" runs everything in the
 geometry's dtype; "df32" keeps the state and the residual in f64 and runs
 the tangent, its solves, dU and the criterion in f32, as the JAX package's
 df32 mode does.  Native float32 runs the return map in kernel K2
-(`ops/return_map.py`) and carries the load factor as a float32 scalar, as
-the JAX package's native loop does: zeta, d_zeta and the stop thresholds
-are rounded to float32 at every step.
+(`ops/return_map.py`) and follows the JAX package's native loop in its
+arithmetic: zeta, d_zeta and the stop thresholds are rounded to float32 at
+every step, the criterion's elastic stress is 2G (e - tr/3) + K tr, and the
+warm start divides by d_zeta_old as a tensor.
 """
 from __future__ import annotations
 
@@ -127,7 +128,6 @@ def build_load_stepper(
     precision: str = "native",
     accumulate_ep: bool = True,
     residual_op=None,
-    use_kernel: Optional[bool] = None,
     apex_ep_uses_trial: bool = False,
     accept_hook: Optional[Callable] = None,
 ):
@@ -157,10 +157,6 @@ def build_load_stepper(
       residual_op: optional (G, S) `ops.spmv.CsrMatrix` pair: strains and
                 the internal force go through K1 instead of the
                 matrix-free gather path.
-      use_kernel: run the return map in kernel K2 (`ops/return_map.py
-                dp_return_map_fused`, plastic where lam > 0).  None: when
-                the tangent dtype is float32 outside df32, the JAX
-                package's rule for its Pallas kernel (`newton.py:357`).
       apex_ep_uses_trial: the reference's apex plastic strain from the
                 trial strain (footing `bug_compatible_apex`).
       accept_hook: (monitor value, aux, criterion) -> (aux', factor),
@@ -183,12 +179,13 @@ def build_load_stepper(
     n_dofs = 2 * geom.n_nodes
     n_int = geom.n_int
     mixed = dense_mode == "mixed" and tdtype == torch.float64
-    if use_kernel is None:
-        use_kernel = tdtype == torch.float32 and not df_mode
-    # the native f32 loop carries zeta as a float32 scalar; f64 and df32
-    # keep Python doubles
-    f32_zeta = sdtype == torch.float32 and not df_mode
-    rnd = (lambda x: float(np.float32(x))) if f32_zeta else (lambda x: x)
+    # native float32: the return map in K2 (the JAX package's rule for its
+    # Pallas kernel, `newton.py:357`), zeta a float32 scalar, and the
+    # criterion and warm start in the JAX native loop's arithmetic; f64 and
+    # df32 keep their own
+    native_f32 = tdtype == torch.float32 and not df_mode
+    rnd = (lambda x: float(np.float32(x))) if native_f32 else (lambda x: x)
+    three = torch.full((), 3.0, dtype=tdtype, device=device)
 
     def as_tdtype(x: float) -> float:
         # the JAX package compares its criterion in its own dtype against
@@ -205,7 +202,7 @@ def build_load_stepper(
         else:
             e = asm.strains(geom, u)
         e0 = None if e0_dir is None else e0_dir * zeta
-        if use_kernel:
+        if native_f32:
             s, ds6, lam, ep_ = dp_return_map_fused(
                 e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply,
                 apex_ep_uses_trial=apex_ep_uses_trial,
@@ -225,11 +222,27 @@ def build_load_stepper(
             f = asm.internal_force(geom, s[:3])
         return f.to(tdtype)
 
+    def elastic_force(v):
+        """K_el v.  Native f32 forms the stress as the JAX native loop does,
+        2G (e - tr/3) + K tr with a true division (a tensor divisor: PyTorch
+        on CUDA divides by a Python scalar through its rounded reciprocal);
+        f64 and df32 apply D_el with dd/oo (`ops/assembly_df.py`)."""
+        if not native_f32:
+            return elastic_apply(geom_t, v, shear, bulk)
+        e = asm.strains(geom_t, v)
+        t = e[0] + e[1]
+        s = torch.stack([
+            2.0 * shear * (e[0] - t / three) + bulk * t,
+            2.0 * shear * (e[1] - t / three) + bulk * t,
+            shear * e[2],
+        ])
+        return asm.internal_force(geom_t, s)
+
     def criterion(dU, U_head):
         # q1 = |dU|_K, q2 = |U_it|_K, q3 = |U_it + dU|_K in the elastic
         # energy norm, q3^2 = q2^2 + 2 dU.K.U_it + q1^2
-        KdU = elastic_apply(geom_t, dU, shear, bulk)
-        KU = elastic_apply(geom_t, U_head, shear, bulk)
+        KdU = elastic_force(dU)
+        KU = elastic_force(U_head)
         q1sq = dU @ KdU
         q2sq = U_head @ KU
         q3sq = torch.clamp(q2sq + 2.0 * (dU @ KU) + q1sq, min=0.0)
@@ -368,7 +381,13 @@ def build_load_stepper(
                 U_it = (U - U_old) * (d_zeta / d_zeta_old) + U
                 done = (zeta_old - settings.zeta_max) >= -1e-12 or d_zeta < settings.d_zeta_min
             else:
-                U_it = d_zeta * (U - U_old) / d_zeta_old + U
+                # native f32 divides by a tensor, as the JAX loop does (on
+                # CUDA a Python divisor is a rounded reciprocal)
+                dz_old = (
+                    torch.full((), d_zeta_old, dtype=sdtype, device=device)
+                    if native_f32 else d_zeta_old
+                )
+                U_it = d_zeta * (U - U_old) / dz_old + U
                 done = zeta_old >= zeta_stop or d_zeta < d_zeta_min
             nits_total += nits
             trips += 1

@@ -7,18 +7,23 @@ the JAX package's own output, read from the committed fixtures that
 """
 import pathlib
 
+import jax
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import pytest
 import torch
 
 from fem_elastoplasticity_tpu.models import footing as jfoot
 from fem_elastoplasticity_tpu.models.config import FootingConfig as JaxFootingConfig
+from fem_elastoplasticity_tpu.models.materials import elastic_tangent_lanes as jelastic_tangent
+from fem_elastoplasticity_tpu.models.materials import lame_moduli
 from fem_elastoplasticity_tpu.ops import assembly as jasm
 from fem_elastoplasticity_tpu.ops.elements import ElementType as JaxElementType
 from fem_elastoplasticity_tpu.ops.elements import volume_element as jvolume_element
 from fem_elastoplasticity_tpu_torch.models import footing
 from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+from fem_elastoplasticity_tpu_torch.models.materials import elastic_tangent_lanes
 from fem_elastoplasticity_tpu_torch.ops import assembly as pasm
 from fem_elastoplasticity_tpu_torch.ops import return_map as rm
 from fem_elastoplasticity_tpu_torch.ops.elements import volume_element
@@ -115,3 +120,67 @@ def test_fast_f32_limit_pressure(f64_result):
     pj = float(exp["pressure_hist"][int(exp["n_steps"])])
     assert abs(p32 - pj) / pj < 5e-4
     assert np.isfinite(r.u).all() and r.u.shape == (441, 2)
+
+
+def _predictor_port(mesh, fmap, n_free, free, dtype):
+    """The footing's elastic predictor as `footing.solve` forms it:
+    (B, K_free, rhs on the free DOFs, u on the free DOFs)."""
+    cfg = FootingConfig()
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    g = pasm.compute_geometry(torch.as_tensor(mesh.coords, dtype=dtype), mesh.elems,
+                              volume_element(mesh.etype))
+    ud = -cfg.d_zeta * torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=dtype)
+    D = elastic_tangent_lanes(shear, bulk, g.n_int, dtype, torch.device("cpu"))
+    f = (-pasm.tangent_matvec(g, D, ud))[free]
+    K = pasm.assemble_dense_free(pasm.element_stiffness(g, D), pasm.dense_free_plan(g, fmap, n_free))
+    u = torch.cholesky_solve(f[:, None], torch.linalg.cholesky(K))[:, 0]
+    return g.B.numpy(), K.numpy(), f.numpy(), u.numpy()
+
+
+def _torch_cho_solve(K, f):
+    K, f = torch.tensor(K), torch.tensor(f)
+    return torch.cholesky_solve(f[:, None], torch.linalg.cholesky(K))[:, 0].numpy()
+
+
+def test_f32_elastic_predictor_against_jax():
+    """The f32 footing's first linear solve, port against the JAX package
+    on the CPU.  Geometry and load vector agree bitwise.  The assembled
+    K_free differs in its last bits (the element contributions are summed
+    in another order), the two Cholesky routes round differently, and
+    cond(K_free) ~ 6e3 lifts both to a gap of some 1e-5 in the predictor:
+    the gap from which the f32 schedules of the two packages part (run
+    with -s for the split)."""
+    cfg = JaxFootingConfig()
+    mesh = footing.build_mesh(FootingConfig())
+    fmap, n_free = pasm.free_dof_map(mesh.free)
+    free = np.nonzero(mesh.free.reshape(-1))[0]
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+
+    @jax.jit
+    def jax_predictor(coords, dirichlet):
+        g = jasm.compute_geometry(coords, jnp.asarray(mesh.elems), jvolume_element(JaxElementType.P1))
+        D = jelastic_tangent(shear, bulk, g.n_int, jnp.float32)
+        f = (-jasm.tangent_matvec(g, D, -cfg.d_zeta * dirichlet))[free]
+        K = jasm.assemble_dense_free(jasm.element_stiffness(g, D), g, jnp.asarray(fmap), n_free)
+        return g.B, K, f, jsl.cho_solve(jsl.cho_factor(K), f)
+
+    jB, jK, jf, ju = (np.asarray(x) for x in jax_predictor(
+        jnp.asarray(mesh.coords, jnp.float32), jnp.asarray(mesh.dirichlet.reshape(-1), jnp.float32)))
+    pB, pK, pf, pu = _predictor_port(mesh, fmap, n_free, free, torch.float32)
+    u64 = _predictor_port(mesh, fmap, n_free, free, torch.float64)[3]
+    np.testing.assert_array_equal(pB, jB)
+    np.testing.assert_array_equal(pf, jf)
+    k_rel = rel(pK, jK)
+    gap = rel(pu, ju)
+    # the same K (JAX's) through the two Cholesky routes: the factorization's share
+    factor_gap = rel(_torch_cho_solve(jK, jf), ju)
+    # JAX's K against the port's, both through torch's Cholesky: the assembly's share
+    assembly_gap = rel(_torch_cho_solve(jK, jf), pu)
+    print(
+        f"f32 predictor: K_free rel {k_rel:.3e}; u port vs JAX {gap:.3e} "
+        f"(assembly order {assembly_gap:.3e}, factorization {factor_gap:.3e}); "
+        f"vs f64: port {rel(pu, u64):.3e}, JAX {rel(ju, u64):.3e}"
+    )
+    assert 0 < k_rel < 1e-6
+    assert gap < 2e-4 and rel(pu, u64) < 2e-4 and rel(ju, u64) < 2e-4
+    assert factor_gap < 5e-5 and assembly_gap < 2e-4

@@ -1,14 +1,14 @@
 """Profile the PyTorch port's solves on one CUDA card.
 
 The solves: tsx native f64, the tsx bench preset (df32), tsx `fast_f32`
-(kernel K2), and the footing in native f64 and `fast_f32` (K2).  Optional
-tags after OUT pick a subset.  Runs each solve once to warm up, then once under `torch.profiler`, and
-reports the host wall, the device busy time (sum of kernel times on the one
-stream the solver uses), the device idle share, the kernel launch count and
-the kernels that take the most device time.  Writes the profiler tables to
+(kernel K2), and the footing in native f64 and `fast_f32` (K2).  Runs each
+solve once to warm up, five times on the host clock, then once under
+`torch.profiler`, and reports the host wall, the device busy time (sum of
+kernel times on the one stream the solver uses), the device idle share, the
+kernel launch count and the kernels that take the most device time.  Writes the profiler tables to
 OUT (default `profile_port_solve.txt`) and prints one JSON summary line.
 
-    python tools/profile_port_solve.py [OUT [TAG ...]]
+    python tools/profile_port_solve.py [OUT]
 """
 from __future__ import annotations
 
@@ -48,9 +48,7 @@ def main() -> int:
         "footing_f64": lambda: footing.solve(FootingConfig(), device=device),
         "footing_f32": lambda: footing.solve(FootingConfig.fast_f32(), device=device),
     }
-    tags = sys.argv[2:] or list(runs)
-    for tag in tags:
-        run = runs[tag]
+    for tag, run in runs.items():
         run()
         torch.cuda.synchronize()
         walls = []
