@@ -6,8 +6,10 @@ them against the repository's anchors:
 
   1. device   — a CUDA card is required; prints its name and power limit
                 as `nvidia-smi --query-gpu=name,power.limit` gives them;
-  2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu) and K2
-                (ops/csrc/dp_return_map.cu) with nvcc, both at once;
+  2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
+                (ops/csrc/dp_return_map.cu), K3 (ops/csrc/csr_spmv_f32.cu)
+                and K4 (ops/csrc/block_jacobi_sweep.cu) with nvcc, all at
+                once;
   3. K1       — the kernel against its plain PyTorch version on the strain
                 and force operators G/S of the tsx mesh at refine levels 0
                 and 4, seeded inputs, normwise relative difference <= 1e-13;
@@ -33,7 +35,26 @@ them against the repository's anchors:
   9. footing f32 — `footing.solve(FootingConfig.fast_f32())`: zeta reaches
                 1, the limit pressure within 5e-4 of the f64 run's, K2
                 launched and the plain version not, two runs with equal
-                counts and bit-identical u.
+                counts and bit-identical u;
+ 10. scale L1 — `solve(TsxTunnelConfig.fast_scale(1))`, the multigrid-CG
+                preset on the once-refined mesh: 17 steps, u[40,0] within
+                1e-8 relative of -2.166787295662e-03, 20 plastic points, K3,
+                K4 and K1 launched and no plain version;
+ 11. K3       — the f32 CSR SpMV against its plain version on the fine
+                elastic operator of the level-4 hierarchy (228,112 rows), on
+                its P and R, and on the level-1 fine operator, seeded x: max
+                abs difference over max |plain| <= 2e-6, two launches
+                bit-identical; times, bytes bound and cuSPARSE's time;
+ 12. K4       — the fused block-Jacobi sweep against its plain version on
+                the level-4 and level-1 fine operators, seeded z and r, with
+                and without the update: <= 5e-6, exact zeros on constrained
+                rows, two launches bit-identical; times and bytes bound;
+ 13. scale L4 — `build_df32(TsxTunnelConfig.fast_scale(4))` (setup time
+                printed), then two runs: 17 steps, u[40,0] within 1e-6
+                relative of -2.264312e-3, the step / Newton / CG / plastic
+                counts beside the JAX package's recorded 17 / 52 / 605 /
+                1,477, equal counts and bit-identical u in both runs, K3, K4
+                and K1 launched and no plain version.
 
 Every phase prints its lines with the card line beside its numbers.  Before
 the last line it prints a JSON line with the kernel table; the last line is
@@ -56,6 +77,11 @@ ANCHOR_U40_F64 = -1.9794499636012143e-03
 ANCHOR_U40_F32 = -1.979450e-03  # tests/test_pallas_return_map.py:89
 K1_TOL = 1e-13  # normwise relative, kernel vs plain, both f64
 K2_TOL = {"float32": 1e-6, "float64": 1e-13}  # max abs diff / max |plain|
+K3_TOL = 2e-6  # max abs diff / max |plain|, kernel vs plain, both f32
+K4_TOL = 5e-6
+ANCHOR_U40_SCALE_L1 = -2.166787295662e-03  # tests/test_tsx_tunnel.py:236
+ANCHOR_U40_SCALE_L4 = -2.264312e-3  # BENCH_NOTES.md:436
+JAX_COUNTS_SCALE_L4 = (17, 52, 605, 1477)  # steps, Newton, CG, plastic (BENCH_NOTES.md:124)
 SEED = 20261016
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 / f64 rates outside
 # the tensor cores
@@ -267,6 +293,107 @@ def k2_phase(torch, rm, device, card):
     return shapes, max_err, bitwise
 
 
+def k3_phase(torch, spmv, ops, device, card):
+    """ops: {tag: CsrMatrix (f32)} -> per-operator records."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    shapes, max_err = {}, 0.0
+    for tag, A in ops.items():
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=device)
+        y = spmv.csr_spmv_f32_cuda(A, x)
+        y_plain = spmv.csr_matvec_plain(A, x)
+        torch.cuda.synchronize()
+        err = float((y - y_plain).abs().max())
+        rel = err / float(y_plain.abs().max())
+        check(rel <= K3_TOL, f"K3 {tag}: relative difference {rel:.3e}")
+        check(torch.equal(y, spmv.csr_spmv_f32_cuda(A, x)), f"K3 {tag}: not bitwise repeatable")
+        # the yardstick: one PyTorch call (cuSPARSE) for the same product
+        A_lib = torch.sparse_csr_tensor(
+            A.indptr, A.indices, A.values, A.shape, check_invariants=False)
+        y_lib = torch.mv(A_lib, x)
+        torch.cuda.synchronize()
+        lib_rel = float((y_lib - y_plain).abs().max() / y_plain.abs().max())
+        check(lib_rel <= K3_TOL, f"K3 {tag}: cuSPARSE differs by {lib_rel:.3e}")
+        ms, eager_ms = cuda_ms(torch, lambda: spmv.csr_spmv_f32_cuda(A, x))
+        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.csr_matvec_plain(A, x))
+        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(A_lib, x))
+        nnz = int(A.values.numel())
+        n_bytes = 8 * nnz + 4 * (A.shape[0] + 1) + 4 * A.shape[1] + 4 * A.shape[0]
+        b_ms, b_by = bound_ms(n_bytes, 2 * nnz, "float32")
+        max_err = max(max_err, err)
+        shapes[tag] = dict(
+            rows=A.shape[0], cols=A.shape[1], nnz=nnz, rel=rel, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, eager_ms=eager_ms,
+            plain_eager_ms=plain_eager_ms, library_eager_ms=lib_eager_ms,
+            bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+        )
+        say("K3", f"{tag} {A.shape[0]}x{A.shape[1]} nnz {nnz}: rel {rel:.3e} max_abs {err:.3e} | "
+            f"device: kernel {ms:.5f} ms plain {plain_ms:.5f} ms cuSPARSE {lib_ms:.5f} ms "
+            f"bound {b_ms:.5f} ms ({b_by}) | eager: kernel {eager_ms:.5f} ms plain "
+            f"{plain_eager_ms:.5f} ms cuSPARSE {lib_eager_ms:.5f} ms | {card}")
+    return shapes, max_err
+
+
+def k4_phase(torch, spmv, levels, device, card):
+    """levels: {tag: MGLevel} -> per-case records."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    shapes, max_err = {}, 0.0
+    for tag, lev in levels.items():
+        A, aux = lev.op, lev.aux
+        n = A.shape[0]
+        z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        # on a like scale: A z is of the stiffness's size
+        r = r * spmv.csr_matvec_plain(A, z).abs().max()
+        n_fixed = int((aux.mask == 0).sum())
+        check(n_fixed > 0, f"K4 {tag}: no constrained row in the operator")
+        for update in (True, False):
+            case = f"{tag}_{'update' if update else 'residual'}"
+            got = spmv.block_jacobi_sweep_cuda(A, aux, z, r, update)
+            exp = spmv.block_jacobi_sweep_plain(A, aux, z, r, update)
+            torch.cuda.synchronize()
+            err = float((got - exp).abs().max())
+            rel = err / float(exp.abs().max())
+            check(rel <= K4_TOL, f"K4 {case}: relative difference {rel:.3e}")
+            fixed = got[aux.mask == 0]
+            want = z[aux.mask == 0] if update else torch.zeros_like(fixed)
+            check(torch.equal(fixed, want), f"K4 {case}: constrained rows moved")
+            check(torch.equal(got, spmv.block_jacobi_sweep_cuda(A, aux, z, r, update)),
+                  f"K4 {case}: not bitwise repeatable")
+            ms, eager_ms = cuda_ms(
+                torch, lambda: spmv.block_jacobi_sweep_cuda(A, aux, z, r, update))
+            plain_ms, plain_eager_ms = cuda_ms(
+                torch, lambda: spmv.block_jacobi_sweep_plain(A, aux, z, r, update))
+            nnz = int(A.values.numel())
+            # operator, then z, r, mask (and msf, mpr with the update) in, out written
+            n_bytes = 8 * nnz + 4 * (n + 1) + 4 * n * (6 if update else 4)
+            b_ms, b_by = bound_ms(n_bytes, 2 * nnz + (8 if update else 2) * n, "float32")
+            max_err = max(max_err, err)
+            shapes[case] = dict(
+                rows=n, nnz=nnz, constrained_rows=n_fixed, update=update, rel=rel,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                plain_eager_ms=plain_eager_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+            )
+            say("K4", f"{case} {n} rows nnz {nnz}: rel {rel:.3e} max_abs {err:.3e}, "
+                f"{n_fixed} constrained rows exact | device: kernel {ms:.5f} ms plain "
+                f"{plain_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}) | eager: kernel "
+                f"{eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms | {card}")
+    return shapes, max_err
+
+
+SCALE_KERNELS = ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64")
+
+
+def check_scale_launches(tag: str, launches: dict) -> None:
+    for name in SCALE_KERNELS:
+        check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
+    plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
+    check(not plain, f"{tag}: a plain version ran on the card ({plain})")
+
+
 def main() -> int:
     import torch
 
@@ -296,12 +423,16 @@ def main() -> int:
         load()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futs = {name: pool.submit(build, load) for name, load in
-                (("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel))}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futs = {name: pool.submit(build, load) for name, load in (
+            ("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
+            ("csr_spmv_f32", spmv.load_kernel_f32),
+            ("block_jacobi_sweep", spmv.load_sweep_kernel))}
         build_s = {name: f.result() for name, f in futs.items()}
     say("build", f"csr_spmv_f64 {build_s['csr_spmv_f64']:.2f} s, dp_return_map (-fmad=false) "
-        f"{build_s['dp_return_map']:.2f} s, in parallel "
+        f"{build_s['dp_return_map']:.2f} s, csr_spmv_f32 (-fmad=false) "
+        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep (-fmad=false) "
+        f"{build_s['block_jacobi_sweep']:.2f} s, in parallel "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     k1_shapes, k1_err = k1_phase(torch, spmv, tsx, asm, ElementType, volume_element, device, card)
@@ -389,6 +520,56 @@ def main() -> int:
         f"{k2_foot.get('dp_return_map_plain', 0)}, repeat bit-identical, "
         f"wall first {g_first:.4f} s warm {g_warm:.4f} s | {card}")
 
+    # phase 10: the scale preset on the once-refined mesh, through solve()
+    spmv.LAUNCHES.clear()
+    s1, s1_wall = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_scale(1), device=device))
+    l1_launches = dict(spmv.LAUNCHES)
+    check(s1.u.shape == (1839, 2) and bool(np.isfinite(s1.u).all()), "scale L1: bad field")
+    check(s1.n_steps == 17, f"scale L1: {s1.n_steps} steps")
+    l1_rel = abs(float(s1.u[40, 0]) - ANCHOR_U40_SCALE_L1) / abs(ANCHOR_U40_SCALE_L1)
+    check(l1_rel <= 1e-8, f"scale L1: u40 {float(s1.u[40, 0])!r} is {l1_rel:.3e} from the anchor")
+    check(s1.n_plastic == 20, f"scale L1: {s1.n_plastic} plastic points")
+    check_scale_launches("scale L1", l1_launches)
+    say("scale L1", f"{s1.n_steps} steps / {s1.n_newton_total} its / {s1.n_cg_total} CG / "
+        f"{s1.n_plastic} plastic, u40 {s1.u[40, 0]:.12e} (rel {l1_rel:.3e}), launches "
+        f"{l1_launches}, wall {s1_wall:.3f} s (setup included) | {card}")
+
+    # phases 11-13: level 4, the full width of the scale path
+    ex1, ex4 = {}, {}
+    tsx.build_df32(TsxTunnelConfig.fast_scale(1), device=device, extras=ex1)
+    t0 = time.perf_counter()
+    run4, mesh4 = tsx.build_df32(TsxTunnelConfig.fast_scale(4), device=device, extras=ex4)
+    torch.cuda.synchronize()
+    setup4 = time.perf_counter() - t0
+    fine4, fine1 = ex4["hierarchy"].levels[-1], ex1["hierarchy"].levels[-1]
+    sizes = [lev.op.shape[0] for lev in ex4["hierarchy"].levels]
+    say("scale L4", f"setup {setup4:.2f} s (host: hierarchy, G/S, refresh table); "
+        f"{mesh4.n_nodes} nodes, {mesh4.n_elems} elements, hierarchy rows {sizes} | {card}")
+    k3_shapes, k3_err = k3_phase(
+        torch, spmv, {"K_L4": fine4.op, "P_L4": fine4.P, "R_L4": fine4.R, "K_L1": fine1.op},
+        device, card)
+    k4_shapes, k4_err = k4_phase(torch, spmv, {"L4": fine4, "L1": fine1}, device, card)
+
+    spmv.LAUNCHES.clear()
+    q1, q_first = timed(torch, run4)
+    l4_launches = dict(spmv.LAUNCHES)
+    q2, q_warm = timed(torch, run4)
+    a1, a2 = tsx._df32_result(q1, mesh4, ex4), tsx._df32_result(q2, mesh4, ex4)
+    check(a1.u.shape == (114056, 2) and a1.ep.shape == (4, 227072),
+          f"scale L4: shapes {a1.u.shape} {a1.ep.shape}")
+    check(bool(np.isfinite(a1.u).all() and np.isfinite(a1.ep).all()), "scale L4: non-finite field")
+    check(a1.n_steps == 17, f"scale L4: {a1.n_steps} steps")
+    l4_rel = abs(float(a1.u[40, 0]) - ANCHOR_U40_SCALE_L4) / abs(ANCHOR_U40_SCALE_L4)
+    check(l4_rel <= 1e-6, f"scale L4: u40 {float(a1.u[40, 0])!r} is {l4_rel:.3e} from the anchor")
+    counts4 = lambda r: (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)  # noqa: E731
+    check(counts4(a1) == counts4(a2), "scale L4: two runs differ in their counts")
+    check(torch.equal(q1.u, q2.u), "scale L4: two runs differ in u")
+    check_scale_launches("scale L4", l4_launches)
+    say("scale L4", f"steps / Newton / CG / plastic {counts4(a1)} (JAX package's record "
+        f"{JAX_COUNTS_SCALE_L4}), u40 {a1.u[40, 0]:.9e} (rel {l4_rel:.3e} to "
+        f"{ANCHOR_U40_SCALE_L4}), launches {l4_launches}, repeat bit-identical, "
+        f"wall first {q_first:.3f} s warm {q_warm:.3f} s | {card}")
+
     l0 = ("G_L0", "S_L0")
     main_k2 = k2_shapes["n896_float32_noep"]  # one Newton-iteration call of the f32 paths
     print(json.dumps({"card": card, "kernels": [{
@@ -396,7 +577,11 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f64.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1370",
-        "launches": launches.get("csr_spmv_f64", 0),
+        "launches": launches.get("csr_spmv_f64", 0) + l1_launches["csr_spmv_f64"]
+        + l4_launches["csr_spmv_f64"],
+        "launches_by_path": {"bench": launches.get("csr_spmv_f64", 0),
+                             "scale_L1": l1_launches["csr_spmv_f64"],
+                             "scale_L4": l4_launches["csr_spmv_f64"]},
         "max_abs_err": k1_err,
         # one residual evaluation of the main path: G u then S s, level 0
         "ms": sum(k1_shapes[k]["ms"] for k in l0),
@@ -422,6 +607,40 @@ def main() -> int:
         "library_ms": None,
         "bitwise_equal_to_plain": k2_bitwise,
         "shapes": k2_shapes,
+    }, {
+        "name": "csr_spmv_f32",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
+        "launches": l1_launches["csr_spmv_f32"] + l4_launches["csr_spmv_f32"],
+        "launches_by_path": {"scale_L1": l1_launches["csr_spmv_f32"],
+                             "scale_L4": l4_launches["csr_spmv_f32"]},
+        "max_abs_err": k3_err,
+        # the CG operator of the level-4 solve
+        "ms": k3_shapes["K_L4"]["ms"],
+        "plain_ms": k3_shapes["K_L4"]["plain_ms"],
+        "bound_ms": k3_shapes["K_L4"]["bound_ms"],
+        "bound_by": k3_shapes["K_L4"]["bound_by"],
+        "library_ms": k3_shapes["K_L4"]["library_ms"],
+        "shapes": k3_shapes,
+    }, {
+        "name": "block_jacobi_sweep",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
+        "launches": l1_launches["block_jacobi_sweep"] + l4_launches["block_jacobi_sweep"],
+        "launches_by_path": {"scale_L1": l1_launches["block_jacobi_sweep"],
+                             "scale_L4": l4_launches["block_jacobi_sweep"]},
+        "max_abs_err": k4_err,
+        # one smoother sweep on the fine level of the level-4 solve
+        "ms": k4_shapes["L4_update"]["ms"],
+        "plain_ms": k4_shapes["L4_update"]["plain_ms"],
+        "bound_ms": k4_shapes["L4_update"]["bound_ms"],
+        "bound_by": k4_shapes["L4_update"]["bound_by"],
+        # no single PyTorch call computes the sweep: a sparse product plus
+        # the masked 2x2 block update
+        "library_ms": None,
+        "shapes": k4_shapes,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

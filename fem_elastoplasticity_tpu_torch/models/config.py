@@ -2,10 +2,12 @@
 
 Port of `fem_elastoplasticity_tpu/models/config.py` (`FootingConfig` at
 :39, `TsxTunnelConfig` at :188) with the same field names and defaults, so
-a configuration reads the same in both packages.  The port runs the dense
-solver on P1 elements: the tsx in the "native" f64 and f32 and the "df32"
-precisions, the footing in native f64 and f32.  A field whose non-default
-value selects something the port does not implement raises
+a configuration reads the same in both packages.  The port runs P1
+elements: with the dense solver the tsx in the "native" f64 and f32 and the
+"df32" precisions and the footing in native f64 and f32; with
+`solver="ell"` (multigrid-preconditioned CG on assembled operators,
+`TsxTunnelConfig.fast_scale`) the tsx in df32 on refined meshes.  A field
+whose value selects something the port does not implement raises
 NotImplementedError when the config is built; no field is ignored.
 """
 from __future__ import annotations
@@ -17,24 +19,27 @@ import numpy as np
 from ..ops.elements import ElementType
 from ..utils.precision import dtype_policy
 
-# fields of the iterative, multigrid, assembled-CG and support-pressure
-# paths, which later slices port: only their defaults are accepted
+# fields of paths that later slices port: only their defaults are accepted
 _NOT_PORTED = dict(
     spmv_fmt="slot",
-    corr_mode="gather",
     gs_tangent=None,
-    predictor_ir_iters=4,
     residual_fmt=None,
-    cg_tol=None,
-    cg_maxiter=2000,
     cg_structure="while",
-    cg_eta0=None,
-    cg_cap_relax=None,
     cg_deflate=0,
-    mg_nu=2,
     mg_cycle="v",
     ell_overflow_frac=0.005,
     support_pressure=0.0,
+)
+# fields that only the multigrid-CG path (solver="ell") reads: with the
+# dense solver only their defaults are accepted
+_ELL_ONLY = dict(
+    corr_mode="gather",
+    predictor_ir_iters=4,
+    cg_tol=None,
+    cg_maxiter=2000,
+    cg_eta0=None,
+    cg_cap_relax=None,
+    mg_nu=2,
 )
 
 
@@ -94,7 +99,24 @@ class TsxTunnelConfig:
                 raise NotImplementedError(f"TsxTunnelConfig.{name}={getattr(self, name)!r}")
         if self.etype != ElementType.P1:
             raise NotImplementedError(f"TsxTunnelConfig.etype={self.etype}")
-        if self.solver != "dense":
+        if self.solver == "ell":
+            # the ported assembled path: static-structure tangent refresh on
+            # a refined mesh, df32 state
+            if self.corr_mode != "scatter":
+                raise NotImplementedError(f"TsxTunnelConfig.corr_mode={self.corr_mode!r}")
+            if self.refine_levels < 1:
+                raise NotImplementedError("solver='ell' needs refine_levels >= 1")
+            if self.precision != "df32":
+                raise NotImplementedError("solver='ell' with precision='native'")
+            if self.assembled_cg:
+                raise NotImplementedError("assembled_cg=True with solver='ell'")
+        elif self.solver == "dense":
+            for name, default in _ELL_ONLY.items():
+                if getattr(self, name) != default:
+                    raise NotImplementedError(
+                        f"TsxTunnelConfig.{name}={getattr(self, name)!r} with solver='dense'"
+                    )
+        else:
             raise NotImplementedError(f"TsxTunnelConfig.solver={self.solver!r}")
         if self.dense_mode not in ("f64", "mixed"):
             raise ValueError(f"dense_mode {self.dense_mode!r}")
@@ -125,8 +147,18 @@ class TsxTunnelConfig:
 
     @classmethod
     def fast_scale(cls, refine_levels: int, **kw):
-        """Multigrid-preconditioned scale preset: not ported yet."""
-        raise NotImplementedError("TsxTunnelConfig.fast_scale is not ported yet")
+        """Large-mesh df32 preset: inexact-Newton tangent solves by CG at
+        cg_tol 1e-5, preconditioned by a geometric multigrid V-cycle on
+        assembled operators (solver="ell"), with the static-structure
+        tangent refresh, 3 refinement passes of the elastic predictor and
+        Eisenstat-Walker forcing from 1e-2."""
+        kw.setdefault("solver", "ell")
+        kw.setdefault("cg_tol", 1e-5)
+        kw.setdefault("cg_maxiter", 200)
+        kw.setdefault("corr_mode", "scatter")
+        kw.setdefault("predictor_ir_iters", 3)
+        kw.setdefault("cg_eta0", 1e-2)
+        return cls.fast(refine_levels=refine_levels, **kw)
 
 
 # fields of the footing's CG, multigrid, damping and df32 paths, which

@@ -1,15 +1,20 @@
 """TSX tunnel excavation: Drucker-Prager elastoplasticity on the
 experiment's unstructured triangle mesh (476 nodes, 887 P1 triangles).
 
-Port of `fem_elastoplasticity_tpu/models/tsx_tunnel.py` for the dense
-solver: `solve` runs the native presets, f64 (parity) and f32
-(`TsxTunnelConfig.fast_f32`, the return map in kernel K2), or, for
-`precision="df32"`, the bench preset (`build_df32`).  Anchors: 17 accepted
-load steps, 28 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the
-f32 preset reaches 17 steps and u[40, 0] within ~1e-5.
+Port of `fem_elastoplasticity_tpu/models/tsx_tunnel.py`: `solve` runs the
+native presets, f64 (parity) and f32 (`TsxTunnelConfig.fast_f32`, the
+return map in kernel K2), or, for `precision="df32"`, `build_df32`: the
+bench preset on the dense solver, and on refined meshes the scale preset
+(`TsxTunnelConfig.fast_scale`, `solver="ell"`), whose tangent solves are CG
+preconditioned by a multigrid V-cycle on assembled operators (kernels K3
+and K4, the residual through K1).  Anchors: 17 accepted load steps, 28
+Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
+reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
+level 1 reaches 17 steps and u[40, 0] = -2.166787295662e-03.
 
-The dense path does not permute the mesh, so results come back in the
-mesh's own node and element order.
+The dense path does not permute the mesh.  The scale path computes on a
+locality ordering of nodes and elements and hands its results back in the
+reference order.
 """
 from __future__ import annotations
 
@@ -24,8 +29,11 @@ from ..mesh.refine import refine_uniform
 from ..mesh.structured import Mesh
 from ..ops import assembly as asm
 from ..ops import assembly_df as adf
+from ..ops import spmv
 from ..ops.elements import ElementType, volume_element
 from ..ops.spmv import build_residual_csr, csr_matvec, csr_to_device
+from ..solve import multigrid as mgm
+from ..solve.cg import solve_cg
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
 from ..utils.precision import dtype_policy, resolve_device
 from .config import TsxTunnelConfig
@@ -59,11 +67,15 @@ def tsx_mesh(etype: ElementType = ElementType.P1, refine_levels: int = 0) -> Mes
     for _ in range(refine_levels):
         coords, elems = refine_uniform(coords, elems)
     coords, elems = promote(etype, coords, elems)
+    return Mesh(coords, elems, etype, dirichlet=np.zeros_like(coords), free=_free_of(coords))
 
+
+def _free_of(coords: np.ndarray) -> np.ndarray:
+    """(n_n, 2) bool mask of free DOFs from coordinates (`tsx_mesh`)."""
     free = np.ones((coords.shape[0], 2), dtype=bool)
     free[np.abs(coords[:, 0]) > 49.99, 0] = False
     free[np.abs(coords[:, 1]) > 49.99, 1] = False
-    return Mesh(coords, elems, etype, dirichlet=np.zeros_like(coords), free=free)
+    return free
 
 
 def initial_state(cfg: TsxTunnelConfig):
@@ -90,7 +102,7 @@ class _Problem(NamedTuple):
     mesh: Mesh
     geom: asm.Geometry  # in the state dtype
     free_idx: torch.Tensor
-    plan: asm.DensePlan
+    plan: Optional[asm.DensePlan]  # None on the assembled (solver="ell") path
     settings: NewtonSettings
     consts: tuple  # (shear, bulk, eta, c)
     s0: torch.Tensor  # (4,) in the state dtype
@@ -98,13 +110,16 @@ class _Problem(NamedTuple):
 
 
 def _problem(cfg: TsxTunnelConfig, device: torch.device,
-             dtype: torch.dtype = torch.float64) -> _Problem:
+             dtype: torch.dtype = torch.float64, mesh: Optional[Mesh] = None) -> _Problem:
     """Host setup shared by the presets: mesh, geometry, DOF maps.
 
     The geometry is computed from coordinates rounded to `dtype`, as the
     JAX package's native path does (`models/tsx_tunnel.py:160`); s0 and e0
-    are rounded the same way."""
-    mesh = tsx_mesh(cfg.etype, cfg.refine_levels)
+    are rounded the same way.  `mesh`: a permuted mesh to set up instead of
+    `tsx_mesh` (the assembled path, which needs no dense assembly plan)."""
+    dense = mesh is None
+    if mesh is None:
+        mesh = tsx_mesh(cfg.etype, cfg.refine_levels)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
     s0, e0 = initial_state(cfg)
@@ -124,13 +139,13 @@ def _problem(cfg: TsxTunnelConfig, device: torch.device,
     )
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     return _Problem(
-        mesh, geom, free_idx, asm.dense_free_plan(geom, fmap, n_free), settings,
-        (shear, bulk, eta, c), as_t(s0), as_t(e0),
+        mesh, geom, free_idx, asm.dense_free_plan(geom, fmap, n_free) if dense else None,
+        settings, (shear, bulk, eta, c), as_t(s0), as_t(e0),
     )
 
 
-def _monitor(cfg: TsxTunnelConfig):
-    dof = 2 * cfg.monitor_node  # u_x of the tunnel-wall node
+def _monitor(node: int):
+    dof = 2 * node  # u_x of the tunnel-wall node
     return lambda u, s: u[dof]
 
 
@@ -168,7 +183,7 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     )
     stepper = build_load_stepper(
         geom, p.free_idx, p.plan, shear, bulk, eta, c, p.settings,
-        e0_dir=p.e0, monitor=_monitor(cfg), dense_mode=cfg.dense_mode,
+        e0_dir=p.e0, monitor=_monitor(cfg.monitor_node), dense_mode=cfg.dense_mode,
         elastic_factor=("cho", L) if dtype == torch.float32 else None,
         accumulate_ep=not cfg.bug_compatible_ep_reset,
     )
@@ -176,8 +191,102 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     return _result(res, p.mesh)
 
 
-def build_df32(cfg: TsxTunnelConfig, device=None):
-    """Build the df32 (bench preset) solver: returns (run, mesh).
+def _residual_csr(geom: asm.Geometry, device):
+    """The f64 strain and force operators (G, S) of `geom` on `device`."""
+    G, S = build_residual_csr(
+        geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
+        geom.n_q, geom.n_nodes,
+    )
+    return csr_to_device(G, device), csr_to_device(S, device)
+
+
+def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
+    """`build_df32` for `solver="ell"`: the multigrid hierarchy of assembled
+    elastic operators, built on the host with a locality node ordering, and
+    the whole problem permuted onto that ordering (coordinates, elements,
+    free mask, monitor node), so that the V-cycle never permutes."""
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    with np.load(_DATA) as raw:
+        base_coords, base_elems = raw["coords"].astype(np.float64), raw["elems"]
+    hier, perms, coarse = mgm.build_hierarchy_ell(
+        base_coords, base_elems, cfg.refine_levels, _free_of, shear, bulk,
+        volume_element(cfg.etype), device=device,
+    )
+    mesh_ref = tsx_mesh(cfg.etype, cfg.refine_levels)
+    order = np.argsort(np.asarray(perms[-1]), kind="stable")
+    coords2, elems2, new_of_old = spmv.permute_mesh(
+        np.asarray(mesh_ref.coords, np.float64), np.asarray(mesh_ref.elems), order
+    )
+    # node-locality element sort: consecutive integration points then
+    # reference nearby nodes, which keeps the rows of G and S local
+    esort = np.argsort(elems2.min(axis=1), kind="stable")
+    elems2 = elems2[esort]
+    mesh = Mesh(coords2, elems2, cfg.etype, dirichlet=np.zeros_like(coords2),
+                free=_free_of(coords2))
+    monitor_node = int(new_of_old[cfg.monitor_node])
+
+    p = _problem(cfg, device, mesh=mesh)
+    shear, bulk, eta, c = p.consts
+    geom = p.geom
+    n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
+    if extras is not None:
+        # u_ref[old] = u_perm[new_of_old[old]]; sorted[k] = original[esort[k]]
+        extras["ell_new_of_old"] = new_of_old
+        extras["elem_sort"] = (esort, int(geom.n_q), int(geom.n_real))
+        extras["reference_mesh"] = mesh_ref
+        extras["monitor_node"] = monitor_node
+        extras["hierarchy"] = hier
+    # static plastic-slot cap of the tangent refresh: observed plastic
+    # fractions are under 1% (1,477 of 227,072 points at level 4); 1/64 with
+    # a floor of 1024 leaves more than twice that
+    plastic_cap = min(n_int, max(1024, n_int // 64))
+    residual_op = _residual_csr(geom, device)
+    fine = hier.levels[-1]
+    # the table indexes the exact CSR the fine operator was made from; its
+    # rows follow the sorted element order of the run-time geometry
+    corr_dest = torch.as_tensor(
+        spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"]),
+        device=device,
+    )
+    free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
+    cg_tol = cfg.cg_tol if cfg.cg_tol is not None else 2e-7
+    pre = mgm.make_vcycle_ell(hier, nu=cfg.mg_nu, cycle=cfg.mg_cycle)
+
+    def run(resume: Optional[dict] = None) -> LoadSteppingResult:
+        zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
+        if resume is None:
+            s0_field = p.s0[:3, None].expand(3, n_int)
+            f0 = csr_matvec(residual_op[1], s0_field.reshape(-1))
+            # elastic predictor K u = -F0: CG on the assembled fine operator
+            # as the f32 inner solve, refined against the f64 residual
+            u_elast = adf.refine_elastic_solve_with(
+                lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk),
+                lambda r32: solve_cg(
+                    lambda v: csr_matvec(fine.op, v), r32, free_mask, precond=pre,
+                    tol=cg_tol, maxiter=cfg.cg_maxiter,
+                ).x,
+                zero_u, -f0, iters=cfg.predictor_ir_iters,
+            )
+        else:
+            u_elast = zero_u  # unused: the carry supplies the state
+        stepper = build_load_stepper(
+            geom, p.free_idx, None, shear, bulk, eta, c, p.settings,
+            e0_dir=p.e0, monitor=_monitor(monitor_node),
+            precision="df32",
+            accumulate_ep=not cfg.bug_compatible_ep_reset,
+            residual_op=residual_op,
+            solver="mg", mg_preconditioner=pre, elastic_op=fine.op,
+            plastic_cap=plastic_cap, corr_dest=corr_dest,
+            cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
+            cg_cap_relax=cfg.cg_cap_relax,
+        )
+        return stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta, resume=resume)
+
+    return run, mesh
+
+
+def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None):
+    """Build the df32 solver: returns (run, mesh).
 
     Host setup happens here: the mesh, the f64 geometry, the dense
     assembly plan and, with `assembled_cg`, the f64 CSR strain and force
@@ -187,22 +296,25 @@ def build_df32(cfg: TsxTunnelConfig, device=None):
     Jacobi-scaled explicit inverse Ki, the elastic predictor (skipped on
     resume) and the load stepping.  `run(resume)` continues from a carry
     (`solve.newton.carry_of`, `utils.convert.carry_from_jax`).
+
+    `solver="ell"` (`TsxTunnelConfig.fast_scale`): the setup also builds the
+    multigrid hierarchy and permutes the problem onto its fine ordering, so
+    `mesh` and the run's result are in that ordering.  `extras`, if given,
+    receives what `_df32_result` needs to restore the reference order:
+    `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them the
+    permuted `monitor_node` and the device `hierarchy`.
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
     device = resolve_device(device)
+    if cfg.solver == "ell":
+        return _build_df32_ell(cfg, device, extras)
     p = _problem(cfg, device)
     shear, bulk, eta, c = p.consts
     geom = p.geom
     geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
     n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
-    residual_op = None
-    if cfg.assembled_cg:
-        G, S = build_residual_csr(
-            geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
-            geom.n_q, geom.n_nodes,
-        )
-        residual_op = (csr_to_device(G, device), csr_to_device(S, device))
+    residual_op = _residual_csr(geom, device) if cfg.assembled_cg else None
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         s0_field = p.s0[:3, None].expand(3, n_int)
@@ -230,7 +342,7 @@ def build_df32(cfg: TsxTunnelConfig, device=None):
             u_elast = zero_u  # unused: the carry supplies the state
         stepper = build_load_stepper(
             geom, p.free_idx, p.plan, shear, bulk, eta, c, p.settings,
-            e0_dir=p.e0, monitor=_monitor(cfg),
+            e0_dir=p.e0, monitor=_monitor(cfg.monitor_node),
             elastic_factor=("inv", Ki),
             # Woodbury plastic solves: the tsx plastic set is tiny (3 of
             # 896 points at level 0)
@@ -261,12 +373,27 @@ def _result(res: LoadSteppingResult, mesh: Mesh) -> TsxResult:
 
 
 def _solve_df32(cfg: TsxTunnelConfig, device=None) -> TsxResult:
-    """Bench preset: f64 state and residual, f32 tangent solves."""
-    run, mesh = build_df32(cfg, device)
-    return _df32_result(run(), mesh)
+    """df32 presets: f64 state and residual, f32 tangent solves."""
+    extras: dict = {}
+    run, mesh = build_df32(cfg, device, extras=extras)
+    return _df32_result(run(), mesh, extras)
 
 
-def _df32_result(res: LoadSteppingResult, mesh: Mesh) -> TsxResult:
-    """Host conversion of a df32 LoadSteppingResult (no permutation on the
-    dense path, unlike the JAX package's assembled-CG solver)."""
-    return _result(res, mesh)
+def _df32_result(res: LoadSteppingResult, mesh: Mesh, extras: Optional[dict] = None) -> TsxResult:
+    """Host conversion of a df32 LoadSteppingResult.  The dense path has no
+    permutation.  With the `extras` of an assembled (`solver="ell"`) build,
+    the reference node order and the element-major integration-point order
+    are restored, and the mesh is the reference mesh."""
+    out = _result(res, mesh)
+    if not extras or "ell_new_of_old" not in extras:
+        return out
+    u = out.u[extras["ell_new_of_old"]]
+    esort, n_q, n_real = extras["elem_sort"]
+    ep = out.ep
+    body = ep[:, : n_real * n_q].reshape(ep.shape[0], n_real, n_q)
+    restored = np.empty_like(body)
+    restored[:, esort, :] = body
+    ep = np.concatenate(
+        [restored.reshape(ep.shape[0], n_real * n_q), ep[:, n_real * n_q:]], axis=-1
+    )
+    return out._replace(u=u, ep=ep, mesh=extras["reference_mesh"])

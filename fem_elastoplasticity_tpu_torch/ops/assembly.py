@@ -56,6 +56,18 @@ def _gather_sum(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return ext[table].sum(dim=1)
 
 
+def _gather_fold(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """`_gather_sum` as a left fold over the table's columns, from zero:
+    ((0 + a_0) + a_1) + ...  The JAX package's scatter-add applies a
+    destination's updates one after another in this order, so the fold
+    reproduces its rounding; trailing padding adds exact zeros."""
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    acc = flat.new_zeros(table.shape[0])
+    for k in range(table.shape[1]):
+        acc = acc + ext[table[:, k]]
+    return acc
+
+
 class Geometry(NamedTuple):
     """Per-element quadrature geometry.
 
@@ -289,9 +301,13 @@ def dense_free_plan(geom: Geometry, fmap: np.ndarray, n_free: int) -> DensePlan:
 
 
 def assemble_dense_free(ke: torch.Tensor, plan: DensePlan) -> torch.Tensor:
-    """Element matrices (2*n_p, 2*n_p, n_e) -> dense (n_free, n_free)."""
+    """Element matrices (2*n_p, 2*n_p, n_e) -> dense (n_free, n_free).
+
+    Each entry's contributions are added in ascending (row slot, column
+    slot, element) order, the order of the JAX package's scatter-add, so
+    the f32 matrix equals the JAX package's bit for bit on the CPU."""
     K = ke.new_zeros(plan.n_free * plan.n_free)
-    K[plan.target] = _gather_sum(ke.reshape(-1), plan.table)
+    K[plan.target] = _gather_fold(ke.reshape(-1), plan.table)
     return K.reshape(plan.n_free, plan.n_free)
 
 

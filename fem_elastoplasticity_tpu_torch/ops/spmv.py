@@ -1,20 +1,39 @@
-"""Assembled f64 strain/force operators and kernel K1, the CSR SpMV.
+"""Assembled sparse operators: host CSR assembly and the kernels K1, K3, K4.
 
-Port of the residual half of `fem_elastoplasticity_tpu/ops/spmv.py`:
+Port of `fem_elastoplasticity_tpu/ops/spmv.py`.
 
-* `build_residual_csr` is `build_residual_slot_df` (`spmv.py:1005-1085`)
-  up to its scipy CSR matrices.  The slot packing (`_slot_pack`,
-  `_ragged_pack`) is TPU tile geometry and is not carried over: the card
-  takes the CSR as it is.
+Host half (NumPy/SciPy, copies of the JAX package's setup code):
+
+* `rcm_node_order`, `permute_mesh`, `host_element_stiffness`,
+  `assemble_csr`, `apply_bc_csr`, `diag_blocks_csr`, `csr_lookup`: the
+  locality ordering and the elastic stiffness as a scipy CSR;
+* `build_elastic_csr` is `build_ell_elastic` (`spmv.py:304-331`) up to its
+  CSR, `build_residual_csr` is `build_residual_slot_df`
+  (`spmv.py:1005-1085`) up to its CSR matrices;
+* `element_corr_dest` (`spmv.py:610-636`) gives, per element, the index
+  into the CSR value array of each entry of its stiffness block.
+
+The slot packing (`_slot_pack`, `_ragged_pack`, `slot_csr_positions`) is
+TPU tile geometry and is not carried over: the card takes the CSR as it is.
+
+Device half:
+
 * `csr_matvec` replaces `sp_matvec_df` / `slot_matvec_df` (`spmv.py:975`,
-  `:1370`).  On a CUDA tensor it launches the hand-written kernel
-  `csrc/csr_spmv_f64.cu`; on a CPU tensor it runs the plain PyTorch
-  version beside it.  It never falls back from one to the other.
+  `:1370`) for f64 values, kernel K1 `csrc/csr_spmv_f64.cu`, and
+  `slot_matvec` (`spmv.py:1431`) for f32 values, kernel K3
+  `csrc/csr_spmv_f32.cu`;
+* `block_jacobi_sweep` replaces `slot_sweep` / `slot_sweep_b`
+  (`spmv.py:1610`, `:1699`), kernel K4 `csrc/block_jacobi_sweep.cu`, with
+  `sweep_aux` for `build_sweep_aux` (`spmv.py:1583`).
 
-`LAUNCHES` counts, per process, kernel launches ("csr_spmv_f64") and calls
-routed to the plain version ("csr_spmv_f64_plain").  A run shows that it
-went through the kernel by clearing the counts before it and reading them
-after.
+On a CUDA tensor a wrapper launches its hand-written kernel; on a CPU
+tensor it runs the plain PyTorch version beside it.  It never falls back
+from one to the other.
+
+`LAUNCHES` counts, per process, kernel launches ("csr_spmv_f64",
+"csr_spmv_f32", "block_jacobi_sweep") and calls routed to a plain version
+(the same names with "_plain").  A run shows that it went through the
+kernels by clearing the counts before it and reading them after.
 """
 from __future__ import annotations
 
@@ -22,22 +41,31 @@ import collections
 import ctypes
 import functools
 import pathlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-KERNEL_SOURCE = pathlib.Path(__file__).parent / "csrc" / "csr_spmv_f64.cu"
+from .elements import ReferenceElement
+
+_CSRC = pathlib.Path(__file__).parent / "csrc"
+KERNEL_SOURCE = _CSRC / "csr_spmv_f64.cu"
+KERNEL_SOURCE_F32 = _CSRC / "csr_spmv_f32.cu"
+SWEEP_SOURCE = _CSRC / "block_jacobi_sweep.cu"
 LAUNCHES: collections.Counter = collections.Counter()
 
 
 class CsrMatrix(NamedTuple):
-    """f64 CSR matrix on one device: int32 indptr/indices, f64 values."""
+    """CSR matrix on one device: int32 indptr/indices, f64 or f32 values.
+
+    The values are a field of their own so that the same structure can
+    carry a new value array (`_replace(values=...)`): the refreshed tangent
+    of every Newton iteration lives on the elastic operator's pattern."""
 
     indptr: torch.Tensor  # (n_rows + 1,) int32
     indices: torch.Tensor  # (nnz,) int32
-    values: torch.Tensor  # (nnz,) float64
+    values: torch.Tensor  # (nnz,) float64 or float32
     shape: Tuple[int, int]
 
     @property
@@ -45,16 +73,188 @@ class CsrMatrix(NamedTuple):
         return self.shape[0]
 
 
-def csr_to_device(A: sp.csr_matrix, device) -> CsrMatrix:
-    """Host scipy CSR -> `CsrMatrix` on `device`."""
+def csr_to_device(A: sp.csr_matrix, device, dtype=np.float64) -> CsrMatrix:
+    """Host scipy CSR -> `CsrMatrix` on `device`, values rounded to `dtype`.
+    Explicit zeros stay: the tangent refresh scatters into them."""
     A = sp.csr_matrix(A)
     A.sort_indices()
     return CsrMatrix(
         indptr=torch.as_tensor(A.indptr.astype(np.int32), device=device),
         indices=torch.as_tensor(A.indices.astype(np.int32), device=device),
-        values=torch.as_tensor(A.data.astype(np.float64), device=device),
+        values=torch.as_tensor(A.data.astype(dtype), device=device),
         shape=(int(A.shape[0]), int(A.shape[1])),
     )
+
+
+# ---------------------------------------------------------------------------
+# host side: locality ordering and the elastic stiffness as CSR
+# ---------------------------------------------------------------------------
+def rcm_node_order(elems: np.ndarray, n_nodes: int) -> np.ndarray:
+    """Reverse Cuthill-McKee node ordering from element connectivity.
+
+    Returns `order` with order[k] = old node id placed at new position k.
+    """
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    elems = np.asarray(elems)
+    n_p = elems.shape[1]
+    rows, cols = [], []
+    for a in range(n_p):
+        for b in range(a + 1, n_p):
+            rows.append(elems[:, a])
+            cols.append(elems[:, b])
+    i = np.concatenate(rows + cols)
+    j = np.concatenate(cols + rows)
+    adj = sp.coo_matrix(
+        (np.ones(i.shape[0], np.int8), (i, j)), shape=(n_nodes, n_nodes)
+    ).tocsr()
+    return np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True))
+
+
+def permute_mesh(coords: np.ndarray, elems: np.ndarray, order: np.ndarray):
+    """Apply a node order: returns (coords', elems', new_of_old)."""
+    n_n = coords.shape[0]
+    new_of_old = np.empty(n_n, np.int64)
+    new_of_old[order] = np.arange(n_n)
+    return coords[order], new_of_old[np.asarray(elems)], new_of_old
+
+
+def host_element_stiffness(
+    coords: np.ndarray, elems: np.ndarray, ref: ReferenceElement, d33: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy K_e = sum_q w_q B^T D B (setup-time, f64).
+
+    d33: (3, 3) constant material tangent.  Returns (ke (n_e, 2n_p, 2n_p)
+    f64, edofs (n_e, 2n_p)).
+    """
+    coords = np.asarray(coords, np.float64)
+    elems = np.asarray(elems)
+    xe = coords[elems]  # (n_e, n_p, 2)
+    dN = np.asarray(ref.dN, np.float64)  # (n_q, n_p, 2)
+    n_q, n_p, _ = dN.shape
+    n_e = elems.shape[0]
+    J = np.einsum("qpi,epj->eqij", dN, xe)
+    det = J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    inv = np.empty_like(J)
+    inv[..., 0, 0] = J[..., 1, 1]
+    inv[..., 0, 1] = -J[..., 0, 1]
+    inv[..., 1, 0] = -J[..., 1, 0]
+    inv[..., 1, 1] = J[..., 0, 0]
+    inv /= det[..., None, None]
+    dphi = np.einsum("eqij,qpj->eqpi", inv, dN)  # (n_e, n_q, n_p, 2)
+    w = np.abs(det) * np.asarray(ref.w, np.float64)[None, :]
+
+    B = np.zeros((n_e, n_q, 3, 2 * n_p))
+    B[:, :, 0, 0::2] = dphi[..., 0]
+    B[:, :, 1, 1::2] = dphi[..., 1]
+    B[:, :, 2, 0::2] = dphi[..., 1]
+    B[:, :, 2, 1::2] = dphi[..., 0]
+    DB = np.einsum("ab,eqbj->eqaj", np.asarray(d33, np.float64), B)
+    ke = np.einsum("eqai,eqaj,eq->eij", B, DB, w)
+    edofs = np.stack([2 * elems, 2 * elems + 1], axis=-1).reshape(n_e, -1)
+    return ke, edofs
+
+
+def assemble_csr(ke: np.ndarray, edofs: np.ndarray, n2: int):
+    """Scatter element matrices into a scipy CSR (setup-time only)."""
+    n_e, n2p, _ = ke.shape
+    rows = np.repeat(edofs, n2p, axis=1).reshape(-1)
+    cols = np.tile(edofs, (1, n2p)).reshape(-1)
+    K = sp.coo_matrix((ke.reshape(-1), (rows, cols)), shape=(n2, n2)).tocsr()
+    K.sum_duplicates()
+    return K
+
+
+def csr_lookup(K_csr, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Vectorized CSR entry lookup: index k with (row, col), else -1."""
+    n2 = K_csr.shape[1]
+    deg = np.diff(K_csr.indptr)
+    all_keys = (
+        np.repeat(np.arange(K_csr.shape[0], dtype=np.int64), deg) * n2
+        + K_csr.indices.astype(np.int64)
+    )
+    q = rows.astype(np.int64) * n2 + cols.astype(np.int64)
+    k = np.searchsorted(all_keys, q)
+    k = np.minimum(k, max(all_keys.size - 1, 0))
+    hit = all_keys[k] == q if all_keys.size else np.zeros(q.shape, bool)
+    return np.where(hit, k, -1)
+
+
+def apply_bc_csr(K, free_flat: np.ndarray):
+    """Zero constrained rows/cols, unit diagonal.
+
+    Scales `K.data` in place rather than multiplying by diagonal matrices:
+    scipy's sparse matmul prunes zero-valued results, and the full
+    element-connectivity pattern must survive.  Structured meshes carry
+    exact zeros in the elastic stiffness at positions the plastic tangent
+    needs: the static-structure value refresh scatters into them
+    (`element_corr_dest`).
+    """
+    free = np.asarray(free_flat).reshape(-1)
+    Kf = K.tocsr().copy()
+    Kf.sum_duplicates()
+    rows = np.repeat(np.arange(Kf.shape[0]), np.diff(Kf.indptr))
+    Kf.data = Kf.data * (free[rows] & free[Kf.indices])
+    # every diagonal is structurally present: each DOF belongs to an element
+    con = np.nonzero(~free)[0]
+    kd = csr_lookup(Kf, con, con)
+    assert (kd >= 0).all(), "missing diagonal entries in the FEM pattern"
+    Kf.data[kd] = 1.0
+    return Kf
+
+
+def diag_blocks_csr(K_csr, n_n: int) -> np.ndarray:
+    """(n_n, 2, 2) nodal diagonal blocks from CSR (host, for smoothers)."""
+    out = np.zeros((n_n, 2, 2))
+    K = K_csr.tocsr()
+    for di in range(2):
+        for dj in range(2):
+            out[:, di, dj] = K[di::2, dj::2].diagonal()
+    return out
+
+
+def build_elastic_csr(
+    coords: np.ndarray, elems: np.ndarray, ref: ReferenceElement,
+    shear: float, bulk: float, free: Optional[np.ndarray] = None,
+):
+    """Elastic stiffness as a scipy CSR (f64, sorted indices) in one call.
+
+    `free`: (n_n, 2) bool mask; constrained rows/cols are zeroed with unit
+    diagonal so the operator is SPD on the whole space.
+    """
+    dd = 4.0 * shear / 3.0 + bulk
+    oo = -2.0 * shear / 3.0 + bulk
+    d33 = np.array([[dd, oo, 0.0], [oo, dd, 0.0], [0.0, 0.0, shear]])
+    ke, edofs = host_element_stiffness(coords, elems, ref, d33)
+    K = assemble_csr(ke, edofs, 2 * coords.shape[0])
+    if free is not None:
+        K = apply_bc_csr(K, np.asarray(free).reshape(-1))
+    return K
+
+
+def element_corr_dest(K_csr, elems: np.ndarray, free_flat: np.ndarray) -> np.ndarray:
+    """(n_e, 2n_p, 2n_p) int32 scatter destinations of per-element tangent
+    correction blocks: the index into `K_csr.data` (and so into the device
+    operator's `values`, `csr_to_device` keeps the order) of each entry.
+
+    Entries whose row or column DOF is constrained get -1 and are dropped
+    by the refresh: the assembled operator zeroes those rows/cols
+    (`apply_bc_csr`) and CG masks them, so leaving the correction out there
+    is exact.  Local DOF order is the interleaved [2v0, 2v0+1, 2v1, ...] of
+    `Geometry.edofs` / `plastic_correction_gather`.
+    """
+    assert K_csr.has_sorted_indices, "element_corr_dest needs sorted CSR indices"
+    elems = np.asarray(elems)
+    edofs = np.stack([2 * elems, 2 * elems + 1], axis=-1).reshape(elems.shape[0], -1)
+    n2p = edofs.shape[1]
+    rows = np.repeat(edofs, n2p, axis=1).reshape(-1)
+    cols = np.tile(edofs, (1, n2p)).reshape(-1)
+    free = np.asarray(free_flat).reshape(-1)
+    k = csr_lookup(K_csr, rows, cols)
+    ok = (k >= 0) & free[rows] & free[cols]
+    dest = np.where(ok, k, -1)
+    assert dest.max(initial=-1) < np.iinfo(np.int32).max
+    return dest.reshape(elems.shape[0], n2p, n2p).astype(np.int32)
 
 
 def build_residual_csr(
@@ -119,49 +319,195 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _library_f32() -> ctypes.CDLL:
+    from ..utils.cuda_build import build_library
+
+    lib = build_library(KERNEL_SOURCE_F32, "csr_spmv_f32", ("-fmad=false",))
+    lib.csr_spmv_f32.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+    lib.csr_spmv_f32.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_sweep() -> ctypes.CDLL:
+    from ..utils.cuda_build import build_library
+
+    lib = build_library(SWEEP_SOURCE, "block_jacobi_sweep", ("-fmad=false",))
+    lib.block_jacobi_sweep.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.block_jacobi_sweep.restype = ctypes.c_int
+    return lib
+
+
 def load_kernel() -> None:
     """Build (first use) and load K1; raises if the build fails."""
     _library()
 
 
-def csr_spmv_f64_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on x's device and PyTorch's current stream; no sync."""
+def load_kernel_f32() -> None:
+    """Build (first use) and load K3; raises if the build fails."""
+    _library_f32()
+
+
+def load_sweep_kernel() -> None:
+    """Build (first use) and load K4; raises if the build fails."""
+    _library_sweep()
+
+
+def _check_csr(name: str, A: CsrMatrix, x: torch.Tensor, dtype: torch.dtype, extra=()):
+    """Raise unless A, x and the `extra` (name, tensor, shape) vectors are
+    contiguous tensors of `dtype` (int32 for the structure) on x's CUDA
+    device with consistent shapes."""
     if not x.is_cuda:
-        raise ValueError("csr_spmv_f64_cuda needs a CUDA tensor; got one on "
-                         f"{x.device}")
-    for name, t, dtype in (
-        ("indptr", A.indptr, torch.int32),
-        ("indices", A.indices, torch.int32),
-        ("values", A.values, torch.float64),
-        ("x", x, torch.float64),
-    ):
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} needs a CUDA tensor; got one on {x.device}")
+    named = [
+        ("indptr", A.indptr, torch.int32, (A.n_rows + 1,)),
+        ("indices", A.indices, torch.int32, tuple(A.values.shape)),
+        ("values", A.values, dtype, tuple(A.indices.shape)),
+        ("x", x, dtype, (A.shape[1],)),
+    ] + [(n, t, dtype, shape) for n, t, shape in extra]
+    for nm, t, dt, shape in named:
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
-                f"csr_spmv_f64: {name} must be a contiguous {dtype} tensor on "
-                f"{x.device}; got {t.dtype} on {t.device}"
+                f"{name}: {nm} must be a contiguous {dt} tensor on {x.device}; "
+                f"got {t.dtype} on {t.device}"
             )
-    if A.indptr.shape[0] != A.n_rows + 1 or x.shape != (A.shape[1],):
-        raise ValueError(f"csr_spmv_f64: shape {A.shape} vs x {tuple(x.shape)}")
-    if A.values.shape != A.indices.shape:
-        raise ValueError("csr_spmv_f64: values and indices differ in length")
-    lib = _library()
-    y = torch.empty(A.n_rows, dtype=torch.float64, device=x.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _csr_spmv_cuda(name: str, lib: ctypes.CDLL, dtype, A: CsrMatrix, x: torch.Tensor):
+    _check_csr(name, A, x, dtype)
+    y = torch.empty(A.n_rows, dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.csr_spmv_f64(
+    err = getattr(lib, name)(
         A.n_rows, A.indptr.data_ptr(), A.indices.data_ptr(),
         A.values.data_ptr(), x.data_ptr(), y.data_ptr(), stream,
     )
     if err != 0:
-        raise RuntimeError(f"csr_spmv_f64 launch failed: cudaError_t {err}")
-    LAUNCHES["csr_spmv_f64"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
     return y
 
 
+def csr_spmv_f64_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on x's device and PyTorch's current stream; no sync."""
+    if not x.is_cuda:
+        raise ValueError(f"csr_spmv_f64 needs a CUDA tensor; got one on {x.device}")
+    return _csr_spmv_cuda("csr_spmv_f64", _library(), torch.float64, A, x)
+
+
+def csr_spmv_f32_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on x's device and PyTorch's current stream; no sync.
+    A may be rectangular (the multigrid transfers)."""
+    if not x.is_cuda:
+        raise ValueError(f"csr_spmv_f32 needs a CUDA tensor; got one on {x.device}")
+    return _csr_spmv_cuda("csr_spmv_f32", _library_f32(), torch.float32, A, x)
+
+
 def csr_matvec(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A x: K1 on a CUDA tensor, the plain version on a CPU tensor."""
+    """y = A x.  On a CUDA tensor: K1 for f64 values, K3 for f32 values; on
+    a CPU tensor the plain version."""
+    if A.values.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"csr_matvec: no kernel for {A.values.dtype} values")
+    f64 = A.values.dtype == torch.float64
     if x.is_cuda:
-        return csr_spmv_f64_cuda(A, x)
+        return csr_spmv_f64_cuda(A, x) if f64 else csr_spmv_f32_cuda(A, x)
     if x.device.type != "cpu":
         raise ValueError(f"csr_matvec: no route for device {x.device}")
-    LAUNCHES["csr_spmv_f64_plain"] += 1
+    LAUNCHES["csr_spmv_f64_plain" if f64 else "csr_spmv_f32_plain"] += 1
     return csr_matvec_plain(A, x)
+
+
+# ---------------------------------------------------------------------------
+# K4: the fused damped block-Jacobi sweep
+# ---------------------------------------------------------------------------
+class SweepAux(NamedTuple):
+    """Per-level constants of the fused sweep, flat (2*n_n,) f32 vectors:
+    for DOF i = 2k+c, mask[i] = 1 where free else 0, msf[i] = inv[k, c, c]
+    (own-component coefficient), mpr[i] = inv[k, c, 1-c] (partner)."""
+
+    mask: torch.Tensor
+    msf: torch.Tensor
+    mpr: torch.Tensor
+
+
+def sweep_aux(inv: np.ndarray, free_flat: np.ndarray, device) -> SweepAux:
+    """Host build of the sweep constants (`build_sweep_aux`, without the
+    TPU kernel's tile padding).  inv: (n_n, 2, 2) damped block-Jacobi
+    inverse (omega included); free_flat: (2*n_n,) bool."""
+    free_flat = np.asarray(free_flat).reshape(-1)
+    n = free_flat.shape[0]
+    inv = np.asarray(inv, np.float32)
+    k = np.arange(n) // 2
+    cc = np.arange(n) % 2
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)  # noqa: E731
+    return SweepAux(
+        mask=as_t(free_flat.astype(np.float32)),
+        msf=as_t(inv[k, cc, cc]),
+        mpr=as_t(inv[k, cc, 1 - cc]),
+    )
+
+
+def block_jacobi_sweep_plain(
+    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+) -> torch.Tensor:
+    """Plain PyTorch sweep: res = mask (r - A z); with `update`
+    z + mask (msf res + mpr res_partner), else res."""
+    res = (r - csr_matvec_plain(A, z)) * aux.mask
+    if not update:
+        return res
+    res_sw = res.reshape(-1, 2).flip(1).reshape(-1)
+    return z + (aux.msf * res + aux.mpr * res_sw) * aux.mask
+
+
+def block_jacobi_sweep_cuda(
+    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor,
+    update: bool = True, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch K4 on z's device and PyTorch's current stream; no sync.
+
+    The sweep is Jacobi: every row reads the old z, so `out` (allocated
+    here unless given) must not share memory with z.
+    """
+    if not z.is_cuda:
+        raise ValueError(f"block_jacobi_sweep needs a CUDA tensor; got one on {z.device}")
+    n2 = A.n_rows
+    if A.shape[0] != A.shape[1] or n2 % 2:
+        raise ValueError(f"block_jacobi_sweep: operator {A.shape} is not square with 2x2 blocks")
+    vecs = [("r", r, (n2,)), ("mask", aux.mask, (n2,)), ("msf", aux.msf, (n2,)),
+            ("mpr", aux.mpr, (n2,))]
+    if out is None:
+        out = torch.empty(n2, dtype=torch.float32, device=z.device)
+    else:
+        vecs.append(("out", out, (n2,)))
+    _check_csr("block_jacobi_sweep", A, z, torch.float32, vecs)
+    if out.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
+        raise ValueError("block_jacobi_sweep: out must not alias z")
+    if any(t.data_ptr() % 8 for t in (z, r, out, *aux)):
+        raise ValueError("block_jacobi_sweep: vectors must be 8-byte aligned")
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    err = _library_sweep().block_jacobi_sweep(
+        n2 // 2, A.indptr.data_ptr(), A.indices.data_ptr(), A.values.data_ptr(),
+        z.data_ptr(), r.data_ptr(), aux.mask.data_ptr(), aux.msf.data_ptr(),
+        aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"block_jacobi_sweep launch failed: cudaError_t {err}")
+    LAUNCHES["block_jacobi_sweep"] += 1
+    return out
+
+
+def block_jacobi_sweep(
+    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+) -> torch.Tensor:
+    """One fused smoother sweep, or the masked residual, on a square f32
+    operator: K4 on a CUDA tensor, the plain version on a CPU tensor."""
+    if z.is_cuda:
+        return block_jacobi_sweep_cuda(A, aux, z, r, update)
+    if z.device.type != "cpu":
+        raise ValueError(f"block_jacobi_sweep: no route for device {z.device}")
+    LAUNCHES["block_jacobi_sweep_plain"] += 1
+    return block_jacobi_sweep_plain(A, aux, z, r, update)

@@ -1,0 +1,269 @@
+"""Geometric multigrid V-cycle on assembled CSR operators.
+
+Port of the assembled-operator half of
+`fem_elastoplasticity_tpu/solve/multigrid.py`: `build_hierarchy_ell`
+(`:206-438`, `order_mode="fine_rcm"`) and `make_vcycle_ell` (`:875-1019`,
+`cycle="v"`, fused sweeps).
+
+The red-refinement hierarchy gives geometric multigrid for free: every
+fine node is either a coarse node or the midpoint of two coarse parents, so
+the prolongation P copies or averages and the restriction is R = P^T.
+Every level's elastic operator, its transfers and its smoother blocks are
+assembled once on the host (NumPy/SciPy, f64) and go to the device as f32
+CSR.  Smoothing is damped block-Jacobi (symmetric, so the V-cycle is SPD and
+valid as a CG preconditioner) in the fused kernel K4
+(`ops.spmv.block_jacobi_sweep`); the transfers run in K3
+(`ops.spmv.csr_matvec`); the coarsest level is solved with the explicit f32
+inverse of its free-DOF block.
+
+The JAX package smooths operators of 500,000 rows or more from a packed
+bf16 value stream (`slot_sweep_pk`).  That kernel is not ported, and
+smoothing such a level in f32 would be another method, so the build
+raises there.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import scipy.linalg as sla
+import scipy.sparse as sp
+import torch
+
+from ..mesh.midpoints import _edge_scan
+from ..ops import spmv
+from ..ops.elements import ReferenceElement
+
+# rows from which the JAX package smooths from its packed bf16 stream
+PACKED_MIN_ROWS = 500_000
+
+
+class MGLevel(NamedTuple):
+    """One level on the device.  P and R are None on the coarsest level."""
+
+    op: spmv.CsrMatrix  # (2n_n, 2n_n) f32 elastic operator, BC rows unit-diagonal
+    inv: torch.Tensor  # (n_n, 2, 2) f32 damped block-Jacobi inverse
+    free: torch.Tensor  # (2n_n,) bool
+    aux: spmv.SweepAux
+    P: Optional[spmv.CsrMatrix]  # (2n_n, 2n_c) f32 prolongation from the level below
+    R: Optional[spmv.CsrMatrix]  # (2n_c, 2n_n) f32 restriction, P^T
+
+
+class Hierarchy(NamedTuple):
+    levels: List[MGLevel]  # index 0 = coarsest
+    inv0: torch.Tensor  # (n_free0, n_free0) f32 inverse of the coarsest free block
+    free_idx0: torch.Tensor  # (n_free0,) int64 free DOFs of the coarsest level
+
+
+def hierarchy_to_device(
+    host_levels: Sequence[dict], inv0: np.ndarray, free_idx0: np.ndarray, device,
+    packed_min_rows: int = PACKED_MIN_ROWS,
+) -> Hierarchy:
+    """Host level data -> `Hierarchy` on `device`.
+
+    host_levels[l]: dict(K=scipy CSR (f64), inv=(n_n, 2, 2), free=(n_n, 2)
+    or flat bool, P=scipy CSR or None on level 0).
+    """
+    levels = []
+    for l, h in enumerate(host_levels):
+        K = h["K"]
+        if K.shape[0] >= packed_min_rows:
+            raise NotImplementedError(
+                f"multigrid level {l} has {K.shape[0]} rows: operators of "
+                f"{packed_min_rows} rows or more are smoothed from packed bf16 "
+                "values in the JAX package, and that kernel is not ported"
+            )
+        free_flat = np.asarray(h["free"]).reshape(-1)
+        P = R = None
+        if h.get("P") is not None:
+            Ph = sp.csr_matrix(h["P"])
+            Rh = Ph.T.tocsr()
+            Rh.sum_duplicates()
+            P = spmv.csr_to_device(Ph, device, np.float32)
+            R = spmv.csr_to_device(Rh, device, np.float32)
+        levels.append(MGLevel(
+            op=spmv.csr_to_device(K, device, np.float32),
+            inv=torch.as_tensor(np.array(h["inv"], np.float32), device=device),
+            free=torch.as_tensor(free_flat.astype(bool), device=device),
+            aux=spmv.sweep_aux(h["inv"], free_flat, device),
+            P=P, R=R,
+        ))
+    return Hierarchy(
+        levels=levels,
+        inv0=torch.as_tensor(np.array(inv0, np.float32), device=device),
+        free_idx0=torch.as_tensor(np.array(free_idx0, np.int64), device=device),
+    )
+
+
+def build_hierarchy_ell(
+    coords0: np.ndarray,
+    elems0: np.ndarray,
+    levels: int,
+    free_fn: Callable[[np.ndarray], np.ndarray],
+    shear: float,
+    bulk: float,
+    ref: ReferenceElement,
+    omega: float = 0.7,
+    device=None,
+    packed_min_rows: int = PACKED_MIN_ROWS,
+):
+    """Host-side multigrid build: red refinement + locality ordering.
+
+    Node ordering: reverse Cuthill-McKee on the finest mesh; each coarser
+    level is ordered by its nodes' positions in the next-finer ordering
+    (coarse nodes are a prefix of the finer level's node set under red
+    refinement).
+
+    Returns (hierarchy, perms, coarse):
+      hierarchy: `Hierarchy` on `device`
+      perms[l]:  new_of_old node map of level l
+      coarse:    host data: `levels` (per level coords, elems, K, free, inv,
+                 P), `inv0`, `free_idx0`, and of the finest level `fine_K`
+                 (the BC-masked CSR the tangent refresh indexes),
+                 `fine_free`, `fine_coords`
+    Raises NotImplementedError when a level reaches `packed_min_rows` rows.
+    """
+    chain = []
+    coords, elems = np.asarray(coords0, np.float64), np.asarray(elems0)
+    chain.append((coords, elems, None))
+    for _ in range(levels):
+        v = elems
+        directed = np.stack(
+            [v[:, [1, 2]], v[:, [2, 0]], v[:, [0, 1]]], axis=1
+        ).reshape(-1, 2)
+        first_pos, edge_id, _ = _edge_scan(directed)
+        owners = directed[first_pos]
+        mids = 0.5 * (coords[owners[:, 0]] + coords[owners[:, 1]])
+        coords_f = np.concatenate([coords, mids], axis=0)
+        n_c = coords.shape[0]
+        mid_nodes = (n_c + edge_id).reshape(-1, 3)
+        m23, m31, m12 = mid_nodes[:, 0], mid_nodes[:, 1], mid_nodes[:, 2]
+        v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+        children = np.stack(
+            [
+                np.stack([v0, m12, m31], axis=1),
+                np.stack([v1, m23, m12], axis=1),
+                np.stack([v2, m31, m23], axis=1),
+                np.stack([m12, m23, m31], axis=1),
+            ],
+            axis=1,
+        ).reshape(-1, 3)
+        chain.append((coords_f, children.astype(np.int64), owners))
+        coords, elems = coords_f, children
+    if 2 * chain[-1][0].shape[0] >= packed_min_rows:
+        # before any assembly: the finest level is the largest
+        raise NotImplementedError(
+            f"multigrid level {levels} has {2 * chain[-1][0].shape[0]} rows: operators "
+            f"of {packed_min_rows} rows or more are smoothed from packed bf16 values "
+            "in the JAX package, and that kernel is not ported"
+        )
+
+    # fine RCM, then induce coarser orderings by restriction: level l's
+    # nodes are ids 0..n_l-1 inside level l+1
+    fine_orders = [None] * len(chain)
+    noo_next = None
+    for l in reversed(range(len(chain))):
+        n_l = chain[l][0].shape[0]
+        if l == len(chain) - 1:
+            order_l = spmv.rcm_node_order(chain[-1][1], n_l)
+        else:
+            order_l = np.argsort(noo_next[:n_l], kind="stable")
+        noo_next = np.empty(n_l, np.int64)
+        noo_next[order_l] = np.arange(n_l)
+        fine_orders[l] = order_l
+
+    host_levels, perms = [], []
+    prev_new_of_old = prev_n = None
+    inv0 = idx0 = None
+    for l, (c, e, par) in enumerate(chain):
+        n_n = c.shape[0]
+        order = fine_orders[l]
+        c2, e2, new_of_old = spmv.permute_mesh(c, e, order)
+        free2 = np.asarray(free_fn(c2))
+        K = spmv.build_elastic_csr(c2, e2, ref, shear, bulk, free=free2)
+        blocks = spmv.diag_blocks_csr(K, n_n)
+        a_, b_, cc_, d_ = blocks[:, 0, 0], blocks[:, 0, 1], blocks[:, 1, 0], blocks[:, 1, 1]
+        det = a_ * d_ - b_ * cc_
+        inv = (
+            np.stack([np.stack([d_, -b_], -1), np.stack([-cc_, a_], -1)], -2)
+            / det[:, None, None]
+        ) * omega
+        P = None
+        if l == 0:
+            idx0 = np.nonzero(free2.reshape(-1))[0]
+            K0 = K[idx0][:, idx0].toarray()
+            c0, _ = sla.cho_factor(K0, lower=False)
+            # the V-cycle is a preconditioner, so the f32 accuracy of the
+            # explicit inverse is irrelevant to the CG trajectory
+            inv0 = sla.cho_solve((c0, False), np.eye(K0.shape[0]))
+        else:
+            o = order
+            isc = o < prev_n
+            safe = np.maximum(o - prev_n, 0)
+            pa2 = np.where(isc, prev_new_of_old[np.minimum(o, prev_n - 1)],
+                           prev_new_of_old[par[safe, 0]])
+            pb2 = np.where(isc, pa2, prev_new_of_old[par[safe, 1]])
+            rows = np.arange(n_n)
+            rP, cP, vP = [], [], []
+            for d in range(2):
+                rP.append(2 * rows + d)
+                cP.append(2 * pa2 + d)
+                vP.append(np.full(n_n, 0.5))
+                rP.append(2 * rows + d)
+                cP.append(2 * pb2 + d)
+                vP.append(np.full(n_n, 0.5))
+            P = sp.coo_matrix(
+                (np.concatenate(vP), (np.concatenate(rP), np.concatenate(cP))),
+                shape=(2 * n_n, 2 * prev_n),
+            ).tocsr()
+            P.sum_duplicates()
+        host_levels.append(dict(coords=c2, elems=e2, K=K, free=free2, inv=inv, P=P))
+        perms.append(new_of_old)
+        prev_new_of_old, prev_n = new_of_old, n_n
+    hierarchy = hierarchy_to_device(host_levels, inv0, idx0, device, packed_min_rows)
+    top = host_levels[-1]
+    coarse = dict(
+        levels=host_levels, inv0=inv0, free_idx0=idx0,
+        fine_coords=top["coords"], fine_K=top["K"], fine_free=top["free"],
+    )
+    return hierarchy, perms, coarse
+
+
+def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
+    """V-cycle preconditioner application r -> z (approximate K^{-1} r).
+
+    nu: smoothing sweeps, an int (symmetric) or a (pre, post) tuple.  The
+    first pre-sweep from z = 0 is the damped block inverse applied to r (no
+    operator application); the other sweeps and the masked residual are K4
+    launches, the transfers K3 launches.
+    """
+    if cycle != "v":
+        raise NotImplementedError(f"make_vcycle_ell: cycle {cycle!r} is not ported")
+    nu_pre, nu_post = (nu, nu) if isinstance(nu, int) else nu
+    levels = hier.levels
+    zero = torch.zeros((), dtype=torch.float32, device=hier.inv0.device)
+
+    def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
+        lev = levels[li]
+        r = torch.where(lev.free, r, zero)
+        if li == 0:
+            z = torch.zeros_like(r)
+            z[hier.free_idx0] = hier.inv0 @ r[hier.free_idx0]
+            return torch.where(lev.free, z, zero)
+        # first pre-sweep from z = 0: res = r exactly, so z = mask inv r.  The
+        # 2x2 blocks are applied through the sweep constants, own and partner
+        # coefficient: the products and the sum of einsum("nij,nj->ni", inv,
+        # r), elementwise (as a batched matrix product the 114,056 blocks of
+        # level 4 take 0.12 ms in cuBLAS, more than the rest of the cycle)
+        dz = lev.aux.msf * r + lev.aux.mpr * r.reshape(-1, 2).flip(1).reshape(-1)
+        z = torch.where(lev.free, dz, zero)
+        for _ in range(nu_pre - 1):
+            z = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r)
+        res = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update=False)
+        z_c = vcycle(li - 1, spmv.csr_matvec(lev.R, res))
+        z = z + torch.where(lev.free, spmv.csr_matvec(lev.P, z_c), zero)
+        for _ in range(nu_post):
+            z = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r)
+        return z
+
+    return lambda r: vcycle(len(levels) - 1, r)

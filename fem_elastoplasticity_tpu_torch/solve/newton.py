@@ -1,6 +1,8 @@
 """Load-stepped semi-smooth Newton: a host loop over device tensors.
 
-Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`.
+Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`
+and, with the assembled elastic operator and a multigrid preconditioner,
+`solver="mg"` (inexact Newton: CG tangent solves on the refreshed operator).
 The JAX package runs the whole schedule as one jitted `while_loop`; here the
 controller is Python, and each Newton iteration reads its criterion (and
 the plastic count) back to the host.  The controller semantics are kept
@@ -22,8 +24,9 @@ the tangent, its solves, dU and the criterion in f32, as the JAX package's
 df32 mode does.  Native float32 runs the return map in kernel K2
 (`ops/return_map.py`) and follows the JAX package's native loop in its
 arithmetic: zeta, d_zeta and the stop thresholds are rounded to float32 at
-every step, the criterion's elastic stress is 2G (e - tr/3) + K tr, and the
-warm start divides by d_zeta_old as a tensor.
+every step.  In every precision the criterion's elastic stress is
+2G (e - tr/3) + K tr and the warm start divides by d_zeta_old as a tensor,
+as the JAX loop does.
 """
 from __future__ import annotations
 
@@ -35,9 +38,14 @@ import torch
 
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
-from ..ops.assembly_df import elastic_apply
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
 from ..ops.spmv import csr_matvec
+from .cg import solve_cg
+
+
+# Eisenstat-Walker forcing: the share of the last Newton criterion that the
+# next tangent solve's CG tolerance takes (the JAX package's cg_eta_safety)
+CG_ETA_SAFETY = 0.1
 
 
 def _spd_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -130,8 +138,17 @@ def build_load_stepper(
     residual_op=None,
     apex_ep_uses_trial: bool = False,
     accept_hook: Optional[Callable] = None,
+    solver: str = "dense",
+    mg_preconditioner: Optional[Callable] = None,
+    elastic_op=None,
+    plastic_cap: Optional[int] = None,
+    corr_dest: Optional[torch.Tensor] = None,
+    cg_tol: float = 1e-10,
+    cg_maxiter: int = 2000,
+    cg_eta0: Optional[float] = None,
+    cg_cap_relax: Optional[float] = None,
 ):
-    """Build the load-stepping solver (dense tangent solves).
+    """Build the load-stepping solver (dense or multigrid-CG tangent solves).
 
     Args:
       geom:     geometry in the state dtype (f64 for both presets).
@@ -162,6 +179,30 @@ def build_load_stepper(
       accept_hook: (monitor value, aux, criterion) -> (aux', factor),
                 called on every accepted step; d_zeta is scaled by factor
                 (the footing doubles it).  None keeps d_zeta.
+      solver:   "dense", or "mg": the tangent solve is CG on the assembled
+                operator, preconditioned by `mg_preconditioner`; `plan` is
+                not used and may be None.
+      mg_preconditioner: r -> z, `solve.multigrid.make_vcycle_ell`.
+      elastic_op: `ops.spmv.CsrMatrix` (f32), the assembled elastic
+                stiffness with unit-diagonal constrained rows.  It applies
+                the criterion norms (kernel K3), and its structure carries
+                the tangent: per Newton iteration a copy of its values plus
+                the scattered B_p^T (w delta) B_p blocks of the plastic slot
+                set (exact: the tangent equals the elastic one off the
+                plastic set).
+      plastic_cap: static size of the plastic slot set; invalid slots carry
+                zero blocks.  More plastic points than the cap degrade the
+                tangent (extra Newton iterations), never the residual.
+      corr_dest: (n_e, 2n_p, 2n_p) integer table, `ops.spmv.element_corr_dest`:
+                the position in `elastic_op.values` of each element-block
+                entry, -1 where a DOF is constrained (dropped).
+      cg_tol, cg_maxiter: relative tolerance and cap of the tangent CG.  A
+                capped, unconverged solve counts as divergence.
+      cg_eta0:  Eisenstat-Walker forcing: the CG tolerance of a Newton
+                iteration is clip(CG_ETA_SAFETY * crit_prev, cg_tol,
+                cg_eta0), in f32; the first iteration uses cg_eta0.
+      cg_cap_relax: accept a capped solve whose preconditioned residual
+                fell by this factor.  None: strict cap-as-divergence.
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -172,6 +213,16 @@ def build_load_stepper(
         isinstance(elastic_factor, tuple) and elastic_factor[0] in ("inv", "cho")
     ):
         raise NotImplementedError("elastic_factor must be None, ('inv', Ki) or ('cho', L)")
+    if solver not in ("dense", "mg"):
+        raise NotImplementedError(f"solver {solver!r}")
+    if solver == "mg" and (
+        mg_preconditioner is None or elastic_op is None or corr_dest is None
+        or plastic_cap is None
+    ):
+        raise NotImplementedError(
+            "solver='mg' is ported with mg_preconditioner, elastic_op, corr_dest "
+            "and plastic_cap (the assembled static-structure path)"
+        )
     sdtype = geom.B.dtype
     geom_t = geom.to(torch.float32) if df_mode else geom
     tdtype = geom_t.B.dtype
@@ -223,12 +274,11 @@ def build_load_stepper(
         return f.to(tdtype)
 
     def elastic_force(v):
-        """K_el v.  Native f32 forms the stress as the JAX native loop does,
-        2G (e - tr/3) + K tr with a true division (a tensor divisor: PyTorch
-        on CUDA divides by a Python scalar through its rounded reciprocal);
-        f64 and df32 apply D_el with dd/oo (`ops/assembly_df.py`)."""
-        if not native_f32:
-            return elastic_apply(geom_t, v, shear, bulk)
+        """K_el v with the stress formed as the JAX package's loop forms it
+        in every precision (its df32 criterion runs on the f32 heads):
+        2G (e - tr/3) + K tr, with a true division (a tensor divisor:
+        PyTorch on CUDA divides by a Python scalar through its rounded
+        reciprocal)."""
         e = asm.strains(geom_t, v)
         t = e[0] + e[1]
         s = torch.stack([
@@ -241,8 +291,14 @@ def build_load_stepper(
     def criterion(dU, U_head):
         # q1 = |dU|_K, q2 = |U_it|_K, q3 = |U_it + dU|_K in the elastic
         # energy norm, q3^2 = q2^2 + 2 dU.K.U_it + q1^2
-        KdU = elastic_force(dU)
-        KU = elastic_force(U_head)
+        if elastic_op is not None:
+            # assembled elastic operator through K3: its constrained rows
+            # are unit-diagonal, but dU and U_it vanish there
+            KdU = csr_matvec(elastic_op, dU)
+            KU = csr_matvec(elastic_op, U_head)
+        else:
+            KdU = elastic_force(dU)
+            KU = elastic_force(U_head)
         q1sq = dU @ KdU
         q2sq = U_head @ KU
         q3sq = torch.clamp(q2sq + 2.0 * (dU @ KU) + q1sq, min=0.0)
@@ -280,6 +336,50 @@ def build_load_stepper(
         y = torch.linalg.solve(A, Ct)
         return z - KiU @ y
 
+    if solver == "mg":
+        free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
+        free_mask[free_idx] = True
+        d_el = elastic_tangent_lanes(shear, bulk, n_int, tdtype, device)
+        n_vals = elastic_op.values.shape[0]
+        # -1 (constrained) destinations go to a slot past the values, which
+        # is cut off again: they must not wrap round to the last entry
+        dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
+
+    def refreshed_tangent(d, ind_p):
+        """The tangent on the elastic operator's structure: a copy of its
+        values plus the plastic slot set's correction blocks.  Two plastic
+        points of neighbouring elements hit the same entry; the accumulating
+        index_put_ sorts the destinations and adds each entry's
+        contributions in their given order, so the sum has a fixed order
+        (an atomic scatter-add would not)."""
+        idx_p, valid_p = asm.plastic_slots(ind_p, plastic_cap)
+        Bp, wdelta, _ = asm.plastic_correction_gather(geom_t, d - d_el, idx_p, valid_p)
+        corr = torch.einsum("aip,abp,bjp->pij", Bp, wdelta, Bp)
+        dest = dest_table[idx_p // geom_t.n_q]
+        vals = torch.cat([elastic_op.values, elastic_op.values.new_zeros(1)])
+        vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
+        return elastic_op._replace(values=vals[:n_vals].contiguous())
+
+    def cg_solve(d, f_int, ind_p, crit_prev):
+        """Inexact Newton step by multigrid-preconditioned CG -> (dU, ok, its)."""
+        tol = cg_tol
+        if cg_eta0 is not None:
+            # Eisenstat-Walker forcing in f32, as the JAX loop computes it;
+            # an infinite criterion (first iteration) gives cg_eta0
+            f32 = np.float32
+            t = f32(crit_prev) * f32(CG_ETA_SAFETY)
+            t = f32(cg_eta0) if np.isposinf(t) else np.nan_to_num(t)
+            tol = float(np.clip(t, f32(cg_tol), f32(cg_eta0)))
+        A_t = refreshed_tangent(d, ind_p)
+        res = solve_cg(
+            lambda v: csr_matvec(A_t, v), -f_int, free_mask,
+            precond=mg_preconditioner, tol=tol, maxiter=cg_maxiter,
+        )
+        ok = res.converged
+        if not ok and cg_cap_relax is not None:
+            ok = bool(res.rel_residual <= cg_cap_relax)  # False for NaN
+        return res.x, ok, res.iters
+
     def newton_solve(d, f_int, ind_p, n_plastic):
         """One Newton linear solve K_tangent dU = -F on the free DOFs."""
         rhs = -f_int[free_idx]
@@ -303,20 +403,24 @@ def build_load_stepper(
         return dU
 
     def inner_newton(U_it, ep, zeta):
-        """Semi-smooth Newton at a fixed load factor -> (U, crit, nits)."""
-        crit, it, fail = math.inf, 0, False
+        """Semi-smooth Newton at a fixed load factor -> (U, crit, nits, ncg)."""
+        crit, it, ncg, fail = math.inf, 0, 0, False
         while not fail and crit >= newton_tol and it < settings.maxit:
             s, ds, ind_p, _, _ = return_map(U_it, ep, zeta)
             f_int = residual_force(s)
-            n_plastic = int(ind_p.sum())
-            dU = newton_solve(ds, f_int, ind_p, n_plastic)
+            if solver == "mg":
+                dU, ok, cg_its = cg_solve(ds, f_int, ind_p, crit)
+                ncg += cg_its
+            else:
+                n_plastic = int(ind_p.sum())
+                dU, ok = newton_solve(ds, f_int, ind_p, n_plastic), True
             U_new = U_it + dU.to(sdtype)
             crit = float(criterion(dU, U_it.to(tdtype)))
-            fail = math.isnan(crit)
+            fail = math.isnan(crit) or not ok
             if not fail:
                 U_it = U_new
             it += 1
-        return U_it, (math.nan if fail else crit), it
+        return U_it, (math.nan if fail else crit), it, ncg
 
     def run(U_it0: torch.Tensor, aux0: float, d_zeta0: float, resume: Optional[dict] = None):
         """Execute the load-stepping schedule.
@@ -358,7 +462,7 @@ def build_load_stepper(
         trips, done = 0, False
         while not done and trips < settings.max_trips:
             zeta = rnd(zeta_old + d_zeta)
-            U_conv, crit, nits = inner_newton(U_it, ep, zeta)
+            U_conv, crit, nits, ncg = inner_newton(U_it, ep, zeta)
             if crit < accept_tol:  # False for NaN
                 s_rm, _, _, _, ep_new = return_map(U_conv, ep, zeta, apply=accumulate_ep)
                 idx = min(step, settings.max_steps - 1)
@@ -377,19 +481,18 @@ def build_load_stepper(
                 step += 1
             else:
                 d_zeta = d_zeta * 0.5
+            # the divisor is a tensor, as in the JAX loop: PyTorch on CUDA
+            # divides by a Python scalar through its rounded reciprocal
+            dz_old = torch.full((), d_zeta_old, dtype=sdtype, device=device)
             if df_mode:
-                U_it = (U - U_old) * (d_zeta / d_zeta_old) + U
+                ratio = torch.full((), d_zeta, dtype=sdtype, device=device) / dz_old
+                U_it = (U - U_old) * ratio + U
                 done = (zeta_old - settings.zeta_max) >= -1e-12 or d_zeta < settings.d_zeta_min
             else:
-                # native f32 divides by a tensor, as the JAX loop does (on
-                # CUDA a Python divisor is a rounded reciprocal)
-                dz_old = (
-                    torch.full((), d_zeta_old, dtype=sdtype, device=device)
-                    if native_f32 else d_zeta_old
-                )
                 U_it = d_zeta * (U - U_old) / dz_old + U
                 done = zeta_old >= zeta_stop or d_zeta < d_zeta_min
             nits_total += nits
+            ncg_total += ncg
             trips += 1
 
         n_plastic = int((ep != 0.0).any(dim=0).sum())

@@ -10,11 +10,14 @@ packages can compute from identical inputs:
 * `carry_from_jax`: a load-stepping carry in `solve/chunked.py carry_of`
   format, or as `save_checkpoint` writes it (`key__hi`/`key__lo`), -> the
   port's resume carry;
-* `carry_to_jax`: the inverse, in `save_checkpoint` format.
+* `carry_to_jax`: the inverse, in `save_checkpoint` format;
+* `hierarchy_from_numpy`: the host data of the JAX package's multigrid
+  hierarchy -> the port's device hierarchy, so that V-cycle and CG tests run
+  both packages on identical operators.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -84,3 +87,22 @@ def carry_to_jax(carry: Mapping) -> dict:
         else:
             out[key] = np.asarray(x, np.float32)
     return out
+
+
+def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None):
+    """The JAX package's hierarchy as the port's `solve.multigrid.Hierarchy`.
+
+    levels[l]: the host data `build_hierarchy_ell(..., collect_levels=True)`
+    keeps per level (`coarse["levels"][l]`: scipy `K`, `free`, scipy `P` or
+    None) plus `inv`, that level's (n_n, 2, 2) damped block inverse
+    (`arrays[l]["inv"]`), all as numpy or scipy.  inv0, free_idx0: the
+    coarse solve's explicit inverse and free DOFs (`coarse["inv0"]`,
+    `coarse["free_idx0"]`).
+    """
+    from ..solve.multigrid import hierarchy_to_device
+
+    host = [
+        dict(K=lv["K"], free=np.asarray(lv["free"]), inv=np.asarray(lv["inv"]), P=lv.get("P"))
+        for lv in levels
+    ]
+    return hierarchy_to_device(host, np.asarray(inv0), np.asarray(free_idx0), device)

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: kernels K1 and K2 against their plain versions.
+"""PyTorch port on the card: kernels K1 to K4 against their plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so on the card's machine (which has none) it runs without the
@@ -136,3 +136,101 @@ def test_f32_solves_run_through_k2(cuda_k2):
     assert rm.LAUNCHES["dp_return_map"] > 0 and rm.LAUNCHES["dp_return_map_plain"] == 0
     assert rf.zeta_hist[rf.n_steps] >= 1.0
     assert abs(rf.pressure_hist[rf.n_steps] - 16.836351573454152) / 16.836351573454152 < 5e-4
+
+
+@pytest.fixture(scope="module")
+def cuda_scale():
+    """The card with K1, K3 and K4 built, and the level-1 hierarchy on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spmv.load_kernel()
+    spmv.load_kernel_f32()
+    spmv.load_sweep_kernel()
+    device = torch.device("cuda")
+    extras = {}
+    tsx.build_df32(TsxTunnelConfig.fast_scale(1), device=device, extras=extras)
+    return device, extras["hierarchy"]
+
+
+@pytest.mark.parametrize("which", ["K", "P", "R"])
+def test_k3_matches_plain(cuda_scale, which):
+    """Square (the fine elastic operator) and rectangular (the transfers):
+    the kernel and the plain version differ by the order of the row sum."""
+    device, hier = cuda_scale
+    fine = hier.levels[-1]
+    A = {"K": fine.op, "P": fine.P, "R": fine.R}[which]
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=device)
+    y = spmv.csr_matvec(A, x)
+    y_plain = spmv.csr_matvec_plain(A, x)
+    assert y.dtype == torch.float32 and y.shape == (A.shape[0],)
+    assert float((y - y_plain).abs().max()) <= 2e-6 * float(y_plain.abs().max())
+    assert torch.equal(y, spmv.csr_matvec(A, x))  # fixed order, no atomics
+    # a new value array on the same structure, as the tangent refresh passes it
+    A2 = A._replace(values=(2.0 * A.values).contiguous())
+    assert torch.equal(spmv.csr_matvec(A2, x), 2.0 * y)
+
+
+def test_k3_refuses_wrong_inputs(cuda_scale):
+    device, hier = cuda_scale
+    A = hier.levels[-1].op
+    x = torch.zeros(A.shape[1], dtype=torch.float32, device=device)
+    with pytest.raises(ValueError):  # dtype
+        spmv.csr_spmv_f32_cuda(A, x.double())
+    with pytest.raises(ValueError):  # shape
+        spmv.csr_spmv_f32_cuda(A, x[:-1])
+    with pytest.raises(ValueError):  # contiguity
+        spmv.csr_spmv_f32_cuda(A, torch.zeros(2 * A.shape[1], device=device)[::2])
+    with pytest.raises(ValueError):  # device
+        spmv.csr_spmv_f32_cuda(A, x.cpu())
+    with pytest.raises(ValueError):  # f64 values through the f32 kernel
+        spmv.csr_spmv_f32_cuda(A._replace(values=A.values.double()), x)
+
+
+@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
+def test_k4_matches_plain(cuda_scale, update):
+    device, hier = cuda_scale
+    lev = hier.levels[-1]
+    n = lev.op.shape[0]
+    rng = np.random.default_rng(4)
+    z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    r = r * spmv.csr_matvec_plain(lev.op, z).abs().max()
+    got = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update)
+    exp = spmv.block_jacobi_sweep_plain(lev.op, lev.aux, z, r, update)
+    assert float((got - exp).abs().max()) <= 5e-6 * float(exp.abs().max())
+    fixed = lev.aux.mask == 0
+    assert int(fixed.sum()) > 0
+    assert torch.equal(got[fixed], z[fixed] if update else torch.zeros_like(z[fixed]))
+    assert torch.equal(got, spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update))
+
+
+def test_k4_refuses_wrong_inputs_and_aliasing(cuda_scale):
+    device, hier = cuda_scale
+    lev = hier.levels[-1]
+    n = lev.op.shape[0]
+    z = torch.zeros(n, dtype=torch.float32, device=device)
+    r = torch.ones(n, dtype=torch.float32, device=device)
+    with pytest.raises(ValueError):  # out aliases z: the sweep is Jacobi
+        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r, out=z)
+    with pytest.raises(ValueError):  # dtype
+        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r.double())
+    with pytest.raises(ValueError):  # shape
+        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r[:-2])
+    with pytest.raises(ValueError):  # device
+        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r.cpu())
+    with pytest.raises(ValueError):  # a rectangular operator has no 2x2 diagonal blocks
+        spmv.block_jacobi_sweep_cuda(lev.P, lev.aux, z, r)
+    out = torch.empty_like(z)
+    assert spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r, out=out) is out
+
+
+def test_scale_solve_runs_through_k3_k4_k1(cuda_scale):
+    device, _ = cuda_scale
+    spmv.LAUNCHES.clear()
+    r = tsx.solve(TsxTunnelConfig.fast_scale(1), device=device)
+    for name in ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64"):
+        assert spmv.LAUNCHES[name] > 0, name
+    assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
+    assert (r.n_steps, r.n_plastic) == (17, 20)
+    assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8

@@ -16,11 +16,14 @@ from fem_elastoplasticity_tpu.models import tsx_tunnel as jtsx
 from fem_elastoplasticity_tpu.models.config import FootingConfig as JaxFootingConfig
 from fem_elastoplasticity_tpu.models.config import TsxTunnelConfig as JaxConfig
 from fem_elastoplasticity_tpu.ops import assembly as jasm
+from fem_elastoplasticity_tpu.models.materials import lame_moduli
 from fem_elastoplasticity_tpu.ops import elements as jel
+from fem_elastoplasticity_tpu.ops import spmv as jspmv
 from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as ptsx
 from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
 from fem_elastoplasticity_tpu_torch.ops import assembly as pasm
 from fem_elastoplasticity_tpu_torch.ops import elements as pel
+from fem_elastoplasticity_tpu_torch.ops import spmv as pspmv
 from fem_elastoplasticity_tpu_torch.utils import convert
 
 # tiny tensors: extra threads only contend with the other test workers
@@ -98,8 +101,13 @@ def test_config_refuses_what_is_not_ported(kw):
 
 
 def test_config_refuses_unported_presets():
-    with pytest.raises(NotImplementedError):
-        TsxTunnelConfig.fast_scale(2)
+    # the scale preset is ported: the JAX package's preset, field by field
+    ours, theirs = TsxTunnelConfig.fast_scale(2), JaxConfig.fast_scale(2)
+    for f in dataclasses.fields(TsxTunnelConfig):
+        if f.name != "etype":
+            assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert (ours.solver, ours.corr_mode, ours.cg_tol, ours.cg_maxiter, ours.cg_eta0,
+            ours.predictor_ir_iters, ours.refine_levels) == ("ell", "scatter", 1e-5, 200, 1e-2, 3, 2)
     with pytest.raises(NotImplementedError):
         TsxTunnelConfig.fast(dense_mode="mixed")
     with pytest.raises(NotImplementedError):
@@ -109,6 +117,107 @@ def test_config_refuses_unported_presets():
     fast32 = TsxTunnelConfig.fast_f32()
     assert (fast32.dtype, fast32.precision, fast32.newton_tol, fast32.accept_tol) == (
         "float32", "native", 1e-6, 1e-5)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(mg_cycle="w"),
+        dict(corr_mode="gather"),
+        dict(cg_deflate=4),
+        dict(spmv_fmt="rslot"),
+        dict(solver="mg"),
+        dict(etype=pel.ElementType.P2),
+        dict(precision="native"),
+        dict(cg_structure="scan"),
+    ],
+    ids=lambda kw: next(iter(kw)),
+)
+def test_scale_preset_refuses_what_is_not_ported(kw):
+    with pytest.raises(NotImplementedError):
+        TsxTunnelConfig.fast_scale(1, **kw)
+
+
+def test_scale_preset_needs_a_refined_mesh_and_dense_refuses_its_fields():
+    with pytest.raises(NotImplementedError):
+        TsxTunnelConfig.fast_scale(0)
+    for kw in (dict(cg_tol=1e-5), dict(cg_eta0=1e-2), dict(corr_mode="scatter"), dict(mg_nu=3)):
+        with pytest.raises(NotImplementedError):
+            TsxTunnelConfig.fast(**kw)
+
+
+@pytest.fixture(scope="module")
+def l1_rcm():
+    """The once-refined tsx mesh on its RCM ordering, from the JAX package's
+    host setup functions, with its BC-masked elastic CSR."""
+    mesh = jtsx.tsx_mesh(jel.ElementType.P1, 1)
+    order = jspmv.rcm_node_order(mesh.elems, mesh.n_nodes)
+    c2, e2, noo = jspmv.permute_mesh(mesh.coords, mesh.elems, order)
+    free2 = np.asarray(mesh.free)[order]
+    shear, bulk = lame_moduli(60000.0, 0.2)
+    arrays, meta, K = jspmv.build_ell_elastic(
+        c2, e2, jel.volume_element(jel.ElementType.P1), shear, bulk, free=free2, fmt="slot")
+    return dict(mesh=mesh, order=order, coords=c2, elems=e2, new_of_old=noo, free=free2,
+                shear=shear, bulk=bulk, K=K, arrays=arrays, meta=meta)
+
+
+def test_host_setup_functions_equal_jax(l1_rcm):
+    m = l1_rcm
+    mesh = m["mesh"]
+    np.testing.assert_array_equal(pspmv.rcm_node_order(mesh.elems, mesh.n_nodes), m["order"])
+    c2, e2, noo = pspmv.permute_mesh(mesh.coords, mesh.elems, m["order"])
+    np.testing.assert_array_equal(c2, m["coords"])
+    np.testing.assert_array_equal(e2, m["elems"])
+    np.testing.assert_array_equal(noo, m["new_of_old"])
+    dd, oo = 4.0 * m["shear"] / 3.0 + m["bulk"], -2.0 * m["shear"] / 3.0 + m["bulk"]
+    d33 = np.array([[dd, oo, 0.0], [oo, dd, 0.0], [0.0, 0.0, m["shear"]]])
+    jke, jed = jspmv.host_element_stiffness(c2, e2, jel.volume_element(jel.ElementType.P1), d33)
+    pke, ped = pspmv.host_element_stiffness(c2, e2, pel.volume_element(pel.ElementType.P1), d33)
+    np.testing.assert_array_equal(pke, jke)
+    np.testing.assert_array_equal(ped, jed)
+    jK, pK = jspmv.assemble_csr(jke, jed, 2 * c2.shape[0]), pspmv.assemble_csr(pke, ped, 2 * c2.shape[0])
+    jKb, pKb = jspmv.apply_bc_csr(jK, m["free"].reshape(-1)), pspmv.apply_bc_csr(pK, m["free"].reshape(-1))
+    for a, b in ((pK, jK), (pKb, jKb), (pKb, m["K"])):
+        np.testing.assert_array_equal(a.indptr, b.indptr)
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.data, b.data)
+    K = pspmv.build_elastic_csr(c2, e2, pel.volume_element(pel.ElementType.P1),
+                                m["shear"], m["bulk"], free=m["free"])
+    assert K.has_sorted_indices and (K != m["K"]).nnz == 0 and K.nnz == m["K"].nnz
+    np.testing.assert_array_equal(
+        pspmv.diag_blocks_csr(K, c2.shape[0]), jspmv.diag_blocks_csr(m["K"], c2.shape[0]))
+    rng = np.random.default_rng(0)
+    rows, cols = rng.integers(0, K.shape[0], 500), rng.integers(0, K.shape[0], 500)
+    rows[:100], cols[:100] = K.nonzero()[0][:100], K.nonzero()[1][:100]
+    np.testing.assert_array_equal(pspmv.csr_lookup(K, rows, cols), jspmv.csr_lookup(m["K"], rows, cols))
+
+
+def test_element_corr_dest_scatters_the_same_matrix_as_jax(l1_rcm):
+    """Seeded element blocks scattered through the port's table into the CSR
+    values, and through the JAX package's table into its slot values (read
+    back through `slot_csr_positions`), give the same matrix."""
+    m = l1_rcm
+    K, elems, free = m["K"], m["elems"], m["free"]
+    pdest = pspmv.element_corr_dest(K, elems, free)
+    jdest = jspmv.element_corr_dest(K, m["meta"], elems, free)
+    assert pdest.shape == jdest.shape == (elems.shape[0], 6, 6) and pdest.dtype == np.int32
+    np.testing.assert_array_equal(pdest < 0, jdest < 0)
+    edofs = np.stack([2 * elems, 2 * elems + 1], axis=-1).reshape(elems.shape[0], -1)
+    fixed = ~free.reshape(-1)[edofs]
+    np.testing.assert_array_equal(pdest < 0, fixed[:, :, None] | fixed[:, None, :])
+    blocks = np.random.default_rng(1).standard_normal(pdest.shape)
+    ok = pdest >= 0
+    # the port: straight into a copy of the CSR values
+    pvals = K.data.copy()
+    np.add.at(pvals, pdest[ok], blocks[ok])
+    # the JAX package: into the slot value stream, then back through the
+    # entry -> cell map
+    svals = np.asarray(m["arrays"]["vals"], np.float64).reshape(-1).copy()
+    svals[jspmv.slot_csr_positions(K, m["meta"])] = K.data
+    np.add.at(svals, jdest[ok], blocks[ok])
+    jvals = svals[jspmv.slot_csr_positions(K, m["meta"])]
+    np.testing.assert_allclose(pvals, jvals, rtol=0, atol=1e-12 * np.abs(jvals).max())
+    assert np.abs(pvals - K.data).max() > 1.0  # the blocks did land
 
 
 def test_footing_config_defaults_match_jax():

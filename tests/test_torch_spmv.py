@@ -1,17 +1,20 @@
-"""PyTorch port: the assembled G/S operators and kernel K1's module.
+"""PyTorch port: the assembled operators and the module of kernels K1, K3, K4.
 
 K1 itself (CUDA) runs only on the card: `test_torch_gpu.py` and
 `chip_smoke.py` hold it against its plain version there.  Here the port's
 CSR operators are held against the scipy CSR that the JAX package builds
 inside `build_residual_slot_df`, and the plain version against the JAX
 package's double-float slot kernel `slot_matvec_df`, run in interpret mode
-on the CPU as `tests/test_spmv.py` runs it.
+on the CPU as `tests/test_spmv.py` runs it.  K3's and K4's plain versions
+are held the same way against `slot_matvec` and `slot_sweep`.
 """
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
+import scipy.sparse as sp
 
 from fem_elastoplasticity_tpu.models.tsx_tunnel import tsx_mesh
 from fem_elastoplasticity_tpu.ops import assembly_df as jadf
@@ -129,3 +132,96 @@ def test_kernel_wrapper_refuses_cpu_tensors(operators):
     with pytest.raises(ValueError, match="CUDA"):
         pspmv.csr_spmv_f64_cuda(A, torch.zeros(A.shape[1], dtype=torch.float64))
     assert pspmv.LAUNCHES["csr_spmv_f64"] == 0
+
+    with pytest.raises(ValueError, match="CUDA"):
+        pspmv.csr_spmv_f32_cuda(A, torch.zeros(A.shape[1], dtype=torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pspmv.block_jacobi_sweep_cuda(A, None, torch.zeros(4), torch.zeros(4))
+    assert not pspmv.LAUNCHES["csr_spmv_f32"] and not pspmv.LAUNCHES["block_jacobi_sweep"]
+
+
+# ---------------------------------------------------------------------------
+# K3 (f32 CSR SpMV) and K4 (fused block-Jacobi sweep): plain versions
+# against the JAX package's slot kernels in interpret mode
+# ---------------------------------------------------------------------------
+def _elastic_k_l1():
+    """The JAX package's BC-masked elastic CSR on the RCM-ordered tsx mesh."""
+    from fem_elastoplasticity_tpu.models.materials import lame_moduli
+
+    mesh = tsx_mesh()
+    order = jspmv.rcm_node_order(mesh.elems, mesh.n_nodes)
+    c2, e2, _ = jspmv.permute_mesh(mesh.coords, mesh.elems, order)
+    free2 = np.asarray(mesh.free)[order]
+    shear, bulk = lame_moduli(60000.0, 0.2)
+    _, _, K = jspmv.build_ell_elastic(
+        c2, e2, volume_element(ElementType.P1), shear, bulk, free=free2, fmt="slot")
+    return K, free2.reshape(-1)
+
+
+def _k3_cases():
+    K, _ = _elastic_k_l1()
+    cases = {"elastic": K}
+    for shape in [(700, 350), (130, 900), (128, 128)]:
+        M = sp.random(*shape, density=0.02, random_state=11, format="csr")
+        M.sum_duplicates()
+        cases["x".join(map(str, shape))] = M
+    return cases
+
+
+@pytest.mark.parametrize("case", ["elastic", "700x350", "130x900", "128x128"])
+def test_k3_plain_matches_jax_slot_matvec(case):
+    """The same scipy CSR through `build_slot` + `slot_matvec` and through
+    the port's f32 `csr_matvec`: the slot kernel adds a row's entries in
+    slot order, the CSR version in column order, so they agree to f32
+    rounding of the row sum, 2e-6 of max |y|."""
+    M = _k3_cases()[case]
+    arrays, meta = jspmv.build_slot(M)
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal(M.shape[1]).astype(np.float32)
+    exp = np.asarray(jax.jit(lambda a, vv: jspmv.slot_matvec(a, meta, vv))(arrays, jnp.asarray(v)))
+    A = pspmv.csr_to_device(M, "cpu", np.float32)
+    assert A.values.dtype == torch.float32
+    pspmv.LAUNCHES.clear()
+    got = pspmv.csr_matvec(A, torch.as_tensor(v))
+    assert pspmv.LAUNCHES == {"csr_spmv_f32_plain": 1}
+    assert got.dtype == torch.float32 and got.shape == (M.shape[0],)
+    scale = max(np.abs(exp).max(), 1e-30)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=2e-6 * scale)
+    np.testing.assert_allclose(got.numpy(), M @ v.astype(np.float64), rtol=0, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
+def test_k4_plain_matches_jax_slot_sweep(update):
+    """`slot_sweep` with `build_sweep_aux` against `block_jacobi_sweep` on
+    one operator, iterate and right-hand side: within 5e-6."""
+    rng = np.random.default_rng(3)
+    n_n = 300
+    n = 2 * n_n
+    A = sp.random(n, n, density=0.02, random_state=7)
+    K = (A + A.T + 10 * sp.eye(n)).tocsr()
+    free = rng.random(n) > 0.15
+    Kb = jspmv.apply_bc_csr(K.copy(), free)
+    arrays, meta = jspmv.build_slot(Kb)
+    blocks = jspmv.diag_blocks_csr(Kb, n_n)
+    a_, b_, c_, d_ = blocks[:, 0, 0], blocks[:, 0, 1], blocks[:, 1, 0], blocks[:, 1, 1]
+    inv = (
+        np.stack([np.stack([d_, -b_], -1), np.stack([-c_, a_], -1)], -2)
+        / (a_ * d_ - b_ * c_)[:, None, None]
+    ) * 0.7
+    z = rng.standard_normal(n).astype(np.float32)
+    r = np.where(free, rng.standard_normal(n), 0.0).astype(np.float32)
+    aux_j = jspmv.build_sweep_aux(inv, free, meta)
+    exp = np.asarray(jspmv.slot_sweep(
+        arrays, meta, aux_j, jnp.asarray(z), jspmv.pad_rhs(jnp.asarray(r), meta), update=update))
+
+    At = pspmv.csr_to_device(Kb, "cpu", np.float32)
+    aux = pspmv.sweep_aux(inv, free, "cpu")
+    for name in ("mask", "msf", "mpr"):  # the same constants, without the tile padding
+        np.testing.assert_array_equal(
+            getattr(aux, name).numpy(), np.asarray(aux_j[name]).reshape(-1)[:n])
+    pspmv.LAUNCHES.clear()
+    got = pspmv.block_jacobi_sweep(At, aux, torch.as_tensor(z), torch.as_tensor(r), update=update)
+    assert pspmv.LAUNCHES == {"block_jacobi_sweep_plain": 1}
+    np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=5e-6 * np.abs(exp).max())
+    fixed = ~free
+    np.testing.assert_array_equal(got.numpy()[fixed], z[fixed] if update else 0.0)

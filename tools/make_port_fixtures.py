@@ -14,11 +14,19 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   step/Newton/plastic counts;
 * footing_f64.npz — `FootingConfig()`, the strip footing's native f64
   parity run: u, ep, zeta_hist, pressure_hist and the counts;
-* footing_f32.npz — `FootingConfig.fast_f32()`, the same fields.
+* footing_f32.npz — `FootingConfig.fast_f32()`, the same fields;
+* tsx_scale_l1.npz — `TsxTunnelConfig.fast_scale(1)`, the multigrid-CG
+  scale preset on the once-refined mesh (3,678 DOFs), full schedule: u in
+  reference node order, ep, zeta_hist, displ_hist and the step, Newton, CG
+  and plastic counts (compressed);
+* tsx_scale_l2_2steps.npz — `TsxTunnelConfig.fast_scale(2, zeta_max=2/17)`,
+  two load steps on the twice-refined mesh (14,450 DOFs), the same fields.
 
 The port's tests compare against these files instead of re-running a JAX
-solve (about 30 s of compilation each).  Run from the repository root,
-optionally naming the files to write (default: all):
+solve (about 30 s of compilation each; the two scale files run their
+Pallas kernels in interpret mode and take about 35 s and 45 s).
+Run from the repository root, optionally naming the files to write
+(default: all):
 
     python tools/make_port_fixtures.py [tsx_f32 footing_f64 ...]
 """
@@ -69,6 +77,15 @@ def main(names) -> None:
     if "footing_f32" in names:
         r = footing.solve(FootingConfig.fast_f32())
         np.savez(OUT / "footing_f32.npz", **_fields(r, "pressure_hist"))
+    for name, cfg in (
+        ("tsx_scale_l1", lambda: TsxTunnelConfig.fast_scale(1)),
+        ("tsx_scale_l2_2steps", lambda: TsxTunnelConfig.fast_scale(2, zeta_max=2 / 17)),
+    ):
+        if name in names:
+            r = tsx.solve(cfg())
+            np.savez_compressed(
+                OUT / f"{name}.npz", **_fields(r, "displ_hist"), n_cg_total=r.n_cg_total
+            )
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -110,7 +127,7 @@ def _report() -> None:
 
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
-    "tsx_f32", "footing_f64", "footing_f32",
+    "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
 )
 
 if __name__ == "__main__":

@@ -8,10 +8,20 @@ kernel times on the one stream the solver uses), the device idle share, the
 kernel launch count and the kernels that take the most device time.  Writes the profiler tables to
 OUT (default `profile_port_solve.txt`) and prints one JSON summary line.
 
-    python tools/profile_port_solve.py [OUT]
+With `--scale L [L ...]` it also profiles the scale preset
+`TsxTunnelConfig.fast_scale(L)` (multigrid-preconditioned CG; kernels K3,
+K4 and K1) at each level given: the host setup time of `build_df32`, then
+the same measurements, the step / Newton / CG / plastic counts, the
+launches of each hand-written kernel, and the host syncs per CG iteration
+(host reads of a device scalar, and `cudaStreamSynchronize` calls, in the
+profiled run, over its CG total).  `--no-dense` leaves the five dense
+solves out.
+
+    python tools/profile_port_solve.py [OUT] [--scale L [L ...]] [--no-dense]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import subprocess
@@ -22,6 +32,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("out", nargs="?", default="profile_port_solve.txt")
+    ap.add_argument("--scale", type=int, nargs="*", default=[], metavar="L")
+    ap.add_argument("--no-dense", action="store_true")
+    opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -32,6 +47,7 @@ def main() -> int:
     from fem_elastoplasticity_tpu_torch.models import footing
     from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
     from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
+    from fem_elastoplasticity_tpu_torch.ops import spmv
     from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device("cuda")
@@ -40,26 +56,37 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     tables, summary = [], {"card": card}
-    bench_run, _ = tsx.build_df32(TsxTunnelConfig.fast(assembled_cg=True), device=device)
-    runs = {
-        "f64": lambda: tsx.solve(TsxTunnelConfig(), device=device),
-        "bench": bench_run,
-        "tsx_f32": lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device),
-        "footing_f64": lambda: footing.solve(FootingConfig(), device=device),
-        "footing_f32": lambda: footing.solve(FootingConfig.fast_f32(), device=device),
-    }
+    runs, setup_s = {}, {}
+    if not opts.no_dense:
+        bench_run, _ = tsx.build_df32(TsxTunnelConfig.fast(assembled_cg=True), device=device)
+        runs = {
+            "f64": lambda: tsx.solve(TsxTunnelConfig(), device=device),
+            "bench": bench_run,
+            "tsx_f32": lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device),
+            "footing_f64": lambda: footing.solve(FootingConfig(), device=device),
+            "footing_f32": lambda: footing.solve(FootingConfig.fast_f32(), device=device),
+        }
+    for level in opts.scale:
+        t0 = time.perf_counter()
+        run, _ = tsx.build_df32(TsxTunnelConfig.fast_scale(level), device=device)
+        torch.cuda.synchronize()
+        setup_s[f"scale_L{level}"] = time.perf_counter() - t0
+        runs[f"scale_L{level}"] = run
     for tag, run in runs.items():
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        first = time.perf_counter() - t0
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        spmv.LAUNCHES.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run()
+            res = run()
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
         kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -69,6 +96,7 @@ def main() -> int:
             top[e.name] = top.get(e.name, 0.0) + e.device_time_total
         top = sorted(top.items(), key=lambda kv: -kv[1])[:8]
         summary[tag] = dict(
+            wall_first_s=first,
             walls_s=walls,
             wall_profiled_s=wall_prof,
             device_busy_s=busy_us * 1e-6,
@@ -76,9 +104,25 @@ def main() -> int:
             kernel_launches=len(kernels),
             top_kernels_ms={k[:80]: v * 1e-3 for k, v in top},
         )
+        if tag in setup_s:
+            host = [e for e in prof.events() if e.device_type.name != "CUDA"]
+            reads = sum(e.name == "aten::_local_scalar_dense" for e in host)
+            syncs = sum(e.name == "cudaStreamSynchronize" for e in host)
+            n_cg = int(res.n_cg_total)
+            summary[tag].update(
+                setup_s=setup_s[tag],
+                counts=dict(steps=int(res.n_steps), newton=int(res.n_newton_total), cg=n_cg,
+                            plastic=int(res.n_plastic)),
+                kernel_launches_by_name=dict(spmv.LAUNCHES),
+                host_scalar_reads=reads,
+                stream_syncs=syncs,
+                host_scalar_reads_per_cg_iteration=reads / n_cg,
+                stream_syncs_per_cg_iteration=syncs / n_cg,
+                device_kernels_per_cg_iteration=len(kernels) / n_cg,
+            )
         tables.append(f"== {tag} | {card}\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
-    out = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else "profile_port_solve.txt")
+    out = pathlib.Path(opts.out)
     out.write_text("\n\n".join(tables))
     print(json.dumps(summary), flush=True)
     return 0
