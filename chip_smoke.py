@@ -7,9 +7,10 @@ them against the repository's anchors:
   1. device   — a CUDA card is required; prints its name and power limit
                 as `nvidia-smi --query-gpu=name,power.limit` gives them;
   2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
-                (ops/csrc/dp_return_map.cu), K3 (ops/csrc/csr_spmv_f32.cu)
-                and K4 (ops/csrc/block_jacobi_sweep.cu) with nvcc, all at
-                once;
+                (ops/csrc/dp_return_map.cu), K3 (ops/csrc/csr_spmv_f32.cu),
+                K4 and K5 (ops/csrc/block_jacobi_sweep.cu) and K6
+                (ops/csrc/ell_spmv.cu) with nvcc, one process a source, all
+                at once;
   3. K1       — the kernel against its plain PyTorch version on the strain
                 and force operators G/S of the tsx mesh at refine levels 0
                 and 4, seeded inputs, normwise relative difference <= 1e-13;
@@ -54,10 +55,39 @@ them against the repository's anchors:
                 relative of -2.264312e-3, the step / Newton / CG / plastic
                 counts beside the JAX package's recorded 17 / 52 / 605 /
                 1,477, equal counts and bit-identical u in both runs, K3, K4
-                and K1 launched and no plain version.
+                and K1 launched and no plain version;
+ 14. K6       — the ELL product against its plain version: f32 on the
+                level-4 fine operator, its P and R (the ELL build of
+                `spmv_fmt="ell"`), f64 on level 4's G and on S as its three
+                column parts (`residual_fmt="ell"`): <= 2e-6 of max |plain|
+                (f32), <= 1e-13 normwise (f64), two launches bit-identical;
+                times, bytes bound (the entries', as for the CSR kernels;
+                the padded layout's bytes printed beside it), cuSPARSE's time
+                for the same product and K3's / K1's time on the same
+                operator as CSR;
+ 15. scale ELL — `fast_scale(L, spmv_fmt="ell", corr_mode="gather",
+                residual_fmt="ell")` through `solve` at L = 1 (u40 within
+                1e-8 of -2.166787295662e-03) and `build_df32` at L = 4
+                (within 1e-6 of -2.264312e-3): 17 steps, two runs with equal
+                counts and bit-identical u, both K6 instances launched and no
+                plain version; counts printed beside the slot path's;
+ 16. K5       — the bf16-valued sweep against its plain version on the
+                level-5 fine operator (910,368 rows) and on the level-1 fine
+                operator packed by force, with and without the update:
+                <= 5e-6, exact zeros on constrained rows, two launches
+                bit-identical, bit for bit K4 on the values widened to f32;
+                times, bytes bound, and K4's time on the level-5 operator's
+                f32 values;
+ 17. scale L5 — `build_df32(TsxTunnelConfig.fast_scale(5))` (setup time,
+                hierarchy rows and packed levels printed), two runs: 17
+                steps, u[40,0] within 1e-6 relative of -2.265345e-3, counts
+                beside the JAX package's 17 / 59 / 917, equal counts and
+                bit-identical u, K5, K4, K3 and K1 launched and no plain
+                version.
 
 Every phase prints its lines with the card line beside its numbers.  Before
-the last line it prints a JSON line with the kernel table; the last line is
+the last line it prints the run's total wall and a JSON line with the kernel
+table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check exits non-zero before that line.
 
@@ -79,9 +109,13 @@ K1_TOL = 1e-13  # normwise relative, kernel vs plain, both f64
 K2_TOL = {"float32": 1e-6, "float64": 1e-13}  # max abs diff / max |plain|
 K3_TOL = 2e-6  # max abs diff / max |plain|, kernel vs plain, both f32
 K4_TOL = 5e-6
+K5_TOL = 5e-6
+K6_TOL = {"float32": 2e-6, "float64": 1e-13}  # max-abs over max |plain|; normwise
 ANCHOR_U40_SCALE_L1 = -2.166787295662e-03  # tests/test_tsx_tunnel.py:236
 ANCHOR_U40_SCALE_L4 = -2.264312e-3  # BENCH_NOTES.md:436
 JAX_COUNTS_SCALE_L4 = (17, 52, 605, 1477)  # steps, Newton, CG, plastic (BENCH_NOTES.md:124)
+ANCHOR_U40_SCALE_L5 = -2.265345e-3  # BENCH_NOTES.md:142
+JAX_COUNTS_SCALE_L5 = (17, 59, 917)  # steps, Newton, CG (BENCH_NOTES.md:126)
 SEED = 20261016
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 / f64 rates outside
 # the tensor cores
@@ -384,19 +418,180 @@ def k4_phase(torch, spmv, levels, device, card):
     return shapes, max_err
 
 
+def ell_cost(A, nnz: int, vsize: int):
+    """(bytes, flops, layout bytes) of y = A x on an `EllMatrix` or
+    `SplitCols` holding `nnz` entries.  The bound's bytes are what the
+    product needs: each entry's value and column once, the spill CSR's row
+    pointers and row list, x read once, y written once.  The layout bytes
+    are what the format reads besides: every slot up to the row count
+    (padding included), and each part's partial sum read back and added."""
+    parts = getattr(A, "parts", (A,))
+    n_bytes = nnz * (vsize + 4) + vsize * (A.shape[1] + A.shape[0])
+    layout = vsize * (A.shape[1] + A.shape[0])
+    for k, part in enumerate(parts):
+        layout += part.values.shape[0] * part.shape[0] * (vsize + 4)
+        if part.spill is not None:
+            nnz_s, rows_s = part.spill.values.numel(), part.spill.shape[0]
+            n_bytes += 4 * (rows_s + 1) + 8 * rows_s
+            layout += nnz_s * (vsize + 4) + 4 * (rows_s + 1) + 8 * rows_s
+        if k:
+            layout += 3 * vsize * part.shape[0]
+    return n_bytes, 2 * nnz, layout
+
+
+def k6_phase(torch, spmv, cases, device, card):
+    """cases: {tag: (ELL operator, the same operator as CSR)} -> records.
+    f64 cases are normwise, f32 ones max-abs over max |plain|."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 6)
+    shapes, max_err = {}, {"float32": 0.0, "float64": 0.0}
+    for tag, (A, C) in cases.items():
+        parts = getattr(A, "parts", (A,))
+        dt = parts[0].values.dtype
+        dt_name = "float64" if dt == torch.float64 else "float32"
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dt, device=device)
+        w = A.shape[1] // len(parts)
+
+        def plain():
+            y = None
+            for k, part in enumerate(parts):
+                yk = spmv.ell_matvec_plain(part, x[k * w:(k + 1) * w])
+                y = yk if y is None else y + yk
+            return y
+
+        y = spmv.sp_matvec(A, x)
+        y_plain = plain()
+        torch.cuda.synchronize()
+        err = float((y - y_plain).abs().max())
+        if dt == torch.float64:
+            rel = float(torch.linalg.norm(y - y_plain) / torch.linalg.norm(y_plain))
+        else:
+            rel = err / float(y_plain.abs().max())
+        check(rel <= K6_TOL[dt_name], f"K6 {tag}: relative difference {rel:.3e}")
+        check(torch.equal(y, spmv.sp_matvec(A, x)), f"K6 {tag}: not bitwise repeatable")
+        for k, part in enumerate(parts):  # each launch on its own (S: its three parts)
+            yk = spmv.ell_matvec(part, x[k * w:(k + 1) * w])
+            pk = spmv.ell_matvec_plain(part, x[k * w:(k + 1) * w])
+            rk = (float(torch.linalg.norm(yk - pk) / torch.linalg.norm(pk)) if dt == torch.float64
+                  else float((yk - pk).abs().max() / pk.abs().max()))
+            check(rk <= K6_TOL[dt_name], f"K6 {tag} part {k}: relative difference {rk:.3e}")
+        # the yardsticks: the port's CSR kernel (K3 / K1) and one PyTorch
+        # call (cuSPARSE) on the same operator as CSR
+        C_lib = torch.sparse_csr_tensor(C.indptr, C.indices, C.values, C.shape,
+                                        check_invariants=False)
+        y_csr = spmv.csr_matvec(C, x)
+        torch.cuda.synchronize()
+        csr_rel = float((y_csr - y_plain).abs().max() / y_plain.abs().max())
+        check(csr_rel <= 2e-6, f"K6 {tag}: the CSR product differs by {csr_rel:.3e}")
+        ms, eager_ms = cuda_ms(torch, lambda: spmv.sp_matvec(A, x))
+        plain_ms, plain_eager_ms = cuda_ms(torch, plain)
+        csr_ms, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
+        lib_ms, _ = cuda_ms(torch, lambda: torch.mv(C_lib, x))
+        vsize = 8 if dt == torch.float64 else 4
+        nnz = int(C.values.numel())
+        n_bytes, flops, layout = ell_cost(A, nnz, vsize)
+        b_ms, b_by = bound_ms(n_bytes, flops, dt_name)
+        layout_ms, _ = bound_ms(layout, flops, dt_name)
+        max_err[dt_name] = max(max_err[dt_name], err)
+        spilled = sum(0 if p.spill is None else p.spill.values.numel() for p in parts)
+        shapes[tag] = dict(
+            rows=A.shape[0], cols=A.shape[1], dtype=dt_name, parts=len(parts),
+            deg=[int(p.values.shape[0]) for p in parts], nnz=nnz,
+            spilled=spilled, rel=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            eager_ms=eager_ms, plain_eager_ms=plain_eager_ms, csr_kernel_ms=csr_ms,
+            library_ms=lib_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+            layout_bytes=layout, layout_bound_ms=layout_ms,
+        )
+        say("K6", f"{tag} {dt_name} {A.shape[0]}x{A.shape[1]} deg {shapes[tag]['deg']} nnz "
+            f"{nnz} spilled {spilled}: rel {rel:.3e} max_abs {err:.3e} | device: "
+            f"kernel {ms:.5f} ms plain {plain_ms:.5f} ms CSR kernel {csr_ms:.5f} ms cuSPARSE "
+            f"{lib_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}; the padded layout's bytes "
+            f"{layout_ms:.5f} ms) | eager: kernel {eager_ms:.5f} ms "
+            f"plain {plain_eager_ms:.5f} ms | {card}")
+    return shapes, max_err
+
+
+def k5_phase(torch, spmv, cases, device, card):
+    """cases: {tag: (f32 operator, its bf16 copy, SweepAux)} -> records."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    shapes, max_err, bitwise = {}, 0.0, True
+    for tag, (A, pk, aux) in cases.items():
+        n = A.shape[0]
+        check(pk.values.dtype == torch.bfloat16 and pk.indices is A.indices,
+              f"K5 {tag}: not a bf16 copy on A's structure")
+        widened = A._replace(values=pk.values.to(torch.float32).contiguous())
+        z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        r = r * spmv.csr_matvec_plain(A, z).abs().max()
+        n_fixed = int((aux.mask == 0).sum())
+        check(n_fixed > 0, f"K5 {tag}: no constrained row in the operator")
+        reps = 200 if n < 500_000 else 50  # the plain version allocates per call
+        for update in (True, False):
+            case = f"{tag}_{'update' if update else 'residual'}"
+            got = spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update)
+            exp = spmv.block_jacobi_sweep_plain(pk, aux, z, r, update)
+            k4 = spmv.block_jacobi_sweep_cuda(widened, aux, z, r, update)
+            torch.cuda.synchronize()
+            err = float((got - exp).abs().max())
+            rel = err / float(exp.abs().max())
+            check(rel <= K5_TOL, f"K5 {case}: relative difference {rel:.3e}")
+            fixed = got[aux.mask == 0]
+            want = z[aux.mask == 0] if update else torch.zeros_like(fixed)
+            check(torch.equal(fixed, want), f"K5 {case}: constrained rows moved")
+            check(torch.equal(got, spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update)),
+                  f"K5 {case}: not bitwise repeatable")
+            same_k4 = torch.equal(got, k4)
+            bitwise = bitwise and same_k4
+            ms, eager_ms = cuda_ms(torch, lambda: spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update))
+            k4_ms, k4_eager_ms = cuda_ms(
+                torch, lambda: spmv.block_jacobi_sweep_cuda(A, aux, z, r, update))
+            plain_ms, plain_eager_ms = cuda_ms(
+                torch, lambda: spmv.block_jacobi_sweep_plain(pk, aux, z, r, update), reps=reps)
+            nnz = int(A.values.numel())
+            vec = 4 * (n + 1) + 4 * n * (6 if update else 4)
+            flops = 2 * nnz + (8 if update else 2) * n
+            b_ms, b_by = bound_ms(6 * nnz + vec, flops, "float32")
+            k4_b_ms, _ = bound_ms(8 * nnz + vec, flops, "float32")
+            max_err = max(max_err, err)
+            shapes[case] = dict(
+                rows=n, nnz=nnz, constrained_rows=n_fixed, update=update, rel=rel,
+                max_abs_err=err, bitwise_equal_to_k4_on_widened_values=same_k4, ms=ms,
+                plain_ms=plain_ms, eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
+                k4_f32_ms=k4_ms, k4_f32_eager_ms=k4_eager_ms, bytes=6 * nnz + vec,
+                bound_ms=b_ms, bound_by=b_by, k4_f32_bound_ms=k4_b_ms,
+            )
+            say("K5", f"{case} {n} rows nnz {nnz}: rel {rel:.3e} max_abs {err:.3e}, "
+                f"{n_fixed} constrained rows exact, bitwise K4 on widened values {same_k4} | "
+                f"device: kernel {ms:.5f} ms, K4 on the f32 values {k4_ms:.5f} ms, plain "
+                f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}; K4's {k4_b_ms:.5f}) | eager: "
+                f"kernel {eager_ms:.5f} ms K4 {k4_eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
+                f"| {card}")
+    return shapes, max_err, bitwise
+
+
 SCALE_KERNELS = ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64")
+ELL_KERNELS = ("ell_spmv_f32", "ell_spmv_f64")
 
 
-def check_scale_launches(tag: str, launches: dict) -> None:
-    for name in SCALE_KERNELS:
+def check_scale_launches(tag: str, launches: dict, kernels=SCALE_KERNELS) -> None:
+    for name in kernels:
         check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
     plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
     check(not plain, f"{tag}: a plain version ran on the card ({plain})")
 
 
+def ell_config(TsxTunnelConfig, level: int):
+    return TsxTunnelConfig.fast_scale(level, spmv_fmt="ell", corr_mode="gather",
+                                      residual_fmt="ell")
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -423,16 +618,18 @@ def main() -> int:
         load()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         futs = {name: pool.submit(build, load) for name, load in (
             ("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
             ("csr_spmv_f32", spmv.load_kernel_f32),
-            ("block_jacobi_sweep", spmv.load_sweep_kernel))}
+            ("block_jacobi_sweep", spmv.load_sweep_kernel),
+            ("ell_spmv", spmv.load_ell_kernel))}
         build_s = {name: f.result() for name, f in futs.items()}
     say("build", f"csr_spmv_f64 {build_s['csr_spmv_f64']:.2f} s, dp_return_map (-fmad=false) "
         f"{build_s['dp_return_map']:.2f} s, csr_spmv_f32 (-fmad=false) "
-        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep (-fmad=false) "
-        f"{build_s['block_jacobi_sweep']:.2f} s, in parallel "
+        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep with its bf16 instance "
+        f"(-fmad=false) {build_s['block_jacobi_sweep']:.2f} s, ell_spmv f32 and f64 "
+        f"(-fmad=false) {build_s['ell_spmv']:.2f} s, in parallel "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     k1_shapes, k1_err = k1_phase(torch, spmv, tsx, asm, ElementType, volume_element, device, card)
@@ -570,18 +767,109 @@ def main() -> int:
         f"{ANCHOR_U40_SCALE_L4}), launches {l4_launches}, repeat bit-identical, "
         f"wall first {q_first:.3f} s warm {q_warm:.3f} s | {card}")
 
+    # phases 14-15: the ELL format through K6, with the gather correction
+    ex4e = {}
+    t0 = time.perf_counter()
+    run4e, mesh4e = tsx.build_df32(ell_config(TsxTunnelConfig, 4), device=device, extras=ex4e)
+    torch.cuda.synchronize()
+    setup4e = time.perf_counter() - t0
+    fine4e = ex4e["hierarchy"].levels[-1]
+    (G4e, S4e), (G4, S4) = ex4e["residual_op"], ex4["residual_op"]
+    check(all(isinstance(op, spmv.EllMatrix) for op in (fine4e.op, fine4e.P, fine4e.R, G4e))
+          and isinstance(S4e, spmv.SplitCols), "scale ELL L4: an operator is not ELL")
+    say("scale ELL L4", f"setup {setup4e:.2f} s; fine operator deg {fine4e.op.values.shape[0]}, "
+        f"G deg {G4e.values.shape[0]}, S parts deg {[p.values.shape[0] for p in S4e.parts]} "
+        f"| {card}")
+    k6_shapes, k6_err = k6_phase(torch, spmv, {
+        "K_L4": (fine4e.op, fine4.op), "P_L4": (fine4e.P, fine4.P), "R_L4": (fine4e.R, fine4.R),
+        "G_L4": (G4e, G4), "S_L4": (S4e, S4)}, device, card)
+
+    spmv.LAUNCHES.clear()
+    e1, e1_wall = timed(torch, lambda: tsx.solve(ell_config(TsxTunnelConfig, 1), device=device))
+    e1_launches = dict(spmv.LAUNCHES)
+    e1b = tsx.solve(ell_config(TsxTunnelConfig, 1), device=device)
+    check(e1.u.shape == (1839, 2) and bool(np.isfinite(e1.u).all()), "scale ELL L1: bad field")
+    check(e1.n_steps == 17 and e1.n_plastic == 20,
+          f"scale ELL L1: {e1.n_steps} steps, {e1.n_plastic} plastic points")
+    e1_rel = abs(float(e1.u[40, 0]) - ANCHOR_U40_SCALE_L1) / abs(ANCHOR_U40_SCALE_L1)
+    check(e1_rel <= 1e-8, f"scale ELL L1: u40 {float(e1.u[40, 0])!r} is {e1_rel:.3e} from the anchor")
+    check(counts4(e1) == counts4(e1b), "scale ELL L1: two runs differ in their counts")
+    check(np.array_equal(e1.u, e1b.u), "scale ELL L1: two runs differ in u")
+    check_scale_launches("scale ELL L1", e1_launches, ELL_KERNELS)
+    say("scale ELL L1", f"steps / Newton / CG / plastic {counts4(e1)} (slot path {counts4(s1)}), "
+        f"u40 {e1.u[40, 0]:.12e} (rel {e1_rel:.3e}), launches {e1_launches}, repeat "
+        f"bit-identical, wall {e1_wall:.3f} s (setup included) | {card}")
+
+    spmv.LAUNCHES.clear()
+    p1, p_first = timed(torch, run4e)
+    e4_launches = dict(spmv.LAUNCHES)
+    p2, p_warm = timed(torch, run4e)
+    c1, c2 = tsx._df32_result(p1, mesh4e, ex4e), tsx._df32_result(p2, mesh4e, ex4e)
+    check(c1.u.shape == (114056, 2) and bool(np.isfinite(c1.u).all()), "scale ELL L4: bad field")
+    check(c1.n_steps == 17, f"scale ELL L4: {c1.n_steps} steps")
+    e4_rel = abs(float(c1.u[40, 0]) - ANCHOR_U40_SCALE_L4) / abs(ANCHOR_U40_SCALE_L4)
+    check(e4_rel <= 1e-6, f"scale ELL L4: u40 {float(c1.u[40, 0])!r} is {e4_rel:.3e} from the anchor")
+    check(counts4(c1) == counts4(c2), "scale ELL L4: two runs differ in their counts")
+    check(torch.equal(p1.u, p2.u), "scale ELL L4: two runs differ in u")
+    check_scale_launches("scale ELL L4", e4_launches, ELL_KERNELS)
+    say("scale ELL L4", f"steps / Newton / CG / plastic {counts4(c1)} (slot path {counts4(a1)}), "
+        f"u40 {c1.u[40, 0]:.9e} (rel {e4_rel:.3e}), launches {e4_launches}, repeat "
+        f"bit-identical, wall first {p_first:.3f} s warm {p_warm:.3f} s (slot path "
+        f"{q_first:.3f} / {q_warm:.3f} s) | {card}")
+    del run4e, ex4e, fine4e, G4e, S4e, p1, p2
+
+    # phases 16-17: level 5, its fine level smoothed from bf16 values (K5)
+    ex5 = {}
+    t0 = time.perf_counter()
+    run5, mesh5 = tsx.build_df32(TsxTunnelConfig.fast_scale(5), device=device, extras=ex5)
+    torch.cuda.synchronize()
+    setup5 = time.perf_counter() - t0
+    levels5 = ex5["hierarchy"].levels
+    sizes5 = [lev.op.shape[0] for lev in levels5]
+    packed5 = [lev.op_bf16 is not None for lev in levels5]
+    check(packed5 == [n >= 500_000 for n in sizes5] and packed5[-1],
+          f"scale L5: packed levels {packed5} of rows {sizes5}")
+    say("scale L5", f"setup {setup5:.2f} s (host: hierarchy, G/S, refresh table); "
+        f"{mesh5.n_nodes} nodes, {mesh5.n_elems} elements, hierarchy rows {sizes5}, "
+        f"packed {packed5} | {card}")
+    fine5 = levels5[-1]
+    k5_shapes, k5_err, k5_bitwise = k5_phase(torch, spmv, {
+        "L5": (fine5.op, fine5.op_bf16, fine5.aux),
+        "L1": (fine1.op, spmv.packed_operator(fine1.op), fine1.aux)}, device, card)
+
+    spmv.LAUNCHES.clear()
+    v1, v_first = timed(torch, run5)
+    l5_launches = dict(spmv.LAUNCHES)
+    v2, v_warm = timed(torch, run5)
+    b1, b2 = tsx._df32_result(v1, mesh5, ex5), tsx._df32_result(v2, mesh5, ex5)
+    check(b1.u.shape == (mesh5.n_nodes, 2) and b1.ep.shape[0] == 4
+          and b1.ep.shape[1] >= mesh5.n_elems, f"scale L5: shapes {b1.u.shape} {b1.ep.shape}")
+    check(bool(np.isfinite(b1.u).all() and np.isfinite(b1.ep).all()), "scale L5: non-finite field")
+    check(b1.n_steps == 17, f"scale L5: {b1.n_steps} steps")
+    l5_rel = abs(float(b1.u[40, 0]) - ANCHOR_U40_SCALE_L5) / abs(ANCHOR_U40_SCALE_L5)
+    check(l5_rel <= 1e-6, f"scale L5: u40 {float(b1.u[40, 0])!r} is {l5_rel:.3e} from the anchor")
+    check(counts4(b1) == counts4(b2), "scale L5: two runs differ in their counts")
+    check(torch.equal(v1.u, v2.u), "scale L5: two runs differ in u")
+    check_scale_launches("scale L5", l5_launches, SCALE_KERNELS + ("block_jacobi_sweep_bf16",))
+    say("scale L5", f"steps / Newton / CG / plastic {counts4(b1)} (JAX package's record "
+        f"{JAX_COUNTS_SCALE_L5} steps / Newton / CG), u40 {b1.u[40, 0]:.9e} (rel {l5_rel:.3e} "
+        f"to {ANCHOR_U40_SCALE_L5}), launches {l5_launches}, repeat bit-identical, wall first "
+        f"{v_first:.3f} s warm {v_warm:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
+        f"| {card}")
+
     l0 = ("G_L0", "S_L0")
+    by_path = lambda name, **paths: {k: v.get(name, 0) for k, v in paths.items()}  # noqa: E731
     main_k2 = k2_shapes["n896_float32_noep"]  # one Newton-iteration call of the f32 paths
-    print(json.dumps({"card": card, "kernels": [{
+    kernels = [{
         "name": "csr_spmv_f64",
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f64.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1370",
-        "launches": launches.get("csr_spmv_f64", 0) + l1_launches["csr_spmv_f64"]
-        + l4_launches["csr_spmv_f64"],
-        "launches_by_path": {"bench": launches.get("csr_spmv_f64", 0),
-                             "scale_L1": l1_launches["csr_spmv_f64"],
-                             "scale_L4": l4_launches["csr_spmv_f64"]},
+        "launches_by_path": by_path("csr_spmv_f64", bench=launches, scale_L1=l1_launches,
+                                    scale_L4=l4_launches, scale_ELL_L1=e1_launches,
+                                    scale_ELL_L4=e4_launches, scale_L5=l5_launches),
         "max_abs_err": k1_err,
         # one residual evaluation of the main path: G u then S s, level 0
         "ms": sum(k1_shapes[k]["ms"] for k in l0),
@@ -612,9 +900,9 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
-        "launches": l1_launches["csr_spmv_f32"] + l4_launches["csr_spmv_f32"],
-        "launches_by_path": {"scale_L1": l1_launches["csr_spmv_f32"],
-                             "scale_L4": l4_launches["csr_spmv_f32"]},
+        "launches_by_path": by_path("csr_spmv_f32", scale_L1=l1_launches, scale_L4=l4_launches,
+                                    scale_ELL_L1=e1_launches, scale_ELL_L4=e4_launches,
+                                    scale_L5=l5_launches),
         "max_abs_err": k3_err,
         # the CG operator of the level-4 solve
         "ms": k3_shapes["K_L4"]["ms"],
@@ -628,9 +916,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
-        "launches": l1_launches["block_jacobi_sweep"] + l4_launches["block_jacobi_sweep"],
-        "launches_by_path": {"scale_L1": l1_launches["block_jacobi_sweep"],
-                             "scale_L4": l4_launches["block_jacobi_sweep"]},
+        "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
+                                    scale_L4=l4_launches, scale_L5=l5_launches),
         "max_abs_err": k4_err,
         # one smoother sweep on the fine level of the level-4 solve
         "ms": k4_shapes["L4_update"]["ms"],
@@ -641,7 +928,61 @@ def main() -> int:
         # the masked 2x2 block update
         "library_ms": None,
         "shapes": k4_shapes,
-    }]}), flush=True)
+    }, {
+        "name": "block_jacobi_sweep_bf16",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1936",
+        "launches_by_path": by_path("block_jacobi_sweep_bf16", scale_L5=l5_launches),
+        "max_abs_err": k5_err,
+        # one smoother sweep on the fine level of the level-5 solve
+        "ms": k5_shapes["L5_update"]["ms"],
+        "plain_ms": k5_shapes["L5_update"]["plain_ms"],
+        "bound_ms": k5_shapes["L5_update"]["bound_ms"],
+        "bound_by": k5_shapes["L5_update"]["bound_by"],
+        # no single PyTorch call computes the sweep
+        "library_ms": None,
+        "k4_f32_ms_same_operator": k5_shapes["L5_update"]["k4_f32_ms"],
+        "bitwise_equal_to_k4_on_widened_values": k5_bitwise,
+        "shapes": k5_shapes,
+    }, {
+        "name": "ell_spmv_f32",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:417",
+        "launches_by_path": by_path("ell_spmv_f32", scale_ELL_L1=e1_launches,
+                                    scale_ELL_L4=e4_launches),
+        "max_abs_err": k6_err["float32"],
+        # the CG operator of the level-4 ELL solve
+        "ms": k6_shapes["K_L4"]["ms"],
+        "plain_ms": k6_shapes["K_L4"]["plain_ms"],
+        "bound_ms": k6_shapes["K_L4"]["bound_ms"],
+        "bound_by": k6_shapes["K_L4"]["bound_by"],
+        "library_ms": k6_shapes["K_L4"]["library_ms"],
+        "csr_kernel_ms_same_operator": k6_shapes["K_L4"]["csr_kernel_ms"],
+        "shapes": {k: v for k, v in k6_shapes.items() if v["dtype"] == "float32"},
+    }, {
+        "name": "ell_spmv_f64",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:902",
+        "launches_by_path": by_path("ell_spmv_f64", scale_ELL_L1=e1_launches,
+                                    scale_ELL_L4=e4_launches),
+        "max_abs_err": k6_err["float64"],
+        # one residual evaluation of the level-4 ELL solve: G u, then S s
+        "ms": k6_shapes["G_L4"]["ms"] + k6_shapes["S_L4"]["ms"],
+        "plain_ms": k6_shapes["G_L4"]["plain_ms"] + k6_shapes["S_L4"]["plain_ms"],
+        "bound_ms": k6_shapes["G_L4"]["bound_ms"] + k6_shapes["S_L4"]["bound_ms"],
+        "bound_by": ("bytes" if {k6_shapes["G_L4"]["bound_by"], k6_shapes["S_L4"]["bound_by"]}
+                     == {"bytes"} else "operations"),
+        "library_ms": k6_shapes["G_L4"]["library_ms"] + k6_shapes["S_L4"]["library_ms"],
+        "csr_kernel_ms_same_operator": (k6_shapes["G_L4"]["csr_kernel_ms"]
+                                        + k6_shapes["S_L4"]["csr_kernel_ms"]),
+        "shapes": {k: v for k, v in k6_shapes.items() if v["dtype"] == "float64"},
+    }]
+    for k in kernels:  # launches on the main paths, all paths together
+        k.setdefault("launches", sum(k["launches_by_path"].values()))
+    print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

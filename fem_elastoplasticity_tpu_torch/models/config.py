@@ -6,8 +6,12 @@ a configuration reads the same in both packages.  The port runs P1
 elements: with the dense solver the tsx in the "native" f64 and f32 and the
 "df32" precisions and the footing in native f64 and f32; with
 `solver="ell"` (multigrid-preconditioned CG on assembled operators,
-`TsxTunnelConfig.fast_scale`) the tsx in df32 on refined meshes.  A field
-whose value selects something the port does not implement raises
+`TsxTunnelConfig.fast_scale`) the tsx in df32 on refined meshes, with the
+hierarchy in CSR (`spmv_fmt="slot"`) or ELL (`"ell"`), the residual
+operators in CSR or ELL (`residual_fmt`), and the plastic tangent
+correction scattered into the operator's values once a Newton iteration
+(`corr_mode="scatter"`) or gathered in every CG product (`"gather"`).  A
+field whose value selects something the port does not implement raises
 NotImplementedError when the config is built; no field is ignored.
 """
 from __future__ import annotations
@@ -21,18 +25,16 @@ from ..utils.precision import dtype_policy
 
 # fields of paths that later slices port: only their defaults are accepted
 _NOT_PORTED = dict(
-    spmv_fmt="slot",
     gs_tangent=None,
-    residual_fmt=None,
     cg_structure="while",
     cg_deflate=0,
     mg_cycle="v",
-    ell_overflow_frac=0.005,
     support_pressure=0.0,
 )
 # fields that only the multigrid-CG path (solver="ell") reads: with the
 # dense solver only their defaults are accepted
 _ELL_ONLY = dict(
+    spmv_fmt="slot",
     corr_mode="gather",
     predictor_ir_iters=4,
     cg_tol=None,
@@ -99,11 +101,23 @@ class TsxTunnelConfig:
                 raise NotImplementedError(f"TsxTunnelConfig.{name}={getattr(self, name)!r}")
         if self.etype != ElementType.P1:
             raise NotImplementedError(f"TsxTunnelConfig.etype={self.etype}")
+        if self.spmv_fmt not in ("slot", "ell"):
+            raise NotImplementedError(f"TsxTunnelConfig.spmv_fmt={self.spmv_fmt!r}")
+        if self.residual_fmt not in (None, "ell"):
+            raise NotImplementedError(f"TsxTunnelConfig.residual_fmt={self.residual_fmt!r}")
+        if not 0.0 <= self.ell_overflow_frac < 1.0:
+            raise ValueError(f"ell_overflow_frac {self.ell_overflow_frac!r} not in [0, 1)")
         if self.solver == "ell":
-            # the ported assembled path: static-structure tangent refresh on
-            # a refined mesh, df32 state
-            if self.corr_mode != "scatter":
-                raise NotImplementedError(f"TsxTunnelConfig.corr_mode={self.corr_mode!r}")
+            # the ported assembled path: a refined mesh, df32 state
+            if self.corr_mode not in ("scatter", "gather"):
+                raise ValueError(f"corr_mode {self.corr_mode!r} not in ('scatter', 'gather')")
+            if self.spmv_fmt == "ell" and self.corr_mode == "scatter":
+                # the JAX package fails on this pair as well: its
+                # element_corr_dest reads meta.n_sb, which EllMeta lacks
+                raise ValueError(
+                    "spmv_fmt='ell' needs corr_mode='gather': the scatter refresh "
+                    "writes into a CSR value array"
+                )
             if self.refine_levels < 1:
                 raise NotImplementedError("solver='ell' needs refine_levels >= 1")
             if self.precision != "df32":
@@ -116,6 +130,10 @@ class TsxTunnelConfig:
                     raise NotImplementedError(
                         f"TsxTunnelConfig.{name}={getattr(self, name)!r} with solver='dense'"
                     )
+            if self.residual_fmt is not None and not self.assembled_cg:
+                # the dense path builds residual operators only for assembled_cg
+                raise NotImplementedError("residual_fmt='ell' with solver='dense' needs "
+                                          "assembled_cg=True")
         else:
             raise NotImplementedError(f"TsxTunnelConfig.solver={self.solver!r}")
         if self.dense_mode not in ("f64", "mixed"):
@@ -151,7 +169,8 @@ class TsxTunnelConfig:
         cg_tol 1e-5, preconditioned by a geometric multigrid V-cycle on
         assembled operators (solver="ell"), with the static-structure
         tangent refresh, 3 refinement passes of the elastic predictor and
-        Eisenstat-Walker forcing from 1e-2."""
+        Eisenstat-Walker forcing from 1e-2.  With spmv_fmt="ell" pass
+        corr_mode="gather" too: the refresh needs the CSR format."""
         kw.setdefault("solver", "ell")
         kw.setdefault("cg_tol", 1e-5)
         kw.setdefault("cg_maxiter", 200)

@@ -7,7 +7,9 @@ return map in kernel K2), or, for `precision="df32"`, `build_df32`: the
 bench preset on the dense solver, and on refined meshes the scale preset
 (`TsxTunnelConfig.fast_scale`, `solver="ell"`), whose tangent solves are CG
 preconditioned by a multigrid V-cycle on assembled operators (kernels K3
-and K4, the residual through K1).  Anchors: 17 accepted load steps, 28
+and K4, K5 on the levels of 500,000 rows or more, the residual through K1;
+K6 for every operator with `spmv_fmt="ell"` and `residual_fmt="ell"`).
+Anchors: 17 accepted load steps, 28
 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
 reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
 level 1 reaches 17 steps and u[40, 0] = -2.166787295662e-03.
@@ -31,7 +33,7 @@ from ..ops import assembly as asm
 from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import ElementType, volume_element
-from ..ops.spmv import build_residual_csr, csr_matvec, csr_to_device
+from ..ops.spmv import build_ell, build_residual_csr, csr_to_device, sp_matvec
 from ..solve import multigrid as mgm
 from ..solve.cg import solve_cg
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
@@ -191,13 +193,25 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     return _result(res, p.mesh)
 
 
-def _residual_csr(geom: asm.Geometry, device):
-    """The f64 strain and force operators (G, S) of `geom` on `device`."""
+def _residual_ops(geom: asm.Geometry, device, fmt: Optional[str] = None,
+                  max_overflow_frac: float = 0.005):
+    """The f64 strain and force operators (G, S) of `geom` on `device`: CSR,
+    or with fmt="ell" (`build_residual_slot_df(fmt="ell")`) G as one ELL
+    operator and S as three, one for each strain component's block of
+    columns (component-major integration points), which `sp_matvec` sums."""
     G, S = build_residual_csr(
         geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
         geom.n_q, geom.n_nodes,
     )
-    return csr_to_device(G, device), csr_to_device(S, device)
+    if fmt is None:
+        return csr_to_device(G, device), csr_to_device(S, device)
+    n_int = geom.n_int
+    parts = tuple(
+        build_ell(S[:, a * n_int:(a + 1) * n_int], device, np.float64, max_overflow_frac)
+        for a in range(3)
+    )
+    return (build_ell(G, device, np.float64, max_overflow_frac),
+            spmv.SplitCols(parts=parts, shape=S.shape))
 
 
 def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
@@ -210,7 +224,7 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         base_coords, base_elems = raw["coords"].astype(np.float64), raw["elems"]
     hier, perms, coarse = mgm.build_hierarchy_ell(
         base_coords, base_elems, cfg.refine_levels, _free_of, shear, bulk,
-        volume_element(cfg.etype), device=device,
+        volume_element(cfg.etype), device=device, fmt=cfg.spmv_fmt,
     )
     mesh_ref = tsx_mesh(cfg.etype, cfg.refine_levels)
     order = np.argsort(np.asarray(perms[-1]), kind="stable")
@@ -236,18 +250,24 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         extras["reference_mesh"] = mesh_ref
         extras["monitor_node"] = monitor_node
         extras["hierarchy"] = hier
-    # static plastic-slot cap of the tangent refresh: observed plastic
-    # fractions are under 1% (1,477 of 227,072 points at level 4); 1/64 with
-    # a floor of 1024 leaves more than twice that
+    # static plastic-slot cap of the tangent correction (the JAX package's
+    # formula, `models/tsx_tunnel.py:491`): observed plastic fractions are
+    # under 1% (1,477 of 227,072 points at level 4); 1/64 with a floor of
+    # 1024 leaves more than twice that (14,192 slots of the 908,288 points
+    # of level 5)
     plastic_cap = min(n_int, max(1024, n_int // 64))
-    residual_op = _residual_csr(geom, device)
+    residual_op = _residual_ops(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+    if extras is not None:
+        extras["residual_op"] = residual_op
     fine = hier.levels[-1]
-    # the table indexes the exact CSR the fine operator was made from; its
-    # rows follow the sorted element order of the run-time geometry
-    corr_dest = torch.as_tensor(
-        spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"]),
-        device=device,
-    )
+    corr_dest = None
+    if cfg.corr_mode == "scatter":
+        # the table indexes the exact CSR the fine operator was made from;
+        # its rows follow the sorted element order of the run-time geometry
+        corr_dest = torch.as_tensor(
+            spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"]),
+            device=device,
+        )
     free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
     cg_tol = cfg.cg_tol if cfg.cg_tol is not None else 2e-7
     pre = mgm.make_vcycle_ell(hier, nu=cfg.mg_nu, cycle=cfg.mg_cycle)
@@ -256,13 +276,13 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
             s0_field = p.s0[:3, None].expand(3, n_int)
-            f0 = csr_matvec(residual_op[1], s0_field.reshape(-1))
+            f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
             # elastic predictor K u = -F0: CG on the assembled fine operator
             # as the f32 inner solve, refined against the f64 residual
             u_elast = adf.refine_elastic_solve_with(
                 lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk),
                 lambda r32: solve_cg(
-                    lambda v: csr_matvec(fine.op, v), r32, free_mask, precond=pre,
+                    lambda v: sp_matvec(fine.op, v), r32, free_mask, precond=pre,
                     tol=cg_tol, maxiter=cfg.cg_maxiter,
                 ).x,
                 zero_u, -f0, iters=cfg.predictor_ir_iters,
@@ -289,8 +309,9 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     """Build the df32 solver: returns (run, mesh).
 
     Host setup happens here: the mesh, the f64 geometry, the dense
-    assembly plan and, with `assembled_cg`, the f64 CSR strain and force
-    operators G/S that the Newton residual applies through kernel K1.
+    assembly plan and, with `assembled_cg`, the f64 strain and force
+    operators G/S that the Newton residual applies through kernel K1 (K6
+    with `residual_fmt="ell"`).
     `run(resume=None)` does the device work of one solve: the initial-stress
     force, the f32 elastic K_free with its Cholesky factor and its
     Jacobi-scaled explicit inverse Ki, the elastic predictor (skipped on
@@ -298,11 +319,15 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     (`solve.newton.carry_of`, `utils.convert.carry_from_jax`).
 
     `solver="ell"` (`TsxTunnelConfig.fast_scale`): the setup also builds the
-    multigrid hierarchy and permutes the problem onto its fine ordering, so
+    multigrid hierarchy (in `cfg.spmv_fmt`, its levels of 500,000 rows or
+    more packed to bf16 on the slot format) and, with corr_mode="scatter",
+    the tangent refresh's table, and permutes the problem onto the
+    hierarchy's fine ordering, so
     `mesh` and the run's result are in that ordering.  `extras`, if given,
     receives what `_df32_result` needs to restore the reference order:
     `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them the
-    permuted `monitor_node` and the device `hierarchy`.
+    permuted `monitor_node`, the device `hierarchy` and the residual
+    operators `residual_op` (G, S).
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
@@ -314,12 +339,15 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     geom = p.geom
     geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
     n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
-    residual_op = _residual_csr(geom, device) if cfg.assembled_cg else None
+    residual_op = (
+        _residual_ops(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+        if cfg.assembled_cg else None
+    )
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         s0_field = p.s0[:3, None].expand(3, n_int)
         if residual_op is not None:
-            f0 = csr_matvec(residual_op[1], s0_field.reshape(-1))
+            f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
             apply_fn = lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk)  # noqa: E731
         else:
             f0 = asm.internal_force(geom, s0_field)

@@ -377,3 +377,30 @@ def plastic_correction_gather(
     wdelta = delta[:, :, idx] * w
     edp = geom.edofs_t[:, idx // geom.n_q]
     return Bp, wdelta, edp
+
+
+def plastic_correction_apply(
+    Bp: torch.Tensor, wdelta: torch.Tensor, edp: torch.Tensor, n_dofs: int, v: torch.Tensor
+) -> torch.Tensor:
+    """(K_tangent - K_elastic) v over the gathered plastic slots.
+
+    The contraction B^T (w delta) B v of `tangent_matvec` restricted to the
+    slot set: gather v at the slots' element DOFs as (x, y) node pairs,
+    strain, apply the tangent deviation, and sum B^T back into the nodes.
+    Points of neighbouring elements share nodes; the accumulating
+    `index_put_` adds each node's contributions in a fixed order (on the
+    card it sorts the destinations; an atomic `index_add_` would add them
+    in an order that changes from run to run).  Bp (3, 2n_p, P), wdelta
+    (3, 3, P), edp (2n_p, P): `plastic_correction_gather`.
+    """
+    n2p, P = edp.shape
+    en = edp[0::2] // 2  # (n_p, P) node ids
+    ue = v.reshape(-1, 2)[en]  # (n_p, P, 2)
+    ue = ue.permute(0, 2, 1).reshape(n2p, P)  # interleaved (2n_p, P)
+    e3 = (Bp * ue[None, :, :]).sum(dim=1)  # (3, P)
+    s3 = (wdelta * e3[None, :, :]).sum(dim=1)  # (3, P)
+    fk = (Bp * s3[:, None, :]).sum(dim=0)  # (2n_p, P)
+    fk2 = fk.reshape(n2p // 2, 2, P).permute(0, 2, 1).reshape(-1, 2)
+    out = v.new_zeros((n_dofs // 2, 2))
+    out.index_put_((en.reshape(-1),), fk2, accumulate=True)
+    return out.reshape(-1)

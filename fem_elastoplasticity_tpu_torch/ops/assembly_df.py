@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import assembly as asm
-from .spmv import CsrMatrix, csr_matvec
+from .spmv import sp_matvec
 
 
 def split_f64_np(x) -> tuple:
@@ -42,10 +42,11 @@ def elastic_apply(geom: asm.Geometry, u: torch.Tensor, shear: float, bulk: float
     return asm.internal_force(geom, elastic_stress(asm.strains(geom, u), shear, bulk))
 
 
-def elastic_apply_csr(G: CsrMatrix, S: CsrMatrix, u: torch.Tensor, shear: float, bulk: float):
-    """Assembled K_el u = S(D_el (G u)) through K1 (`elastic_apply_slot_df`)."""
-    e = csr_matvec(G, u).reshape(3, -1)
-    return csr_matvec(S, elastic_stress(e, shear, bulk).reshape(-1))
+def elastic_apply_csr(G, S, u: torch.Tensor, shear: float, bulk: float):
+    """Assembled K_el u = S(D_el (G u)) through K1, or K6 on ELL operators
+    (`elastic_apply_slot_df`).  G, S: the residual operators (`ops.spmv`)."""
+    e = sp_matvec(G, u).reshape(3, -1)
+    return sp_matvec(S, elastic_stress(e, shear, bulk).reshape(-1))
 
 
 def refine_elastic_solve_with(

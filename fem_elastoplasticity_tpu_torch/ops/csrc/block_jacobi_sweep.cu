@@ -1,9 +1,12 @@
-// One fused damped block-Jacobi smoother sweep on an f32 CSR operator with
-// 2x2 nodal blocks, on Hopper (sm_90a).
+// One fused damped block-Jacobi smoother sweep on a CSR operator with 2x2
+// nodal blocks, on Hopper (sm_90a): f32 values (K4) or bf16 values (K5).
 //
-// Replaces the fused sweep of the JAX package
+// K4 replaces the fused sweep of the JAX package
 // (fem_elastoplasticity_tpu/ops/spmv.py: slot_sweep and slot_sweep_b, kernels
-// _slot_sweep_kernel and _rslot_sweep_kernel).  For DOF i = 2k+c of node k:
+// _slot_sweep_kernel and _rslot_sweep_kernel); K5 replaces its packed-stream
+// variant (slot_sweep_pk, with _accum_pk), which smooths the hierarchy
+// levels of 500,000 rows or more from bf16 values.  For DOF i = 2k+c of
+// node k:
 //
 //   res_i = (r_i - sum_j A_ij z_j) * mask_i
 //   out_i = z_i + (msf_i * res_i + mpr_i * res_partner) * mask_i   (update)
@@ -22,32 +25,50 @@
 // plain PyTorch version differ only by the summation order of the row
 // product.  No atomics: two launches give bit-identical output.
 //
+// K5 reads the same int32 CSR structure as K4 and a separate array of bf16
+// values (the f32 values rounded to nearest even).  A bf16 is the top half
+// of the f32 of the same value, so the kernel widens it by a 16-bit shift,
+// exactly, and computes in f32 as K4 does: on bf16-rounded values the two
+// instances give the same bits.  The TPU kernel also packs its lane index
+// into a byte, which is tile geometry and has no counterpart here.
+//
 // What bounds it: memory.  The operator's values and indices (8 bytes an
-// entry) dominate; z is gathered from L2; r, mask, msf, mpr are read once and
-// out is written once.
+// entry for K4, 6 for K5) dominate; z is gathered from L2; r, mask, msf, mpr
+// are read once and out is written once.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+__device__ __forceinline__ float load_value(const float* __restrict__ values, int k) {
+  return values[k];
+}
+
+__device__ __forceinline__ float load_value(const unsigned short* __restrict__ values,
+                                            int k) {
+  return __uint_as_float(static_cast<unsigned>(values[k]) << 16);
+}
+
+template <typename V>
 __device__ __forceinline__ float row_product(int row,
                                              const int* __restrict__ indptr,
                                              const int* __restrict__ indices,
-                                             const float* __restrict__ values,
+                                             const V* __restrict__ values,
                                              const float* __restrict__ z) {
   const int begin = indptr[row];
   const int end = indptr[row + 1];
   float acc = 0.0f;
   for (int k = begin; k < end; ++k) {
-    acc = __fadd_rn(acc, __fmul_rn(values[k], __ldg(z + indices[k])));
+    acc = __fadd_rn(acc, __fmul_rn(load_value(values, k), __ldg(z + indices[k])));
   }
   return acc;
 }
 
+template <typename V>
 __global__ void block_jacobi_sweep_kernel(int n_nodes,
                                           const int* __restrict__ indptr,
                                           const int* __restrict__ indices,
-                                          const float* __restrict__ values,
+                                          const V* __restrict__ values,
                                           const float* __restrict__ z,
                                           const float* __restrict__ r,
                                           const float* __restrict__ mask,
@@ -83,9 +104,20 @@ __global__ void block_jacobi_sweep_kernel(int n_nodes,
 
 constexpr int kThreads = 128;
 
+template <typename V>
+int launch(int n_nodes, const int* indptr, const int* indices, const V* values,
+           const float* z, const float* r, const float* mask, const float* msf,
+           const float* mpr, float* out, int update, void* stream) {
+  if (n_nodes <= 0) return 0;
+  const int blocks = (n_nodes + kThreads - 1) / kThreads;
+  block_jacobi_sweep_kernel<V><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      n_nodes, indptr, indices, values, z, r, mask, msf, mpr, out, update);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t passed as a pointer) and returns the
+// Both launch on `stream` (a cudaStream_t passed as a pointer) and return the
 // cudaError_t of the launch; 0 means the kernel was queued.  All vectors have
 // 2*n_nodes entries; PyTorch allocations are aligned for the float2 accesses.
 extern "C" int block_jacobi_sweep(int n_nodes, const int* indptr,
@@ -94,10 +126,16 @@ extern "C" int block_jacobi_sweep(int n_nodes, const int* indptr,
                                   const float* mask, const float* msf,
                                   const float* mpr, float* out, int update,
                                   void* stream) {
-  if (n_nodes <= 0) return 0;
-  const int blocks = (n_nodes + kThreads - 1) / kThreads;
-  block_jacobi_sweep_kernel<<<blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      n_nodes, indptr, indices, values, z, r, mask, msf, mpr, out, update);
-  return static_cast<int>(cudaGetLastError());
+  return launch(n_nodes, indptr, indices, values, z, r, mask, msf, mpr, out, update, stream);
+}
+
+// K5: `values` are bf16 bit patterns (torch.bfloat16 storage).
+extern "C" int block_jacobi_sweep_bf16(int n_nodes, const int* indptr,
+                                       const int* indices,
+                                       const unsigned short* values,
+                                       const float* z, const float* r,
+                                       const float* mask, const float* msf,
+                                       const float* mpr, float* out, int update,
+                                       void* stream) {
+  return launch(n_nodes, indptr, indices, values, z, r, mask, msf, mpr, out, update, stream);
 }

@@ -1,4 +1,5 @@
-"""Assembled sparse operators: host CSR assembly and the kernels K1, K3, K4.
+"""Assembled sparse operators: host CSR and ELL assembly and the kernels
+K1, K3, K4, K5 and K6.
 
 Port of `fem_elastoplasticity_tpu/ops/spmv.py`.
 
@@ -11,10 +12,13 @@ Host half (NumPy/SciPy, copies of the JAX package's setup code):
   CSR, `build_residual_csr` is `build_residual_slot_df`
   (`spmv.py:1005-1085`) up to its CSR matrices;
 * `element_corr_dest` (`spmv.py:610-636`) gives, per element, the index
-  into the CSR value array of each entry of its stiffness block.
+  into the CSR value array of each entry of its stiffness block;
+* `build_ell` is `build_ell` / `build_ell_df` (`spmv.py:178`, `:787`) with
+  the JAX package's row-degree cap and without its 128-lane window.
 
-The slot packing (`_slot_pack`, `_ragged_pack`, `slot_csr_positions`) is
-TPU tile geometry and is not carried over: the card takes the CSR as it is.
+The slot packing (`_slot_pack`, `_ragged_pack`, `slot_csr_positions`,
+`pack_slot_bf16`'s byte-wide lane index) is TPU tile geometry and is not
+carried over: the card takes the CSR as it is.
 
 Device half:
 
@@ -23,17 +27,27 @@ Device half:
   `slot_matvec` (`spmv.py:1431`) for f32 values, kernel K3
   `csrc/csr_spmv_f32.cu`;
 * `block_jacobi_sweep` replaces `slot_sweep` / `slot_sweep_b`
-  (`spmv.py:1610`, `:1699`), kernel K4 `csrc/block_jacobi_sweep.cu`, with
-  `sweep_aux` for `build_sweep_aux` (`spmv.py:1583`).
+  (`spmv.py:1610`, `:1699`), kernel K4, on an operator with f32 values,
+  and `slot_sweep_pk` (`spmv.py:1936`), kernel K5, on one with bf16 values
+  (`packed_operator`); both are in `csrc/block_jacobi_sweep.cu`, with
+  `sweep_aux` for `build_sweep_aux` (`spmv.py:1583`); `packed_matvec`
+  replaces `slot_matvec_pk` (`spmv.py:1909`) through K5;
+* `ell_matvec` replaces `ell_matvec` / `ell_matvec_df` (`spmv.py:417`,
+  `:902`), kernel K6 `csrc/ell_spmv.cu` (f32 and f64), its spilled entries
+  through K3 / K1;
+* `sp_matvec` dispatches on the operator type, as `sp_matvec` /
+  `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix`, `EllMatrix`, and
+  `SplitCols` (the column-split S operator of `residual_fmt="ell"`).
 
 On a CUDA tensor a wrapper launches its hand-written kernel; on a CPU
 tensor it runs the plain PyTorch version beside it.  It never falls back
 from one to the other.
 
 `LAUNCHES` counts, per process, kernel launches ("csr_spmv_f64",
-"csr_spmv_f32", "block_jacobi_sweep") and calls routed to a plain version
-(the same names with "_plain").  A run shows that it went through the
-kernels by clearing the counts before it and reading them after.
+"csr_spmv_f32", "block_jacobi_sweep", "block_jacobi_sweep_bf16",
+"ell_spmv_f32", "ell_spmv_f64") and calls routed to a plain version (the
+same names with "_plain").  A run shows that it went through the kernels
+by clearing the counts before it and reading them after.
 """
 from __future__ import annotations
 
@@ -53,6 +67,7 @@ _CSRC = pathlib.Path(__file__).parent / "csrc"
 KERNEL_SOURCE = _CSRC / "csr_spmv_f64.cu"
 KERNEL_SOURCE_F32 = _CSRC / "csr_spmv_f32.cu"
 SWEEP_SOURCE = _CSRC / "block_jacobi_sweep.cu"
+ELL_SOURCE = _CSRC / "ell_spmv.cu"
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -78,6 +93,8 @@ def csr_to_device(A: sp.csr_matrix, device, dtype=np.float64) -> CsrMatrix:
     Explicit zeros stay: the tangent refresh scatters into them."""
     A = sp.csr_matrix(A)
     A.sort_indices()
+    # int32 structure: the level-5 G has 2.7 M rows and 11 M entries
+    assert max(A.nnz, *A.shape) < np.iinfo(np.int32).max, "CSR too large for int32 indices"
     return CsrMatrix(
         indptr=torch.as_tensor(A.indptr.astype(np.int32), device=device),
         indices=torch.as_tensor(A.indices.astype(np.int32), device=device),
@@ -334,10 +351,20 @@ def _library_sweep() -> ctypes.CDLL:
     from ..utils.cuda_build import build_library
 
     lib = build_library(SWEEP_SOURCE, "block_jacobi_sweep", ("-fmad=false",))
-    lib.block_jacobi_sweep.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
-    )
-    lib.block_jacobi_sweep.restype = ctypes.c_int
+    for fn in (lib.block_jacobi_sweep, lib.block_jacobi_sweep_bf16):
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_ell() -> ctypes.CDLL:
+    from ..utils.cuda_build import build_library
+
+    lib = build_library(ELL_SOURCE, "ell_spmv", ("-fmad=false",))
+    for fn in (lib.ell_spmv_f32, lib.ell_spmv_f64):
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -352,20 +379,26 @@ def load_kernel_f32() -> None:
 
 
 def load_sweep_kernel() -> None:
-    """Build (first use) and load K4; raises if the build fails."""
+    """Build (first use) and load K4 and K5; raises if the build fails."""
     _library_sweep()
 
 
-def _check_csr(name: str, A: CsrMatrix, x: torch.Tensor, dtype: torch.dtype, extra=()):
+def load_ell_kernel() -> None:
+    """Build (first use) and load K6; raises if the build fails."""
+    _library_ell()
+
+
+def _check_csr(name: str, A: CsrMatrix, x: torch.Tensor, dtype: torch.dtype, extra=(),
+               values_dtype: Optional[torch.dtype] = None):
     """Raise unless A, x and the `extra` (name, tensor, shape) vectors are
-    contiguous tensors of `dtype` (int32 for the structure) on x's CUDA
-    device with consistent shapes."""
+    contiguous tensors of `dtype` (int32 for the structure, `values_dtype`
+    for A's values if given) on x's CUDA device with consistent shapes."""
     if not x.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor; got one on {x.device}")
     named = [
         ("indptr", A.indptr, torch.int32, (A.n_rows + 1,)),
         ("indices", A.indices, torch.int32, tuple(A.values.shape)),
-        ("values", A.values, dtype, tuple(A.indices.shape)),
+        ("values", A.values, values_dtype or dtype, tuple(A.indices.shape)),
         ("x", x, dtype, (A.shape[1],)),
     ] + [(n, t, dtype, shape) for n, t, shape in extra]
     for nm, t, dt, shape in named:
@@ -451,11 +484,26 @@ def sweep_aux(inv: np.ndarray, free_flat: np.ndarray, device) -> SweepAux:
     )
 
 
+# the sweep's kernel, by the operator's value type
+SWEEP_KERNELS = {torch.float32: "block_jacobi_sweep", torch.bfloat16: "block_jacobi_sweep_bf16"}
+
+
+def packed_operator(A: CsrMatrix) -> CsrMatrix:
+    """A's structure with its f32 values rounded to bf16 (nearest even), the
+    value stream of K5 (`pack_slot_bf16` without its tile packing)."""
+    if A.values.dtype != torch.float32:
+        raise ValueError(f"packed_operator needs f32 values; got {A.values.dtype}")
+    return A._replace(values=A.values.to(torch.bfloat16))
+
+
 def block_jacobi_sweep_plain(
     A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
     """Plain PyTorch sweep: res = mask (r - A z); with `update`
-    z + mask (msf res + mpr res_partner), else res."""
+    z + mask (msf res + mpr res_partner), else res.  bf16 values are
+    widened to f32 (exactly) and the arithmetic is f32."""
+    if A.values.dtype == torch.bfloat16:
+        A = A._replace(values=A.values.to(torch.float32))
     res = (r - csr_matvec_plain(A, z)) * aux.mask
     if not update:
         return res
@@ -467,47 +515,231 @@ def block_jacobi_sweep_cuda(
     A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor,
     update: bool = True, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch K4 on z's device and PyTorch's current stream; no sync.
+    """Launch K4 (f32 values) or K5 (bf16 values) on z's device and
+    PyTorch's current stream; no sync.
 
     The sweep is Jacobi: every row reads the old z, so `out` (allocated
     here unless given) must not share memory with z.
     """
     if not z.is_cuda:
         raise ValueError(f"block_jacobi_sweep needs a CUDA tensor; got one on {z.device}")
+    name = SWEEP_KERNELS.get(A.values.dtype)
+    if name is None:
+        raise ValueError(f"block_jacobi_sweep: no kernel for {A.values.dtype} values")
     n2 = A.n_rows
     if A.shape[0] != A.shape[1] or n2 % 2:
-        raise ValueError(f"block_jacobi_sweep: operator {A.shape} is not square with 2x2 blocks")
+        raise ValueError(f"{name}: operator {A.shape} is not square with 2x2 blocks")
     vecs = [("r", r, (n2,)), ("mask", aux.mask, (n2,)), ("msf", aux.msf, (n2,)),
             ("mpr", aux.mpr, (n2,))]
     if out is None:
         out = torch.empty(n2, dtype=torch.float32, device=z.device)
     else:
         vecs.append(("out", out, (n2,)))
-    _check_csr("block_jacobi_sweep", A, z, torch.float32, vecs)
+    _check_csr(name, A, z, torch.float32, vecs, values_dtype=A.values.dtype)
     if out.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
-        raise ValueError("block_jacobi_sweep: out must not alias z")
+        raise ValueError(f"{name}: out must not alias z")
     if any(t.data_ptr() % 8 for t in (z, r, out, *aux)):
-        raise ValueError("block_jacobi_sweep: vectors must be 8-byte aligned")
+        raise ValueError(f"{name}: vectors must be 8-byte aligned")
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    err = _library_sweep().block_jacobi_sweep(
+    err = getattr(_library_sweep(), name)(
         n2 // 2, A.indptr.data_ptr(), A.indices.data_ptr(), A.values.data_ptr(),
         z.data_ptr(), r.data_ptr(), aux.mask.data_ptr(), aux.msf.data_ptr(),
         aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)), stream,
     )
     if err != 0:
-        raise RuntimeError(f"block_jacobi_sweep launch failed: cudaError_t {err}")
-    LAUNCHES["block_jacobi_sweep"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
     return out
 
 
 def block_jacobi_sweep(
     A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
-    """One fused smoother sweep, or the masked residual, on a square f32
-    operator: K4 on a CUDA tensor, the plain version on a CPU tensor."""
+    """One fused smoother sweep, or the masked residual, on a square
+    operator with f32 values (K4) or bf16 values (K5): the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if z.is_cuda:
         return block_jacobi_sweep_cuda(A, aux, z, r, update)
     if z.device.type != "cpu":
         raise ValueError(f"block_jacobi_sweep: no route for device {z.device}")
-    LAUNCHES["block_jacobi_sweep_plain"] += 1
+    name = SWEEP_KERNELS.get(A.values.dtype)
+    if name is None:
+        raise ValueError(f"block_jacobi_sweep: no kernel for {A.values.dtype} values")
+    LAUNCHES[name + "_plain"] += 1
     return block_jacobi_sweep_plain(A, aux, z, r, update)
+
+
+def packed_matvec(A: CsrMatrix, v: torch.Tensor) -> torch.Tensor:
+    """y = A v on a square bf16-valued operator (`slot_matvec_pk`, which only
+    the JAX package's tests call), through K5's masked residual: with r = 0
+    and mask = 1 that residual is -(A v) exactly, so y is its negation."""
+    zeros = torch.zeros_like(v)
+    aux = SweepAux(mask=torch.ones_like(v), msf=zeros, mpr=zeros)
+    return -block_jacobi_sweep(A, aux, v, zeros, update=False)
+
+
+# ---------------------------------------------------------------------------
+# K6: the row-degree-capped ELL format
+# ---------------------------------------------------------------------------
+ELL_ROW_ALIGN = 32  # ld is a multiple of this: each slot's column starts on 128 bytes
+
+
+class EllMatrix(NamedTuple):
+    """ELL operator on one device, f32 or f64 values (K6).
+
+    Slot s of row i sits at [s, i] of the (deg, ld) arrays, ld = n_rows
+    rounded up to ELL_ROW_ALIGN: neighbouring rows (threads) read
+    neighbouring addresses.  Padding slots hold value 0 and column 0.  The
+    entries that the degree cap spills form `spill`, a CSR over the rows
+    `spill_rows` (unique, ascending) that hold any; their product is added
+    to those rows after the capped product."""
+
+    values: torch.Tensor  # (deg, ld) float32 or float64
+    cols: torch.Tensor  # (deg, ld) int32
+    shape: Tuple[int, int]
+    spill: Optional[CsrMatrix]
+    spill_rows: Optional[torch.Tensor]  # (n_spill_rows,) int64
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+
+class SplitCols(NamedTuple):
+    """A v = sum_k A_k v[k-th column block], the parts of equal column count
+    (`SplitColsDfMeta`): the S force operator of `residual_fmt="ell"`, whose
+    columns are component-major integration points, one part a strain
+    component.  The parts' products are summed in f64."""
+
+    parts: Tuple[EllMatrix, ...]
+    shape: Tuple[int, int]
+
+
+def ell_degree_cap(deg_arr: np.ndarray, nnz: int, max_overflow_frac: float) -> int:
+    """The JAX package's row-degree cap (`build_ell`, `spmv.py:198-214`): the
+    least of the 90/99/99.9% row-degree quantiles and the full degree that
+    spills at most half of `max_overflow_frac` of the entries."""
+    deg_full = int(max(deg_arr.max(initial=0), 1))
+    cands = sorted({int(np.quantile(deg_arr, q)) for q in (0.9, 0.99, 0.999)} | {deg_full})
+    for cand in cands:
+        cand = max(cand, 1)
+        if int(np.maximum(deg_arr - cand, 0).sum()) <= 0.5 * max_overflow_frac * max(nnz, 1):
+            return cand
+    return deg_full
+
+
+def build_ell(K_csr, device, dtype=np.float32, max_overflow_frac: float = 0.005) -> EllMatrix:
+    """Host scipy CSR -> `EllMatrix` on `device`, values rounded to `dtype`.
+
+    A row keeps its first `ell_degree_cap` entries in column order; the rest
+    go to the spill CSR.  Works for rectangular operators (the multigrid
+    transfers, the parts of S)."""
+    K = sp.csr_matrix(K_csr, copy=True)
+    K.sort_indices()
+    n_rows, n_cols = K.shape
+    assert n_cols < np.iinfo(np.int32).max and K.nnz < np.iinfo(np.int32).max
+    deg_arr = np.diff(K.indptr)
+    deg = ell_degree_cap(deg_arr, K.nnz, max_overflow_frac) if n_rows else 1
+    ld = -(-max(n_rows, 1) // ELL_ROW_ALIGN) * ELL_ROW_ALIGN
+    rowid = np.repeat(np.arange(n_rows), deg_arr)
+    slot = np.arange(K.nnz) - K.indptr[rowid]
+    keep = slot < deg
+    vals = np.zeros((deg, ld), dtype)
+    cols = np.zeros((deg, ld), np.int32)
+    vals[slot[keep], rowid[keep]] = K.data[keep]
+    cols[slot[keep], rowid[keep]] = K.indices[keep]
+    spill = spill_rows = None
+    if not keep.all():
+        rows = rowid[~keep]
+        uniq = np.unique(rows)
+        Ks = sp.csr_matrix(
+            (K.data[~keep], (np.searchsorted(uniq, rows), K.indices[~keep])),
+            shape=(uniq.size, n_cols),
+        )
+        spill = csr_to_device(Ks, device, dtype)
+        spill_rows = torch.as_tensor(uniq.astype(np.int64), device=device)
+    return EllMatrix(
+        values=torch.as_tensor(vals, device=device),
+        cols=torch.as_tensor(cols, device=device),
+        shape=(int(n_rows), int(n_cols)), spill=spill, spill_rows=spill_rows,
+    )
+
+
+def _add_spill(A: EllMatrix, y: torch.Tensor, y_spill: torch.Tensor) -> torch.Tensor:
+    """y[spill_rows] += y_spill: the rows are unique, so a plain index
+    write, no atomics."""
+    y[A.spill_rows] = y[A.spill_rows] + y_spill
+    return y
+
+
+def ell_matvec_plain(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A x: the capped slots' products summed over the
+    slots, then the spilled entries' plain CSR product added."""
+    y = (A.values * x[A.cols.long()]).sum(dim=0)[: A.n_rows].contiguous()
+    if A.spill is None:
+        return y
+    return _add_spill(A, y, csr_matvec_plain(A.spill, x))
+
+
+def ell_spmv_cuda(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on x's device and PyTorch's current stream, then the
+    spilled entries through K3 (f32) or K1 (f64); no sync."""
+    if not x.is_cuda:
+        raise ValueError(f"ell_spmv needs a CUDA tensor; got one on {x.device}")
+    dtype = A.values.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"ell_spmv: no kernel for {dtype} values")
+    name = "ell_spmv_f64" if dtype == torch.float64 else "ell_spmv_f32"
+    deg, ld = A.values.shape
+    for nm, t, dt, shape in (("values", A.values, dtype, (deg, ld)),
+                             ("cols", A.cols, torch.int32, (deg, ld)),
+                             ("x", x, dtype, (A.shape[1],))):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be a contiguous {dt} tensor on {x.device}; "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
+    if ld < A.n_rows:
+        raise ValueError(f"{name}: leading dimension {ld} < {A.n_rows} rows")
+    y = torch.empty(A.n_rows, dtype=dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(_library_ell(), name)(
+        A.n_rows, deg, ld, A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(),
+        y.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    if A.spill is None:
+        return y
+    return _add_spill(A, y, csr_matvec(A.spill, x))
+
+
+def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x on an ELL operator: K6 (f32 or f64) on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if x.is_cuda:
+        return ell_spmv_cuda(A, x)
+    if x.device.type != "cpu":
+        raise ValueError(f"ell_matvec: no route for device {x.device}")
+    if A.values.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"ell_matvec: no kernel for {A.values.dtype} values")
+    LAUNCHES["ell_spmv_f64_plain" if A.values.dtype == torch.float64 else "ell_spmv_f32_plain"] += 1
+    return ell_matvec_plain(A, x)
+
+
+def sp_matvec(A, x: torch.Tensor) -> torch.Tensor:
+    """Format-generic y = A x, by the operator's type: `CsrMatrix` through
+    K1/K3, `EllMatrix` through K6, `SplitCols` part by part."""
+    if isinstance(A, CsrMatrix):
+        return csr_matvec(A, x)
+    if isinstance(A, EllMatrix):
+        return ell_matvec(A, x)
+    if isinstance(A, SplitCols):
+        w = A.shape[1] // len(A.parts)
+        y = None
+        for k, part in enumerate(A.parts):
+            yk = sp_matvec(part, x[k * w:(k + 1) * w])
+            y = yk if y is None else y + yk
+        return y
+    raise TypeError(f"sp_matvec: no route for {type(A).__name__}")

@@ -1,25 +1,32 @@
-"""Geometric multigrid V-cycle on assembled CSR operators.
+"""Geometric multigrid V-cycle on assembled operators.
 
 Port of the assembled-operator half of
 `fem_elastoplasticity_tpu/solve/multigrid.py`: `build_hierarchy_ell`
-(`:206-438`, `order_mode="fine_rcm"`) and `make_vcycle_ell` (`:875-1019`,
-`cycle="v"`, fused sweeps).
+(`:206-438`, `order_mode="fine_rcm"`, `pack_bf16`) and `make_vcycle_ell`
+(`:875-1019`, `cycle="v"`).
 
 The red-refinement hierarchy gives geometric multigrid for free: every
 fine node is either a coarse node or the midpoint of two coarse parents, so
 the prolongation P copies or averages and the restriction is R = P^T.
 Every level's elastic operator, its transfers and its smoother blocks are
-assembled once on the host (NumPy/SciPy, f64) and go to the device as f32
-CSR.  Smoothing is damped block-Jacobi (symmetric, so the V-cycle is SPD and
-valid as a CG preconditioner) in the fused kernel K4
-(`ops.spmv.block_jacobi_sweep`); the transfers run in K3
-(`ops.spmv.csr_matvec`); the coarsest level is solved with the explicit f32
-inverse of its free-DOF block.
+assembled once on the host (NumPy/SciPy, f64) and go to the device in f32,
+in one of two formats (the JAX package's `fmt`):
 
-The JAX package smooths operators of 500,000 rows or more from a packed
-bf16 value stream (`slot_sweep_pk`).  That kernel is not ported, and
-smoothing such a level in f32 would be another method, so the build
-raises there.
+* "slot" (the default): CSR.  Smoothing is damped block-Jacobi (symmetric,
+  so the V-cycle is SPD and valid as a CG preconditioner) in the fused
+  kernel K4 (`ops.spmv.block_jacobi_sweep`), or, on a level that is packed,
+  in K5, which reads the operator's values rounded to bf16: with the
+  default `pack_bf16="auto"` the levels of 500,000 rows or more, as in the
+  JAX package.  CG's operator and the criterion keep the f32 values.  The
+  transfers run in K3;
+* "ell": `ops.spmv.EllMatrix` operators, P and R, applied by K6.  A level
+  smooths through the unfused chain of the JAX package (its `_fused` is
+  false for ELL): the masked residual r - A z through K6, then the 2x2
+  block update elementwise.  The JAX package packs only slot levels, so an
+  ELL level is never packed.
+
+The coarsest level is solved with the explicit f32 inverse of its free-DOF
+block.
 """
 from __future__ import annotations
 
@@ -34,12 +41,25 @@ from ..mesh.midpoints import _edge_scan
 from ..ops import spmv
 from ..ops.elements import ReferenceElement
 
-# rows from which the JAX package smooths from its packed bf16 stream
-PACKED_MIN_ROWS = 500_000
+# rows from which `pack_bf16="auto"` smooths a level from bf16 values
+# (the JAX package's `multigrid.py:366-368`)
+PACK_BF16_MIN_ROWS = 500_000
+FORMATS = ("slot", "ell")
+
+
+def packs_bf16(n_rows: int, pack_bf16="auto") -> bool:
+    """Whether a slot-format level of `n_rows` rows smooths from bf16 values:
+    "auto" packs from PACK_BF16_MIN_ROWS rows, True every level, False none."""
+    if isinstance(pack_bf16, bool):
+        return pack_bf16
+    if pack_bf16 != "auto":
+        raise ValueError(f"pack_bf16 must be 'auto', True or False; got {pack_bf16!r}")
+    return n_rows >= PACK_BF16_MIN_ROWS
 
 
 class MGLevel(NamedTuple):
-    """One level on the device.  P and R are None on the coarsest level."""
+    """One level on the device.  P and R are None on the coarsest level.
+    Operators are `ops.spmv.CsrMatrix` (fmt "slot") or `EllMatrix` ("ell")."""
 
     op: spmv.CsrMatrix  # (2n_n, 2n_n) f32 elastic operator, BC rows unit-diagonal
     inv: torch.Tensor  # (n_n, 2, 2) f32 damped block-Jacobi inverse
@@ -47,6 +67,9 @@ class MGLevel(NamedTuple):
     aux: spmv.SweepAux
     P: Optional[spmv.CsrMatrix]  # (2n_n, 2n_c) f32 prolongation from the level below
     R: Optional[spmv.CsrMatrix]  # (2n_c, 2n_n) f32 restriction, P^T
+    # op's structure with bf16 values, on a packed level: the smoother's
+    # operator (K5); None where the level smooths from op itself
+    op_bf16: Optional[spmv.CsrMatrix] = None
 
 
 class Hierarchy(NamedTuple):
@@ -57,36 +80,41 @@ class Hierarchy(NamedTuple):
 
 def hierarchy_to_device(
     host_levels: Sequence[dict], inv0: np.ndarray, free_idx0: np.ndarray, device,
-    packed_min_rows: int = PACKED_MIN_ROWS,
+    pack_bf16="auto", fmt: str = "slot",
 ) -> Hierarchy:
     """Host level data -> `Hierarchy` on `device`.
 
     host_levels[l]: dict(K=scipy CSR (f64), inv=(n_n, 2, 2), free=(n_n, 2)
-    or flat bool, P=scipy CSR or None on level 0).
+    or flat bool, P=scipy CSR or None on level 0).  fmt: "slot" (CSR) or
+    "ell"; pack_bf16: `packs_bf16` for the slot levels.
     """
+    if fmt not in FORMATS:
+        raise ValueError(f"fmt must be one of {FORMATS}; got {fmt!r}")
+
+    def to_device(A):
+        if fmt == "ell":
+            return spmv.build_ell(A, device, np.float32)
+        return spmv.csr_to_device(A, device, np.float32)
+
     levels = []
-    for l, h in enumerate(host_levels):
+    for h in host_levels:
         K = h["K"]
-        if K.shape[0] >= packed_min_rows:
-            raise NotImplementedError(
-                f"multigrid level {l} has {K.shape[0]} rows: operators of "
-                f"{packed_min_rows} rows or more are smoothed from packed bf16 "
-                "values in the JAX package, and that kernel is not ported"
-            )
         free_flat = np.asarray(h["free"]).reshape(-1)
         P = R = None
         if h.get("P") is not None:
             Ph = sp.csr_matrix(h["P"])
             Rh = Ph.T.tocsr()
             Rh.sum_duplicates()
-            P = spmv.csr_to_device(Ph, device, np.float32)
-            R = spmv.csr_to_device(Rh, device, np.float32)
+            P, R = to_device(Ph), to_device(Rh)
+        op = to_device(K)
+        pack = fmt == "slot" and packs_bf16(K.shape[0], pack_bf16)
         levels.append(MGLevel(
-            op=spmv.csr_to_device(K, device, np.float32),
+            op=op,
             inv=torch.as_tensor(np.array(h["inv"], np.float32), device=device),
             free=torch.as_tensor(free_flat.astype(bool), device=device),
             aux=spmv.sweep_aux(h["inv"], free_flat, device),
             P=P, R=R,
+            op_bf16=spmv.packed_operator(op) if pack else None,
         ))
     return Hierarchy(
         levels=levels,
@@ -105,7 +133,8 @@ def build_hierarchy_ell(
     ref: ReferenceElement,
     omega: float = 0.7,
     device=None,
-    packed_min_rows: int = PACKED_MIN_ROWS,
+    fmt: str = "slot",
+    pack_bf16="auto",
 ):
     """Host-side multigrid build: red refinement + locality ordering.
 
@@ -121,7 +150,7 @@ def build_hierarchy_ell(
                  P), `inv0`, `free_idx0`, and of the finest level `fine_K`
                  (the BC-masked CSR the tangent refresh indexes),
                  `fine_free`, `fine_coords`
-    Raises NotImplementedError when a level reaches `packed_min_rows` rows.
+    fmt, pack_bf16: the device format and packing (`hierarchy_to_device`).
     """
     chain = []
     coords, elems = np.asarray(coords0, np.float64), np.asarray(elems0)
@@ -150,13 +179,6 @@ def build_hierarchy_ell(
         ).reshape(-1, 3)
         chain.append((coords_f, children.astype(np.int64), owners))
         coords, elems = coords_f, children
-    if 2 * chain[-1][0].shape[0] >= packed_min_rows:
-        # before any assembly: the finest level is the largest
-        raise NotImplementedError(
-            f"multigrid level {levels} has {2 * chain[-1][0].shape[0]} rows: operators "
-            f"of {packed_min_rows} rows or more are smoothed from packed bf16 values "
-            "in the JAX package, and that kernel is not ported"
-        )
 
     # fine RCM, then induce coarser orderings by restriction: level l's
     # nodes are ids 0..n_l-1 inside level l+1
@@ -220,7 +242,7 @@ def build_hierarchy_ell(
         host_levels.append(dict(coords=c2, elems=e2, K=K, free=free2, inv=inv, P=P))
         perms.append(new_of_old)
         prev_new_of_old, prev_n = new_of_old, n_n
-    hierarchy = hierarchy_to_device(host_levels, inv0, idx0, device, packed_min_rows)
+    hierarchy = hierarchy_to_device(host_levels, inv0, idx0, device, pack_bf16, fmt)
     top = host_levels[-1]
     coarse = dict(
         levels=host_levels, inv0=inv0, free_idx0=idx0,
@@ -234,14 +256,30 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
 
     nu: smoothing sweeps, an int (symmetric) or a (pre, post) tuple.  The
     first pre-sweep from z = 0 is the damped block inverse applied to r (no
-    operator application); the other sweeps and the masked residual are K4
-    launches, the transfers K3 launches.
+    operator application).  On a slot level the other sweeps and the masked
+    residual are K4 launches, K5 on a packed level; on an ELL level a K6
+    product and elementwise ops each.  The transfers are K3 or K6 launches.
     """
     if cycle != "v":
         raise NotImplementedError(f"make_vcycle_ell: cycle {cycle!r} is not ported")
     nu_pre, nu_post = (nu, nu) if isinstance(nu, int) else nu
     levels = hier.levels
     zero = torch.zeros((), dtype=torch.float32, device=hier.inv0.device)
+
+    def block_inverse(lev: MGLevel, x: torch.Tensor) -> torch.Tensor:
+        # the damped 2x2 block inverse through the sweep constants, own and
+        # partner coefficient: the products and the sum of
+        # einsum("nij,nj->ni", inv, x), elementwise (as a batched matrix
+        # product the 114,056 blocks of level 4 take 0.12 ms in cuBLAS, more
+        # than the rest of the cycle)
+        return lev.aux.msf * x + lev.aux.mpr * x.reshape(-1, 2).flip(1).reshape(-1)
+
+    def sweep(lev: MGLevel, z: torch.Tensor, r: torch.Tensor, update: bool = True):
+        if isinstance(lev.op, spmv.EllMatrix):
+            res = torch.where(lev.free, r - spmv.sp_matvec(lev.op, z), zero)
+            return z + torch.where(lev.free, block_inverse(lev, res), zero) if update else res
+        op = lev.op if lev.op_bf16 is None else lev.op_bf16
+        return spmv.block_jacobi_sweep(op, lev.aux, z, r, update)
 
     def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
         lev = levels[li]
@@ -250,20 +288,15 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
             z = torch.zeros_like(r)
             z[hier.free_idx0] = hier.inv0 @ r[hier.free_idx0]
             return torch.where(lev.free, z, zero)
-        # first pre-sweep from z = 0: res = r exactly, so z = mask inv r.  The
-        # 2x2 blocks are applied through the sweep constants, own and partner
-        # coefficient: the products and the sum of einsum("nij,nj->ni", inv,
-        # r), elementwise (as a batched matrix product the 114,056 blocks of
-        # level 4 take 0.12 ms in cuBLAS, more than the rest of the cycle)
-        dz = lev.aux.msf * r + lev.aux.mpr * r.reshape(-1, 2).flip(1).reshape(-1)
-        z = torch.where(lev.free, dz, zero)
+        # first pre-sweep from z = 0: res = r exactly, so z = mask inv r
+        z = torch.where(lev.free, block_inverse(lev, r), zero)
         for _ in range(nu_pre - 1):
-            z = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r)
-        res = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update=False)
-        z_c = vcycle(li - 1, spmv.csr_matvec(lev.R, res))
-        z = z + torch.where(lev.free, spmv.csr_matvec(lev.P, z_c), zero)
+            z = sweep(lev, z, r)
+        res = sweep(lev, z, r, update=False)
+        z_c = vcycle(li - 1, spmv.sp_matvec(lev.R, res))
+        z = z + torch.where(lev.free, spmv.sp_matvec(lev.P, z_c), zero)
         for _ in range(nu_post):
-            z = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r)
+            z = sweep(lev, z, r)
         return z
 
     return lambda r: vcycle(len(levels) - 1, r)

@@ -2,7 +2,8 @@
 
 Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`
 and, with the assembled elastic operator and a multigrid preconditioner,
-`solver="mg"` (inexact Newton: CG tangent solves on the refreshed operator).
+`solver="mg"` (inexact Newton: CG tangent solves on the elastic operator
+with the plastic correction, refreshed into its values or gathered).
 The JAX package runs the whole schedule as one jitted `while_loop`; here the
 controller is Python, and each Newton iteration reads its criterion (and
 the plastic count) back to the host.  The controller semantics are kept
@@ -39,7 +40,7 @@ import torch
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
-from ..ops.spmv import csr_matvec
+from ..ops.spmv import sp_matvec
 from .cg import solve_cg
 
 
@@ -171,8 +172,9 @@ def build_load_stepper(
       precision: "native" or "df32" (module docstring).
       accumulate_ep: accumulate plastic strain across accepted steps; False
                 reproduces the tsx reference's per-step reset of Ep_old.
-      residual_op: optional (G, S) `ops.spmv.CsrMatrix` pair: strains and
-                the internal force go through K1 instead of the
+      residual_op: optional (G, S) pair of f64 operators (`ops.spmv`
+                `CsrMatrix`, or `EllMatrix` and `SplitCols`): strains and
+                the internal force go through K1 (K6) instead of the
                 matrix-free gather path.
       apex_ep_uses_trial: the reference's apex plastic strain from the
                 trial strain (footing `bug_compatible_apex`).
@@ -183,19 +185,22 @@ def build_load_stepper(
                 operator, preconditioned by `mg_preconditioner`; `plan` is
                 not used and may be None.
       mg_preconditioner: r -> z, `solve.multigrid.make_vcycle_ell`.
-      elastic_op: `ops.spmv.CsrMatrix` (f32), the assembled elastic
-                stiffness with unit-diagonal constrained rows.  It applies
-                the criterion norms (kernel K3), and its structure carries
-                the tangent: per Newton iteration a copy of its values plus
-                the scattered B_p^T (w delta) B_p blocks of the plastic slot
-                set (exact: the tangent equals the elastic one off the
-                plastic set).
+      elastic_op: the assembled elastic stiffness (f32) with
+                unit-diagonal constrained rows, `ops.spmv.CsrMatrix` (kernel
+                K3) or `EllMatrix` (K6).  It applies the criterion norms,
+                and with the plastic slot set's B_p^T (w delta) B_p blocks
+                it is the tangent (exact: the tangent equals the elastic one
+                off the plastic set).
       plastic_cap: static size of the plastic slot set; invalid slots carry
                 zero blocks.  More plastic points than the cap degrade the
                 tangent (extra Newton iterations), never the residual.
       corr_dest: (n_e, 2n_p, 2n_p) integer table, `ops.spmv.element_corr_dest`:
-                the position in `elastic_op.values` of each element-block
-                entry, -1 where a DOF is constrained (dropped).
+                the position in a CSR `elastic_op.values` of each
+                element-block entry, -1 where a DOF is constrained
+                (dropped).  Given (the JAX package's corr_mode="scatter"),
+                each Newton iteration scatters the blocks into a copy of the
+                values; None (corr_mode="gather") applies them in every CG
+                product, `ops.assembly.plastic_correction_apply`.
       cg_tol, cg_maxiter: relative tolerance and cap of the tangent CG.  A
                 capped, unconverged solve counts as divergence.
       cg_eta0:  Eisenstat-Walker forcing: the CG tolerance of a Newton
@@ -216,12 +221,11 @@ def build_load_stepper(
     if solver not in ("dense", "mg"):
         raise NotImplementedError(f"solver {solver!r}")
     if solver == "mg" and (
-        mg_preconditioner is None or elastic_op is None or corr_dest is None
-        or plastic_cap is None
+        mg_preconditioner is None or elastic_op is None or plastic_cap is None
     ):
         raise NotImplementedError(
-            "solver='mg' is ported with mg_preconditioner, elastic_op, corr_dest "
-            "and plastic_cap (the assembled static-structure path)"
+            "solver='mg' is ported with mg_preconditioner, elastic_op and plastic_cap "
+            "(the assembled-operator path)"
         )
     sdtype = geom.B.dtype
     geom_t = geom.to(torch.float32) if df_mode else geom
@@ -249,7 +253,7 @@ def build_load_stepper(
     def return_map(u, ep, zeta, apply=False):
         """-> (s, ds in the tangent dtype, ind_p, lam, ep')."""
         if residual_op is not None:
-            e = csr_matvec(residual_op[0], u).reshape(3, n_int)
+            e = sp_matvec(residual_op[0], u).reshape(3, n_int)
         else:
             e = asm.strains(geom, u)
         e0 = None if e0_dir is None else e0_dir * zeta
@@ -268,7 +272,7 @@ def build_load_stepper(
     def residual_force(s):
         """Newton residual F_int, in the tangent dtype (df32: the f32 head)."""
         if residual_op is not None:
-            f = csr_matvec(residual_op[1], s[:3].reshape(-1))
+            f = sp_matvec(residual_op[1], s[:3].reshape(-1))
         else:
             f = asm.internal_force(geom, s[:3])
         return f.to(tdtype)
@@ -292,10 +296,10 @@ def build_load_stepper(
         # q1 = |dU|_K, q2 = |U_it|_K, q3 = |U_it + dU|_K in the elastic
         # energy norm, q3^2 = q2^2 + 2 dU.K.U_it + q1^2
         if elastic_op is not None:
-            # assembled elastic operator through K3: its constrained rows
-            # are unit-diagonal, but dU and U_it vanish there
-            KdU = csr_matvec(elastic_op, dU)
-            KU = csr_matvec(elastic_op, U_head)
+            # assembled elastic operator through K3 or K6: its constrained
+            # rows are unit-diagonal, but dU and U_it vanish there
+            KdU = sp_matvec(elastic_op, dU)
+            KU = sp_matvec(elastic_op, U_head)
         else:
             KdU = elastic_force(dU)
             KU = elastic_force(U_head)
@@ -340,25 +344,32 @@ def build_load_stepper(
         free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
         free_mask[free_idx] = True
         d_el = elastic_tangent_lanes(shear, bulk, n_int, tdtype, device)
-        n_vals = elastic_op.values.shape[0]
-        # -1 (constrained) destinations go to a slot past the values, which
-        # is cut off again: they must not wrap round to the last entry
-        dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
+        if corr_dest is not None:
+            n_vals = elastic_op.values.shape[0]
+            # -1 (constrained) destinations go to a slot past the values,
+            # which is cut off again: they must not wrap round to the last
+            # entry
+            dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
 
-    def refreshed_tangent(d, ind_p):
-        """The tangent on the elastic operator's structure: a copy of its
-        values plus the plastic slot set's correction blocks.  Two plastic
-        points of neighbouring elements hit the same entry; the accumulating
-        index_put_ sorts the destinations and adds each entry's
-        contributions in their given order, so the sum has a fixed order
-        (an atomic scatter-add would not)."""
+    def tangent_operator(d, ind_p):
+        """v -> K_tangent v, from the elastic operator and the plastic slot
+        set's correction blocks.  With `corr_dest` the blocks go into a copy
+        of the operator's values: two plastic points of neighbouring
+        elements hit the same entry, and the accumulating index_put_ sorts
+        the destinations and adds each entry's contributions in their given
+        order, so the sum has a fixed order (an atomic scatter-add would
+        not).  Without it every product adds the gathered correction."""
         idx_p, valid_p = asm.plastic_slots(ind_p, plastic_cap)
-        Bp, wdelta, _ = asm.plastic_correction_gather(geom_t, d - d_el, idx_p, valid_p)
+        Bp, wdelta, edp = asm.plastic_correction_gather(geom_t, d - d_el, idx_p, valid_p)
+        if corr_dest is None:
+            return lambda v: sp_matvec(elastic_op, v) + asm.plastic_correction_apply(
+                Bp, wdelta, edp, n_dofs, v)
         corr = torch.einsum("aip,abp,bjp->pij", Bp, wdelta, Bp)
         dest = dest_table[idx_p // geom_t.n_q]
         vals = torch.cat([elastic_op.values, elastic_op.values.new_zeros(1)])
         vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
-        return elastic_op._replace(values=vals[:n_vals].contiguous())
+        A_t = elastic_op._replace(values=vals[:n_vals].contiguous())
+        return lambda v: sp_matvec(A_t, v)
 
     def cg_solve(d, f_int, ind_p, crit_prev):
         """Inexact Newton step by multigrid-preconditioned CG -> (dU, ok, its)."""
@@ -370,9 +381,8 @@ def build_load_stepper(
             t = f32(crit_prev) * f32(CG_ETA_SAFETY)
             t = f32(cg_eta0) if np.isposinf(t) else np.nan_to_num(t)
             tol = float(np.clip(t, f32(cg_tol), f32(cg_eta0)))
-        A_t = refreshed_tangent(d, ind_p)
         res = solve_cg(
-            lambda v: csr_matvec(A_t, v), -f_int, free_mask,
+            tangent_operator(d, ind_p), -f_int, free_mask,
             precond=mg_preconditioner, tol=tol, maxiter=cg_maxiter,
         )
         ok = res.converged

@@ -89,7 +89,8 @@ def carry_to_jax(carry: Mapping) -> dict:
     return out
 
 
-def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None):
+def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None,
+                         pack_bf16="auto"):
     """The JAX package's hierarchy as the port's `solve.multigrid.Hierarchy`.
 
     levels[l]: the host data `build_hierarchy_ell(..., collect_levels=True)`
@@ -97,7 +98,8 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None
     None) plus `inv`, that level's (n_n, 2, 2) damped block inverse
     (`arrays[l]["inv"]`), all as numpy or scipy.  inv0, free_idx0: the
     coarse solve's explicit inverse and free DOFs (`coarse["inv0"]`,
-    `coarse["free_idx0"]`).
+    `coarse["free_idx0"]`).  pack_bf16: as the JAX build's argument of the
+    same name (`solve.multigrid.packs_bf16`).
     """
     from ..solve.multigrid import hierarchy_to_device
 
@@ -105,4 +107,5 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None
         dict(K=lv["K"], free=np.asarray(lv["free"]), inv=np.asarray(lv["inv"]), P=lv.get("P"))
         for lv in levels
     ]
-    return hierarchy_to_device(host, np.asarray(inv0), np.asarray(free_idx0), device)
+    return hierarchy_to_device(host, np.asarray(inv0), np.asarray(free_idx0), device,
+                               pack_bf16)

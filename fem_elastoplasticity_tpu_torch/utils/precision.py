@@ -3,6 +3,8 @@
 Replaces `fem_elastoplasticity_tpu/utils/precision.py`, which enables x64
 and sets XLA flags.  Here nothing global happens at import: callers resolve
 a device once with `resolve_device` and pass it everywhere with `device=`.
+An entry point given no device runs on the card and raises where there is
+none; the host is only ever chosen by name.
 
 On CUDA, `resolve_device` switches TF32 off for matmuls and convolutions and
 sets f32 matmul precision to "highest".  TF32 keeps a 10-bit mantissa; the
@@ -30,10 +32,17 @@ PRECISIONS = ("native", "df32")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """The device to run on: `device` if given, else cuda:0 when a card is
-    visible, else the CPU.  Configures CUDA matmul precision (module doc)."""
+    """The device to run on: `device` if given, else the current CUDA card.
+    The port runs on the card unless the caller asks for the CPU
+    (device="cpu"): with no device given and no card visible it raises
+    RuntimeError.  Configures CUDA matmul precision (module doc)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card is visible: the port runs on the card; pass "
+                "device='cpu' to run on the host"
+            )
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:

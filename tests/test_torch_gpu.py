@@ -1,4 +1,4 @@
-"""PyTorch port on the card: kernels K1 to K4 against their plain versions.
+"""PyTorch port on the card: kernels K1 to K6 against their plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so on the card's machine (which has none) it runs without the
@@ -146,6 +146,7 @@ def cuda_scale():
     spmv.load_kernel()
     spmv.load_kernel_f32()
     spmv.load_sweep_kernel()
+    spmv.load_ell_kernel()
     device = torch.device("cuda")
     extras = {}
     tsx.build_df32(TsxTunnelConfig.fast_scale(1), device=device, extras=extras)
@@ -233,4 +234,77 @@ def test_scale_solve_runs_through_k3_k4_k1(cuda_scale):
         assert spmv.LAUNCHES[name] > 0, name
     assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
     assert (r.n_steps, r.n_plastic) == (17, 20)
+    assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8
+
+
+@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
+def test_k5_matches_plain_and_k4_on_rounded_values(cuda_scale, update):
+    """K5 on the level-1 fine operator's bf16 values: within 5e-6 of its
+    plain version, bit for bit K4 on the same values widened to f32 (one
+    template, one order), constrained rows exact, launches bit-identical."""
+    device, hier = cuda_scale
+    lev = hier.levels[-1]
+    pk = spmv.packed_operator(lev.op)
+    widened = lev.op._replace(values=pk.values.to(torch.float32).contiguous())
+    n = lev.op.shape[0]
+    rng = np.random.default_rng(5)
+    z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    r = r * spmv.csr_matvec_plain(lev.op, z).abs().max()
+    spmv.LAUNCHES.clear()
+    got = spmv.block_jacobi_sweep(pk, lev.aux, z, r, update)
+    assert spmv.LAUNCHES == {"block_jacobi_sweep_bf16": 1}
+    exp = spmv.block_jacobi_sweep_plain(pk, lev.aux, z, r, update)
+    assert float((got - exp).abs().max()) <= 5e-6 * float(exp.abs().max())
+    assert torch.equal(got, spmv.block_jacobi_sweep_cuda(widened, lev.aux, z, r, update))
+    fixed = lev.aux.mask == 0
+    assert torch.equal(got[fixed], z[fixed] if update else torch.zeros_like(z[fixed]))
+    assert torch.equal(got, spmv.block_jacobi_sweep(pk, lev.aux, z, r, update))
+    y = spmv.packed_matvec(pk, z)
+    assert float((y - spmv.csr_matvec_plain(widened, z)).abs().max()) <= 2e-6 * float(y.abs().max())
+
+
+@pytest.fixture(scope="module")
+def cuda_ell(cuda_scale):
+    """The level-1 ELL hierarchy and the ELL residual operators on the card."""
+    device, _ = cuda_scale
+    extras = {}
+    cfg = TsxTunnelConfig.fast_scale(1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell")
+    tsx.build_df32(cfg, device=device, extras=extras)
+    return device, extras["hierarchy"], extras["residual_op"]
+
+
+@pytest.mark.parametrize("which", ["K", "P", "R", "G", "S"])
+def test_k6_matches_plain(cuda_ell, which):
+    """f32 (the fine operator and its transfers) within 2e-6 of max |y|,
+    f64 (G, and S as three parts) within 1e-13 normwise; two launches
+    bit-identical."""
+    device, hier, (G, S) = cuda_ell
+    fine = hier.levels[-1]
+    A = {"K": fine.op, "P": fine.P, "R": fine.R, "G": G, "S": S}[which]
+    parts = A.parts if isinstance(A, spmv.SplitCols) else (A,)
+    f64 = parts[0].values.dtype == torch.float64
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]), device=device,
+                        dtype=torch.float64 if f64 else torch.float32)
+    spmv.LAUNCHES.clear()
+    y = spmv.sp_matvec(A, x)
+    assert spmv.LAUNCHES[f"ell_spmv_{'f64' if f64 else 'f32'}"] == len(parts)
+    w = A.shape[1] // len(parts)
+    y_plain = sum(spmv.ell_matvec_plain(p, x[k * w:(k + 1) * w]) for k, p in enumerate(parts))
+    if f64:
+        assert float(torch.linalg.norm(y - y_plain) / torch.linalg.norm(y_plain)) <= 1e-13
+    else:
+        assert float((y - y_plain).abs().max()) <= 2e-6 * float(y_plain.abs().max())
+    assert torch.equal(y, spmv.sp_matvec(A, x))
+
+
+def test_ell_solve_runs_through_k6(cuda_ell):
+    device, _, _ = cuda_ell
+    spmv.LAUNCHES.clear()
+    cfg = TsxTunnelConfig.fast_scale(1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell")
+    r = tsx.solve(cfg, device=device)
+    assert spmv.LAUNCHES["ell_spmv_f32"] > 0 and spmv.LAUNCHES["ell_spmv_f64"] > 0
+    assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
+    assert (r.n_steps, r.n_newton_total, r.n_plastic) == (17, 37, 20)
     assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8

@@ -123,7 +123,6 @@ def test_config_refuses_unported_presets():
     "kw",
     [
         dict(mg_cycle="w"),
-        dict(corr_mode="gather"),
         dict(cg_deflate=4),
         dict(spmv_fmt="rslot"),
         dict(solver="mg"),

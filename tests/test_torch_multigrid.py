@@ -162,20 +162,34 @@ def test_vcycle_preconditioned_cg_matches_jax():
 
 
 def test_level_of_half_a_million_rows_raises():
-    """The JAX package smooths such a level from packed bf16 values; the
-    port has no such kernel yet and refuses, here with a stub size."""
-    coords, elems = _base()
-    shear, bulk = lame_moduli(60000.0, 0.2)
-    ref = pel.volume_element(pel.ElementType.P1)
-    assert pmg.PACKED_MIN_ROWS == 500_000
-    with pytest.raises(NotImplementedError, match="bf16"):
-        pmg.build_hierarchy_ell(coords, elems, 1, _free_of, shear, bulk, ref,
-                                device="cpu", packed_min_rows=3000)
+    """The packing decision takes only "auto", True or False, and the
+    hierarchy only the "slot" and "ell" formats: anything else raises.
+    Here with the level-1 hierarchy's host data."""
     (_, _, _, jcoarse), _ = _hierarchies(1)
     host = [dict(lv, inv=np.zeros((lv["K"].shape[0] // 2, 2, 2))) for lv in jcoarse["levels"]]
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match="pack_bf16"):
         pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu",
-                                packed_min_rows=3000)
+                                pack_bf16="yes")
+    with pytest.raises(ValueError, match="fmt"):
+        pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu", fmt="rslot")
+
+
+def test_level_of_half_a_million_rows_is_packed():
+    """A level of half a million rows or more is smoothed from bf16 values:
+    `pack_bf16` decides, as in the JAX package; the level-1 hierarchy is
+    packed only by force, and an ELL hierarchy never (the JAX package packs
+    slot levels only)."""
+    assert pmg.packs_bf16(500_000) and not pmg.packs_bf16(499_999)
+    (_, _, _, jcoarse), _ = _hierarchies(1)
+    host = [dict(lv, inv=np.zeros((lv["K"].shape[0] // 2, 2, 2))) for lv in jcoarse["levels"]]
+    auto = pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu")
+    forced = pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu",
+                                     pack_bf16=True)
+    ell = pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu",
+                                  pack_bf16=True, fmt="ell")
+    assert all(lev.op_bf16 is None for lev in auto.levels)
+    assert all(lev.op_bf16.values.dtype == torch.bfloat16 for lev in forced.levels)
+    assert all(lev.op_bf16 is None and isinstance(lev.op, pspmv.EllMatrix) for lev in ell.levels)
 
 
 def test_w_cycle_raises():

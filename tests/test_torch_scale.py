@@ -17,6 +17,7 @@ import torch
 from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
 from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
 from fem_elastoplasticity_tpu_torch.ops import spmv
+from fem_elastoplasticity_tpu_torch.solve import multigrid as mgm
 from fem_elastoplasticity_tpu_torch.solve.newton import carry_of
 from fem_elastoplasticity_tpu_torch.utils.convert import carry_from_jax, carry_to_jax
 
@@ -143,8 +144,25 @@ def test_cg_cap_counts_as_divergence():
     assert q.n_steps == 1
 
 
+# rows of the level-5 hierarchy, coarsest first (the smoke run's setup line)
+LEVEL5_ROWS = (952, 3678, 14452, 57288, 228112, 910368)
+
+
 def test_level5_is_refused_before_any_assembly():
-    """tsx level 5 has 910,672 rows: the JAX package smooths that level from
-    packed bf16 values, a kernel the port has not got yet."""
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tsx.build_df32(TsxTunnelConfig.fast_scale(5), device="cpu")
+    """Level 5 in the ELL format with the scatter refresh is refused when
+    the config is built, before any assembly: the JAX package cannot run
+    that pair either.  Level 5 itself runs (`test_level5_packing_decision`)."""
+    with pytest.raises(ValueError, match="gather"):
+        tsx.build_df32(TsxTunnelConfig.fast_scale(5, spmv_fmt="ell"), device="cpu")
+
+
+def test_level5_packing_decision():
+    """`pack_bf16="auto"` smooths level 5's fine level (910,368 rows) from
+    bf16 values (K5) and every smaller level from f32 (K4), as the JAX
+    package decides (`multigrid.py:366-368`); True and False force it."""
+    assert [mgm.packs_bf16(n) for n in LEVEL5_ROWS] == [False] * 5 + [True]
+    assert mgm.packs_bf16(mgm.PACK_BF16_MIN_ROWS) and not mgm.packs_bf16(mgm.PACK_BF16_MIN_ROWS - 1)
+    assert mgm.PACK_BF16_MIN_ROWS == 500_000
+    # forced either way, every level or none
+    assert all(mgm.packs_bf16(n, True) for n in LEVEL5_ROWS)
+    assert not any(mgm.packs_bf16(n, False) for n in LEVEL5_ROWS)

@@ -17,6 +17,7 @@ from fem_elastoplasticity_tpu_torch.ops import return_map as rm
 from fem_elastoplasticity_tpu_torch.ops import spmv
 from fem_elastoplasticity_tpu_torch.solve.newton import carry_of
 from fem_elastoplasticity_tpu_torch.utils.convert import carry_from_jax, carry_to_jax
+from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
 # tiny tensors: extra threads only contend with the other test workers
 torch.set_num_threads(1)
@@ -156,3 +157,22 @@ def test_fast_f32_preset_matches_jax():
     assert rel(r.u, exp["u"]) < 1e-5
     # zeta is carried in f32: the 17 steps of f32(1/17) end at 1 or above
     np.testing.assert_array_equal(r.zeta_hist[:17], exp["zeta_hist"][:17])
+
+
+def test_entry_points_run_on_the_card_or_raise():
+    """Given no device, an entry point runs on the card; where none is
+    visible (as here) it raises rather than run on the host, which is only
+    ever chosen by name."""
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsx.solve(TsxTunnelConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsx.build_df32(TsxTunnelConfig.fast_scale(1))
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        footing.solve(FootingConfig())
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -20,11 +20,29 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   reference node order, ep, zeta_hist, displ_hist and the step, Newton, CG
   and plastic counts (compressed);
 * tsx_scale_l2_2steps.npz — `TsxTunnelConfig.fast_scale(2, zeta_max=2/17)`,
-  two load steps on the twice-refined mesh (14,450 DOFs), the same fields.
+  two load steps on the twice-refined mesh (14,450 DOFs), the same fields;
+* tsx_scale_l1_packed.npz — `TsxTunnelConfig.fast_scale(1)` with every
+  hierarchy level smoothed from packed bf16 values (`build_hierarchy_ell`'s
+  `pack_bf16` default set to True for the run; "auto" packs only levels of
+  500,000 rows or more), the same fields;
+* tsx_scale_l1_ell.npz — `TsxTunnelConfig.fast_scale(1, spmv_fmt="ell",
+  corr_mode="gather", residual_fmt="ell")`: the hierarchy, the CG operator
+  and the residual on windowed-ELL operators, the plastic correction
+  gathered in every CG product, the same fields;
+* tsx_scale_l1_gather.npz, tsx_scale_l1_res_ell.npz, tsx_scale_l1_ell_res_csr.npz
+  — the other pairings of the three format options on the same preset:
+  CSR hierarchy with the gathered correction (`corr_mode="gather"`), CSR
+  hierarchy with the scatter refresh and the ELL residual
+  (`residual_fmt="ell"`), ELL hierarchy with the gathered correction and
+  the CSR residual; the same fields;
+* tsx_df32_bench_res_ell.npz — the bench preset with its residual on ELL
+  G/S, `TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell")`: u,
+  ep, zeta_hist, displ_hist and the counts.
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
-Pallas kernels in interpret mode and take about 35 s and 45 s).
+Pallas kernels in interpret mode and take about 35 s and 45 s, the packed
+and ELL ones about 60 s and 70 s each).
 Run from the repository root, optionally naming the files to write
 (default: all):
 
@@ -32,7 +50,9 @@ Run from the repository root, optionally naming the files to write
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import pathlib
 import sys
 
@@ -77,15 +97,26 @@ def main(names) -> None:
     if "footing_f32" in names:
         r = footing.solve(FootingConfig.fast_f32())
         np.savez(OUT / "footing_f32.npz", **_fields(r, "pressure_hist"))
-    for name, cfg in (
-        ("tsx_scale_l1", lambda: TsxTunnelConfig.fast_scale(1)),
-        ("tsx_scale_l2_2steps", lambda: TsxTunnelConfig.fast_scale(2, zeta_max=2 / 17)),
+    for name, cfg, pack in (
+        ("tsx_scale_l1", lambda: TsxTunnelConfig.fast_scale(1), "auto"),
+        ("tsx_scale_l2_2steps", lambda: TsxTunnelConfig.fast_scale(2, zeta_max=2 / 17), "auto"),
+        ("tsx_scale_l1_packed", lambda: TsxTunnelConfig.fast_scale(1), True),
+        ("tsx_scale_l1_ell", lambda: TsxTunnelConfig.fast_scale(
+            1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell"), "auto"),
+        ("tsx_scale_l1_gather", lambda: TsxTunnelConfig.fast_scale(1, corr_mode="gather"), "auto"),
+        ("tsx_scale_l1_res_ell", lambda: TsxTunnelConfig.fast_scale(1, residual_fmt="ell"), "auto"),
+        ("tsx_scale_l1_ell_res_csr", lambda: TsxTunnelConfig.fast_scale(
+            1, spmv_fmt="ell", corr_mode="gather"), "auto"),
     ):
         if name in names:
-            r = tsx.solve(cfg())
+            with _pack_bf16(pack):
+                r = tsx.solve(cfg())
             np.savez_compressed(
                 OUT / f"{name}.npz", **_fields(r, "displ_hist"), n_cg_total=r.n_cg_total
             )
+    if "tsx_df32_bench_res_ell" in names:
+        r = tsx.solve(TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell"))
+        np.savez_compressed(OUT / "tsx_df32_bench_res_ell.npz", **_fields(r, "displ_hist"))
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -120,6 +151,20 @@ def main(names) -> None:
     _report()
 
 
+@contextlib.contextmanager
+def _pack_bf16(pack):
+    """Run with `build_hierarchy_ell`'s `pack_bf16` default set to `pack`
+    (the tsx model calls it without the argument)."""
+    from fem_elastoplasticity_tpu.solve import multigrid as mgm
+
+    real = mgm.build_hierarchy_ell
+    mgm.build_hierarchy_ell = functools.partial(real, pack_bf16=pack)
+    try:
+        yield
+    finally:
+        mgm.build_hierarchy_ell = real
+
+
 def _report() -> None:
     for f in sorted(OUT.glob("*.npz")):
         print(f.relative_to(ROOT), f.stat().st_size, "bytes")
@@ -128,6 +173,8 @@ def _report() -> None:
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
+    "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
+    "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell",
 )
 
 if __name__ == "__main__":

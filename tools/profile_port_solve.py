@@ -10,14 +10,16 @@ OUT (default `profile_port_solve.txt`) and prints one JSON summary line.
 
 With `--scale L [L ...]` it also profiles the scale preset
 `TsxTunnelConfig.fast_scale(L)` (multigrid-preconditioned CG; kernels K3,
-K4 and K1) at each level given: the host setup time of `build_df32`, then
-the same measurements, the step / Newton / CG / plastic counts, the
-launches of each hand-written kernel, and the host syncs per CG iteration
-(host reads of a device scalar, and `cudaStreamSynchronize` calls, in the
-profiled run, over its CG total).  `--no-dense` leaves the five dense
-solves out.
+K4 and K1, and K5 at level 5) at each level given: the host setup time of
+`build_df32`, then the same measurements, the step / Newton / CG / plastic
+counts, the launches of each hand-written kernel, and the host syncs per
+CG iteration (host reads of a device scalar, and `cudaStreamSynchronize`
+calls, in the profiled run, over its CG total).  `--ell L [L ...]` does
+the same for the ELL configuration `fast_scale(L, spmv_fmt="ell",
+corr_mode="gather", residual_fmt="ell")` (kernel K6).  `--no-dense`
+leaves the five dense solves out.
 
-    python tools/profile_port_solve.py [OUT] [--scale L [L ...]] [--no-dense]
+    python tools/profile_port_solve.py [OUT] [--scale L ...] [--ell L ...] [--no-dense]
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out", nargs="?", default="profile_port_solve.txt")
     ap.add_argument("--scale", type=int, nargs="*", default=[], metavar="L")
+    ap.add_argument("--ell", type=int, nargs="*", default=[], metavar="L")
     ap.add_argument("--no-dense", action="store_true")
     opts = ap.parse_args()
     import torch
@@ -66,12 +69,15 @@ def main() -> int:
             "footing_f64": lambda: footing.solve(FootingConfig(), device=device),
             "footing_f32": lambda: footing.solve(FootingConfig.fast_f32(), device=device),
         }
-    for level in opts.scale:
+    scale = [(f"scale_L{L}", TsxTunnelConfig.fast_scale(L)) for L in opts.scale] + [
+        (f"ell_L{L}", TsxTunnelConfig.fast_scale(L, spmv_fmt="ell", corr_mode="gather",
+                                                 residual_fmt="ell")) for L in opts.ell]
+    for tag, cfg in scale:
         t0 = time.perf_counter()
-        run, _ = tsx.build_df32(TsxTunnelConfig.fast_scale(level), device=device)
+        run, _ = tsx.build_df32(cfg, device=device)
         torch.cuda.synchronize()
-        setup_s[f"scale_L{level}"] = time.perf_counter() - t0
-        runs[f"scale_L{level}"] = run
+        setup_s[tag] = time.perf_counter() - t0
+        runs[tag] = run
     for tag, run in runs.items():
         t0 = time.perf_counter()
         run()
