@@ -8,9 +8,9 @@ them against the repository's anchors:
                 as `nvidia-smi --query-gpu=name,power.limit` gives them;
   2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
                 (ops/csrc/dp_return_map.cu), K3 (ops/csrc/csr_spmv_f32.cu),
-                K4 and K5 (ops/csrc/block_jacobi_sweep.cu) and K6
-                (ops/csrc/ell_spmv.cu) with nvcc, one process a source, all
-                at once;
+                K4 and K5 (ops/csrc/block_jacobi_sweep.cu), K6
+                (ops/csrc/ell_spmv.cu) and K7 (ops/csrc/cholesky_blocked.cu)
+                with nvcc, one process a source, all at once;
   3. K1       — the kernel against its plain PyTorch version on the strain
                 and force operators G/S of the tsx mesh at refine levels 0
                 and 4, seeded inputs, normwise relative difference <= 1e-13;
@@ -22,41 +22,76 @@ them against the repository's anchors:
                 identical branch masks, max abs difference over max |plain|
                 <= 1e-6 (f32) / 1e-13 (f64), two launches bit-identical;
                 CUDA-event times beside the bytes bound;
-  5. f64      — `solve(TsxTunnelConfig())`: 17 steps, 28 Newton iterations,
+  5. K7       — `cholesky_factor` and `cholesky_solve` (its own entry
+                points; no solve calls it) on the seeded SPD matrices of
+                `tests/test_cholesky_pallas.py` at n = 128, 200, 908 and
+                2000, the Jacobi-scaled tsx elastic K_free (908) and the
+                footing's f32 K_free (816), then each case against the
+                plain version: factor and inverse blocks within 1e-5 of max
+                |plain|, the solve within 1e-5 of the plain solve on the
+                kernel's factor, within 5e-6 (SPD) or 1e-4 (FEM) of the f64
+                solve, two launches bit-identical; the kernels each
+                factorization launched, as the library reports them, must
+                be 3 nb - 2 for nb panels; times beside the bound, the plain
+                version and cuSOLVER (`cholesky_ex`, `cholesky_solve`);
+  6. f64      — `solve(TsxTunnelConfig())`: 17 steps, 28 Newton iterations,
                 u[40,0] within 1e-9 relative of the f64 anchor;
-  6. bench    — `TsxTunnelConfig.fast(assembled_cg=True)`: the same gate,
+  7. bench    — `TsxTunnelConfig.fast(assembled_cg=True)`: the same gate,
                 K1 launched (and the plain version not) during the solve,
                 and two runs with identical counts and bit-identical u;
-  7. tsx f32  — `solve(TsxTunnelConfig.fast_f32())`: 17 steps, u[40,0]
+  8. tsx f32  — `solve(TsxTunnelConfig.fast_f32())`: 17 steps, u[40,0]
                 within 1e-5 relative of -1.979450e-03, K2 launched and the
                 plain version not, two runs with equal counts and
                 bit-identical u;
-  8. footing f64 — `footing.solve(FootingConfig())`: 16 steps, zeta ending
+  9. footing f64 — `footing.solve(FootingConfig())`: 16 steps, zeta ending
                 at 1.032 (1e-12), the reference's 16 pressures within 1e-4;
-  9. footing f32 — `footing.solve(FootingConfig.fast_f32())`: zeta reaches
+ 10. footing f32 — `footing.solve(FootingConfig.fast_f32())`: zeta reaches
                 1, the limit pressure within 5e-4 of the f64 run's, K2
                 launched and the plain version not, two runs with equal
                 counts and bit-identical u;
- 10. scale L1 — `solve(TsxTunnelConfig.fast_scale(1))`, the multigrid-CG
+ 11. footing df32 — `footing.solve(FootingConfig.fast())`: 16 steps, zeta
+                within 1e-6, u within 1e-9, pressures within 1e-5 of the f64
+                run's, two runs bit-identical, steps and plastic points as
+                the JAX package's run has them (tests/fixtures/torch_port/
+                footing_df32.npz) and its Newton iterations on every load
+                trip, or fewer on a trip at its two-float floor
+                (`footing.newton_trip_gaps`);
+ 12. footing CG — `FootingConfig(solver="cg")`, `FootingConfig.fast(
+                solver="cg")` and `FootingConfig.fast(solver="cg",
+                assembled_cg=True, cg_maxiter=4000)` at zeta_max=0.02
+                against their fixtures: steps and plastic points as the JAX
+                package's runs have them, Newton iterations by trip as in
+                phase 11 (df32) or in total (f64), CG within 5%, the last
+                pressure within 1e-8 (f64) / 1e-6 (df32), the df32 runs
+                twice and bit-identical, the matrix-free runs through no
+                kernel, the assembled run through K3 (at least once a CG
+                iteration) and K1 and no plain version, its schedule the
+                matrix-free df32 run's;
+ 13. footing L3 — `build_df32(FootingConfig.fast(level=3, solver="cg",
+                assembled_cg=True, cg_maxiter=4000, max_trips=2))` (13k
+                unknowns; setup time printed), two runs bit-identical, the
+                same gates against the JAX package's 2 / 17 / 21,074 /
+                3,004 and pressure 14.473212, K3 and K1 and no plain;
+ 14. scale L1 — `solve(TsxTunnelConfig.fast_scale(1))`, the multigrid-CG
                 preset on the once-refined mesh: 17 steps, u[40,0] within
                 1e-8 relative of -2.166787295662e-03, 20 plastic points, K3,
                 K4 and K1 launched and no plain version;
- 11. K3       — the f32 CSR SpMV against its plain version on the fine
+ 15. K3       — the f32 CSR SpMV against its plain version on the fine
                 elastic operator of the level-4 hierarchy (228,112 rows), on
                 its P and R, and on the level-1 fine operator, seeded x: max
                 abs difference over max |plain| <= 2e-6, two launches
                 bit-identical; times, bytes bound and cuSPARSE's time;
- 12. K4       — the fused block-Jacobi sweep against its plain version on
+ 16. K4       — the fused block-Jacobi sweep against its plain version on
                 the level-4 and level-1 fine operators, seeded z and r, with
                 and without the update: <= 5e-6, exact zeros on constrained
                 rows, two launches bit-identical; times and bytes bound;
- 13. scale L4 — `build_df32(TsxTunnelConfig.fast_scale(4))` (setup time
+ 17. scale L4 — `build_df32(TsxTunnelConfig.fast_scale(4))` (setup time
                 printed), then two runs: 17 steps, u[40,0] within 1e-6
                 relative of -2.264312e-3, the step / Newton / CG / plastic
                 counts beside the JAX package's recorded 17 / 52 / 605 /
                 1,477, equal counts and bit-identical u in both runs, K3, K4
                 and K1 launched and no plain version;
- 14. K6       — the ELL product against its plain version: f32 on the
+ 18. K6       — the ELL product against its plain version: f32 on the
                 level-4 fine operator, its P and R (the ELL build of
                 `spmv_fmt="ell"`), f64 on level 4's G and on S as its three
                 column parts (`residual_fmt="ell"`): <= 2e-6 of max |plain|
@@ -65,20 +100,20 @@ them against the repository's anchors:
                 the padded layout's bytes printed beside it), cuSPARSE's time
                 for the same product and K3's / K1's time on the same
                 operator as CSR;
- 15. scale ELL — `fast_scale(L, spmv_fmt="ell", corr_mode="gather",
+ 19. scale ELL — `fast_scale(L, spmv_fmt="ell", corr_mode="gather",
                 residual_fmt="ell")` through `solve` at L = 1 (u40 within
                 1e-8 of -2.166787295662e-03) and `build_df32` at L = 4
                 (within 1e-6 of -2.264312e-3): 17 steps, two runs with equal
                 counts and bit-identical u, both K6 instances launched and no
                 plain version; counts printed beside the slot path's;
- 16. K5       — the bf16-valued sweep against its plain version on the
+ 20. K5       — the bf16-valued sweep against its plain version on the
                 level-5 fine operator (910,368 rows) and on the level-1 fine
                 operator packed by force, with and without the update:
                 <= 5e-6, exact zeros on constrained rows, two launches
                 bit-identical, bit for bit K4 on the values widened to f32;
                 times, bytes bound, and K4's time on the level-5 operator's
                 f32 values;
- 17. scale L5 — `build_df32(TsxTunnelConfig.fast_scale(5))` (setup time,
+ 21. scale L5 — `build_df32(TsxTunnelConfig.fast_scale(5))` (setup time,
                 hierarchy rows and packed levels printed), two runs: 17
                 steps, u[40,0] within 1e-6 relative of -2.265345e-3, counts
                 beside the JAX package's 17 / 59 / 917, equal counts and
@@ -111,6 +146,16 @@ K3_TOL = 2e-6  # max abs diff / max |plain|, kernel vs plain, both f32
 K4_TOL = 5e-6
 K5_TOL = 5e-6
 K6_TOL = {"float32": 2e-6, "float64": 1e-13}  # max-abs over max |plain|; normwise
+K7_TOL = 1e-5  # max-abs over max |plain|: factor, inverses, solve on one factor
+# the f64 solve: the JAX package's own gates (tests/test_cholesky_pallas.py);
+# the FEM matrices (cond ~1e3 and 6e3) lose more in f32
+K7_TOL_F64 = {"spd": 5e-6, "fem": 1e-4}
+K7_SIZES = (128, 200, 908, 2000)
+# the JAX package's footing runs on the CPU (tools/make_port_fixtures.py)
+FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
+# the level-3 assembled run under max_trips=2 (no fixture): steps / Newton /
+# CG / plastic and the last accepted pressure
+JAX_FOOTING_ACG_L3 = ((2, 17, 21074, 3004), 14.473212, None)
 ANCHOR_U40_SCALE_L1 = -2.166787295662e-03  # tests/test_tsx_tunnel.py:236
 ANCHOR_U40_SCALE_L4 = -2.264312e-3  # BENCH_NOTES.md:436
 JAX_COUNTS_SCALE_L4 = (17, 52, 605, 1477)  # steps, Newton, CG, plastic (BENCH_NOTES.md:124)
@@ -572,6 +617,173 @@ def k5_phase(torch, spmv, cases, device, card):
     return shapes, max_err, bitwise
 
 
+def k7_matrices(torch, device):
+    """{tag: (K (n, n) f32 on the card, b (n,) f32, f64 solve tolerance)}:
+    the seeded SPD matrices of `tests/test_cholesky_pallas.py` at n = 128,
+    200, 908 and 2000, the Jacobi-scaled tsx P1 elastic stiffness (908) and
+    the footing's f32 elastic K_free (816), the matrix `FootingConfig.fast()`
+    factors."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
+    from fem_elastoplasticity_tpu_torch.models.materials import elastic_tangent_lanes, lame_moduli
+    from fem_elastoplasticity_tpu_torch.ops import assembly as asm
+    from fem_elastoplasticity_tpu_torch.ops.elements import volume_element
+
+    out = {}
+    for n in K7_SIZES:
+        rng = np.random.default_rng(n)
+        A = rng.normal(size=(n, n))
+        A = (A @ A.T + n * np.eye(n)).astype(np.float32)
+        b = rng.normal(size=n).astype(np.float32)
+        out[f"spd_{n}"] = (torch.as_tensor(A, device=device), torch.as_tensor(b, device=device),
+                           K7_TOL_F64["spd"])
+
+    def k_free(mesh, cfg, dtype):
+        geom = asm.compute_geometry(torch.as_tensor(mesh.coords, device=device), mesh.elems,
+                                    volume_element(mesh.etype)).to(dtype)
+        D = elastic_tangent_lanes(*lame_moduli(cfg.young, cfg.poisson), geom.n_int, dtype, device)
+        fmap, n_free = asm.free_dof_map(mesh.free)
+        return asm.assemble_dense_free(asm.element_stiffness(geom, D),
+                                       asm.dense_free_plan(geom, fmap, n_free))
+
+    K = k_free(tsx.tsx_mesh(), TsxTunnelConfig(), torch.float64)
+    d = torch.rsqrt(torch.diagonal(K))
+    Ks = (K * d[:, None] * d[None, :]).to(torch.float32)
+    out["tsx_scaled_908"] = (Ks, torch.ones(Ks.shape[0], device=device), K7_TOL_F64["fem"])
+    cfg = FootingConfig.fast()
+    Kf = k_free(footing.build_mesh(cfg), cfg, torch.float32)
+    b = np.random.default_rng(SEED + 7).normal(size=Kf.shape[0]).astype(np.float32)
+    out[f"footing_{Kf.shape[0]}"] = (Kf, torch.as_tensor(b, device=device), K7_TOL_F64["fem"])
+    return out
+
+
+def k7_phase(torch, chol, cases, per_factor, card):
+    """cases: `k7_matrices`; per_factor: the kernels each case's
+    factorization launched on the main run -> per-case records.  The factor's gap is
+    max |L - L_plain| / max |L_plain|; the solve is held to the f64 solve
+    (kernel factor and kernel solve) and, on the kernel's own factor, to
+    the plain solve; cuSOLVER's `cholesky_ex` + `cholesky_solve` beside."""
+    import numpy as np
+
+    shapes = {}
+    for tag, (K, b, tol64) in cases.items():
+        n = K.shape[0]
+        L, inv = chol.cholesky_factor_cuda(K)
+        x = chol.cholesky_solve_cuda(L, inv, b, n)
+        L_p, inv_p = chol.cholesky_factor_plain(K)
+        x_on_kernel_factor = chol.cholesky_solve_plain(L, inv, b, n)
+        x_plain = chol.cholesky_solve_plain(L_p, inv_p, b, n)
+        L2, inv2 = chol.cholesky_factor_cuda(K)
+        torch.cuda.synchronize()
+        check(torch.equal(L, L2) and torch.equal(inv, inv2) and torch.equal(
+            x, chol.cholesky_solve_cuda(L, inv, b, n)), f"K7 {tag}: not bitwise repeatable")
+        check(bool(torch.isfinite(L).all() and torch.isfinite(x).all()), f"K7 {tag}: non-finite")
+        check(torch.equal(torch.triu(L, 1), torch.zeros_like(L)), f"K7 {tag}: upper part not zero")
+        err_L = float((L - L_p).abs().max())
+        gap_L = err_L / float(L_p.abs().max())
+        gap_inv = float((inv - inv_p).abs().max() / inv_p.abs().max())
+        err_x = float((x - x_on_kernel_factor).abs().max())
+        gap_solve = err_x / float(x_on_kernel_factor.abs().max())
+        gap_end = float((x - x_plain).abs().max() / x_plain.abs().max())
+        ref = np.linalg.solve(K.double().cpu().numpy(), b.double().cpu().numpy())
+        gap64 = float(np.abs(x.double().cpu().numpy() - ref).max() / np.abs(ref).max())
+        gap64_plain = float(np.abs(x_plain.double().cpu().numpy() - ref).max() / np.abs(ref).max())
+        L_lib = torch.linalg.cholesky(K)
+        x_lib = torch.cholesky_solve(b[:, None], L_lib)[:, 0]
+        gap64_lib = float(np.abs(x_lib.double().cpu().numpy() - ref).max() / np.abs(ref).max())
+        check(max(gap_L, gap_inv, gap_solve) <= K7_TOL,
+              f"K7 {tag}: kernel against plain: factor {gap_L:.3e}, inverses {gap_inv:.3e}, "
+              f"solve {gap_solve:.3e}")
+        check(gap64 <= tol64, f"K7 {tag}: solve {gap64:.3e} from the f64 solve")
+        reps = 20 if n <= 1000 else 10
+        f_ms, f_eager = cuda_ms(torch, lambda: chol.cholesky_factor_cuda(K), reps=reps)
+        s_ms, s_eager = cuda_ms(torch, lambda: chol.cholesky_solve_cuda(L, inv, b, n), reps=reps)
+        fp_ms, fp_eager = cuda_ms(torch, lambda: chol.cholesky_factor_plain(K), reps=2)
+        sp_ms, sp_eager = cuda_ms(torch, lambda: chol.cholesky_solve_plain(L, inv, b, n), reps=5)
+        # the yardstick: cuSOLVER, the calls the dense paths make
+        # (cholesky_ex: the same factor without the host read of its info)
+        fl_ms, fl_eager = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(K), reps=reps)
+        sl_ms, sl_eager = cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)
+        n_pad = L.shape[0]
+        fb_ms, fb_by = bound_ms(8 * n * n, n ** 3 / 3, "float32")
+        sb_ms, sb_by = bound_ms(4 * (n * n + n_pad * chol.BLOCK + 2 * n),
+                                n * n + 2 * n_pad * chol.BLOCK, "float32")
+        shapes[tag] = dict(
+            n=n, n_pad=n_pad, factor_kernel_launches=per_factor[tag],
+            factor_gap=gap_L, inverse_gap=gap_inv, solve_gap_on_kernel_factor=gap_solve,
+            solve_gap_end_to_end=gap_end, solve_gap_f64=gap64, plain_solve_gap_f64=gap64_plain,
+            cusolver_solve_gap_f64=gap64_lib, factor_max_abs_err=err_L, solve_max_abs_err=err_x,
+            factor_ms=f_ms, factor_eager_ms=f_eager, factor_plain_ms=fp_ms,
+            factor_plain_eager_ms=fp_eager, factor_library_ms=fl_ms,
+            factor_library_eager_ms=fl_eager, factor_bound_ms=fb_ms, factor_bound_by=fb_by,
+            solve_ms=s_ms, solve_eager_ms=s_eager, solve_plain_ms=sp_ms,
+            solve_plain_eager_ms=sp_eager, solve_library_ms=sl_ms,
+            solve_library_eager_ms=sl_eager, solve_bound_ms=sb_ms, solve_bound_by=sb_by,
+        )
+        say("K7", f"{tag} n {n} (pad {n_pad}): factor gap {gap_L:.3e} (inverses {gap_inv:.3e}), "
+            f"solve vs plain on the kernel's factor {gap_solve:.3e} (end to end {gap_end:.3e}), "
+            f"vs f64 {gap64:.3e} (plain {gap64_plain:.3e}, cuSOLVER {gap64_lib:.3e}) | device: "
+            f"factor {f_ms:.4f} ms plain {fp_ms:.3f} ms cuSOLVER {fl_ms:.4f} ms bound "
+            f"{fb_ms:.5f} ms ({fb_by}); solve {s_ms:.4f} ms plain {sp_ms:.4f} ms cuSOLVER "
+            f"{sl_ms:.4f} ms bound {sb_ms:.5f} ms ({sb_by}) | eager: factor {f_eager:.4f} ms "
+            f"cuSOLVER {fl_eager:.4f} ms, solve {s_eager:.4f} ms cuSOLVER {sl_eager:.4f} ms "
+            f"| {card}")
+    return shapes
+
+
+def footing_counts(r):
+    return (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)
+
+
+def jax_footing(name: str):
+    """The JAX package's run from its fixture: (steps / Newton / CG /
+    plastic, last accepted pressure, Newton iterations by load trip or None
+    where the fixture has none)."""
+    import numpy as np
+
+    f = np.load(FIXTURES / f"{name}.npz")
+    counts = tuple(int(f[k]) for k in ("n_steps", "n_newton_total", "n_cg_total", "n_plastic"))
+    trips = tuple(int(k) for k in f["newton_trips"]) if "newton_trips" in f.files else None
+    return counts, float(f["pressure_hist"][counts[0]]), trips
+
+
+def check_newton(tag: str, r, cfg, want_total: int, jax_trips) -> None:
+    """Newton iterations against the JAX run: by load trip where its
+    fixture has them (`footing.newton_trip_gaps`: equal, or fewer on a trip
+    at the two-float floor), else the total."""
+    from fem_elastoplasticity_tpu_torch.models import footing
+
+    if jax_trips is None:
+        check(r.n_newton_total == want_total,
+              f"{tag}: {r.n_newton_total} Newton iterations, JAX {want_total}")
+        return
+    bad = footing.newton_trip_gaps(r, jax_trips, cfg)
+    check(not bad, f"{tag}: Newton by trip {r.newton_trips}, JAX {jax_trips}; trips off "
+          f"(trip, port, JAX, last criterion) {bad}")
+
+
+def check_footing_cg(tag: str, r, cfg, want: tuple, p_want: float, jax_trips,
+                     p_tol: float) -> float:
+    """Gate a truncated CG footing run against the JAX package's counts
+    (steps / Newton / CG / plastic) and last pressure; returns the
+    pressure's relative gap."""
+    import numpy as np
+
+    got = footing_counts(r)
+    check(r.u.shape[1] == 2 and bool(np.isfinite(r.u).all() and np.isfinite(r.ep).all()),
+          f"{tag}: bad field")
+    check(got[0] == want[0] and got[3] == want[3], f"{tag}: counts {got}, JAX {want}")
+    check_newton(tag, r, cfg, want[1], jax_trips)
+    check(abs(got[2] - want[2]) <= 0.05 * want[2], f"{tag}: {got[2]} CG iterations, JAX {want[2]}")
+    p = float(r.pressure_hist[r.n_steps])
+    p_rel = abs(p - p_want) / p_want
+    check(p_rel <= p_tol, f"{tag}: last pressure {p!r} is {p_rel:.3e} from JAX's {p_want!r}")
+    return p_rel
+
+
 SCALE_KERNELS = ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64")
 ELL_KERNELS = ("ell_spmv_f32", "ell_spmv_f64")
 
@@ -602,6 +814,7 @@ def main() -> int:
     from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
     from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
     from fem_elastoplasticity_tpu_torch.ops import assembly as asm
+    from fem_elastoplasticity_tpu_torch.ops import cholesky as chol
     from fem_elastoplasticity_tpu_torch.ops import return_map as rm
     from fem_elastoplasticity_tpu_torch.ops import spmv
     from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
@@ -618,23 +831,47 @@ def main() -> int:
         load()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futs = {name: pool.submit(build, load) for name, load in (
             ("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
             ("csr_spmv_f32", spmv.load_kernel_f32),
             ("block_jacobi_sweep", spmv.load_sweep_kernel),
-            ("ell_spmv", spmv.load_ell_kernel))}
+            ("ell_spmv", spmv.load_ell_kernel), ("cholesky_blocked", chol.load_kernel))}
         build_s = {name: f.result() for name, f in futs.items()}
     say("build", f"csr_spmv_f64 {build_s['csr_spmv_f64']:.2f} s, dp_return_map (-fmad=false) "
         f"{build_s['dp_return_map']:.2f} s, csr_spmv_f32 (-fmad=false) "
         f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep with its bf16 instance "
         f"(-fmad=false) {build_s['block_jacobi_sweep']:.2f} s, ell_spmv f32 and f64 "
-        f"(-fmad=false) {build_s['ell_spmv']:.2f} s, in parallel "
+        f"(-fmad=false) {build_s['ell_spmv']:.2f} s, cholesky_blocked "
+        f"{build_s['cholesky_blocked']:.2f} s, in parallel "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     k1_shapes, k1_err = k1_phase(torch, spmv, tsx, asm, ElementType, volume_element, device, card)
     k2_shapes, k2_err, k2_bitwise = k2_phase(torch, rm, device, card)
     say("K2", f"kernel and plain version bitwise equal in every case: {k2_bitwise} | {card}")
+
+    # phase 5: K7 through its entry points, on the matrices the dense paths
+    # factor and the JAX package's test matrices; then each case against
+    # the plain version and cuSOLVER
+    k7_cases = k7_matrices(torch, device)
+    chol.LAUNCHES.clear()
+    k7_per_factor = {}  # the kernels each factorization launched, as the library reports
+    for tag, (K, b, _) in k7_cases.items():
+        before = chol.LAUNCHES["cholesky_factor"]
+        L, inv = chol.cholesky_factor(K)
+        k7_per_factor[tag] = chol.LAUNCHES["cholesky_factor"] - before
+        chol.cholesky_solve(L, inv, b, K.shape[0])
+    torch.cuda.synchronize()
+    k7_launches = dict(chol.LAUNCHES)
+    # 3 nb - 2 kernels for nb panels of 128: diagonal block, panel, update
+    want_per_factor = {tag: 3 * -(-K.shape[0] // chol.BLOCK) - 2
+                       for tag, (K, _, _) in k7_cases.items()}
+    check(k7_per_factor == want_per_factor,
+          f"K7: kernels a factorization {k7_per_factor}, expected {want_per_factor}")
+    check(k7_launches == {"cholesky_factor": sum(want_per_factor.values()),
+                          "cholesky_factorizations": len(k7_cases),
+                          "cholesky_solve": len(k7_cases)}, f"K7: launches {k7_launches}")
+    k7_shapes = k7_phase(torch, chol, k7_cases, k7_per_factor, card)
 
     r64, wall64 = timed(torch, lambda: tsx.solve(TsxTunnelConfig(), device=device))
     rel64 = check_solve("f64", r64)
@@ -663,7 +900,7 @@ def main() -> int:
         f"plain {launches.get('csr_spmv_f64_plain', 0)}, "
         f"repeat bit-identical, wall first {wall_first:.4f} s warm {wall_warm:.4f} s | {card}")
 
-    # phase 7: tsx f32 through K2
+    # phase 8: tsx f32 through K2
     rm.LAUNCHES.clear()
     t1, t_first = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device))
     k2_tsx = dict(rm.LAUNCHES)
@@ -683,7 +920,7 @@ def main() -> int:
         f"{k2_tsx.get('dp_return_map_plain', 0)}, repeat bit-identical, wall first "
         f"{t_first:.4f} s warm {t_warm:.4f} s | {card}")
 
-    # phase 8: footing f64, the parity anchor of the f32 run
+    # phase 9: footing f64, the parity anchor of the f32 and df32 runs
     f1, f_first = timed(torch, lambda: footing.solve(FootingConfig(), device=device))
     _, f_warm = timed(torch, lambda: footing.solve(FootingConfig(), device=device))
     check(bool(np.isfinite(f1.u).all()) and f1.u.shape == (441, 2), "footing f64: bad field")
@@ -696,7 +933,7 @@ def main() -> int:
         f"zeta {float(f1.zeta_hist[16])!r}, pressures rel {p_rel:.3e} to the reference, limit pressure "
         f"{float(f1.pressure_hist[16])!r}, wall first {f_first:.4f} s warm {f_warm:.4f} s | {card}")
 
-    # phase 9: footing f32 through K2
+    # phase 10: footing f32 through K2
     rm.LAUNCHES.clear()
     g1, g_first = timed(torch, lambda: footing.solve(FootingConfig.fast_f32(), device=device))
     k2_foot = dict(rm.LAUNCHES)
@@ -717,7 +954,99 @@ def main() -> int:
         f"{k2_foot.get('dp_return_map_plain', 0)}, repeat bit-identical, "
         f"wall first {g_first:.4f} s warm {g_warm:.4f} s | {card}")
 
-    # phase 10: the scale preset on the once-refined mesh, through solve()
+    # phase 11: footing fast(), the dense df32 preset (cuSOLVER factors, the
+    # matrix-free f64 residual: no hand-written kernel on this path)
+    fd1, fd_first = timed(torch, lambda: footing.solve(FootingConfig.fast(), device=device))
+    fd2, fd_warm = timed(torch, lambda: footing.solve(FootingConfig.fast(), device=device))
+    check(fd1.u.shape == (441, 2) and bool(np.isfinite(fd1.u).all()), "footing df32: bad field")
+    check(fd1.n_steps == 16, f"footing df32: {fd1.n_steps} steps")
+    fd_zeta = float(np.abs(fd1.zeta_hist[1:17] / f1.zeta_hist[1:17] - 1.0).max())
+    fd_u = float(np.abs(fd1.u - f1.u).max() / np.abs(f1.u).max())
+    fd_p = float(np.abs(fd1.pressure_hist[1:17] - f1.pressure_hist[1:17]).max()
+                 / np.abs(f1.pressure_hist[1:17]).max())
+    check(fd_zeta <= 1e-6 and fd_u <= 1e-9 and fd_p <= 1e-5,
+          f"footing df32: zeta {fd_zeta:.3e}, u {fd_u:.3e}, pressures {fd_p:.3e} from f64")
+    check(footing_counts(fd1) == footing_counts(fd2) and np.array_equal(fd1.u, fd2.u),
+          "footing df32: two runs differ")
+    fd_jax, _, fd_jax_trips = jax_footing("footing_df32")
+    check(footing_counts(fd1)[::3] == fd_jax[::3], f"footing df32: {footing_counts(fd1)}, JAX "
+          f"{fd_jax}")
+    check_newton("footing df32", fd1, FootingConfig.fast(), fd_jax[1], fd_jax_trips)
+    say("footing df32", f"steps / Newton / CG / plastic {footing_counts(fd1)} (JAX package's "
+        f"{fd_jax}; f64 run {f1.n_steps} / {f1.n_newton_total}), Newton by trip "
+        f"{fd1.newton_trips} (JAX {fd_jax_trips}), against the f64 run: "
+        f"zeta {fd_zeta:.3e}, u {fd_u:.3e}, pressures {fd_p:.3e}, repeat bit-identical, wall "
+        f"first {fd_first:.4f} s warm {fd_warm:.4f} s | {card}")
+
+    # phase 12: the footing's CG paths, truncated at zeta 0.02: matrix-free
+    # block-Jacobi PCG in f64 and df32 (no hand-written kernel), and the
+    # assembled full-tangent operator (K3 for every CG product, K1 for G/S)
+    foot_cg = {  # tag: configuration, its fixture, the last pressure's tolerance
+        "f64_cg_z002": (FootingConfig(solver="cg", zeta_max=0.02), "footing_cg_f64_z002", 1e-8),
+        "df32_cg_z002": (FootingConfig.fast(solver="cg", zeta_max=0.02),
+                         "footing_df32_cg_z002", 1e-6),
+        "df32_acg_z002": (FootingConfig.fast(solver="cg", assembled_cg=True, cg_maxiter=4000,
+                                             zeta_max=0.02), "footing_df32_acg_z002", 1e-6),
+    }
+    foot_launches, foot_res = {}, {}
+    for tag, (fcfg, fixture, p_tol) in foot_cg.items():
+        spmv.LAUNCHES.clear()
+        c1, c_first = timed(torch, lambda: footing.solve(fcfg, device=device))
+        foot_launches[tag] = dict(spmv.LAUNCHES)
+        want, p_want, jax_trips = jax_footing(fixture)
+        p_rel = check_footing_cg(f"footing {tag}", c1, fcfg, want, p_want, jax_trips, p_tol)
+        repeat = fcfg.precision == "df32"  # the f64 run (39k CG iterations) runs once
+        if repeat:
+            c2, c_warm = timed(torch, lambda: footing.solve(fcfg, device=device))
+            check(footing_counts(c1) == footing_counts(c2) and np.array_equal(c1.u, c2.u),
+                  f"footing {tag}: two runs differ")
+        if fcfg.assembled_cg:
+            check_scale_launches(f"footing {tag}", foot_launches[tag],
+                                 ("csr_spmv_f32", "csr_spmv_f64"))
+            check(foot_launches[tag]["csr_spmv_f32"] >= c1.n_cg_total,
+                  f"footing {tag}: fewer K3 launches than CG iterations")
+        else:
+            check(not foot_launches[tag], f"footing {tag}: launches {foot_launches[tag]}")
+        foot_res[tag] = c1
+        walls = (f"repeat bit-identical, wall first {c_first:.3f} s warm {c_warm:.3f} s"
+                 if repeat else f"wall {c_first:.3f} s")
+        say(f"footing {tag}", f"steps / Newton / CG / plastic {footing_counts(c1)} (JAX "
+            f"package's {want}), Newton by trip {c1.newton_trips} (JAX {jax_trips}), last "
+            f"pressure {float(c1.pressure_hist[c1.n_steps])!r} (rel "
+            f"{p_rel:.3e} to JAX's), launches {foot_launches[tag]}, {walls}, "
+            f"{1e6 * (c_warm if repeat else c_first) / c1.n_cg_total:.1f} us a CG iteration "
+            f"| {card}")
+    ra, rf = foot_res["df32_acg_z002"], foot_res["df32_cg_z002"]
+    check(ra.n_steps == rf.n_steps, "footing: the assembled and matrix-free schedules differ")
+    acg_p = float(np.abs(ra.pressure_hist[1:ra.n_steps + 1] - rf.pressure_hist[1:rf.n_steps + 1]
+                         ).max() / np.abs(rf.pressure_hist[1:rf.n_steps + 1]).max())
+    check(acg_p <= 1e-6, f"footing: assembled pressures {acg_p:.3e} from the matrix-free run's")
+
+    # phase 13: the assembled path at level 3 (13k unknowns), two load trips
+    t0 = time.perf_counter()
+    cfg3 = FootingConfig.fast(level=3, solver="cg", assembled_cg=True, cg_maxiter=4000,
+                              max_trips=2)
+    run3, mesh3 = footing.build_df32(cfg3, device=device)
+    torch.cuda.synchronize()
+    setup3 = time.perf_counter() - t0
+    spmv.LAUNCHES.clear()
+    g3a, h_first = timed(torch, run3)
+    foot_launches["df32_acg_L3"] = dict(spmv.LAUNCHES)
+    g3b, h_warm = timed(torch, run3)
+    check(g3a.u.shape == (6561, 2), f"footing L3: shape {g3a.u.shape}")
+    p3_rel = check_footing_cg("footing L3", g3a, cfg3, *JAX_FOOTING_ACG_L3, 1e-5)
+    check(footing_counts(g3a) == footing_counts(g3b) and np.array_equal(g3a.u, g3b.u),
+          "footing L3: two runs differ")
+    check_scale_launches("footing L3", foot_launches["df32_acg_L3"], ("csr_spmv_f32", "csr_spmv_f64"))
+    say("footing L3", f"setup {setup3:.3f} s; {mesh3.n_nodes} nodes, {mesh3.n_elems} elements, "
+        f"{int(mesh3.free.sum())} unknowns; steps / Newton / CG / plastic {footing_counts(g3a)} "
+        f"(JAX package's {JAX_FOOTING_ACG_L3[0]}), last pressure "
+        f"{float(g3a.pressure_hist[g3a.n_steps])!r} (rel {p3_rel:.3e} to "
+        f"{JAX_FOOTING_ACG_L3[1]}), launches {foot_launches['df32_acg_L3']}, repeat "
+        f"bit-identical, wall first {h_first:.3f} s warm {h_warm:.3f} s | {card}")
+    del run3, g3a, g3b
+
+    # phase 14: the scale preset on the once-refined mesh, through solve()
     spmv.LAUNCHES.clear()
     s1, s1_wall = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_scale(1), device=device))
     l1_launches = dict(spmv.LAUNCHES)
@@ -731,7 +1060,7 @@ def main() -> int:
         f"{s1.n_plastic} plastic, u40 {s1.u[40, 0]:.12e} (rel {l1_rel:.3e}), launches "
         f"{l1_launches}, wall {s1_wall:.3f} s (setup included) | {card}")
 
-    # phases 11-13: level 4, the full width of the scale path
+    # phases 15-17: level 4, the full width of the scale path
     ex1, ex4 = {}, {}
     tsx.build_df32(TsxTunnelConfig.fast_scale(1), device=device, extras=ex1)
     t0 = time.perf_counter()
@@ -767,7 +1096,7 @@ def main() -> int:
         f"{ANCHOR_U40_SCALE_L4}), launches {l4_launches}, repeat bit-identical, "
         f"wall first {q_first:.3f} s warm {q_warm:.3f} s | {card}")
 
-    # phases 14-15: the ELL format through K6, with the gather correction
+    # phases 18-19: the ELL format through K6, with the gather correction
     ex4e = {}
     t0 = time.perf_counter()
     run4e, mesh4e = tsx.build_df32(ell_config(TsxTunnelConfig, 4), device=device, extras=ex4e)
@@ -818,7 +1147,7 @@ def main() -> int:
         f"{q_first:.3f} / {q_warm:.3f} s) | {card}")
     del run4e, ex4e, fine4e, G4e, S4e, p1, p2
 
-    # phases 16-17: level 5, its fine level smoothed from bf16 values (K5)
+    # phases 20-21: level 5, its fine level smoothed from bf16 values (K5)
     ex5 = {}
     t0 = time.perf_counter()
     run5, mesh5 = tsx.build_df32(TsxTunnelConfig.fast_scale(5), device=device, extras=ex5)
@@ -869,7 +1198,9 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1370",
         "launches_by_path": by_path("csr_spmv_f64", bench=launches, scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_ELL_L1=e1_launches,
-                                    scale_ELL_L4=e4_launches, scale_L5=l5_launches),
+                                    scale_ELL_L4=e4_launches, scale_L5=l5_launches,
+                                    footing_acg_z002=foot_launches["df32_acg_z002"],
+                                    footing_acg_L3=foot_launches["df32_acg_L3"]),
         "max_abs_err": k1_err,
         # one residual evaluation of the main path: G u then S s, level 0
         "ms": sum(k1_shapes[k]["ms"] for k in l0),
@@ -902,7 +1233,9 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
         "launches_by_path": by_path("csr_spmv_f32", scale_L1=l1_launches, scale_L4=l4_launches,
                                     scale_ELL_L1=e1_launches, scale_ELL_L4=e4_launches,
-                                    scale_L5=l5_launches),
+                                    scale_L5=l5_launches,
+                                    footing_acg_z002=foot_launches["df32_acg_z002"],
+                                    footing_acg_L3=foot_launches["df32_acg_L3"]),
         "max_abs_err": k3_err,
         # the CG operator of the level-4 solve
         "ms": k3_shapes["K_L4"]["ms"],
@@ -980,6 +1313,32 @@ def main() -> int:
                                         + k6_shapes["S_L4"]["csr_kernel_ms"]),
         "shapes": {k: v for k, v in k6_shapes.items() if v["dtype"] == "float64"},
     }]
+    # K7: its own entry points; the main case is n = 908, the size of the
+    # tsx dense paths' factor
+    main_k7 = k7_shapes["tsx_scaled_908"]
+    for part, replaces in (("factor", "fem_elastoplasticity_tpu/ops/cholesky_pallas.py:140"),
+                           ("solve", "fem_elastoplasticity_tpu/ops/cholesky_pallas.py:179")):
+        kernels.append({
+            "name": f"cholesky_{part}",
+            "route": "cuda",
+            "source": "fem_elastoplasticity_tpu_torch/ops/csrc/cholesky_blocked.cu",
+            "replaces": replaces,
+            # kernels launched: 3 nb - 2 a factorization, one a solve
+            "launches": k7_launches[f"cholesky_{part}"],
+            "launches_by_path": {"cholesky_entry_points": k7_launches[f"cholesky_{part}"]},
+            **({"factorizations": k7_launches["cholesky_factorizations"]}
+               if part == "factor" else {}),
+            "max_abs_err": max(v[f"{part}_max_abs_err"] for v in k7_shapes.values()),
+            "ms": main_k7[f"{part}_ms"],
+            "plain_ms": main_k7[f"{part}_plain_ms"],
+            "bound_ms": main_k7[f"{part}_bound_ms"],
+            "bound_by": main_k7[f"{part}_bound_by"],
+            # cuSOLVER: torch.linalg.cholesky_ex / torch.cholesky_solve
+            "library_ms": main_k7[f"{part}_library_ms"],
+            "shapes": {k: {kk: vv for kk, vv in v.items()
+                           if kk.startswith(part) or not kk.startswith(("factor", "solve"))}
+                       for k, v in k7_shapes.items()},
+        })
     for k in kernels:  # launches on the main paths, all paths together
         k.setdefault("launches", sum(k["launches_by_path"].values()))
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)

@@ -4,7 +4,8 @@ Port of `fem_elastoplasticity_tpu/models/config.py` (`FootingConfig` at
 :39, `TsxTunnelConfig` at :188) with the same field names and defaults, so
 a configuration reads the same in both packages.  The port runs P1
 elements: with the dense solver the tsx in the "native" f64 and f32 and the
-"df32" precisions and the footing in native f64 and f32; with
+"df32" precisions and the footing in native f64 and f32 and in "df32",
+with dense or block-Jacobi CG tangent solves (`FootingConfig`); with
 `solver="ell"` (multigrid-preconditioned CG on assembled operators,
 `TsxTunnelConfig.fast_scale`) the tsx in df32 on refined meshes, with the
 hierarchy in CSR (`spmv_fmt="slot"`) or ELL (`"ell"`), the residual
@@ -180,27 +181,30 @@ class TsxTunnelConfig:
         return cls.fast(refine_levels=refine_levels, **kw)
 
 
-# fields of the footing's CG, multigrid, damping and df32 paths, which
-# later slices port: only their defaults are accepted
+# fields of the footing's tangent-multigrid scale path, which a later slice
+# ports: only their defaults are accepted
 _FOOTING_NOT_PORTED = dict(
-    solver="dense",
-    assembled_cg=False,
     tangent_mg=False,
-    cg_eta0=None,
-    cg_tol=None,
-    cg_maxiter=2000,
     cg_structure="while",
-    cg_cap_relax=None,
     cg_deflate=0,
     newton_damping=0,
     residual_fmt=None,
-    precision="native",
 )
+# fields that only the footing's iterative tangent solves (solver="cg")
+# read: with the dense solver only their defaults are accepted
+_FOOTING_CG_ONLY = dict(cg_eta0=None, cg_tol=None, cg_maxiter=2000, cg_cap_relax=None)
 
 
 @dataclass(frozen=True)
 class FootingConfig:
-    """Drucker-Prager strip footing (`Plasticity2D_DP/pythonFEM.py:901-1157`)."""
+    """Drucker-Prager strip footing (`Plasticity2D_DP/pythonFEM.py:901-1157`).
+
+    Ported: the dense solver in native f64 and f32 and in "df32"
+    (`fast()`), and `solver="cg"` (block-Jacobi preconditioned CG tangent
+    solves, matrix-free) in native precision and in df32, where
+    `assembled_cg=True` runs CG on the assembled elastic operator refreshed
+    from every integration point once per Newton iteration (kernel K3).
+    """
 
     etype: ElementType = ElementType.P1
     level: int = 1
@@ -218,14 +222,20 @@ class FootingConfig:
     max_steps: int = 1000  # history buffer length (P:1013)
     # cap on load-loop trips per stepper invocation
     max_trips: int = 10000
-    solver: str = "dense"
+    solver: str = "dense"  # "dense" | "cg"
+    # solver="cg" with precision="df32": CG on the assembled operator,
+    # refreshed from all integration points once per Newton iteration
     assembled_cg: bool = False
     tangent_mg: bool = False
     dense_mode: str = "f64"  # "f64" | "mixed" (f32 Cholesky + f64 refinement)
+    # Eisenstat-Walker forcing ceiling of the df32 CG tangent solves
     cg_eta0: float = None
+    # CG tolerance; None: 1e-14 (native f64) or 2e-7 (f32 and df32)
     cg_tol: float = None
     cg_maxiter: int = 2000
     cg_structure: str = "while"
+    # accept a capped CG solve whose preconditioned residual fell by this
+    # factor; None: a capped solve counts as divergence
     cg_cap_relax: float = None
     cg_deflate: int = 0
     newton_damping: int = 0
@@ -234,7 +244,7 @@ class FootingConfig:
     # (reference defect #2, SURVEY.md §2.3) for bit-level comparisons
     bug_compatible_apex: bool = False
     dtype: str = "float64"
-    # "native" only: the footing's df32 preset is not ported
+    # "native" | "df32" (utils/precision.py)
     precision: str = "native"
 
     def __post_init__(self):
@@ -246,11 +256,38 @@ class FootingConfig:
             raise NotImplementedError(f"FootingConfig.etype={self.etype}")
         if self.dense_mode not in ("f64", "mixed"):
             raise ValueError(f"dense_mode {self.dense_mode!r}")
+        if self.solver == "dense":
+            for name, default in _FOOTING_CG_ONLY.items():
+                if getattr(self, name) != default:
+                    raise NotImplementedError(
+                        f"FootingConfig.{name}={getattr(self, name)!r} with solver='dense'"
+                    )
+        elif self.solver != "cg":
+            raise NotImplementedError(f"FootingConfig.solver={self.solver!r}")
+        if self.dense_mode != "f64" and (self.solver != "dense" or self.precision != "native"):
+            # only the native dense factorizations read dense_mode
+            raise NotImplementedError("dense_mode='mixed' needs solver='dense' and "
+                                      "precision='native'")
+        if self.assembled_cg and (self.solver != "cg" or self.precision != "df32"):
+            # the JAX package asserts solver="cg", and its native path never
+            # reads assembled_cg
+            raise NotImplementedError("assembled_cg=True needs solver='cg' and precision='df32'")
+        if self.cg_eta0 is not None and self.precision != "df32":
+            # the JAX package's native footing never passes cg_eta0 on
+            raise NotImplementedError("cg_eta0 with precision='native'")
 
     @classmethod
     def fast(cls, **kw):
-        """Double-float preset (f32 hardware, df32 state): not ported yet."""
-        raise NotImplementedError("FootingConfig.fast is not ported yet")
+        """Double-float preset: f64 state and residual, f32 tangent solves
+        (the dense solver's explicit Jacobi-scaled elastic inverse and f32
+        Cholesky factors, or f32 CG).  newton_tol sits at the df32
+        criterion floor of this near-incompressible problem, so the
+        pressure-doubling rule fires where the f64 run's 1e-12 does: the
+        dense preset follows the f64 schedule (16 steps)."""
+        kw.setdefault("dtype", "float32")
+        kw.setdefault("precision", "df32")
+        kw.setdefault("newton_tol", 5e-12)
+        return cls(**kw)
 
     @classmethod
     def fast_f32(cls, **kw):

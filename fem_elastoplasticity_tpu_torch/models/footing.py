@@ -1,15 +1,28 @@
 """Drucker-Prager strip footing (benchmark B).
 
-Port of `fem_elastoplasticity_tpu/models/footing.py` for the dense solver
-in native precision: `FootingConfig()` (f64, the parity run) and
-`FootingConfig.fast_f32()` (f32, the return map in kernel K2).  A rigid
-footing (inhomogeneous Dirichlet on the top edge, x <= 1.0001) is pushed
-into a near-incompressible (nu = 0.48) elastoplastic half-space; the load
-factor ramps adaptively with the reference's pressure-based d_zeta
-doubling rule (`Plasticity2D_DP/pythonFEM.py:1109-1110`).  Anchors of the
-f64 run: 16 accepted steps, zeta ending at 1.032, the reference's pressure
-curve within 1e-4.  The f32 run may take another schedule; its limit
-pressure agrees with the f64 one to ~1e-4.
+Port of `fem_elastoplasticity_tpu/models/footing.py`.  A rigid footing
+(inhomogeneous Dirichlet on the top edge, x <= 1.0001) is pushed into a
+near-incompressible (nu = 0.48) elastoplastic half-space; the load factor
+ramps adaptively with the reference's pressure-based d_zeta doubling rule
+(`Plasticity2D_DP/pythonFEM.py:1109-1110`).
+
+* `solve` runs the native precisions: `FootingConfig()` (f64, the parity
+  run) and `FootingConfig.fast_f32()` (f32, the return map in kernel K2),
+  with dense tangent solves or, with `solver="cg"`, block-Jacobi PCG on
+  the matrix-free tangent; and routes `precision="df32"` to `build_df32`.
+* `build_df32` is the double-float preset `FootingConfig.fast()`: f64
+  state and residual, f32 tangent solves, dense (the explicit elastic
+  inverse and f32 Cholesky factors) or CG; with `assembled_cg=True` the
+  CG operator is the assembled elastic stiffness refreshed from every
+  integration point once per Newton iteration (kernel K3), and the Newton
+  residual runs on the assembled G/S operators (kernel K1), on an RCM node
+  ordering whose result is handed back in the reference order.
+
+Anchors of the f64 run: 16 accepted steps, zeta ending at 1.032, the
+reference's pressure curve within 1e-4; the dense df32 run follows the
+same 16-step schedule with u within 1e-9.  The f32 run and the CG runs may
+take other schedules; their limit pressures agree with the f64 one to
+~5e-4.
 """
 from __future__ import annotations
 
@@ -20,8 +33,11 @@ import torch
 
 from ..mesh.structured import Mesh, square_mesh
 from ..ops import assembly as asm
+from ..ops import assembly_df as adf
+from ..ops import spmv
 from ..ops.elements import volume_element
-from ..solve.newton import NewtonSettings, build_load_stepper
+from ..solve.cg import block_jacobi_preconditioner, solve_cg
+from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
 from ..utils.precision import dtype_policy, resolve_device
 from .config import FootingConfig
 from .materials import drucker_prager_fit, elastic_tangent_lanes, lame_moduli
@@ -39,6 +55,33 @@ class FootingResult(NamedTuple):
     n_plastic: int
     mesh: Mesh
     n_cg_total: int = 0
+    newton_trips: tuple = ()  # Newton iterations of each load trip
+    crit_trips: tuple = ()  # the last Newton criterion of each load trip
+
+
+# the two-float criterion's floor band, [newton_tol / FLOOR_BAND, newton_tol)
+FLOOR_BAND = 10.0
+
+
+def newton_trip_gaps(r: FootingResult, ref_trips, cfg: FootingConfig) -> list:
+    """The load trips where a df32 result `r` departs from the JAX package's
+    two-float run of `cfg` (its Newton iterations by trip, `ref_trips`):
+    [(trip, r's count, the reference's, r's last criterion), ...], 1-based.
+
+    The port's df32 state is f64, so its criterion settles below the
+    two-float one's floor (a few 1e-12).  A trip takes the reference's
+    Newton count, or fewer where the reference ends at its floor
+    (newton_maxit iterations) or where r's last criterion lies within
+    FLOOR_BAND below newton_tol, a value the two-float criterion cannot
+    tell from newton_tol.  A schedule of another length is one gap.
+    """
+    ref = [int(k) for k in ref_trips]
+    if len(r.newton_trips) != len(ref):
+        return [(len(ref), len(r.newton_trips), len(ref), float("nan"))]
+    band = cfg.newton_tol / FLOOR_BAND
+    return [(i + 1, got, k, crit)
+            for i, (got, k, crit) in enumerate(zip(r.newton_trips, ref, r.crit_trips))
+            if not (got == k or (got < k and (k == cfg.newton_maxit or crit >= band)))]
 
 
 def build_mesh(cfg: FootingConfig) -> Mesh:
@@ -56,35 +99,8 @@ def build_mesh(cfg: FootingConfig) -> Mesh:
     return mesh
 
 
-def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
-    """Run the footing benchmark: elastic predictor with the inhomogeneous
-    Dirichlet load, then the adaptive load-stepped Newton.
-
-    `device`: where to run (`utils.precision.resolve_device`).  In float32
-    the elastic Cholesky factor is reused while no point is plastic (the
-    JAX package enables the reuse for f32 only).
-    """
-    device = resolve_device(device)
-    policy = dtype_policy(cfg.precision, cfg.dtype)
-    dtype = policy.state
-    mesh = build_mesh(cfg)
-    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
-    eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
-
-    fmap, n_free = asm.free_dof_map(mesh.free)
-    free_idx = torch.as_tensor(np.nonzero(mesh.free.reshape(-1))[0], device=device)
-    coords = torch.as_tensor(mesh.coords, dtype=dtype, device=device)
-    geom = asm.compute_geometry(coords, mesh.elems, volume_element(cfg.etype))
-    plan = asm.dense_free_plan(geom, fmap, n_free)
-    nmap = asm.node_gather_map(geom)
-    dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=dtype, device=device)
-    footing = torch.as_tensor(mesh.dirichlet[:, 1] > 0, device=device)
-    n_footing = int((mesh.dirichlet[:, 1] > 0).sum())
-    # a tensor divisor: PyTorch on CUDA divides by a Python scalar through
-    # its rounded reciprocal
-    scale = torch.full((), n_footing * cfg.cohesion, dtype=dtype, device=device)
-
-    settings = NewtonSettings(
+def _settings(cfg: FootingConfig) -> NewtonSettings:
+    return NewtonSettings(
         maxit=cfg.newton_maxit,
         newton_tol=cfg.newton_tol,
         accept_tol=cfg.accept_tol,
@@ -95,40 +111,224 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
         max_trips=cfg.max_trips,
     )
 
+
+def _monitor_and_hook(cfg: FootingConfig, mesh: Mesh, geom: asm.Geometry, tdtype: torch.dtype):
+    """The recorded pressure and the d_zeta doubling rule, in the dtype of
+    `geom` (the state's, or the f32 heads in df32, as the JAX package
+    records the f32 head of the df32 pressure)."""
+    device = geom.B.device
+    nmap = asm.node_gather_map(geom)
+    footing = torch.as_tensor(mesh.dirichlet[:, 1] > 0, device=device)
+    n_footing = int((mesh.dirichlet[:, 1] > 0).sum())
+    # a tensor divisor: PyTorch on CUDA divides by a Python scalar through
+    # its rounded reciprocal
+    scale = torch.full((), n_footing * cfg.cohesion, dtype=geom.B.dtype, device=device)
+
+    def monitor(u, s):
+        # normalized mean footing pressure: -mean over the footing nodes of
+        # the nodal projection of s_yy, / cohesion (P:1105-1107)
+        p_node = asm.project_to_nodes(geom, s[1].to(geom.B.dtype), nmap)
+        return -torch.where(footing, p_node, torch.zeros_like(p_node)).sum() / scale
+
+    # the criterion is compared in the tangent dtype, against the
+    # tolerance rounded the same way (solve/newton.py as_tdtype)
+    tol = float(torch.tensor(cfg.newton_tol, dtype=tdtype))
+
+    def accept_hook(pressure, pressure_old, crit):
+        # double d_zeta while the pressure curve is still flat and Newton
+        # converged tightly (P:1109-1110); the increment in the monitor's
+        # dtype
+        grow = float(pressure - pressure_old) < 0.1 and crit < tol
+        return pressure, 2.0 if grow else 1.0
+
+    return monitor, accept_hook
+
+
+def _block_jacobi(geom: asm.Geometry, D: torch.Tensor, free_mask: torch.Tensor):
+    """The block-Jacobi preconditioner of the elastic stiffness."""
+    return block_jacobi_preconditioner(asm.node_block_diagonal(geom, D), free_mask)
+
+
+def _cg_tol(cfg: FootingConfig, dtype: torch.dtype) -> float:
+    if cfg.cg_tol is not None:
+        return cfg.cg_tol
+    return 2e-7 if dtype == torch.float32 else 1e-14
+
+
+def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
+    """Run the footing benchmark: elastic predictor with the inhomogeneous
+    Dirichlet load, then the adaptive load-stepped Newton.
+
+    `device`: where to run (`utils.precision.resolve_device`).
+    cfg.precision == "df32" runs `build_df32`.  In native float32 with the
+    dense solver the elastic Cholesky factor is reused while no point is
+    plastic (the JAX package enables the reuse for f32 only).
+    """
+    device = resolve_device(device)
+    if cfg.precision == "df32":
+        return _solve_df32(cfg, device)
+    policy = dtype_policy(cfg.precision, cfg.dtype)
+    dtype = policy.state
+    mesh = build_mesh(cfg)
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
+
+    fmap, n_free = asm.free_dof_map(mesh.free)
+    free_idx = torch.as_tensor(np.nonzero(mesh.free.reshape(-1))[0], device=device)
+    coords = torch.as_tensor(mesh.coords, dtype=dtype, device=device)
+    geom = asm.compute_geometry(coords, mesh.elems, volume_element(cfg.etype))
+    dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=dtype, device=device)
+    monitor, accept_hook = _monitor_and_hook(cfg, mesh, geom, policy.tangent)
+
     # elastic predictor with inhomogeneous Dirichlet (P:996-1004):
     # ud = -d_zeta * dirichlet; K u = -K ud on the free DOFs
     ud = -cfg.d_zeta * dirichlet
     D = elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
     f = -asm.tangent_matvec(geom, D, ud)
-    K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), plan)
-    L = torch.linalg.cholesky(K_free)
-    U_it0 = ud.clone()
-    U_it0[free_idx] = torch.cholesky_solve(f[free_idx, None], L)[:, 0]
-
-    def monitor(u, s):
-        # normalized mean footing pressure: -mean over the footing nodes of
-        # the nodal projection of s_yy, / cohesion (P:1105-1107)
-        p_node = asm.project_to_nodes(geom, s[1], nmap)
-        return -torch.where(footing, p_node, torch.zeros_like(p_node)).sum() / scale
-
-    # the criterion is compared in the tangent dtype, against the
-    # tolerance rounded the same way (solve/newton.py as_tdtype)
-    tol = float(torch.tensor(cfg.newton_tol, dtype=policy.tangent))
-
-    def accept_hook(pressure, pressure_old, crit):
-        # double d_zeta while the pressure curve is still flat and Newton
-        # converged tightly (P:1109-1110); the increment in the state dtype
-        grow = float(pressure - pressure_old) < 0.1 and crit < tol
-        return pressure, 2.0 if grow else 1.0
+    cg_tol = _cg_tol(cfg, dtype)
+    plan = L = None
+    if cfg.solver == "dense":
+        plan = asm.dense_free_plan(geom, fmap, n_free)
+        K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), plan)
+        L = torch.linalg.cholesky(K_free)
+        U_it0 = ud.clone()
+        U_it0[free_idx] = torch.cholesky_solve(f[free_idx, None], L)[:, 0]
+    else:
+        # matrix-free predictor with the Dirichlet lift: U = ud + u, K u =
+        # -K ud on the free DOFs (u zero on the constrained ones)
+        free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
+        U_it0 = ud + solve_cg(
+            lambda v: asm.tangent_matvec(geom, D, v), f, free_mask,
+            precond=_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
+        ).x
 
     stepper = build_load_stepper(
-        geom, free_idx, plan, shear, bulk, eta, c, settings,
+        geom, free_idx, plan, shear, bulk, eta, c, _settings(cfg),
         monitor=monitor, accept_hook=accept_hook,
         apex_ep_uses_trial=cfg.bug_compatible_apex,
         dense_mode=cfg.dense_mode,
-        elastic_factor=("cho", L) if dtype == torch.float32 else None,
+        elastic_factor=("cho", L) if dtype == torch.float32 and L is not None else None,
+        solver=cfg.solver, cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter,
+        cg_cap_relax=cfg.cg_cap_relax,
     )
-    res = stepper(U_it0, 0.0, cfg.d_zeta)
+    return _result(stepper(U_it0, 0.0, cfg.d_zeta), mesh)
+
+
+def _assembled_setup(cfg: FootingConfig, mesh: Mesh, device: torch.device):
+    """Host setup of `assembled_cg` (JAX `models/footing.py:266-292`): the
+    RCM node order, elements sorted by their smallest node, the elastic
+    CSR with unit-diagonal constrained rows (K3's f32 operator) and the
+    refresh's destination table for every element.  Returns the permuted
+    mesh, the operator, the table (rows of the runtime geometry's padding
+    elements appended as -1 by the caller), and `new_of_old` and the
+    element sort for `spmv.restore_reference_order`."""
+    order = spmv.rcm_node_order(np.asarray(mesh.elems), mesh.n_nodes)
+    coords2, elems2, new_of_old = spmv.permute_mesh(
+        np.asarray(mesh.coords, np.float64), np.asarray(mesh.elems), order
+    )
+    esort = np.argsort(elems2.min(axis=1), kind="stable")
+    elems2 = elems2[esort]
+    free2 = np.asarray(mesh.free)[order]
+    mesh2 = Mesh(coords2, elems2, cfg.etype, dirichlet=np.asarray(mesh.dirichlet)[order],
+                 free=free2)
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    K_csr = spmv.build_elastic_csr(coords2, elems2, volume_element(cfg.etype), shear, bulk,
+                                   free=free2)
+    corr = spmv.element_corr_dest(K_csr, elems2, free2)
+    return mesh2, spmv.csr_to_device(K_csr, device, np.float32), corr, new_of_old, esort
+
+
+def build_df32(cfg: FootingConfig, device=None):
+    """Build the df32 footing solver: returns (run, mesh).
+
+    Host setup happens here: the mesh, the f64 geometry and its f32 heads,
+    the dense assembly plan (dense solver) or, with `assembled_cg`, the RCM
+    permutation, the f32 elastic operator (K3), the refresh table and the
+    f64 residual operators G/S (K1).  `run()` does the device work of one
+    solve: the f32 elastic factors or the elastic preconditioner, the df32
+    elastic predictor (iterative refinement of an f32 inner solve, a
+    Cholesky solve or block-Jacobi PCG, against the f64 residual) and the
+    load stepping; it returns the FootingResult on `mesh`, the reference
+    mesh (with `assembled_cg` the solve runs on the RCM node order and
+    sorted elements, and u and ep are moved back).
+    """
+    if cfg.precision != "df32":
+        raise ValueError("build_df32 needs precision='df32'")
+    device = resolve_device(device)
+    mesh = reference_mesh = build_mesh(cfg)
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
+    elastic_op = corr_dest = residual_op = None
+    if cfg.assembled_cg:
+        mesh, elastic_op, corr, new_of_old, esort = _assembled_setup(cfg, mesh, device)
+    fmap, n_free = asm.free_dof_map(mesh.free)
+    free_idx = torch.as_tensor(np.nonzero(mesh.free.reshape(-1))[0], device=device)
+    free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
+    coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
+    geom = asm.compute_geometry(coords, mesh.elems, volume_element(cfg.etype))
+    geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
+    n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
+    plan = asm.dense_free_plan(geom, fmap, n_free) if cfg.solver == "dense" else None
+    if cfg.assembled_cg:
+        # padding elements carry zero stiffness blocks: their rows are
+        # dropped (-1)
+        pad = np.full((geom.n_elems - corr.shape[0],) + corr.shape[1:], -1, corr.dtype)
+        corr_dest = torch.as_tensor(np.concatenate([corr, pad]), device=device)
+        residual_op = spmv.residual_operators(geom, device)
+        elem_sort = (esort, int(geom.n_q), int(geom.n_real))
+    dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=torch.float64, device=device)
+    monitor, accept_hook = _monitor_and_hook(cfg, mesh, geom32, torch.float32)
+    cg_tol = _cg_tol(cfg, torch.float32)
+    if residual_op is not None:
+        apply_fn = lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk)  # noqa: E731
+    else:
+        apply_fn = lambda u: adf.elastic_apply(geom, u, shear, bulk)  # noqa: E731
+
+    def run() -> FootingResult:
+        # elastic predictor with inhomogeneous Dirichlet (P:996-1004): the
+        # iterate starts at ud = -d_zeta * dirichlet, exact on the
+        # constrained DOFs, and refinement drives K U -> 0 on the free ones
+        ud = -cfg.d_zeta * dirichlet
+        zero_f = torch.zeros(n_dofs, dtype=torch.float64, device=device)
+        D = elastic_tangent_lanes(shear, bulk, n_int, torch.float32, device)
+        Ki = None
+        if cfg.solver == "dense":
+            L, Ki = adf.dense_elastic_factors(geom32, D, plan)
+            U_it0 = adf.refine_elastic_solve_df(L, free_idx, apply_fn, ud, zero_f)
+        else:
+            pre = _block_jacobi(geom32, D, free_mask)
+            if elastic_op is not None:
+                K_op = lambda v: spmv.sp_matvec(elastic_op, v)  # noqa: E731
+            else:
+                K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
+            U_it0 = adf.refine_elastic_solve_with(
+                apply_fn,
+                lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
+                                     maxiter=cfg.cg_maxiter).x,
+                ud, zero_f,
+            )
+        stepper = build_load_stepper(
+            geom, free_idx, plan, shear, bulk, eta, c, _settings(cfg),
+            monitor=monitor, accept_hook=accept_hook,
+            apex_ep_uses_trial=cfg.bug_compatible_apex,
+            precision="df32",
+            elastic_factor=("inv", Ki) if Ki is not None else None,
+            residual_op=residual_op,
+            solver=cfg.solver, elastic_op=elastic_op, corr_dest=corr_dest,
+            cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
+            cg_cap_relax=cfg.cg_cap_relax,
+        )
+        out = _result(stepper(U_it0, 0.0, cfg.d_zeta), reference_mesh)
+        if elastic_op is None:
+            return out
+        u, ep = spmv.restore_reference_order(out.u, out.ep, new_of_old, elem_sort)
+        return out._replace(u=u, ep=ep)
+
+    return run, reference_mesh
+
+
+def _result(res: LoadSteppingResult, mesh: Mesh) -> FootingResult:
+    """LoadSteppingResult -> FootingResult of float64 numpy arrays."""
     f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()  # noqa: E731
     return FootingResult(
         u=f64(res.u).reshape(-1, 2),
@@ -139,4 +339,13 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
         n_newton_total=int(res.n_newton_total),
         n_plastic=int(res.n_plastic),
         mesh=mesh,
+        n_cg_total=int(res.n_cg_total),
+        newton_trips=tuple(res.newton_trips),
+        crit_trips=tuple(res.crit_trips),
     )
+
+
+def _solve_df32(cfg: FootingConfig, device=None) -> FootingResult:
+    """The df32 preset: f64 state and residual, f32 tangent solves."""
+    run, _ = build_df32(cfg, device)
+    return run()

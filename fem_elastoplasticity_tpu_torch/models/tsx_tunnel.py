@@ -33,7 +33,7 @@ from ..ops import assembly as asm
 from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import ElementType, volume_element
-from ..ops.spmv import build_ell, build_residual_csr, csr_to_device, sp_matvec
+from ..ops.spmv import sp_matvec
 from ..solve import multigrid as mgm
 from ..solve.cg import solve_cg
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
@@ -193,27 +193,6 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     return _result(res, p.mesh)
 
 
-def _residual_ops(geom: asm.Geometry, device, fmt: Optional[str] = None,
-                  max_overflow_frac: float = 0.005):
-    """The f64 strain and force operators (G, S) of `geom` on `device`: CSR,
-    or with fmt="ell" (`build_residual_slot_df(fmt="ell")`) G as one ELL
-    operator and S as three, one for each strain component's block of
-    columns (component-major integration points), which `sp_matvec` sums."""
-    G, S = build_residual_csr(
-        geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
-        geom.n_q, geom.n_nodes,
-    )
-    if fmt is None:
-        return csr_to_device(G, device), csr_to_device(S, device)
-    n_int = geom.n_int
-    parts = tuple(
-        build_ell(S[:, a * n_int:(a + 1) * n_int], device, np.float64, max_overflow_frac)
-        for a in range(3)
-    )
-    return (build_ell(G, device, np.float64, max_overflow_frac),
-            spmv.SplitCols(parts=parts, shape=S.shape))
-
-
 def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
     """`build_df32` for `solver="ell"`: the multigrid hierarchy of assembled
     elastic operators, built on the host with a locality node ordering, and
@@ -256,7 +235,7 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     # 1024 leaves more than twice that (14,192 slots of the 908,288 points
     # of level 5)
     plastic_cap = min(n_int, max(1024, n_int // 64))
-    residual_op = _residual_ops(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+    residual_op = spmv.residual_operators(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
     if extras is not None:
         extras["residual_op"] = residual_op
     fine = hier.levels[-1]
@@ -340,7 +319,7 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
     n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
     residual_op = (
-        _residual_ops(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+        spmv.residual_operators(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
         if cfg.assembled_cg else None
     )
 
@@ -356,12 +335,7 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
         # f32 elastic stiffness, its factor (predictor) and the explicit
         # inverse of its Jacobi-scaled form (elastic Newton iterations)
         D = elastic_tangent_lanes(shear, bulk, n_int, torch.float32, device)
-        K_free = asm.assemble_dense_free(asm.element_stiffness(geom32, D), p.plan)
-        L = torch.linalg.cholesky(K_free)
-        dsc = torch.rsqrt(torch.diagonal(K_free))
-        Ls = torch.linalg.cholesky(K_free * dsc[:, None] * dsc[None, :])
-        eye = torch.eye(p.plan.n_free, dtype=torch.float32, device=device)
-        Ki = torch.cholesky_solve(eye, Ls) * dsc[:, None] * dsc[None, :]
+        L, Ki = adf.dense_elastic_factors(geom32, D, p.plan)
 
         zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
@@ -415,13 +389,6 @@ def _df32_result(res: LoadSteppingResult, mesh: Mesh, extras: Optional[dict] = N
     out = _result(res, mesh)
     if not extras or "ell_new_of_old" not in extras:
         return out
-    u = out.u[extras["ell_new_of_old"]]
-    esort, n_q, n_real = extras["elem_sort"]
-    ep = out.ep
-    body = ep[:, : n_real * n_q].reshape(ep.shape[0], n_real, n_q)
-    restored = np.empty_like(body)
-    restored[:, esort, :] = body
-    ep = np.concatenate(
-        [restored.reshape(ep.shape[0], n_real * n_q), ep[:, n_real * n_q:]], axis=-1
-    )
+    u, ep = spmv.restore_reference_order(
+        out.u, out.ep, extras["ell_new_of_old"], extras["elem_sort"])
     return out._replace(u=u, ep=ep, mesh=extras["reference_mesh"])

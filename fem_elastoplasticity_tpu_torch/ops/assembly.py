@@ -314,18 +314,59 @@ def assemble_dense_free(ke: torch.Tensor, plan: DensePlan) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # integration-point -> node projection
 # ---------------------------------------------------------------------------
-def node_gather_map(geom: Geometry) -> torch.Tensor:
-    """Padded per-node lists of the real elements that touch each node,
-    (n_n, K) int64 on geom's device; padding holds n_elems, the index of
-    an appended zero.  Host-built once, for `project_to_nodes`."""
+def _node_slot_table(geom: Geometry) -> np.ndarray:
+    """Padded per-node lists of the (local node, element) slots of the real
+    elements, flat positions p * n_elems + e in ascending order (the JAX
+    package's segment order), (n_n, K) int64; padding holds n_p * n_elems."""
     edofs = np.asarray(geom.edofs.cpu(), np.int64)
     n_e, n_p = edofs.shape[0], geom.n_p2 // 2
     nodes = edofs[: geom.n_real, ::2].T // 2  # (n_p, n_real)
     ks, es = np.meshgrid(np.arange(n_p), np.arange(geom.n_real), indexing="ij")
-    pos = (ks * n_e + es).reshape(-1)  # the JAX package's segment order
+    pos = (ks * n_e + es).reshape(-1)
     _, table = _grouped_gather(nodes.reshape(-1), pos, n_p * n_e, n_rows=geom.n_nodes)
+    return table
+
+
+def node_gather_map(geom: Geometry) -> torch.Tensor:
+    """Padded per-node lists of the real elements that touch each node,
+    (n_n, K) int64 on geom's device; padding holds n_elems, the index of
+    an appended zero.  Host-built once, for `project_to_nodes`."""
+    n_e, n_p = geom.n_elems, geom.n_p2 // 2
+    table = _node_slot_table(geom)
     table = np.where(table == n_p * n_e, n_e, table % n_e)
     return torch.as_tensor(table, device=geom.B.device)
+
+
+def node_slot_map(geom: Geometry) -> torch.Tensor:
+    """`_node_slot_table` on geom's device: each node's (local node,
+    element) slots, padding at the index of an appended zero.  Host-built
+    once, for `node_block_diagonal`."""
+    return torch.as_tensor(_node_slot_table(geom), device=geom.B.device)
+
+
+def node_block_diagonal(
+    geom: Geometry, d: torch.Tensor, smap: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """2x2 nodal diagonal blocks of K for block-Jacobi preconditioning,
+    (n_n, 2, 2), without forming element matrices
+    (`assembly.node_block_diagonal`).  Each node's blocks are summed by a
+    gather in a fixed order in place of the JAX package's segment sum.
+    d: (3, 3, n_int) material tangent; smap: `node_slot_map(geom)`, built
+    here when not given."""
+    if smap is None:
+        smap = node_slot_map(geom)
+    n_p = geom.n_p2 // 2
+    wd = geom.weight[None, None, :] * d
+    T = (geom.B[:, None, :, :] * wd[:, :, None, :]).sum(dim=0)  # (3, 2n_p, n)
+    T4 = T.reshape(3, n_p, 2, -1)
+    B4 = geom.B.reshape(3, n_p, 2, -1)
+    # diag[p, i, j, n] = sum_b T[b, 2p+i, n] * B[b, 2p+j, n]
+    diag = (T4[:, :, :, None, :] * B4[:, :, None, :, :]).sum(dim=0)
+    if geom.n_q > 1:
+        diag = diag.reshape(n_p, 2, 2, geom.n_elems, geom.n_q).sum(dim=-1)
+    flat = diag.permute(0, 3, 1, 2).reshape(-1, 4)  # row p * n_elems + e
+    ext = torch.cat([flat, flat.new_zeros(1, 4)])
+    return ext[smap].sum(dim=1).reshape(-1, 2, 2)
 
 
 def project_to_nodes(geom: Geometry, q_int: torch.Tensor, nmap: torch.Tensor) -> torch.Tensor:

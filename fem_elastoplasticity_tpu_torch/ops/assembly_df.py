@@ -4,8 +4,9 @@ Counterpart of `fem_elastoplasticity_tpu/ops/assembly_df.py`.  The JAX
 package evaluates the Newton residual in double-float (two-f32) arithmetic
 because a TPU has no f64; the port evaluates the same quantities in f64.
 What remains to port is the f64 <-> f32-pair split at the API edge, the f64
-elastic application K_el u, and the elastic predictor's iterative
-refinement: an f32 inner solve against an f64 residual.
+elastic application K_el u, the dense solver's f32 elastic factors, and the
+elastic predictor's iterative refinement: an f32 inner solve against an
+f64 residual.
 """
 from __future__ import annotations
 
@@ -47,6 +48,22 @@ def elastic_apply_csr(G, S, u: torch.Tensor, shear: float, bulk: float):
     (`elastic_apply_slot_df`).  G, S: the residual operators (`ops.spmv`)."""
     e = sp_matvec(G, u).reshape(3, -1)
     return sp_matvec(S, elastic_stress(e, shear, bulk).reshape(-1))
+
+
+def dense_elastic_factors(geom32: asm.Geometry, D32: torch.Tensor, plan: asm.DensePlan):
+    """The f32 elastic stiffness K_free of the dense df32 solver, as the tsx
+    and footing models form it: returns (L, Ki), L the Cholesky factor of
+    K_free (the predictor's inner solve) and Ki the explicit inverse of its
+    Jacobi-scaled form, unscaled (elastic Newton iterations as one matrix
+    product).  geom32: the f32 geometry heads; D32: the f32 elastic
+    tangent lanes."""
+    K_free = asm.assemble_dense_free(asm.element_stiffness(geom32, D32), plan)
+    L = torch.linalg.cholesky(K_free)
+    dsc = torch.rsqrt(torch.diagonal(K_free))
+    Ls = torch.linalg.cholesky(K_free * dsc[:, None] * dsc[None, :])
+    eye = torch.eye(plan.n_free, dtype=torch.float32, device=K_free.device)
+    Ki = torch.cholesky_solve(eye, Ls) * dsc[:, None] * dsc[None, :]
+    return L, Ki
 
 
 def refine_elastic_solve_with(

@@ -1,0 +1,227 @@
+"""Kernel K7, the blocked f32 Cholesky factor and solve, and its plain version.
+
+Counterpart of `fem_elastoplasticity_tpu/ops/cholesky_pallas.py`, with the
+same names, arguments and output shapes:
+
+* `cholesky_factor(K) -> (L, inv_blocks)`: K (n, n) SPD is padded with an
+  identity tail to n_pad, a multiple of BLOCK = 128, and factored by the
+  right-looking blocked algorithm of 128-wide panels.  L is (n_pad, n_pad)
+  f32, lower, its strict upper part zero; inv_blocks is (n_pad, 128) f32,
+  the inverses of L's 128 x 128 diagonal blocks.
+* `cholesky_solve(L, inv_blocks, b, n) -> x`: x (n,) f32 with
+  L L^T x = b, by block forward and back substitution through the stored
+  inverses.
+
+Each has a `_plain` version that follows the TPU kernel's algorithm step
+for step in PyTorch (the column loop with the pivot's reciprocal square
+root, the forward-substitution inverse, the two block products), and a
+`_cuda` version that launches the hand-written kernels of
+`csrc/cholesky_blocked.cu` on PyTorch's current stream.  The entry points
+launch the kernels on a CUDA tensor and run the plain version on a CPU
+tensor; they never fall back from one to the other.
+
+No solve of the JAX package calls these functions (its dense paths factor
+with `jax.scipy.linalg.cho_factor`, the port's with `torch.linalg`), and
+the port wires them into none: they are an entry point of their own.
+
+`LAUNCHES` counts, per process, the kernels launched ("cholesky_factor":
+the kernels a factorization launched, as the library reports them, 3 nb -
+2 for nb panels; "cholesky_solve": one a solve), the factorizations
+("cholesky_factorizations") and the calls routed to the plain versions
+("cholesky_factor_plain", "cholesky_solve_plain").
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import pathlib
+from typing import Tuple
+
+import torch
+
+BLOCK = 128
+KERNEL_SOURCE = pathlib.Path(__file__).parent / "csrc" / "cholesky_blocked.cu"
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _pad_to_block(n: int) -> int:
+    return -(-n // BLOCK) * BLOCK
+
+
+def pad_matrix(K: torch.Tensor) -> torch.Tensor:
+    """K (n, n) -> f32 (n_pad, n_pad) with K in the top-left corner and an
+    identity tail (`cholesky_pallas.py:154-156`)."""
+    n = K.shape[0]
+    if K.dim() != 2 or K.shape[1] != n:
+        raise ValueError(f"cholesky_factor: K must be square; got {tuple(K.shape)}")
+    n_pad = _pad_to_block(n)
+    Kp = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=K.device)
+    Kp[:n, :n] = K.to(torch.float32)
+    Kp.diagonal()[n:].fill_(1.0)
+    return Kp
+
+
+def cholesky_factor_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernel's factorization in PyTorch (`_factor_kernel`,
+    `cholesky_pallas.py:38-96`), on K's device."""
+    A = pad_matrix(K)
+    n_pad = A.shape[0]
+    nb = n_pad // BLOCK
+    L = torch.zeros_like(A)
+    inv = torch.zeros((n_pad, BLOCK), dtype=torch.float32, device=A.device)
+    idx = torch.arange(BLOCK, device=A.device)
+    rows, cols = idx[:, None], idx[None, :]
+    eye = torch.eye(BLOCK, dtype=torch.float32, device=A.device)
+    zero = torch.zeros((), dtype=torch.float32, device=A.device)
+    for k in range(nb):
+        off = k * BLOCK
+        D = A[off:off + BLOCK, off:off + BLOCK].clone()
+        for j in range(BLOCK):  # chol_step
+            pivot = torch.rsqrt(D[j, j])
+            col = D[:, j] * pivot
+            colm = torch.where(idx > j, col, zero)
+            D = D - colm[:, None] * colm[None, :]
+            D[:, j] = torch.where(idx >= j, col, zero)
+        Lk = torch.where(rows >= cols, D, zero)
+        L[off:off + BLOCK, off:off + BLOCK] = Lk
+        X = torch.zeros((BLOCK, BLOCK), dtype=torch.float32, device=A.device)
+        for j in range(BLOCK):  # inv_step: Lk X = I by forward substitution
+            lrow = torch.where(idx < j, Lk[j], zero)
+            X[j] = (eye[j] - lrow @ X) / Lk[j, j]
+        inv[off:off + BLOCK] = X
+        if k < nb - 1:
+            L21 = A[off + BLOCK:, off:off + BLOCK] @ X.T
+            L[off + BLOCK:, off:off + BLOCK] = L21
+            A[off + BLOCK:, off + BLOCK:] -= L21 @ L21.T
+    return L, inv
+
+
+def cholesky_solve_plain(
+    L: torch.Tensor, inv_blocks: torch.Tensor, b: torch.Tensor, n: int
+) -> torch.Tensor:
+    """The TPU kernel's block substitution in PyTorch (`_solve_kernel`,
+    `cholesky_pallas.py:99-128`), on L's device."""
+    n_pad = L.shape[0]
+    nb = n_pad // BLOCK
+    bp = torch.zeros(n_pad, dtype=torch.float32, device=L.device)
+    bp[:n] = b.to(torch.float32)
+    y = torch.zeros_like(bp)
+    x = torch.zeros_like(bp)
+    for k in range(nb):  # y_k = (b_k - sum_{j<k} y_j Lkj^T) Li^T
+        off = k * BLOCK
+        acc = bp[off:off + BLOCK].clone()
+        for j in range(k):
+            acc = acc - y[j * BLOCK:(j + 1) * BLOCK] @ L[off:off + BLOCK, j * BLOCK:(j + 1) * BLOCK].T
+        y[off:off + BLOCK] = acc @ inv_blocks[off:off + BLOCK].T
+    for k in range(nb - 1, -1, -1):  # x_k = (y_k - sum_{j>k} x_j Ljk) Li
+        off = k * BLOCK
+        acc = y[off:off + BLOCK].clone()
+        for j in range(k + 1, nb):
+            acc = acc - x[j * BLOCK:(j + 1) * BLOCK] @ L[j * BLOCK:(j + 1) * BLOCK, off:off + BLOCK]
+        x[off:off + BLOCK] = acc @ inv_blocks[off:off + BLOCK]
+    return x[:n]
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from ..utils.cuda_build import build_library
+
+    lib = build_library(KERNEL_SOURCE, "cholesky_blocked")
+    lib.cholesky_factor_f32.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.cholesky_factor_f32.restype = ctypes.c_int
+    lib.cholesky_solve_f32.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    lib.cholesky_solve_f32.restype = ctypes.c_int
+    lib.cholesky_solve_max_n_pad.argtypes = []
+    lib.cholesky_solve_max_n_pad.restype = ctypes.c_int
+    return lib
+
+
+def load_kernel() -> None:
+    """Build (first use) and load K7; raises if the build fails."""
+    _library()
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device, shape: tuple) -> None:
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous float32 tensor on {device}; got {t.dtype} on {t.device}"
+        )
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def cholesky_factor_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7's factorization on K's device and PyTorch's current
+    stream; no sync.  Same output as `cholesky_factor_plain`."""
+    if not K.is_cuda:
+        raise ValueError(f"cholesky_factor_cuda needs a CUDA tensor; got one on {K.device}")
+    A = pad_matrix(K)  # the scratch the trailing updates overwrite
+    n_pad = A.shape[0]
+    L = torch.zeros_like(A)
+    inv = torch.empty((n_pad, BLOCK), dtype=torch.float32, device=A.device)
+    for name, t, shape in (("A", A, (n_pad, n_pad)), ("L", L, (n_pad, n_pad)),
+                           ("inv_blocks", inv, (n_pad, BLOCK))):
+        _check(f"cholesky_factor: {name}", t, A.device, shape)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    launched = ctypes.c_int(0)
+    err = _library().cholesky_factor_f32(n_pad, A.data_ptr(), L.data_ptr(), inv.data_ptr(), stream,
+                                         ctypes.byref(launched))
+    LAUNCHES["cholesky_factor"] += launched.value
+    if err != 0:
+        raise RuntimeError(f"cholesky_factor launch failed: cudaError_t {err}")
+    LAUNCHES["cholesky_factorizations"] += 1
+    return L, inv
+
+
+def cholesky_solve_cuda(
+    L: torch.Tensor, inv_blocks: torch.Tensor, b: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Launch K7's solve on L's device and PyTorch's current stream; no
+    sync.  Same output as `cholesky_solve_plain`."""
+    if not L.is_cuda:
+        raise ValueError(f"cholesky_solve_cuda needs a CUDA tensor; got one on {L.device}")
+    n_pad = L.shape[0]
+    lib = _library()
+    if n_pad % BLOCK or not 0 < n <= n_pad or n_pad > lib.cholesky_solve_max_n_pad():
+        raise ValueError(f"cholesky_solve: n {n} with n_pad {n_pad} is not supported")
+    b = b.to(torch.float32).contiguous()
+    for name, t, shape in (("L", L, (n_pad, n_pad)), ("inv_blocks", inv_blocks, (n_pad, BLOCK)),
+                           ("b", b, (n,))):
+        _check(f"cholesky_solve: {name}", t, L.device, shape)
+    x = torch.empty(n, dtype=torch.float32, device=L.device)
+    stream = torch.cuda.current_stream(L.device).cuda_stream
+    err = lib.cholesky_solve_f32(
+        n, n_pad, L.data_ptr(), inv_blocks.data_ptr(), b.data_ptr(), x.data_ptr(), stream
+    )
+    if err != 0:
+        raise RuntimeError(f"cholesky_solve launch failed: cudaError_t {err}")
+    LAUNCHES["cholesky_solve"] += 1
+    return x
+
+
+def cholesky_factor(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Factor an SPD matrix (f32): returns (L, inv_blocks).  K7 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if K.is_cuda:
+        return cholesky_factor_cuda(K)
+    if K.device.type != "cpu":
+        raise ValueError(f"cholesky_factor: no route for device {K.device}")
+    LAUNCHES["cholesky_factor_plain"] += 1
+    return cholesky_factor_plain(K)
+
+
+def cholesky_solve(
+    L: torch.Tensor, inv_blocks: torch.Tensor, b: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Solve K x = b from `cholesky_factor`'s output; returns (n,) f32.  K7
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if L.is_cuda:
+        return cholesky_solve_cuda(L, inv_blocks, b, n)
+    if L.device.type != "cpu":
+        raise ValueError(f"cholesky_solve: no route for device {L.device}")
+    LAUNCHES["cholesky_solve_plain"] += 1
+    return cholesky_solve_plain(L, inv_blocks, b, n)

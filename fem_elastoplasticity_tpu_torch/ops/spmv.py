@@ -136,6 +136,24 @@ def permute_mesh(coords: np.ndarray, elems: np.ndarray, order: np.ndarray):
     return coords[order], new_of_old[np.asarray(elems)], new_of_old
 
 
+def restore_reference_order(u: np.ndarray, ep: np.ndarray, new_of_old: np.ndarray,
+                            elem_sort: tuple):
+    """(u, ep) of a solve on a permuted mesh -> the reference mesh's order.
+
+    u (n_n, 2) on `permute_mesh`'s node order: u_ref[old] = u[new_of_old[old]].
+    ep (4, n_int) on elements sorted by `esort` (sorted[k] = original[esort[k]],
+    `elem_sort` = (esort, n_q, n_real)), element-major points, padding
+    points last and left in place."""
+    esort, n_q, n_real = elem_sort
+    body = ep[:, : n_real * n_q].reshape(ep.shape[0], n_real, n_q)
+    restored = np.empty_like(body)
+    restored[:, esort, :] = body
+    ep = np.concatenate(
+        [restored.reshape(ep.shape[0], n_real * n_q), ep[:, n_real * n_q:]], axis=-1
+    )
+    return u[new_of_old], ep
+
+
 def host_element_stiffness(
     coords: np.ndarray, elems: np.ndarray, ref: ReferenceElement, d33: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -743,3 +761,25 @@ def sp_matvec(A, x: torch.Tensor) -> torch.Tensor:
             y = yk if y is None else y + yk
         return y
     raise TypeError(f"sp_matvec: no route for {type(A).__name__}")
+
+
+def residual_operators(geom, device, fmt: Optional[str] = None,
+                       max_overflow_frac: float = 0.005):
+    """The f64 strain and force operators (G, S) of `geom` (an
+    `ops.assembly.Geometry`) on `device`: CSR (K1), or with fmt="ell"
+    (`build_residual_slot_df(fmt="ell")`) G as one ELL operator and S as
+    three, one for each strain component's block of columns
+    (component-major integration points), which `sp_matvec` sums (K6)."""
+    G, S = build_residual_csr(
+        geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
+        geom.n_q, geom.n_nodes,
+    )
+    if fmt is None:
+        return csr_to_device(G, device), csr_to_device(S, device)
+    n_int = geom.n_int
+    parts = tuple(
+        build_ell(S[:, a * n_int:(a + 1) * n_int], device, np.float64, max_overflow_frac)
+        for a in range(3)
+    )
+    return (build_ell(G, device, np.float64, max_overflow_frac),
+            SplitCols(parts=parts, shape=S.shape))

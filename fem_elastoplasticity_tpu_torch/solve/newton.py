@@ -1,9 +1,12 @@
 """Load-stepped semi-smooth Newton: a host loop over device tensors.
 
-Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`
-and, with the assembled elastic operator and a multigrid preconditioner,
-`solver="mg"` (inexact Newton: CG tangent solves on the elastic operator
-with the plastic correction, refreshed into its values or gathered).
+Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`;
+`solver="cg"` (inexact Newton: CG tangent solves preconditioned by the
+tangent's 2x2 nodal diagonal blocks, rebuilt every Newton iteration, on the
+matrix-free tangent or on the assembled elastic operator refreshed from
+every integration point); and, with the assembled elastic operator and a
+multigrid preconditioner, `solver="mg"` (CG on the elastic operator with
+the plastic correction, refreshed into its values or gathered).
 The JAX package runs the whole schedule as one jitted `while_loop`; here the
 controller is Python, and each Newton iteration reads its criterion (and
 the plastic count) back to the host.  The controller semantics are kept
@@ -41,7 +44,7 @@ from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
 from ..ops.spmv import sp_matvec
-from .cg import solve_cg
+from .cg import block_jacobi_preconditioner, solve_cg
 
 
 # Eisenstat-Walker forcing: the share of the last Newton criterion that the
@@ -90,6 +93,8 @@ class LoadSteppingResult(NamedTuple):
     u_it: torch.Tensor
     d_zeta_old: float
     aux: float
+    newton_trips: tuple = ()  # Newton iterations of each load trip of this run
+    crit_trips: tuple = ()  # the last Newton criterion of each trip (NaN: failed)
 
 
 class NewtonSettings(NamedTuple):
@@ -149,7 +154,7 @@ def build_load_stepper(
     cg_eta0: Optional[float] = None,
     cg_cap_relax: Optional[float] = None,
 ):
-    """Build the load-stepping solver (dense or multigrid-CG tangent solves).
+    """Build the load-stepping solver (dense or CG tangent solves).
 
     Args:
       geom:     geometry in the state dtype (f64 for both presets).
@@ -181,9 +186,14 @@ def build_load_stepper(
       accept_hook: (monitor value, aux, criterion) -> (aux', factor),
                 called on every accepted step; d_zeta is scaled by factor
                 (the footing doubles it).  None keeps d_zeta.
-      solver:   "dense", or "mg": the tangent solve is CG on the assembled
-                operator, preconditioned by `mg_preconditioner`; `plan` is
-                not used and may be None.
+      solver:   "dense"; "cg": the tangent solve is CG preconditioned by
+                the block-Jacobi inverse of the tangent's nodal 2x2 blocks
+                (`ops.assembly.node_block_diagonal`), on the matrix-free
+                tangent (`elastic_op` None) or on `elastic_op` refreshed
+                through `corr_dest`; or "mg": CG on the
+                assembled operator, preconditioned by `mg_preconditioner`.
+                `plan` is read by the dense solver only and may be None
+                otherwise.
       mg_preconditioner: r -> z, `solve.multigrid.make_vcycle_ell`.
       elastic_op: the assembled elastic stiffness (f32) with
                 unit-diagonal constrained rows, `ops.spmv.CsrMatrix` (kernel
@@ -201,6 +211,10 @@ def build_load_stepper(
                 each Newton iteration scatters the blocks into a copy of the
                 values; None (corr_mode="gather") applies them in every CG
                 product, `ops.assembly.plastic_correction_apply`.
+                With solver="cg" the table covers every element (padding
+                rows -1), and each Newton iteration adds every element's
+                tangent deviation K_e(d) - K_e(d_elastic) into the copy
+                (the JAX package's corr_full).
       cg_tol, cg_maxiter: relative tolerance and cap of the tangent CG.  A
                 capped, unconverged solve counts as divergence.
       cg_eta0:  Eisenstat-Walker forcing: the CG tolerance of a Newton
@@ -218,8 +232,12 @@ def build_load_stepper(
         isinstance(elastic_factor, tuple) and elastic_factor[0] in ("inv", "cho")
     ):
         raise NotImplementedError("elastic_factor must be None, ('inv', Ki) or ('cho', L)")
-    if solver not in ("dense", "mg"):
+    if solver not in ("dense", "cg", "mg"):
         raise NotImplementedError(f"solver {solver!r}")
+    if solver == "cg" and elastic_op is not None and corr_dest is None:
+        raise NotImplementedError(
+            "solver='cg' is ported matrix-free or on elastic_op refreshed through corr_dest"
+        )
     if solver == "mg" and (
         mg_preconditioner is None or elastic_op is None or plastic_cap is None
     ):
@@ -340,10 +358,12 @@ def build_load_stepper(
         y = torch.linalg.solve(A, Ct)
         return z - KiU @ y
 
-    if solver == "mg":
+    if solver != "dense":
         free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
         free_mask[free_idx] = True
         d_el = elastic_tangent_lanes(shear, bulk, n_int, tdtype, device)
+        if solver == "cg":
+            slot_map = asm.node_slot_map(geom_t)
         if corr_dest is not None:
             n_vals = elastic_op.values.shape[0]
             # -1 (constrained) destinations go to a slot past the values,
@@ -351,28 +371,45 @@ def build_load_stepper(
             # entry
             dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
 
+    def refreshed(corr, dest):
+        """The elastic operator with `corr` added at the value positions
+        `dest` (`dest_table` rows, past-the-end for dropped entries).  Two
+        blocks of neighbouring elements hit the same entry, and the
+        accumulating index_put_ sorts the destinations and adds each
+        entry's contributions in their given order, so the sum has a fixed
+        order (an atomic scatter-add would not)."""
+        vals = torch.cat([elastic_op.values, elastic_op.values.new_zeros(1)])
+        vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
+        return elastic_op._replace(values=vals[:n_vals].contiguous())
+
     def tangent_operator(d, ind_p):
-        """v -> K_tangent v, from the elastic operator and the plastic slot
-        set's correction blocks.  With `corr_dest` the blocks go into a copy
-        of the operator's values: two plastic points of neighbouring
-        elements hit the same entry, and the accumulating index_put_ sorts
-        the destinations and adds each entry's contributions in their given
-        order, so the sum has a fixed order (an atomic scatter-add would
-        not).  Without it every product adds the gathered correction."""
+        """v -> K_tangent v.  solver="cg": the matrix-free tangent, or the
+        elastic operator refreshed with every element's tangent deviation.
+        solver="mg": the elastic operator and the plastic
+        slot set's correction blocks, scattered into a copy of its values
+        with `corr_dest`, else added in every product (the gathered
+        correction)."""
+        if solver == "cg":
+            if elastic_op is None:
+                return lambda v: asm.tangent_matvec(geom_t, d, v)
+            # element_stiffness is (2n_p, 2n_p, n_e): transpose to corr_dest's
+            # (n_e, row, col)
+            corr = asm.element_stiffness(geom_t, d - d_el).permute(2, 0, 1)
+            A_t = refreshed(corr, dest_table)
+            return lambda v: sp_matvec(A_t, v)
         idx_p, valid_p = asm.plastic_slots(ind_p, plastic_cap)
         Bp, wdelta, edp = asm.plastic_correction_gather(geom_t, d - d_el, idx_p, valid_p)
         if corr_dest is None:
             return lambda v: sp_matvec(elastic_op, v) + asm.plastic_correction_apply(
                 Bp, wdelta, edp, n_dofs, v)
         corr = torch.einsum("aip,abp,bjp->pij", Bp, wdelta, Bp)
-        dest = dest_table[idx_p // geom_t.n_q]
-        vals = torch.cat([elastic_op.values, elastic_op.values.new_zeros(1)])
-        vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
-        A_t = elastic_op._replace(values=vals[:n_vals].contiguous())
+        A_t = refreshed(corr, dest_table[idx_p // geom_t.n_q])
         return lambda v: sp_matvec(A_t, v)
 
     def cg_solve(d, f_int, ind_p, crit_prev):
-        """Inexact Newton step by multigrid-preconditioned CG -> (dU, ok, its)."""
+        """Inexact Newton step by preconditioned CG -> (dU, ok, its): the
+        multigrid V-cycle (solver="mg") or the block-Jacobi inverse of the
+        tangent's nodal blocks, rebuilt from d ("cg")."""
         tol = cg_tol
         if cg_eta0 is not None:
             # Eisenstat-Walker forcing in f32, as the JAX loop computes it;
@@ -381,9 +418,14 @@ def build_load_stepper(
             t = f32(crit_prev) * f32(CG_ETA_SAFETY)
             t = f32(cg_eta0) if np.isposinf(t) else np.nan_to_num(t)
             tol = float(np.clip(t, f32(cg_tol), f32(cg_eta0)))
+        if solver == "cg":
+            pre = block_jacobi_preconditioner(
+                asm.node_block_diagonal(geom_t, d, slot_map), free_mask)
+        else:
+            pre = mg_preconditioner
         res = solve_cg(
             tangent_operator(d, ind_p), -f_int, free_mask,
-            precond=mg_preconditioner, tol=tol, maxiter=cg_maxiter,
+            precond=pre, tol=tol, maxiter=cg_maxiter,
         )
         ok = res.converged
         if not ok and cg_cap_relax is not None:
@@ -418,7 +460,7 @@ def build_load_stepper(
         while not fail and crit >= newton_tol and it < settings.maxit:
             s, ds, ind_p, _, _ = return_map(U_it, ep, zeta)
             f_int = residual_force(s)
-            if solver == "mg":
+            if solver != "dense":
                 dU, ok, cg_its = cg_solve(ds, f_int, ind_p, crit)
                 ncg += cg_its
             else:
@@ -469,7 +511,7 @@ def build_load_stepper(
         # Python floats are against its dtype scalars
         zeta_stop = rnd(settings.zeta_max - 1e-12)
         d_zeta_min = rnd(settings.d_zeta_min)
-        trips, done = 0, False
+        trips, done, newton_trips, crit_trips = 0, False, [], []
         while not done and trips < settings.max_trips:
             zeta = rnd(zeta_old + d_zeta)
             U_conv, crit, nits, ncg = inner_newton(U_it, ep, zeta)
@@ -503,6 +545,8 @@ def build_load_stepper(
                 done = zeta_old >= zeta_stop or d_zeta < d_zeta_min
             nits_total += nits
             ncg_total += ncg
+            newton_trips.append(nits)
+            crit_trips.append(crit)
             trips += 1
 
         n_plastic = int((ep != 0.0).any(dim=0).sum())
@@ -511,6 +555,7 @@ def build_load_stepper(
             n_steps=step, n_newton_total=nits_total, zeta=zeta_old,
             d_zeta=d_zeta, n_plastic=n_plastic, n_cg_total=ncg_total,
             u_old=U_old, u_it=U_it, d_zeta_old=d_zeta_old, aux=float(aux),
+            newton_trips=tuple(newton_trips), crit_trips=tuple(crit_trips),
         )
 
     return run

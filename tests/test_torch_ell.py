@@ -94,7 +94,7 @@ def residual_l1():
     jops = jspmv.build_residual_slot_df(gdf, fmt="ell")
     g = geometry_from_df(gdf.hi.B, gdf.B_lo, gdf.hi.weight, gdf.w_lo, gdf.hi.edofs,
                          gdf.hi.n_nodes, gdf.hi.n_q, gdf.hi.n_real)
-    return jops, tsx._residual_ops(g, "cpu", "ell"), g
+    return jops, pspmv.residual_operators(g, "cpu", "ell"), g
 
 
 def _split(x64):

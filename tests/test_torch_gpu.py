@@ -1,4 +1,4 @@
-"""PyTorch port on the card: kernels K1 to K6 against their plain versions.
+"""PyTorch port on the card: kernels K1 to K7 against their plain versions.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so on the card's machine (which has none) it runs without the
@@ -15,6 +15,7 @@ from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
 from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
 from fem_elastoplasticity_tpu_torch.models.materials import drucker_prager_fit, lame_moduli
 from fem_elastoplasticity_tpu_torch.ops import assembly as asm
+from fem_elastoplasticity_tpu_torch.ops import cholesky as chol
 from fem_elastoplasticity_tpu_torch.ops import return_map as rm
 from fem_elastoplasticity_tpu_torch.ops import spmv
 from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
@@ -308,3 +309,65 @@ def test_ell_solve_runs_through_k6(cuda_ell):
     assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
     assert (r.n_steps, r.n_newton_total, r.n_plastic) == (17, 37, 20)
     assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8
+
+
+@pytest.fixture(scope="module")
+def cuda_k7():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chol.load_kernel()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [128, 908])
+def test_k7_matches_plain(cuda_k7, n):
+    """The factor and its inverse blocks within 1e-5 of the plain version,
+    the solve within 1e-5 of the plain solve on the same factor and within
+    5e-6 of the f64 solve; two launches bit-identical."""
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(n, n))
+    A = (A @ A.T + n * np.eye(n)).astype(np.float32)
+    K = torch.as_tensor(A, device=cuda_k7)
+    b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda_k7)
+    chol.LAUNCHES.clear()
+    L, inv = chol.cholesky_factor(K)
+    x = chol.cholesky_solve(L, inv, b, n)
+    # the library reports the kernels it launched: 3 nb - 2 for nb panels
+    nb = -(-n // chol.BLOCK)
+    assert chol.LAUNCHES == {"cholesky_factor": 3 * nb - 2, "cholesky_factorizations": 1,
+                             "cholesky_solve": 1}
+    Lp, ip = chol.cholesky_factor_plain(K)
+    xp = chol.cholesky_solve_plain(L, inv, b, n)
+    rel = lambda a, e: float((a - e).abs().max() / e.abs().max())  # noqa: E731
+    assert rel(L, Lp) <= 1e-5 and rel(inv, ip) <= 1e-5 and rel(x, xp) <= 1e-5
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    ref = np.linalg.solve(A.astype(np.float64), b.double().cpu().numpy())
+    assert np.abs(x.double().cpu().numpy() - ref).max() / np.abs(ref).max() <= 5e-6
+    L2, inv2 = chol.cholesky_factor(K)
+    assert torch.equal(L, L2) and torch.equal(inv, inv2)
+    assert torch.equal(x, chol.cholesky_solve(L, inv, b, n))
+
+
+def test_k7_refuses_wrong_inputs(cuda_k7):
+    K = torch.eye(130, device=cuda_k7)
+    L, inv = chol.cholesky_factor(K)
+    b = torch.ones(130, device=cuda_k7)
+    with pytest.raises(ValueError):
+        chol.cholesky_solve_cuda(L.double(), inv, b, 130)
+    with pytest.raises(ValueError):
+        chol.cholesky_solve_cuda(L, inv[:128], b, 130)
+    with pytest.raises(ValueError):
+        chol.cholesky_solve_cuda(L, inv, b, 300)
+    np.testing.assert_allclose(chol.cholesky_solve(L, inv, b, 130).cpu().numpy(), np.ones(130))
+
+
+def test_footing_fast_on_the_card(cuda):
+    """The dense df32 footing on the card: the f64 run's 16 steps, u within
+    1e-9 of it, two runs bit-identical."""
+    r64 = footing.solve(FootingConfig(), device=cuda)
+    r = footing.solve(FootingConfig.fast(), device=cuda)
+    assert r.n_steps == r64.n_steps == 16
+    assert np.abs(r.u - r64.u).max() / np.abs(r64.u).max() < 1e-9
+    np.testing.assert_allclose(r.zeta_hist[1:17], r64.zeta_hist[1:17], rtol=1e-6)
+    r2 = footing.solve(FootingConfig.fast(), device=cuda)
+    assert np.array_equal(r.u, r2.u) and r.n_newton_total == r2.n_newton_total

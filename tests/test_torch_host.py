@@ -110,8 +110,12 @@ def test_config_refuses_unported_presets():
             ours.predictor_ir_iters, ours.refine_levels) == ("ell", "scatter", 1e-5, 200, 1e-2, 3, 2)
     with pytest.raises(NotImplementedError):
         TsxTunnelConfig.fast(dense_mode="mixed")
-    with pytest.raises(NotImplementedError):
-        FootingConfig.fast()
+    # the footing's df32 preset is ported too: the JAX package's, field by field
+    foot, jfoot = FootingConfig.fast(), JaxFootingConfig.fast()
+    for f in dataclasses.fields(FootingConfig):
+        if f.name != "etype":
+            assert getattr(foot, f.name) == getattr(jfoot, f.name), f.name
+    assert (foot.dtype, foot.precision, foot.newton_tol) == ("float32", "df32", 5e-12)
     with pytest.raises(NotImplementedError):
         FootingConfig.fast_scale(4)
     fast32 = TsxTunnelConfig.fast_f32()
@@ -237,13 +241,13 @@ def test_footing_config_defaults_match_jax():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(solver="cg"),
+        dict(solver="ell"),
         dict(assembled_cg=True),
         dict(tangent_mg=True),
         dict(cg_deflate=16),
         dict(newton_damping=3),
         dict(residual_fmt="slot"),
-        dict(precision="df32", dtype="float32"),
+        dict(precision="df32", dtype="float32", dense_mode="mixed"),
         dict(etype=pel.ElementType.P2),
     ],
     ids=lambda kw: next(iter(kw)),

@@ -148,7 +148,7 @@ def test_cg_cap_counts_as_divergence():
 LEVEL5_ROWS = (952, 3678, 14452, 57288, 228112, 910368)
 
 
-def test_level5_is_refused_before_any_assembly():
+def test_level5_ell_scatter_is_refused_before_any_assembly():
     """Level 5 in the ELL format with the scatter refresh is refused when
     the config is built, before any assembly: the JAX package cannot run
     that pair either.  Level 5 itself runs (`test_level5_packing_decision`)."""

@@ -37,7 +37,25 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   the CSR residual; the same fields;
 * tsx_df32_bench_res_ell.npz — the bench preset with its residual on ELL
   G/S, `TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell")`: u,
-  ep, zeta_hist, displ_hist and the counts.
+  ep, zeta_hist, displ_hist and the counts;
+* footing_df32.npz — `FootingConfig.fast()`, the footing's dense
+  double-float preset, full schedule: u, ep, zeta_hist, pressure_hist,
+  the step, Newton, CG and plastic counts, and newton_trips, the Newton
+  iterations of every load trip (from a rerun one trip a dispatch through
+  the stepper's resume carry, `solve/chunked.py`, whose totals must equal
+  the single run's);
+* footing_cg_f64_z0008.npz, footing_cg_f64_z002.npz,
+  footing_df32_cg_z002.npz — block-Jacobi PCG tangent solves,
+  `FootingConfig(solver="cg", zeta_max=0.008)` and `zeta_max=0.02`
+  (native f64; the CPU test takes the first, 7 steps, to stay short; the
+  JAX package's native footing does not read max_trips, so these two have
+  no newton_trips) and `FootingConfig.fast(solver="cg", zeta_max=0.02)`
+  (df32), the same fields;
+* footing_df32_acg_z002.npz — the assembled full-tangent operator,
+  `FootingConfig.fast(solver="cg", assembled_cg=True, cg_maxiter=4000,
+  zeta_max=0.02)`; the JAX package returns it on its RCM node order and
+  sorted elements, and the file holds u and ep restored to the reference
+  order.
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
@@ -117,6 +135,16 @@ def main(names) -> None:
     if "tsx_df32_bench_res_ell" in names:
         r = tsx.solve(TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell"))
         np.savez_compressed(OUT / "tsx_df32_bench_res_ell.npz", **_fields(r, "displ_hist"))
+    for name, cfg in FOOTING_RUNS.items():
+        if name in names:
+            cfg = cfg(FootingConfig)
+            r = footing.solve(cfg)
+            fields = _fields(r, "pressure_hist")
+            if cfg.assembled_cg:
+                fields.update(_footing_reference_order(footing, cfg, fields))
+            if cfg.precision == "df32":
+                fields["newton_trips"] = _newton_trips(footing, cfg, r)
+            np.savez_compressed(OUT / f"{name}.npz", **fields, n_cg_total=r.n_cg_total)
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -165,16 +193,67 @@ def _pack_bf16(pack):
         mgm.build_hierarchy_ell = real
 
 
+def _footing_reference_order(footing, cfg, fields) -> dict:
+    """u and ep of an assembled footing run, moved from the RCM node order
+    and the sorted element order that `footing.build_df32` runs on back to
+    the reference mesh's order."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu.ops import spmv
+
+    mesh = footing.build_mesh(cfg)
+    order = spmv.rcm_node_order(np.asarray(mesh.elems), mesh.n_nodes)
+    _, elems2, new_of_old = spmv.permute_mesh(
+        np.asarray(mesh.coords, np.float64), np.asarray(mesh.elems), order)
+    esort = np.argsort(elems2.min(axis=1), kind="stable")
+    ep = fields["ep"].copy()
+    n_real = esort.size  # P1: one point an element
+    ep[:, esort] = fields["ep"][:, :n_real]
+    return dict(u=fields["u"][new_of_old], ep=ep)
+
+
+def _newton_trips(footing, cfg, r):
+    """Newton iterations of every load trip of a df32 footing run: the run
+    again, one trip a dispatch through the stepper's resume carry, its
+    totals held to the single run's `r`."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu.solve.chunked import carry_of
+
+    run, args, _ = footing.build_df32(dataclasses.replace(cfg, max_trips=1))
+    res, trips, total = run(args), [], 0
+    while True:
+        trips.append(int(res.n_newton_total) - total)
+        total = int(res.n_newton_total)
+        zeta = float(res.zeta.hi) + float(res.zeta.lo)
+        d_zeta = float(res.d_zeta.hi) + float(res.d_zeta.lo)
+        if zeta >= cfg.zeta_max - 1e-12 or d_zeta < cfg.d_zeta * cfg.d_zeta_min_ratio:
+            break
+        res = run(args, carry_of(res))
+    if (total, int(res.n_steps) - 1, int(res.n_cg_total)) != (
+            r.n_newton_total, r.n_steps, r.n_cg_total):
+        raise RuntimeError(f"{cfg}: the one-trip dispatches left the single run's schedule")
+    return np.asarray(trips, np.int64)
+
+
 def _report() -> None:
     for f in sorted(OUT.glob("*.npz")):
         print(f.relative_to(ROOT), f.stat().st_size, "bytes")
 
 
+FOOTING_RUNS = {
+    "footing_df32": lambda F: F.fast(),
+    "footing_cg_f64_z0008": lambda F: F(solver="cg", zeta_max=0.008),
+    "footing_cg_f64_z002": lambda F: F(solver="cg", zeta_max=0.02),
+    "footing_df32_cg_z002": lambda F: F.fast(solver="cg", zeta_max=0.02),
+    "footing_df32_acg_z002": lambda F: F.fast(
+        solver="cg", assembled_cg=True, cg_maxiter=4000, zeta_max=0.02),
+}
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
-    "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell",
+    "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS,
 )
 
 if __name__ == "__main__":

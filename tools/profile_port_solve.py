@@ -19,11 +19,28 @@ the same for the ELL configuration `fast_scale(L, spmv_fmt="ell",
 corr_mode="gather", residual_fmt="ell")` (kernel K6).  `--no-dense`
 leaves the five dense solves out.
 
+`--footing` runs the footing's four level-1 double-float and CG
+configurations at their full schedules, once each: `FootingConfig.fast()`
+(dense), `FootingConfig(solver="cg")` (native f64 block-Jacobi PCG),
+`FootingConfig.fast(solver="cg")` and `FootingConfig.fast(solver="cg",
+assembled_cg=True, cg_maxiter=4000)` (kernel K3 for the CG products, K1
+for the residual).  It reports each run's wall, its step / Newton / CG /
+plastic counts beside the JAX package's and its last pressure against the
+dense f64 run's, then profiles one run of the same configuration cut to
+its first load trip (the full CG schedules make 170,000-230,000 CG
+iterations of some 40 kernels each, too many events for the profiler):
+idle share, top kernels, launches, kernels and host reads per CG
+iteration.  Last it times, without the profiler, the assembled preset at
+level 4 (25,921 nodes, 51,342 unknowns) for its first two load trips
+(`max_trips=2`): setup, wall, counts and launches.
+
     python tools/profile_port_solve.py [OUT] [--scale L ...] [--ell L ...] [--no-dense]
+                                       [--footing]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -31,6 +48,116 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the JAX package's full level-1 footing runs on the CPU: steps / Newton /
+# CG / plastic and the last accepted pressure; the dense run's are read from
+# its fixture (tools/make_port_fixtures.py), the CG runs have none
+FOOTING_FULL = {
+    "footing_df32": (dict(), None, None),
+    "footing_f64_cg": (dict(solver="cg"), (28, 166, 223774, 776), 16.836019),
+    "footing_df32_cg": (dict(solver="cg"), (24, 170, 196042, 776), 16.836052),
+    "footing_df32_acg": (dict(solver="cg", assembled_cg=True, cg_maxiter=4000),
+                         (17, 130, 177800, 775), 16.836193),
+}
+
+
+def profiled(torch, profile, activities, run):
+    """(result, host wall, profile) of one run under torch.profiler."""
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return res, wall, prof
+
+
+def device_summary(prof, wall: float) -> dict:
+    """Busy time, idle share, kernel count and top kernels of a profile."""
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.device_time_total for e in kernels)
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.device_time_total
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:8]
+    host = [e for e in prof.events() if e.device_type.name != "CUDA"]
+    return dict(
+        wall_profiled_s=wall,
+        device_busy_s=busy_us * 1e-6,
+        device_idle_share=1.0 - busy_us * 1e-6 / wall,
+        kernel_launches=len(kernels),
+        host_scalar_reads=sum(e.name == "aten::_local_scalar_dense" for e in host),
+        top_kernels_ms={k[:80]: v * 1e-3 for k, v in top},
+    )
+
+
+def footing_runs(torch, profile, activities, device, card, tables) -> dict:
+    """The `--footing` measurements (module doc)."""
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+    from fem_elastoplasticity_tpu_torch.ops import spmv
+
+    p64 = float(footing.solve(FootingConfig(), device=device).pressure_hist[16])
+    out = {"dense_f64_last_pressure": p64}
+    for tag, (kw, jax_counts, jax_p) in FOOTING_FULL.items():
+        if jax_counts is None:
+            import numpy as np
+
+            f = np.load(ROOT / "tests" / "fixtures" / "torch_port" / f"{tag}.npz")
+            jax_counts = tuple(int(f[k]) for k in (
+                "n_steps", "n_newton_total", "n_cg_total", "n_plastic"))
+            jax_p = float(f["pressure_hist"][jax_counts[0]])
+        cfg = (FootingConfig if tag == "footing_f64_cg" else FootingConfig.fast)(**kw)
+        spmv.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = footing.solve(cfg, device=device)
+        wall = time.perf_counter() - t0
+        p = float(r.pressure_hist[r.n_steps])
+        rec = dict(
+            wall_s=wall,
+            counts=[r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic],
+            jax_counts=list(jax_counts),
+            zeta_reached=float(r.zeta_hist[r.n_steps]),
+            last_pressure=p, jax_last_pressure=jax_p,
+            last_pressure_rel_to_dense_f64=abs(p - p64) / p64,
+            kernel_launches_by_name=dict(spmv.LAUNCHES),
+            cg_iteration_us=1e6 * wall / r.n_cg_total if r.n_cg_total else None,
+        )
+        cut = cfg if not r.n_cg_total else dataclasses.replace(cfg, max_trips=1)
+        footing.solve(cut, device=device)  # warm
+        res, wall_p, prof = profiled(torch, profile, activities,
+                                     lambda: footing.solve(cut, device=device))
+        dev = device_summary(prof, wall_p)
+        if res.n_cg_total:
+            dev.update(
+                profiled_counts=[res.n_steps, res.n_newton_total, res.n_cg_total, res.n_plastic],
+                device_kernels_per_cg_iteration=dev["kernel_launches"] / res.n_cg_total,
+                host_scalar_reads_per_cg_iteration=dev["host_scalar_reads"] / res.n_cg_total,
+            )
+        rec["profiled_run" + ("_1_trip" if res.n_cg_total else "")] = dev
+        out[tag] = rec
+        tables.append(f"== {tag} ({'1 trip' if res.n_cg_total else 'full'}) | {card}\n"
+                      + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        print(json.dumps({tag: rec}), flush=True)
+    cfg4 = FootingConfig.fast(level=4, solver="cg", assembled_cg=True, cg_maxiter=4000,
+                              max_trips=2)
+    t0 = time.perf_counter()
+    run4, mesh4 = footing.build_df32(cfg4, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    spmv.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = run4()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["footing_df32_acg_L4_2_trips"] = rec = dict(
+        unknowns=int(mesh4.free.sum()), setup_s=setup, wall_s=wall,
+        counts=[res.n_steps, res.n_newton_total, res.n_cg_total, res.n_plastic],
+        last_pressure=float(res.pressure_hist[res.n_steps]),
+        kernel_launches_by_name=dict(spmv.LAUNCHES),
+        cg_iteration_us=1e6 * wall / res.n_cg_total,
+    )
+    print(json.dumps({"footing_df32_acg_L4_2_trips": rec}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -39,6 +166,7 @@ def main() -> int:
     ap.add_argument("--scale", type=int, nargs="*", default=[], metavar="L")
     ap.add_argument("--ell", type=int, nargs="*", default=[], metavar="L")
     ap.add_argument("--no-dense", action="store_true")
+    ap.add_argument("--footing", action="store_true")
     opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -54,6 +182,7 @@ def main() -> int:
     from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device("cuda")
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -90,29 +219,11 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         spmv.LAUNCHES.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = run()
-            torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        busy_us = sum(e.device_time_total for e in kernels)
-        top = {}
-        for e in kernels:
-            top[e.name] = top.get(e.name, 0.0) + e.device_time_total
-        top = sorted(top.items(), key=lambda kv: -kv[1])[:8]
-        summary[tag] = dict(
-            wall_first_s=first,
-            walls_s=walls,
-            wall_profiled_s=wall_prof,
-            device_busy_s=busy_us * 1e-6,
-            device_idle_share=1.0 - busy_us * 1e-6 / wall_prof,
-            kernel_launches=len(kernels),
-            top_kernels_ms={k[:80]: v * 1e-3 for k, v in top},
-        )
+        res, wall_prof, prof = profiled(torch, profile, activities, run)
+        summary[tag] = dict(wall_first_s=first, walls_s=walls, **device_summary(prof, wall_prof))
         if tag in setup_s:
             host = [e for e in prof.events() if e.device_type.name != "CUDA"]
-            reads = sum(e.name == "aten::_local_scalar_dense" for e in host)
+            reads = summary[tag]["host_scalar_reads"]
             syncs = sum(e.name == "cudaStreamSynchronize" for e in host)
             n_cg = int(res.n_cg_total)
             summary[tag].update(
@@ -124,10 +235,12 @@ def main() -> int:
                 stream_syncs=syncs,
                 host_scalar_reads_per_cg_iteration=reads / n_cg,
                 stream_syncs_per_cg_iteration=syncs / n_cg,
-                device_kernels_per_cg_iteration=len(kernels) / n_cg,
+                device_kernels_per_cg_iteration=summary[tag]["kernel_launches"] / n_cg,
             )
         tables.append(f"== {tag} | {card}\n" + prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
+    if opts.footing:
+        summary["footing"] = footing_runs(torch, profile, activities, device, card, tables)
     out = pathlib.Path(opts.out)
     out.write_text("\n\n".join(tables))
     print(json.dumps(summary), flush=True)
