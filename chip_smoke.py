@@ -32,8 +32,8 @@ them against the repository's anchors:
                 kernel's factor, within 5e-6 (SPD) or 1e-4 (FEM) of the f64
                 solve, two launches bit-identical; the kernels each
                 factorization launched, as the library reports them, must
-                be 3 nb - 2 for nb panels; times beside the bound, the plain
-                version and cuSOLVER (`cholesky_ex`, `cholesky_solve`);
+                be one (a cooperative launch); times beside the bound, the
+                plain version and cuSOLVER (`cholesky_ex`, `cholesky_solve`);
   6. f64      — `solve(TsxTunnelConfig())`: 17 steps, 28 Newton iterations,
                 u[40,0] within 1e-9 relative of the f64 anchor;
   7. bench    — `TsxTunnelConfig.fast(assembled_cg=True)`: the same gate,
@@ -91,21 +91,23 @@ them against the repository's anchors:
                 counts beside the JAX package's recorded 17 / 52 / 605 /
                 1,477, equal counts and bit-identical u in both runs, K3, K4
                 and K1 launched and no plain version;
- 18. K6       — the ELL product against its plain version: f32 on the
-                level-4 fine operator, its P and R (the ELL build of
-                `spmv_fmt="ell"`), f64 on level 4's G and on S as its three
-                column parts (`residual_fmt="ell"`): <= 2e-6 of max |plain|
-                (f32), <= 1e-13 normwise (f64), two launches bit-identical;
-                times, bytes bound (the entries', as for the CSR kernels;
-                the padded layout's bytes printed beside it), cuSPARSE's time
+ 18. K6       — the sliced ELL product against its plain version: f32 on
+                the level-4 fine operator, its P and R (the ELL build of
+                `spmv_fmt="ell"`), f64 on level 4's G and S, each one
+                operator (`residual_fmt="ell"`): one launch a product, <=
+                2e-6 of max |plain| (f32), <= 1e-13 normwise (f64), two
+                launches bit-identical; slice widths, tail entries, times,
+                bytes bound (the entries', as for the CSR kernels; the
+                sliced layout's bytes printed beside it), cuSPARSE's time
                 for the same product and K3's / K1's time on the same
                 operator as CSR;
  19. scale ELL — `fast_scale(L, spmv_fmt="ell", corr_mode="gather",
                 residual_fmt="ell")` through `solve` at L = 1 (u40 within
                 1e-8 of -2.166787295662e-03) and `build_df32` at L = 4
                 (within 1e-6 of -2.264312e-3): 17 steps, two runs with equal
-                counts and bit-identical u, both K6 instances launched and no
-                plain version; counts printed beside the slot path's;
+                counts and bit-identical u, both K6 instances launched, no
+                plain version and no K3 or K1 (every operator is ELL);
+                counts printed beside the slot path's;
  20. K5       — the bf16-valued sweep against its plain version on the
                 level-5 fine operator (910,368 rows) and on the level-1 fine
                 operator packed by force, with and without the update:
@@ -464,24 +466,17 @@ def k4_phase(torch, spmv, levels, device, card):
 
 
 def ell_cost(A, nnz: int, vsize: int):
-    """(bytes, flops, layout bytes) of y = A x on an `EllMatrix` or
-    `SplitCols` holding `nnz` entries.  The bound's bytes are what the
-    product needs: each entry's value and column once, the spill CSR's row
-    pointers and row list, x read once, y written once.  The layout bytes
-    are what the format reads besides: every slot up to the row count
-    (padding included), and each part's partial sum read back and added."""
-    parts = getattr(A, "parts", (A,))
-    n_bytes = nnz * (vsize + 4) + vsize * (A.shape[1] + A.shape[0])
-    layout = vsize * (A.shape[1] + A.shape[0])
-    for k, part in enumerate(parts):
-        layout += part.values.shape[0] * part.shape[0] * (vsize + 4)
-        if part.spill is not None:
-            nnz_s, rows_s = part.spill.values.numel(), part.spill.shape[0]
-            n_bytes += 4 * (rows_s + 1) + 8 * rows_s
-            layout += nnz_s * (vsize + 4) + 4 * (rows_s + 1) + 8 * rows_s
-        if k:
-            layout += 3 * vsize * part.shape[0]
-    return n_bytes, 2 * nnz, layout
+    """(bytes, flops, layout bytes) of y = A x on an `EllMatrix` holding
+    `nnz` entries.  The bound's bytes are what the product needs: each
+    entry's value and column once, x read once, y written once.  The layout
+    bytes are what the sliced layout reads: every slot (padding included),
+    the slice offsets, the tail's row pointers and entries (if any), x and
+    y."""
+    xy = vsize * (A.shape[1] + A.shape[0])
+    n_tail = A.tail_values.numel()  # the kernel reads tail_ptr only if there is a tail
+    layout = (A.values.numel() * (vsize + 4) + 4 * A.slice_ptr.numel()
+              + (4 * A.tail_ptr.numel() + n_tail * (vsize + 4) if n_tail else 0) + xy)
+    return nnz * (vsize + 4) + xy, 2 * nnz, layout
 
 
 def k6_phase(torch, spmv, cases, device, card):
@@ -492,21 +487,15 @@ def k6_phase(torch, spmv, cases, device, card):
     rng = np.random.default_rng(SEED + 6)
     shapes, max_err = {}, {"float32": 0.0, "float64": 0.0}
     for tag, (A, C) in cases.items():
-        parts = getattr(A, "parts", (A,))
-        dt = parts[0].values.dtype
+        dt = A.values.dtype
         dt_name = "float64" if dt == torch.float64 else "float32"
         x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dt, device=device)
-        w = A.shape[1] // len(parts)
-
-        def plain():
-            y = None
-            for k, part in enumerate(parts):
-                yk = spmv.ell_matvec_plain(part, x[k * w:(k + 1) * w])
-                y = yk if y is None else y + yk
-            return y
-
+        spmv.LAUNCHES.clear()
         y = spmv.sp_matvec(A, x)
-        y_plain = plain()
+        one_launch = dict(spmv.LAUNCHES)
+        check(one_launch == {f"ell_spmv_{'f64' if dt == torch.float64 else 'f32'}": 1},
+              f"K6 {tag}: a product launched {one_launch}")
+        y_plain = spmv.ell_matvec_plain(A, x)
         torch.cuda.synchronize()
         err = float((y - y_plain).abs().max())
         if dt == torch.float64:
@@ -515,12 +504,6 @@ def k6_phase(torch, spmv, cases, device, card):
             rel = err / float(y_plain.abs().max())
         check(rel <= K6_TOL[dt_name], f"K6 {tag}: relative difference {rel:.3e}")
         check(torch.equal(y, spmv.sp_matvec(A, x)), f"K6 {tag}: not bitwise repeatable")
-        for k, part in enumerate(parts):  # each launch on its own (S: its three parts)
-            yk = spmv.ell_matvec(part, x[k * w:(k + 1) * w])
-            pk = spmv.ell_matvec_plain(part, x[k * w:(k + 1) * w])
-            rk = (float(torch.linalg.norm(yk - pk) / torch.linalg.norm(pk)) if dt == torch.float64
-                  else float((yk - pk).abs().max() / pk.abs().max()))
-            check(rk <= K6_TOL[dt_name], f"K6 {tag} part {k}: relative difference {rk:.3e}")
         # the yardsticks: the port's CSR kernel (K3 / K1) and one PyTorch
         # call (cuSPARSE) on the same operator as CSR
         C_lib = torch.sparse_csr_tensor(C.indptr, C.indices, C.values, C.shape,
@@ -529,30 +512,39 @@ def k6_phase(torch, spmv, cases, device, card):
         torch.cuda.synchronize()
         csr_rel = float((y_csr - y_plain).abs().max() / y_plain.abs().max())
         check(csr_rel <= 2e-6, f"K6 {tag}: the CSR product differs by {csr_rel:.3e}")
+        # in turns: kernel, cuSPARSE, K3/K1, plain, then again
         ms, eager_ms = cuda_ms(torch, lambda: spmv.sp_matvec(A, x))
-        plain_ms, plain_eager_ms = cuda_ms(torch, plain)
-        csr_ms, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
         lib_ms, _ = cuda_ms(torch, lambda: torch.mv(C_lib, x))
+        csr_ms, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
+        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.ell_matvec_plain(A, x))
+        ms2, _ = cuda_ms(torch, lambda: spmv.sp_matvec(A, x))
+        lib_ms2, _ = cuda_ms(torch, lambda: torch.mv(C_lib, x))
+        csr_ms2, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
         vsize = 8 if dt == torch.float64 else 4
         nnz = int(C.values.numel())
         n_bytes, flops, layout = ell_cost(A, nnz, vsize)
         b_ms, b_by = bound_ms(n_bytes, flops, dt_name)
         layout_ms, _ = bound_ms(layout, flops, dt_name)
         max_err[dt_name] = max(max_err[dt_name], err)
-        spilled = sum(0 if p.spill is None else p.spill.values.numel() for p in parts)
+        widths = A.widths()
         shapes[tag] = dict(
-            rows=A.shape[0], cols=A.shape[1], dtype=dt_name, parts=len(parts),
-            deg=[int(p.values.shape[0]) for p in parts], nnz=nnz,
-            spilled=spilled, rel=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            rows=A.shape[0], cols=A.shape[1], dtype=dt_name, cap=A.cap, slices=A.n_slices,
+            width_min=int(widths.min()), width_max=int(widths.max()),
+            width_mean=float(widths.double().mean()), nnz=nnz,
+            tail=int(A.tail_values.numel()), launches_a_product=sum(one_launch.values()),
+            rel=rel, max_abs_err=err, ms=ms, ms_again=ms2, plain_ms=plain_ms,
             eager_ms=eager_ms, plain_eager_ms=plain_eager_ms, csr_kernel_ms=csr_ms,
-            library_ms=lib_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+            csr_kernel_ms_again=csr_ms2, library_ms=lib_ms, library_ms_again=lib_ms2,
+            bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
             layout_bytes=layout, layout_bound_ms=layout_ms,
         )
-        say("K6", f"{tag} {dt_name} {A.shape[0]}x{A.shape[1]} deg {shapes[tag]['deg']} nnz "
-            f"{nnz} spilled {spilled}: rel {rel:.3e} max_abs {err:.3e} | device: "
-            f"kernel {ms:.5f} ms plain {plain_ms:.5f} ms CSR kernel {csr_ms:.5f} ms cuSPARSE "
-            f"{lib_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}; the padded layout's bytes "
-            f"{layout_ms:.5f} ms) | eager: kernel {eager_ms:.5f} ms "
+        say("K6", f"{tag} {dt_name} {A.shape[0]}x{A.shape[1]} cap {A.cap}, {A.n_slices} slices "
+            f"of width {int(widths.min())}-{int(widths.max())} (mean "
+            f"{shapes[tag]['width_mean']:.2f}), nnz {nnz}, tail {shapes[tag]['tail']}: one "
+            f"launch, rel {rel:.3e} max_abs {err:.3e} | device: kernel {ms:.5f} / {ms2:.5f} ms "
+            f"cuSPARSE {lib_ms:.5f} / {lib_ms2:.5f} ms CSR kernel {csr_ms:.5f} / {csr_ms2:.5f} "
+            f"ms plain {plain_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}; the sliced layout's bytes "
+            f"{layout} = {layout_ms:.5f} ms) | eager: kernel {eager_ms:.5f} ms "
             f"plain {plain_eager_ms:.5f} ms | {card}")
     return shapes, max_err
 
@@ -793,6 +785,9 @@ def check_scale_launches(tag: str, launches: dict, kernels=SCALE_KERNELS) -> Non
         check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
     plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
     check(not plain, f"{tag}: a plain version ran on the card ({plain})")
+    if kernels == ELL_KERNELS:  # every operator is ELL: no CSR product, no side path
+        csr = {k: v for k, v in launches.items() if k.startswith("csr_spmv") and v}
+        check(not csr, f"{tag}: K3 / K1 launched for an ELL operator ({csr})")
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -863,9 +858,8 @@ def main() -> int:
         chol.cholesky_solve(L, inv, b, K.shape[0])
     torch.cuda.synchronize()
     k7_launches = dict(chol.LAUNCHES)
-    # 3 nb - 2 kernels for nb panels of 128: diagonal block, panel, update
-    want_per_factor = {tag: 3 * -(-K.shape[0] // chol.BLOCK) - 2
-                       for tag, (K, _, _) in k7_cases.items()}
+    # one cooperative launch a factorization, whatever its panel count
+    want_per_factor = {tag: 1 for tag in k7_cases}
     check(k7_per_factor == want_per_factor,
           f"K7: kernels a factorization {k7_per_factor}, expected {want_per_factor}")
     check(k7_launches == {"cholesky_factor": sum(want_per_factor.values()),
@@ -1104,11 +1098,10 @@ def main() -> int:
     setup4e = time.perf_counter() - t0
     fine4e = ex4e["hierarchy"].levels[-1]
     (G4e, S4e), (G4, S4) = ex4e["residual_op"], ex4["residual_op"]
-    check(all(isinstance(op, spmv.EllMatrix) for op in (fine4e.op, fine4e.P, fine4e.R, G4e))
-          and isinstance(S4e, spmv.SplitCols), "scale ELL L4: an operator is not ELL")
-    say("scale ELL L4", f"setup {setup4e:.2f} s; fine operator deg {fine4e.op.values.shape[0]}, "
-        f"G deg {G4e.values.shape[0]}, S parts deg {[p.values.shape[0] for p in S4e.parts]} "
-        f"| {card}")
+    check(all(isinstance(op, spmv.EllMatrix) for op in (fine4e.op, fine4e.P, fine4e.R, G4e, S4e)),
+          "scale ELL L4: an operator is not ELL")
+    say("scale ELL L4", f"setup {setup4e:.2f} s; degree caps: fine operator {fine4e.op.cap}, "
+        f"P {fine4e.P.cap}, R {fine4e.R.cap}, G {G4e.cap}, S {S4e.cap} | {card}")
     k6_shapes, k6_err = k6_phase(torch, spmv, {
         "K_L4": (fine4e.op, fine4.op), "P_L4": (fine4e.P, fine4.P), "R_L4": (fine4e.R, fine4.R),
         "G_L4": (G4e, G4), "S_L4": (S4e, S4)}, device, card)
@@ -1323,7 +1316,7 @@ def main() -> int:
             "route": "cuda",
             "source": "fem_elastoplasticity_tpu_torch/ops/csrc/cholesky_blocked.cu",
             "replaces": replaces,
-            # kernels launched: 3 nb - 2 a factorization, one a solve
+            # kernels launched: one a factorization, one a solve
             "launches": k7_launches[f"cholesky_{part}"],
             "launches_by_path": {"cholesky_entry_points": k7_launches[f"cholesky_{part}"]},
             **({"factorizations": k7_launches["cholesky_factorizations"]}

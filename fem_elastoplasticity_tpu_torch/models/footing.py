@@ -57,6 +57,8 @@ class FootingResult(NamedTuple):
     n_cg_total: int = 0
     newton_trips: tuple = ()  # Newton iterations of each load trip
     crit_trips: tuple = ()  # the last Newton criterion of each load trip
+    zeta_trips: tuple = ()  # the accepted load factor after each load trip
+    cg_trips: tuple = ()  # each trip's CG solves: ((iterations, converged), ...)
 
 
 # the two-float criterion's floor band, [newton_tol / FLOOR_BAND, newton_tol)
@@ -342,6 +344,8 @@ def _result(res: LoadSteppingResult, mesh: Mesh) -> FootingResult:
         n_cg_total=int(res.n_cg_total),
         newton_trips=tuple(res.newton_trips),
         crit_trips=tuple(res.crit_trips),
+        zeta_trips=tuple(res.zeta_trips),
+        cg_trips=tuple(res.cg_trips),
     )
 
 

@@ -16,7 +16,9 @@ Each has a `_plain` version that follows the TPU kernel's algorithm step
 for step in PyTorch (the column loop with the pivot's reciprocal square
 root, the forward-substitution inverse, the two block products), and a
 `_cuda` version that launches the hand-written kernels of
-`csrc/cholesky_blocked.cu` on PyTorch's current stream.  The entry points
+`csrc/cholesky_blocked.cu` on PyTorch's current stream: the factor is one
+cooperative launch on a grid no larger than what is co-resident, the
+solve one block.  The entry points
 launch the kernels on a CUDA tensor and run the plain version on a CPU
 tensor; they never fall back from one to the other.
 
@@ -25,8 +27,8 @@ with `jax.scipy.linalg.cho_factor`, the port's with `torch.linalg`), and
 the port wires them into none: they are an entry point of their own.
 
 `LAUNCHES` counts, per process, the kernels launched ("cholesky_factor":
-the kernels a factorization launched, as the library reports them, 3 nb -
-2 for nb panels; "cholesky_solve": one a solve), the factorizations
+the kernels a factorization launched, as the library reports them: one;
+"cholesky_solve": one a solve), the factorizations
 ("cholesky_factorizations") and the calls routed to the plain versions
 ("cholesky_factor_plain", "cholesky_solve_plain").
 """
@@ -128,8 +130,10 @@ def _library() -> ctypes.CDLL:
     from ..utils.cuda_build import build_library
 
     lib = build_library(KERNEL_SOURCE, "cholesky_blocked")
-    lib.cholesky_factor_f32.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(ctypes.c_int)]
+    lib.cholesky_factor_grid.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.cholesky_factor_grid.restype = ctypes.c_int
+    lib.cholesky_factor_f32.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.cholesky_factor_f32.restype = ctypes.c_int
     lib.cholesky_solve_f32.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
     lib.cholesky_solve_f32.restype = ctypes.c_int
@@ -154,21 +158,43 @@ def _check(name: str, t: torch.Tensor, device: torch.device, shape: tuple) -> No
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _factor_grid(device_index: int, n_pad: int) -> int:
+    """The factorization's cooperative grid on the card (the library checks
+    that it is co-resident); raises if the eleven blocks it needs at least
+    do not fit."""
+    blocks, capacity = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _library().cholesky_factor_grid(n_pad, ctypes.byref(blocks), ctypes.byref(capacity))
+    if err != 0:
+        raise RuntimeError(f"cholesky_factor: no cooperative grid of 11 blocks fits on cuda:"
+                           f"{device_index} ({capacity.value} co-resident): cudaError_t {err}")
+    return blocks.value
+
+
 def cholesky_factor_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K7's factorization on K's device and PyTorch's current
     stream; no sync.  Same output as `cholesky_factor_plain`."""
     if not K.is_cuda:
         raise ValueError(f"cholesky_factor_cuda needs a CUDA tensor; got one on {K.device}")
-    A = pad_matrix(K)  # the scratch the trailing updates overwrite
-    n_pad = A.shape[0]
-    L = torch.zeros_like(A)
-    inv = torch.empty((n_pad, BLOCK), dtype=torch.float32, device=A.device)
+    n = K.shape[0]
+    if K.dim() != 2 or K.shape[1] != n or n == 0:
+        raise ValueError(f"cholesky_factor: K must be square; got {tuple(K.shape)}")
+    K = K.to(torch.float32).contiguous()
+    n_pad = _pad_to_block(n)
+    # the kernel pads K into the scratch A and writes every entry of L
+    A = torch.empty((n_pad, n_pad), dtype=torch.float32, device=K.device)
+    L = torch.empty_like(A)
+    inv = torch.empty((n_pad, BLOCK), dtype=torch.float32, device=K.device)
+    flags = torch.empty(n_pad // BLOCK, dtype=torch.int32, device=K.device)
     for name, t, shape in (("A", A, (n_pad, n_pad)), ("L", L, (n_pad, n_pad)),
                            ("inv_blocks", inv, (n_pad, BLOCK))):
-        _check(f"cholesky_factor: {name}", t, A.device, shape)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
+        _check(f"cholesky_factor: {name}", t, K.device, shape)
+    blocks = _factor_grid(K.device.index, n_pad)
+    stream = torch.cuda.current_stream(K.device).cuda_stream
     launched = ctypes.c_int(0)
-    err = _library().cholesky_factor_f32(n_pad, A.data_ptr(), L.data_ptr(), inv.data_ptr(), stream,
+    err = _library().cholesky_factor_f32(n, n_pad, K.data_ptr(), A.data_ptr(), L.data_ptr(),
+                                         inv.data_ptr(), flags.data_ptr(), blocks, stream,
                                          ctypes.byref(launched))
     LAUNCHES["cholesky_factor"] += launched.value
     if err != 0:

@@ -7,180 +7,459 @@
 // holds the whole padded matrix in VMEM and factors it in one launch; on the
 // card a 908 x 908 f32 matrix (3.3 MB) is fifteen times a block's shared
 // memory, so the factor works in a scratch copy of the padded matrix in
-// global memory (it stays in the 50 MB L2) and takes three launches for each
-// 128-wide panel k:
+// global memory (it stays in the 50 MB L2).
 //
-//   1. chol_diag_kernel: one block holds the 128 x 128 diagonal block in
-//      shared memory, factors it column by column with the pivot's reciprocal
-//      square root (the TPU kernel's chol_step), writes Lk, forms its inverse
-//      Li = Lk^-1 by forward substitution and writes it to inv_blocks;
-//   2. chol_panel_kernel: L21 = A21 Li^T, one block for each 128-row tile
-//      below the diagonal;
-//   3. chol_update_kernel: A22 -= L21 L21^T on the tiles on and below the
-//      diagonal only, one block a tile.
+// What bounds it: the operations, n^3/3 multiply-adds: 3.72 us at n = 908 and
+// 39.8 us at n = 2000 at 67 TFLOP/s f32 (the products stay off the tensor
+// cores: the port keeps TF32 off); the bytes (K read, L written) take about
+// 2 us at 908.  At these sizes neither binds: the factor is a chain of
+// dependent steps, 128 pivots a panel, and the card must be filled between
+// them.  The design:
 //
-// Panels 0 .. nb-1 give 3 nb - 2 launches (22 at n = 908).  The solve is one
+// * One persistent cooperative launch a factorization, the identity-tail
+//   padding of K included.  Its grid is no larger than what is co-resident (the host checks the occupancy and
+//   refuses otherwise); `grid.sync()` separates a panel's two stages, and a
+//   flag a panel (a counter that each of ten blocks raises once, no data
+//   summed through it) lets block 0 start the next panel early.
+// * The diagonal 128-block, in block 0's shared memory, is factored as four
+//   32-wide sub-panels.  Warp 0 factors the 32 x 32 diagonal sub-block in
+//   registers (a lane holds a row, the pivot column travels by
+//   __shfl_sync, no block barrier in its 32 steps) and inverts it (a lane
+//   a column, by forward substitution).  Then all eight warps form the
+//   sub-panel's rows below through that inverse and update the rest of the
+//   block: three block barriers a sub-panel.  The 128-block's inverse is
+//   assembled from the four 32 x 32 inverses by block substitution
+//   (X_ij = -X_ii sum_k L_ik X_kj), not by 128 barrier-separated row steps;
+//   warps 1-7 form the blocks that are ready while warp 0 factors the next
+//   sub-block, so only the last block row follows the last sub-block.
+// * Panel k, stage 1: L21 = A21 Li^T in 32 x 32 output tiles over the grid
+//   (112 at n = 908 for the first panel).  Stage 2: A22 -= L21 L21^T on
+//   its lower tiles: blocks 1-10 take the ten lower 32-tiles of the next
+//   diagonal block first and raise the panel's flag; block 0 waits for the
+//   flag and factors that block while the others update the 64 x 64 tiles
+//   below it (99 at 908).  So block 0's chain overlaps the update, and a
+//   panel costs two grid barriers.  Tile products are f32 FMAs over
+//   register tiles, both operands staged whole in shared memory by one
+//   round of 16-byte loads.
+//
+// No sum uses atomics and every tile is computed the same way whichever
+// block takes it: two factorizations are bit-identical.  The solve is one
 // launch of one block that walks the 2 nb block steps of _solve_kernel:
 // y_k = (b_k - sum_{j<k} L_kj y_j) through Li, then
 // x_k = (y_k - sum_{j>k} L_jk^T x_j) through Li^T, with y and x in shared
 // memory and L and inv_blocks read from global memory.
-//
-// Products are plain f32 FMAs outside the tensor cores (the port keeps TF32
-// off).  No sum uses atomics: two launches give bit-identical results.
-//
-// What bounds it: the operations, n^3/3 multiply-adds, 3.7 us at n = 908 at
-// 67 TFLOP/s; the bytes (K read, L written) take 2 us.  This first design
-// is bound by neither: the diagonal block's 2 x 128 dependent column steps,
-// each ending in a block-wide barrier, form a serial chain of some 500
-// barriers a panel, and the tile products are one 128 x 128 tile a block.
-// A later design would factor the diagonal block with warp shuffles and run
-// the products on the tensor cores (3xTF32 or wgmma).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kB = 128;             // panel width (BLOCK of the TPU kernel)
-constexpr int kDiagThreads = 1024;  // 8 row groups of 128 columns
-constexpr int kTileThreads = 256;   // 16 x 16, an 8 x 8 micro-tile each
-constexpr int kChunk = 32;          // k-depth staged in shared memory
+constexpr int kB = 128;          // panel width (BLOCK of the TPU kernel)
+constexpr int kSub = 32;         // sub-panel width: one warp
+constexpr int kNs = kB / kSub;   // sub-panels a diagonal block
+constexpr int kT = 64;           // output tile of the panel and update products
+constexpr int kThreads = 256;    // eight warps
+constexpr int kLd = kB + 4;      // row stride of the 128 x 128 blocks in shared memory
+constexpr int kPld = kSub + 4;   // row stride of the 32-column scratch blocks
+constexpr int kDiagTiles = 10;   // lower 32-tiles of a 128 diagonal block
+
+// shared memory, in floats: the diagonal block D and its inverse Xi (a tile
+// product stages its two operands over them), the rows below a sub-panel P
+// (three 32 x 32 blocks) and five blocks T for the inverse's partial sums
+constexpr int kSmemD = kB * kLd;
+constexpr int kSmemP = (kB - kSub) * kPld;
+constexpr int kSmemT = 5 * kSub * kPld;
+constexpr size_t kFactorSmem = (2 * kSmemD + kSmemP + kSmemT) * sizeof(float);
+static_assert(kB * (kT + 4) <= kSmemD, "a staged tile operand fits over D");
+
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// 1. the diagonal block: factor, then invert
+// C (R x R, R = 32 or 64) = or -= X (R x 128) Y (R x 128)^T, one block.  Both
+// operands are staged whole, depth-major, in one round of 16-byte loads (two
+// neighbouring lanes read 32 bytes of a row); a thread holds an (R/16)^2
+// register tile.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kDiagThreads)
-chol_diag_kernel(int n_pad, int off, const float* __restrict__ a,
-                 float* __restrict__ L, float* __restrict__ inv) {
-  extern __shared__ float sm[];
-  float* D = sm;              // (128, 128) row-major: the block, then Lk
-  float* X = D + kB * kB;     // (128, 128): the inverse, built in place
-  float* col = X + kB * kB;   // (128,): the scaled pivot column
+template <int R>
+__device__ void tile_nt(const float* X, int ldx, const float* Y, int ldy, float* C,
+                        int ldc, bool subtract, float* Xs, float* Ys) {
+  constexpr int kTs = R + 4;  // (depth, row) stride: the staging stores miss no bank
+  constexpr int M = R / 16;
   const int t = threadIdx.x;
-  const int c = t & (kB - 1);  // this thread's column
-  const int g = t >> 7;        // its row group: rows g, g + 8, ...
-  const int groups = kDiagThreads / kB;
-
-  for (int r = g; r < kB; r += groups) {
-    D[r * kB + c] = a[(size_t)(off + r) * n_pad + off + c];
-    X[r * kB + c] = r == c ? 1.0f : 0.0f;
+#pragma unroll
+  for (int i = 0; i < R * kB / 4 / kThreads; ++i) {
+    const int idx = t + i * kThreads;
+    const int r = (idx >> 1) & (R - 1), k = 4 * (2 * (idx / (2 * R)) + (idx & 1));
+    // written by other blocks of this launch: read past L1
+    const float4 xv = __ldcg(reinterpret_cast<const float4*>(X + (size_t)r * ldx + k));
+    const float4 yv = __ldcg(reinterpret_cast<const float4*>(Y + (size_t)r * ldy + k));
+    Xs[k * kTs + r] = xv.x;
+    Xs[(k + 1) * kTs + r] = xv.y;
+    Xs[(k + 2) * kTs + r] = xv.z;
+    Xs[(k + 3) * kTs + r] = xv.w;
+    Ys[k * kTs + r] = yv.x;
+    Ys[(k + 1) * kTs + r] = yv.y;
+    Ys[(k + 2) * kTs + r] = yv.z;
+    Ys[(k + 3) * kTs + r] = yv.w;
   }
   __syncthreads();
-
-  // column j: col = D[:, j] / sqrt(D[j, j]) on rows >= j; the lower
-  // trailing triangle r >= c > j loses col[r] col[c]; column j becomes col
-  for (int j = 0; j < kB; ++j) {
-    if (t >= j && t < kB) {
-      const float pivot = 1.0f / sqrtf(D[j * kB + j]);
-      col[t] = D[t * kB + j] * pivot;
+  const int tx = t & 15, ty = t >> 4;  // rows M ty .. M ty + M - 1, columns M tx ..
+  float acc[M][M];
+#pragma unroll
+  for (int p = 0; p < M; ++p)
+#pragma unroll
+    for (int q = 0; q < M; ++q) acc[p][q] = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < kB; ++k) {
+    float xs[M], ys[M];
+    if constexpr (M == 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + k * kTs + M * ty);
+      const float4 yv = *reinterpret_cast<const float4*>(Ys + k * kTs + M * tx);
+      xs[0] = xv.x, xs[1] = xv.y, xs[2] = xv.z, xs[3] = xv.w;
+      ys[0] = yv.x, ys[1] = yv.y, ys[2] = yv.z, ys[3] = yv.w;
+    } else {
+      const float2 xv = *reinterpret_cast<const float2*>(Xs + k * kTs + M * ty);
+      const float2 yv = *reinterpret_cast<const float2*>(Ys + k * kTs + M * tx);
+      xs[0] = xv.x, xs[1] = xv.y;
+      ys[0] = yv.x, ys[1] = yv.y;
     }
-    __syncthreads();
-    if (c > j) {
-      const float cc = col[c];
-      int r = g;
-      if (r < c) r += ((c - r + groups - 1) / groups) * groups;
-      for (; r < kB; r += groups) D[r * kB + c] -= col[r] * cc;
-    } else if (c == j) {
-      for (int r = g; r < kB; r += groups) D[r * kB + c] = r >= j ? col[r] : 0.0f;
-    }
-    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < M; ++p)
+#pragma unroll
+      for (int q = 0; q < M; ++q) acc[p][q] += xs[p] * ys[q];
   }
-  for (int r = g; r < kB; r += groups) {
-    const float v = r >= c ? D[r * kB + c] : 0.0f;
-    D[r * kB + c] = v;
-    L[(size_t)(off + r) * n_pad + off + c] = v;
+#pragma unroll
+  for (int p = 0; p < M; ++p) {
+    float* dst = C + (size_t)(M * ty + p) * ldc + M * tx;
+#pragma unroll
+    for (int q = 0; q < M; ++q) dst[q] = subtract ? __ldcg(dst + q) - acc[p][q] : acc[p][q];
   }
-  __syncthreads();
-
-  // Lk X = I by forward substitution, row j of X at step j: X[j] /= Lk[j, j],
-  // then every later row i loses Lk[i, j] X[j]
-  for (int j = 0; j < kB; ++j) {
-    if (t < kB) X[j * kB + t] = X[j * kB + t] / D[j * kB + j];
-    __syncthreads();
-    if (c <= j) {
-      const float xj = X[j * kB + c];
-      int r = g;
-      if (r <= j) r += ((j + 1 - r + groups - 1) / groups) * groups;
-      for (; r < kB; r += groups) X[r * kB + c] -= D[r * kB + j] * xj;
-    }
-    __syncthreads();
-  }
-  for (int r = g; r < kB; r += groups) {
-    inv[(size_t)(off + r) * kB + c] = X[r * kB + c];
-  }
+  __syncthreads();  // Xs and Ys free again
 }
 
 // ---------------------------------------------------------------------------
-// 2 and 3. tile products C (128 x 128) = or -= X Y^T, depth 128
+// warp 0: factor and invert the 32 x 32 diagonal sub-block at (c0, c0) of D
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void tile_nt(const float* __restrict__ Xg, int ldx,
-                                        const float* __restrict__ Yg, int ldy,
-                                        float* __restrict__ Cg, int ldc,
-                                        bool subtract) {
-  __shared__ float Xs[kB][kChunk + 1];
-  __shared__ float Ys[kB][kChunk + 1];
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  float acc[8][8];
+__device__ void factor_sub_block(float* D, float* Xi, int c0) {
+  const int lane = threadIdx.x & 31;
+  float d[kSub];  // row c0 + lane of the sub-block
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
+  for (int q = 0; q < kSub; ++q) d[q] = D[(c0 + lane) * kLd + c0 + q];
 
-  for (int k0 = 0; k0 < kB; k0 += kChunk) {
+  // column j: col = d[:, j] rsqrt(d[j, j]); the trailing part loses col[r]
+  // col[c] (the TPU kernel's chol_step).  Every lane updates all its
+  // columns c > j, so no lane branches: the entries above the diagonal take
+  // values nobody reads and are zeroed as j reaches them.
 #pragma unroll
-    for (int i = 0; i < kB * kChunk / kTileThreads; ++i) {
-      const int idx = t + i * kTileThreads;
-      const int r = idx / kChunk, k = idx % kChunk;
-      Xs[r][k] = Xg[(size_t)r * ldx + k0 + k];
-      Ys[r][k] = Yg[(size_t)r * ldy + k0 + k];
-    }
-    __syncthreads();
+  for (int j = 0; j < kSub; ++j) {
+    const float col = d[j] * rsqrtf(__shfl_sync(kFull, d[j], j));
+#pragma unroll
+    for (int c = j + 1; c < kSub; ++c) d[c] -= col * __shfl_sync(kFull, col, c);
+    d[j] = lane >= j ? col : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < kSub; ++q) D[(c0 + lane) * kLd + c0 + q] = d[q];
+  __syncwarp();
+
+  // X = Lss^-1 by columns, lane c solving Lss X[:, c] = e_c by forward
+  // substitution: the entries of Lss are broadcast reads independent of X,
+  // so the dependent chain is one multiply and one FMA a row
+  const float rd = 1.0f / D[(c0 + lane) * kLd + c0 + lane];
+  float x[kSub];
+#pragma unroll
+  for (int r = 0; r < kSub; ++r) x[r] = lane == r ? 1.0f : 0.0f;
+#pragma unroll
+  for (int q = 0; q < kSub; ++q) {
+    x[q] *= __shfl_sync(kFull, rd, q);
+#pragma unroll
+    for (int r = q + 1; r < kSub; ++r) x[r] -= D[(c0 + r) * kLd + c0 + q] * x[q];
+  }
+#pragma unroll
+  for (int r = 0; r < kSub; ++r) Xi[(c0 + r) * kLd + c0 + lane] = x[r];
+}
+
+// ---------------------------------------------------------------------------
+// 32 x 32 block products for the inverse: jobs (out, A, B, depth) with
+// out[r][c] (=, +=, or = -) sum_{q < depth} A[r][q] B[q][c]; a thread takes
+// four rows of one column of one job, `tid` of `nth` threads
+// ---------------------------------------------------------------------------
+enum { kStore, kAdd, kNegate };
+
+// out rows r0 .. r0 + 3, column c of one 32 x 32 block product
+template <int Mode>
+__device__ __forceinline__ void block_quad(float* __restrict__ out, int ldo,
+                                           const float* __restrict__ A, int lda,
+                                           const float* __restrict__ B, int ldb, int depth,
+                                           int quad) {
+  const int r0 = 4 * (quad / kSub), c = quad % kSub;
+  float acc[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) acc[p] = Mode == kAdd ? out[(r0 + p) * ldo + c] : 0.0f;
 #pragma unroll 4
-    for (int k = 0; k < kChunk; ++k) {
-      float xv[8], yv[8];
+  for (int q = 0; q < depth; q += 4) {
+    const float bv[4] = {B[q * ldb + c], B[(q + 1) * ldb + c], B[(q + 2) * ldb + c],
+                         B[(q + 3) * ldb + c]};
 #pragma unroll
-      for (int p = 0; p < 8; ++p) xv[p] = Xs[ty + 16 * p][k];
+    for (int p = 0; p < 4; ++p) {
+      const float4 av = *reinterpret_cast<const float4*>(A + (r0 + p) * lda + q);
+      acc[p] += av.x * bv[0];
+      acc[p] += av.y * bv[1];
+      acc[p] += av.z * bv[2];
+      acc[p] += av.w * bv[3];
+    }
+  }
 #pragma unroll
-      for (int q = 0; q < 8; ++q) yv[q] = Ys[tx + 16 * q][k];
+  for (int p = 0; p < 4; ++p) out[(r0 + p) * ldo + c] = Mode == kNegate ? -acc[p] : acc[p];
+}
+
+// D's lower part under the sub-panel at c0 loses P P^T on the 32-column
+// blocks cb_lo .. cb_hi - 1 to its right (`below` rows), warp w of nw a row
+__device__ __forceinline__ void trailing_update(float* D, const float* P, int c0, int below,
+                                                int cb_lo, int cb_hi, int w, int nw) {
+  const int lane = threadIdx.x & 31;
+  for (int cb = cb_lo; cb < cb_hi; ++cb) {
+    float pc[kSub];
 #pragma unroll
-      for (int p = 0; p < 8; ++p)
+    for (int q = 0; q < kSub; ++q) pc[q] = P[(cb * kSub + lane) * kPld + q];
+    for (int rr = cb * kSub + w; rr < below; rr += nw) {
+      const float* prow = P + rr * kPld;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] += xv[p] * yv[q];
+      for (int q = 0; q < kSub; q += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(prow + q);
+        acc[0] += v.x * pc[q];
+        acc[1] += v.y * pc[q + 1];
+        acc[2] += v.z * pc[q + 2];
+        acc[3] += v.w * pc[q + 3];
+      }
+      // columns right of the diagonal take values nobody reads
+      D[(c0 + kSub + rr) * kLd + c0 + kSub + cb * kSub + lane] -=
+          (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    }
+  }
+}
+
+// the barrier of warps 1-7 while warp 0 factors a sub-block
+__device__ __forceinline__ void helpers_sync() { asm volatile("bar.sync 1, 224;" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
+// one block: factor the diagonal block at `off` of the scratch `a` (already
+// updated by the panels before it); write L's diagonal block and its inverse
+// ---------------------------------------------------------------------------
+__device__ void factor_diag_block(int n_pad, int off, const float* a, float* L,
+                                  float* inv, float* sm) {
+  float* D = sm;
+  float* Xi = D + kSmemD;
+  float* P = Xi + kSmemD;
+  float* T = P + kSmemP;
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kQuads = kSub * kSub / 4;  // four rows of one column: a thread's share
+  // sub-blocks of D and Xi, and the partial-sum blocks
+  auto Db = [&](int i, int j) { return D + kSub * i * kLd + kSub * j; };
+  auto Xb = [&](int i, int j) { return Xi + kSub * i * kLd + kSub * j; };
+  auto Pb = [&](int i) { return T + kSub * i * kPld; };
+
+  for (int idx = t; idx < kB * kB / 4; idx += kThreads) {
+    const int r = idx / (kB / 4), c = 4 * (idx % (kB / 4));
+    // written by other blocks of this launch: read past L1
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(a + (size_t)(off + r) * n_pad + off + c));
+    *reinterpret_cast<float4*>(D + r * kLd + c) = v;
+    *reinterpret_cast<float4*>(Xi + r * kLd + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncthreads();
+
+  for (int s = 0; s < kNs; ++s) {
+    const int c0 = s * kSub;
+    const int below = kB - c0 - kSub;  // rows of the block under the sub-panel
+    if (warp == 0) {
+      factor_sub_block(D, Xi, c0);
+    } else if (s >= 1) {
+      // meanwhile the other warps finish the previous sub-panel's update
+      // right of the sub-panel that warp 0 factors
+      trailing_update(D, P, c0 - kSub, below + kSub, 1, (below + kSub) / kSub, warp - 1,
+                      kWarps - 1);
+    }
+    if (warp > 0 && s == 2) {
+      // and form the inverse's blocks below the diagonal that are ready:
+      // X10 = -X11 (L10 X00)
+      for (int e = t - 32; e < kQuads; e += 224)
+        block_quad<kStore>(Pb(0), kPld, Db(1, 0), kLd, Xb(0, 0), kLd, kSub, e);
+      helpers_sync();
+      for (int e = t - 32; e < kQuads; e += 224)
+        block_quad<kNegate>(Xb(1, 0), kLd, Xb(1, 1), kLd, Pb(0), kPld, kSub, e);
+    } else if (warp > 0 && s == 3) {
+      // X2j = -X22 T2j, and T3j = sum_k L3k Xkj but for X33's factor
+      for (int e = t - 32; e < 5 * kQuads; e += 224) {
+        const int q = e % kQuads;
+        switch (e / kQuads) {
+          case 0:  // T20 = L20 X00 + L21 X10
+            block_quad<kStore>(Pb(0), kPld, Db(2, 0), kLd, Xb(0, 0), kLd, 2 * kSub, q);
+            break;
+          case 1:  // T21 = L21 X11
+            block_quad<kStore>(Pb(1), kPld, Db(2, 1), kLd, Xb(1, 1), kLd, kSub, q);
+            break;
+          case 2:  // T30 = L30 X00 + L31 X10 (+ L32 X20 below)
+            block_quad<kStore>(Pb(2), kPld, Db(3, 0), kLd, Xb(0, 0), kLd, 2 * kSub, q);
+            break;
+          case 3:  // T31 = L31 X11 (+ L32 X21 below)
+            block_quad<kStore>(Pb(3), kPld, Db(3, 1), kLd, Xb(1, 1), kLd, kSub, q);
+            break;
+          default:  // T32 = L32 X22
+            block_quad<kStore>(Pb(4), kPld, Db(3, 2), kLd, Xb(2, 2), kLd, kSub, q);
+        }
+      }
+      helpers_sync();
+      for (int e = t - 32; e < 2 * kQuads; e += 224) {
+        const int j = e / kQuads;
+        block_quad<kNegate>(Xb(2, j), kLd, Xb(2, 2), kLd, Pb(j), kPld, kSub, e % kQuads);
+      }
+      helpers_sync();
+      for (int e = t - 32; e < 2 * kQuads; e += 224) {
+        const int j = e / kQuads;
+        block_quad<kAdd>(Pb(2 + j), kPld, Db(3, 2), kLd, Xb(2, j), kLd, kSub, e % kQuads);
+      }
     }
     __syncthreads();
-  }
+    if (below == 0) break;
+    // P = D[c0 + 32 :, c0 : c0 + 32] Xss^T: lane = column, a warp per row
+    {
+      float xr[kSub];
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
+      for (int q = 0; q < kSub; ++q) xr[q] = Xi[(c0 + lane) * kLd + c0 + q];
+      for (int rr = warp; rr < below; rr += kWarps) {
+        const float* drow = D + (c0 + kSub + rr) * kLd + c0;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      float* dst = Cg + (size_t)(ty + 16 * p) * ldc + tx + 16 * q;
-      *dst = subtract ? *dst - acc[p][q] : acc[p][q];
+        for (int q = 0; q < kSub; q += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(drow + q);
+          acc[0] += v.x * xr[q];
+          acc[1] += v.y * xr[q + 1];
+          acc[2] += v.z * xr[q + 2];
+          acc[3] += v.w * xr[q + 3];
+        }
+        P[rr * kPld + lane] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
     }
-}
-
-// L21 tile i (rows off + 128 (i + 1) ..) = A21 tile i · Li^T
-__global__ void __launch_bounds__(kTileThreads)
-chol_panel_kernel(int n_pad, int off, const float* __restrict__ a,
-                  const float* __restrict__ inv, float* __restrict__ L) {
-  const size_t row = (size_t)off + kB * (blockIdx.x + 1);
-  tile_nt(a + row * n_pad + off, n_pad, inv + (size_t)off * kB, kB,
-          L + row * n_pad + off, n_pad, false);
-}
-
-// A22 tile (i, j), i >= j, -= L21 tile i · (L21 tile j)^T; the block index
-// walks the lower tiles row by row
-__global__ void __launch_bounds__(kTileThreads)
-chol_update_kernel(int n_pad, int off, const float* __restrict__ L,
-                   float* __restrict__ a) {
-  int i = 0, b = blockIdx.x;
-  while (b > i) {
-    b -= i + 1;
-    ++i;
+    __syncthreads();
+    // the sub-panel's rows below into D, and the next sub-panel's columns
+    // lose P P^T (the rest of the update waits for the next warp-0 phase)
+    for (int idx = t; idx < below * kSub; idx += kThreads) {
+      const int rr = idx / kSub, q = idx % kSub;
+      D[(c0 + kSub + rr) * kLd + c0 + q] = P[rr * kPld + q];
+    }
+    trailing_update(D, P, c0, below, 0, 1, warp, kWarps);
+    __syncthreads();
   }
-  const int j = b;
-  const size_t ri = (size_t)off + kB * (i + 1), rj = (size_t)off + kB * (j + 1);
-  tile_nt(L + ri * n_pad + off, n_pad, L + rj * n_pad + off, n_pad,
-          a + ri * n_pad + rj, n_pad, true);
+
+  // the last block row of the inverse: X3j = -X33 T3j
+  for (int e = t; e < 3 * kQuads; e += kThreads) {
+    const int j = e / kQuads;
+    block_quad<kNegate>(Xb(3, j), kLd, Xb(3, 3), kLd, Pb(2 + j), kPld, kSub, e % kQuads);
+  }
+  __syncthreads();
+
+  for (int idx = t; idx < kB * kB / 4; idx += kThreads) {
+    const int r = idx / (kB / 4), c = 4 * (idx % (kB / 4));
+    float4 v = *reinterpret_cast<const float4*>(D + r * kLd + c);
+    if (c + 0 > r) v.x = 0.0f;
+    if (c + 1 > r) v.y = 0.0f;
+    if (c + 2 > r) v.z = 0.0f;
+    if (c + 3 > r) v.w = 0.0f;
+    *reinterpret_cast<float4*>(L + (size_t)(off + r) * n_pad + off + c) = v;
+    *reinterpret_cast<float4*>(inv + (size_t)(off + r) * kB + c) =
+        *reinterpret_cast<const float4*>(Xi + r * kLd + c);
+  }
+}
+
+// lower tile t (row-major over i >= j) of an m x m grid of tiles -> (i, j)
+__device__ __forceinline__ void lower_tile(int t, int* i, int* j) {
+  int r = 0;
+  while (t > r) {
+    t -= r + 1;
+    ++r;
+  }
+  *i = r;
+  *j = t;
+}
+
+// ---------------------------------------------------------------------------
+// the factorization, one persistent cooperative launch
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 1)
+chol_factor_kernel(int n, int n_pad, const float* __restrict__ K, float* a, float* L,
+                   float* inv, int* flags) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Xs = sm;  // tile operands over D and Xi: block 0 has written those out
+  float* Ys = sm + kSmemD;
+  const int nb = n_pad / kB;
+  const int g = gridDim.x, b = blockIdx.x;
+
+  // the scratch: K padded with an identity tail (the TPU kernel's padding);
+  // L's blocks above the diagonal, which nothing else writes, zeroed; the
+  // flags reset
+  for (int r = b; r < n_pad; r += g) {
+    float* arow = a + (size_t)r * n_pad;
+    float* lrow = L + (size_t)r * n_pad;
+    for (int c = threadIdx.x; c < n_pad; c += kThreads) {
+      arow[c] = r < n && c < n ? K[(size_t)r * n + c] : (r == c ? 1.0f : 0.0f);
+      if (c / kB > r / kB) lrow[c] = 0.0f;
+    }
+  }
+  if (b == 0 && static_cast<int>(threadIdx.x) < nb) flags[threadIdx.x] = 0;
+  grid.sync();
+
+  if (b == 0) factor_diag_block(n_pad, 0, a, L, inv, sm);
+  for (int k = 0; k + 1 < nb; ++k) {
+    const int off = k * kB;
+    const int mt = (n_pad - off - kB) / kT;  // 64-row tiles below the diagonal block
+    grid.sync();
+    // stage 1: L21 = A21 Li^T in 32 x 32 tiles
+    for (int t = b; t < 8 * mt; t += g) {
+      const size_t row = (size_t)off + kB + (t >> 2) * kSub;
+      const int c = (t & 3) * kSub;
+      tile_nt<kSub>(a + row * n_pad + off, n_pad, inv + (size_t)(off + c) * kB, kB,
+                    L + row * n_pad + off + c, n_pad, false, Xs, Ys);
+    }
+    grid.sync();
+    // stage 2: A22 -= L21 L21^T on its lower tiles: first the ten lower
+    // 32-tiles of the next diagonal block, which block 0 factors once they
+    // are in, then the 64-tiles below it
+    if (b == 0) {
+      if (threadIdx.x == 0) {
+        while (atomicAdd(flags + k, 0) < kDiagTiles) __nanosleep(100);
+        __threadfence();
+      }
+      __syncthreads();
+      factor_diag_block(n_pad, off + kB, a, L, inv, sm);
+    } else {
+      const int n_tiles = kDiagTiles + mt * (mt + 1) / 2 - 3;
+      for (int t = b - 1; t < n_tiles; t += g - 1) {
+        int i, j;
+        if (t < kDiagTiles) {
+          lower_tile(t, &i, &j);
+          const size_t ri = (size_t)off + kB + i * kSub, rj = (size_t)off + kB + j * kSub;
+          tile_nt<kSub>(L + ri * n_pad + off, n_pad, L + rj * n_pad + off, n_pad,
+                        a + ri * n_pad + rj, n_pad, true, Xs, Ys);
+        } else {
+          lower_tile(t - kDiagTiles + 3, &i, &j);  // 64-tile rows 2 ..
+          const size_t ri = (size_t)off + kB + i * kT, rj = (size_t)off + kB + j * kT;
+          tile_nt<kT>(L + ri * n_pad + off, n_pad, L + rj * n_pad + off, n_pad,
+                      a + ri * n_pad + rj, n_pad, true, Xs, Ys);
+        }
+        if (t < kDiagTiles) {  // release the tile to block 0
+          __threadfence();
+          __syncthreads();
+          if (threadIdx.x == 0) atomicAdd(flags + k, 1);
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -190,7 +469,7 @@ constexpr int kSolveThreads = 1024;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(kFull, v, s);
   return v;
 }
 
@@ -259,8 +538,6 @@ chol_solve_kernel(int n, int n_pad, const float* __restrict__ L,
   for (int q = t; q < n; q += kSolveThreads) x_out[q] = x[q];
 }
 
-constexpr size_t kDiagSmem = (2 * kB * kB + kB) * sizeof(float);
-
 size_t solve_smem(int n_pad) {
   return (2 * (size_t)n_pad + kB + (kSolveThreads / kB) * kB) * sizeof(float);
 }
@@ -272,37 +549,60 @@ extern "C" int cholesky_solve_max_n_pad() {
   return static_cast<int>((232448 / sizeof(float) - kB - (kSolveThreads / kB) * kB) / 2 / kB * kB);
 }
 
-// Factor the padded SPD matrix `a` (n_pad x n_pad, row-major, n_pad a
-// multiple of 128; overwritten: it is the scratch of the trailing updates)
-// into `L` (n_pad x n_pad; the caller zeroes it, only the lower tiles are
-// written) and `inv` (n_pad x 128, the inverses of L's diagonal blocks).
-// Launches on `stream`, writes the number of kernels it launched to
-// `*launched` (also when a launch fails) and returns the first nonzero
-// cudaError_t, or 0.
-extern "C" int cholesky_factor_f32(int n_pad, float* a, float* L, float* inv,
-                                   void* stream, int* launched) {
-  *launched = 0;
+// The factorization's grid: one block per tile of the first panel's trailing
+// update (plus block 0), at least eleven, at most what is co-resident.  Writes the grid to *blocks and the co-resident capacity to
+// *capacity; returns a cudaError_t (cudaErrorCooperativeLaunchTooLarge when
+// eleven blocks do not fit, or the device takes no cooperative launch).
+extern "C" int cholesky_factor_grid(int n_pad, int* blocks, int* capacity) {
+  *blocks = 0;
+  *capacity = 0;
   if (n_pad <= 0 || n_pad % kB) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      chol_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDiagSmem));
+      chol_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFactorSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = n_pad / kB;
-  for (int k = 0; k < nb; ++k) {
-    const int off = k * kB;
-    chol_diag_kernel<<<1, kDiagThreads, kDiagSmem, s>>>(n_pad, off, a, L, inv);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ++*launched;
-    const int m = nb - 1 - k;
-    if (m == 0) break;
-    chol_panel_kernel<<<m, kTileThreads, 0, s>>>(n_pad, off, a, inv, L);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ++*launched;
-    chol_update_kernel<<<m * (m + 1) / 2, kTileThreads, 0, s>>>(n_pad, off, L, a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ++*launched;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_factor_kernel, kThreads,
+                                                           kFactorSmem)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
+  *capacity = per_sm * sms;
+  const int mt = 2 * (n_pad / kB - 1);
+  int want = mt * (mt + 1) / 2 - 3 + kDiagTiles + 1;
+  if (want < kDiagTiles + 1) want = kDiagTiles + 1;
+  if (!coop || *capacity < kDiagTiles + 1) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  *blocks = want < *capacity ? want : *capacity;
+  return 0;
+}
+
+// Factor the SPD matrix `K` (n x n, row-major), padded with an identity
+// tail to n_pad (a multiple of 128, at most 128 * kThreads), into `L`
+// (n_pad x n_pad, lower, the strict upper part zero) and `inv` (n_pad x
+// 128, the inverses of L's diagonal blocks), on `blocks` blocks
+// (`cholesky_factor_grid`).  `a` (n_pad x n_pad) and `flags` (n_pad / 128
+// ints) are scratch; no output needs to be initialised.  Launches one
+// cooperative kernel on `stream`, writes the number of kernels it launched
+// to `*launched` and returns the cudaError_t of the launch, or 0.
+extern "C" int cholesky_factor_f32(int n, int n_pad, const float* K, float* a, float* L,
+                                   float* inv, int* flags, int blocks, void* stream,
+                                   int* launched) {
+  *launched = 0;
+  if (n <= 0 || n > n_pad || n_pad % kB || n_pad / kB > kThreads ||
+      blocks < kDiagTiles + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* args[] = {&n, &n_pad, &K, &a, &L, &inv, &flags};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(chol_factor_kernel), dim3(blocks), dim3(kThreads), args,
+      kFactorSmem, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *launched = 1;
   return 0;
 }
 

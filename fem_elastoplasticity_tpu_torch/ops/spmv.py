@@ -14,7 +14,9 @@ Host half (NumPy/SciPy, copies of the JAX package's setup code):
 * `element_corr_dest` (`spmv.py:610-636`) gives, per element, the index
   into the CSR value array of each entry of its stiffness block;
 * `build_ell` is `build_ell` / `build_ell_df` (`spmv.py:178`, `:787`) with
-  the JAX package's row-degree cap and without its 128-lane window.
+  the JAX package's row-degree cap, in slices of 32 rows each at its own
+  width, without the 128-lane window, and with the entries past the cap
+  as a tail that the same thread walks.
 
 The slot packing (`_slot_pack`, `_ragged_pack`, `slot_csr_positions`,
 `pack_slot_bf16`'s byte-wide lane index) is TPU tile geometry and is not
@@ -33,11 +35,11 @@ Device half:
   `sweep_aux` for `build_sweep_aux` (`spmv.py:1583`); `packed_matvec`
   replaces `slot_matvec_pk` (`spmv.py:1909`) through K5;
 * `ell_matvec` replaces `ell_matvec` / `ell_matvec_df` (`spmv.py:417`,
-  `:902`), kernel K6 `csrc/ell_spmv.cu` (f32 and f64), its spilled entries
-  through K3 / K1;
+  `:902`), kernel K6 `csrc/ell_spmv.cu` (f32 and f64), one launch a
+  product, slots and tail;
 * `sp_matvec` dispatches on the operator type, as `sp_matvec` /
-  `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix`, `EllMatrix`, and
-  `SplitCols` (the column-split S operator of `residual_fmt="ell"`).
+  `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix` or `EllMatrix`
+  (the JAX package's `SplitCols` S is one `EllMatrix` here).
 
 On a CUDA tensor a wrapper launches its hand-written kernel; on a CPU
 tensor it runs the plain PyTorch version beside it.  It never falls back
@@ -381,7 +383,7 @@ def _library_ell() -> ctypes.CDLL:
 
     lib = build_library(ELL_SOURCE, "ell_spmv", ("-fmad=false",))
     for fn in (lib.ell_spmv_f32, lib.ell_spmv_f64):
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
         fn.restype = ctypes.c_int
     return lib
 
@@ -597,40 +599,44 @@ def packed_matvec(A: CsrMatrix, v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K6: the row-degree-capped ELL format
+# K6: the sliced ELL format
 # ---------------------------------------------------------------------------
-ELL_ROW_ALIGN = 32  # ld is a multiple of this: each slot's column starts on 128 bytes
+ELL_SLICE = 32  # rows a slice: one warp, a thread a row
 
 
 class EllMatrix(NamedTuple):
-    """ELL operator on one device, f32 or f64 values (K6).
+    """Sliced ELL operator on one device, f32 or f64 values (K6).
 
-    Slot s of row i sits at [s, i] of the (deg, ld) arrays, ld = n_rows
-    rounded up to ELL_ROW_ALIGN: neighbouring rows (threads) read
-    neighbouring addresses.  Padding slots hold value 0 and column 0.  The
-    entries that the degree cap spills form `spill`, a CSR over the rows
-    `spill_rows` (unique, ascending) that hold any; their product is added
-    to those rows after the capped product."""
+    Rows are grouped into slices of ELL_SLICE.  Slice s stores its rows'
+    first `width_s` entries column-major from `slice_ptr[s]`: slot j of the
+    row with lane l (row = ELL_SLICE s + l) sits at slice_ptr[s] +
+    ELL_SLICE j + l, so the threads of a warp read neighbouring addresses.
+    width_s is the longest of the slice's rows, at most `cap` (the JAX
+    package's row-degree cap); padding slots hold value 0 and column 0.  A
+    row's entries past the cap form its tail: a CSR over all rows
+    (`tail_ptr`), which the same thread walks after its slots."""
 
-    values: torch.Tensor  # (deg, ld) float32 or float64
-    cols: torch.Tensor  # (deg, ld) int32
+    values: torch.Tensor  # (n_slots,) float32 or float64
+    cols: torch.Tensor  # (n_slots,) int32
+    slice_ptr: torch.Tensor  # (n_slices + 1,) int32, in slots
+    tail_ptr: torch.Tensor  # (n_rows + 1,) int32
+    tail_cols: torch.Tensor  # (n_tail,) int32
+    tail_values: torch.Tensor  # (n_tail,) float32 or float64
     shape: Tuple[int, int]
-    spill: Optional[CsrMatrix]
-    spill_rows: Optional[torch.Tensor]  # (n_spill_rows,) int64
+    cap: int
+    width: int  # every slice's width where they share one, else 0
 
     @property
     def n_rows(self) -> int:
         return self.shape[0]
 
+    @property
+    def n_slices(self) -> int:
+        return self.slice_ptr.shape[0] - 1
 
-class SplitCols(NamedTuple):
-    """A v = sum_k A_k v[k-th column block], the parts of equal column count
-    (`SplitColsDfMeta`): the S force operator of `residual_fmt="ell"`, whose
-    columns are component-major integration points, one part a strain
-    component.  The parts' products are summed in f64."""
-
-    parts: Tuple[EllMatrix, ...]
-    shape: Tuple[int, int]
+    def widths(self) -> torch.Tensor:
+        """(n_slices,) slots a row of each slice."""
+        return (self.slice_ptr[1:] - self.slice_ptr[:-1]) // ELL_SLICE
 
 
 def ell_degree_cap(deg_arr: np.ndarray, nnz: int, max_overflow_frac: float) -> int:
@@ -647,90 +653,95 @@ def ell_degree_cap(deg_arr: np.ndarray, nnz: int, max_overflow_frac: float) -> i
 
 
 def build_ell(K_csr, device, dtype=np.float32, max_overflow_frac: float = 0.005) -> EllMatrix:
-    """Host scipy CSR -> `EllMatrix` on `device`, values rounded to `dtype`.
-
-    A row keeps its first `ell_degree_cap` entries in column order; the rest
-    go to the spill CSR.  Works for rectangular operators (the multigrid
-    transfers, the parts of S)."""
+    """Host scipy CSR -> sliced `EllMatrix` on `device`, values rounded to
+    `dtype`.  A row keeps its first `ell_degree_cap` entries in column order
+    in its slice; the rest form its tail.  Works for rectangular operators
+    (the multigrid transfers, S)."""
     K = sp.csr_matrix(K_csr, copy=True)
     K.sort_indices()
     n_rows, n_cols = K.shape
     assert n_cols < np.iinfo(np.int32).max and K.nnz < np.iinfo(np.int32).max
     deg_arr = np.diff(K.indptr)
-    deg = ell_degree_cap(deg_arr, K.nnz, max_overflow_frac) if n_rows else 1
-    ld = -(-max(n_rows, 1) // ELL_ROW_ALIGN) * ELL_ROW_ALIGN
+    cap = ell_degree_cap(deg_arr, K.nnz, max_overflow_frac) if n_rows else 1
+    n_slices = -(-n_rows // ELL_SLICE)
+    deg_pad = np.zeros(n_slices * ELL_SLICE, np.int64)
+    deg_pad[:n_rows] = deg_arr
+    width = np.minimum(deg_pad.reshape(n_slices, ELL_SLICE).max(axis=1), cap)
+    slice_ptr = np.concatenate([[0], np.cumsum(width * ELL_SLICE)])
+    assert slice_ptr[-1] < np.iinfo(np.int32).max, "sliced ELL too large for int32 offsets"
     rowid = np.repeat(np.arange(n_rows), deg_arr)
     slot = np.arange(K.nnz) - K.indptr[rowid]
-    keep = slot < deg
-    vals = np.zeros((deg, ld), dtype)
-    cols = np.zeros((deg, ld), np.int32)
-    vals[slot[keep], rowid[keep]] = K.data[keep]
-    cols[slot[keep], rowid[keep]] = K.indices[keep]
-    spill = spill_rows = None
-    if not keep.all():
-        rows = rowid[~keep]
-        uniq = np.unique(rows)
-        Ks = sp.csr_matrix(
-            (K.data[~keep], (np.searchsorted(uniq, rows), K.indices[~keep])),
-            shape=(uniq.size, n_cols),
-        )
-        spill = csr_to_device(Ks, device, dtype)
-        spill_rows = torch.as_tensor(uniq.astype(np.int64), device=device)
+    keep = slot < cap
+    pos = slice_ptr[rowid[keep] // ELL_SLICE] + slot[keep] * ELL_SLICE + rowid[keep] % ELL_SLICE
+    vals = np.zeros(slice_ptr[-1], dtype)
+    cols = np.zeros(slice_ptr[-1], np.int32)
+    vals[pos] = K.data[keep]
+    cols[pos] = K.indices[keep]
+    tail_ptr = np.concatenate([[0], np.cumsum(np.maximum(deg_arr - cap, 0))])
+
+    def dev(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
+
     return EllMatrix(
-        values=torch.as_tensor(vals, device=device),
-        cols=torch.as_tensor(cols, device=device),
-        shape=(int(n_rows), int(n_cols)), spill=spill, spill_rows=spill_rows,
+        values=dev(vals, dtype), cols=dev(cols, np.int32),
+        slice_ptr=dev(slice_ptr, np.int32), tail_ptr=dev(tail_ptr, np.int32),
+        tail_cols=dev(K.indices[~keep], np.int32), tail_values=dev(K.data[~keep], dtype),
+        shape=(int(n_rows), int(n_cols)), cap=int(cap),
+        width=int(width[0]) if n_slices and (width == width[0]).all() else 0,
     )
 
 
-def _add_spill(A: EllMatrix, y: torch.Tensor, y_spill: torch.Tensor) -> torch.Tensor:
-    """y[spill_rows] += y_spill: the rows are unique, so a plain index
-    write, no atomics."""
-    y[A.spill_rows] = y[A.spill_rows] + y_spill
-    return y
-
-
 def ell_matvec_plain(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch y = A x: the capped slots' products summed over the
-    slots, then the spilled entries' plain CSR product added."""
-    y = (A.values * x[A.cols.long()]).sum(dim=0)[: A.n_rows].contiguous()
-    if A.spill is None:
-        return y
-    return _add_spill(A, y, csr_matvec_plain(A.spill, x))
+    """Plain PyTorch y = A x in the kernel's order: each row's slots in
+    order, then its tail, added into y one after another (`index_add_`)."""
+    n_slots = A.values.shape[0]
+    sid = torch.repeat_interleave(
+        torch.arange(A.n_slices, device=x.device), (A.widths() * ELL_SLICE).long(),
+        output_size=n_slots)
+    lane = (torch.arange(n_slots, device=x.device) - A.slice_ptr.long()[sid]) % ELL_SLICE
+    y = torch.zeros(A.n_slices * ELL_SLICE, dtype=A.values.dtype, device=x.device)
+    y.index_add_(0, sid * ELL_SLICE + lane, A.values * x[A.cols.long()])
+    trows = torch.repeat_interleave(
+        torch.arange(A.n_rows, device=x.device), (A.tail_ptr[1:] - A.tail_ptr[:-1]).long(),
+        output_size=A.tail_values.shape[0])
+    y.index_add_(0, trows, A.tail_values * x[A.tail_cols.long()])
+    return y[: A.n_rows]
 
 
 def ell_spmv_cuda(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Launch K6 on x's device and PyTorch's current stream, then the
-    spilled entries through K3 (f32) or K1 (f64); no sync."""
+    """Launch K6 on x's device and PyTorch's current stream: one launch,
+    slots and tail; no sync."""
     if not x.is_cuda:
         raise ValueError(f"ell_spmv needs a CUDA tensor; got one on {x.device}")
     dtype = A.values.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"ell_spmv: no kernel for {dtype} values")
     name = "ell_spmv_f64" if dtype == torch.float64 else "ell_spmv_f32"
-    deg, ld = A.values.shape
-    for nm, t, dt, shape in (("values", A.values, dtype, (deg, ld)),
-                             ("cols", A.cols, torch.int32, (deg, ld)),
+    n_slots, n_tail = A.values.shape[0], A.tail_values.shape[0]
+    for nm, t, dt, shape in (("values", A.values, dtype, (n_slots,)),
+                             ("cols", A.cols, torch.int32, (n_slots,)),
+                             ("slice_ptr", A.slice_ptr, torch.int32,
+                              (-(-A.n_rows // ELL_SLICE) + 1,)),
+                             ("tail_ptr", A.tail_ptr, torch.int32, (A.n_rows + 1,)),
+                             ("tail_cols", A.tail_cols, torch.int32, (n_tail,)),
+                             ("tail_values", A.tail_values, dtype, (n_tail,)),
                              ("x", x, dtype, (A.shape[1],))):
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be a contiguous {dt} tensor on {x.device}; "
                              f"got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
-    if ld < A.n_rows:
-        raise ValueError(f"{name}: leading dimension {ld} < {A.n_rows} rows")
     y = torch.empty(A.n_rows, dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(_library_ell(), name)(
-        A.n_rows, deg, ld, A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(),
-        y.data_ptr(), stream,
+        A.n_rows, A.width, n_tail, A.slice_ptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
+        A.tail_ptr.data_ptr(), A.tail_cols.data_ptr(), A.tail_values.data_ptr(),
+        x.data_ptr(), y.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
-    if A.spill is None:
-        return y
-    return _add_spill(A, y, csr_matvec(A.spill, x))
+    return y
 
 
 def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -748,18 +759,11 @@ def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def sp_matvec(A, x: torch.Tensor) -> torch.Tensor:
     """Format-generic y = A x, by the operator's type: `CsrMatrix` through
-    K1/K3, `EllMatrix` through K6, `SplitCols` part by part."""
+    K1/K3, `EllMatrix` through K6."""
     if isinstance(A, CsrMatrix):
         return csr_matvec(A, x)
     if isinstance(A, EllMatrix):
         return ell_matvec(A, x)
-    if isinstance(A, SplitCols):
-        w = A.shape[1] // len(A.parts)
-        y = None
-        for k, part in enumerate(A.parts):
-            yk = sp_matvec(part, x[k * w:(k + 1) * w])
-            y = yk if y is None else y + yk
-        return y
     raise TypeError(f"sp_matvec: no route for {type(A).__name__}")
 
 
@@ -767,19 +771,15 @@ def residual_operators(geom, device, fmt: Optional[str] = None,
                        max_overflow_frac: float = 0.005):
     """The f64 strain and force operators (G, S) of `geom` (an
     `ops.assembly.Geometry`) on `device`: CSR (K1), or with fmt="ell"
-    (`build_residual_slot_df(fmt="ell")`) G as one ELL operator and S as
-    three, one for each strain component's block of columns
-    (component-major integration points), which `sp_matvec` sums (K6)."""
+    (`build_residual_slot_df(fmt="ell")`) each one sliced ELL operator
+    (K6).  The JAX package splits S into three column parts, one a strain
+    component, to fit its 128-lane window; the card has no window, and S
+    stays one operator over all 3 n_int columns."""
     G, S = build_residual_csr(
         geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
         geom.n_q, geom.n_nodes,
     )
     if fmt is None:
         return csr_to_device(G, device), csr_to_device(S, device)
-    n_int = geom.n_int
-    parts = tuple(
-        build_ell(S[:, a * n_int:(a + 1) * n_int], device, np.float64, max_overflow_frac)
-        for a in range(3)
-    )
     return (build_ell(G, device, np.float64, max_overflow_frac),
-            SplitCols(parts=parts, shape=S.shape))
+            build_ell(S, device, np.float64, max_overflow_frac))

@@ -95,6 +95,8 @@ class LoadSteppingResult(NamedTuple):
     aux: float
     newton_trips: tuple = ()  # Newton iterations of each load trip of this run
     crit_trips: tuple = ()  # the last Newton criterion of each trip (NaN: failed)
+    zeta_trips: tuple = ()  # the accepted load factor after each trip
+    cg_trips: tuple = ()  # the CG solves of each trip: ((iterations, converged), ...)
 
 
 class NewtonSettings(NamedTuple):
@@ -178,7 +180,7 @@ def build_load_stepper(
       accumulate_ep: accumulate plastic strain across accepted steps; False
                 reproduces the tsx reference's per-step reset of Ep_old.
       residual_op: optional (G, S) pair of f64 operators (`ops.spmv`
-                `CsrMatrix`, or `EllMatrix` and `SplitCols`): strains and
+                `CsrMatrix` or `EllMatrix`): strains and
                 the internal force go through K1 (K6) instead of the
                 matrix-free gather path.
       apex_ep_uses_trial: the reference's apex plastic strain from the
@@ -455,14 +457,15 @@ def build_load_stepper(
         return dU
 
     def inner_newton(U_it, ep, zeta):
-        """Semi-smooth Newton at a fixed load factor -> (U, crit, nits, ncg)."""
-        crit, it, ncg, fail = math.inf, 0, 0, False
+        """Semi-smooth Newton at a fixed load factor -> (U, crit, nits,
+        the CG solves ((iterations, converged), ...))."""
+        crit, it, fail, solves = math.inf, 0, False, []
         while not fail and crit >= newton_tol and it < settings.maxit:
             s, ds, ind_p, _, _ = return_map(U_it, ep, zeta)
             f_int = residual_force(s)
             if solver != "dense":
                 dU, ok, cg_its = cg_solve(ds, f_int, ind_p, crit)
-                ncg += cg_its
+                solves.append((int(cg_its), bool(ok)))
             else:
                 n_plastic = int(ind_p.sum())
                 dU, ok = newton_solve(ds, f_int, ind_p, n_plastic), True
@@ -472,7 +475,7 @@ def build_load_stepper(
             if not fail:
                 U_it = U_new
             it += 1
-        return U_it, (math.nan if fail else crit), it, ncg
+        return U_it, (math.nan if fail else crit), it, tuple(solves)
 
     def run(U_it0: torch.Tensor, aux0: float, d_zeta0: float, resume: Optional[dict] = None):
         """Execute the load-stepping schedule.
@@ -511,10 +514,10 @@ def build_load_stepper(
         # Python floats are against its dtype scalars
         zeta_stop = rnd(settings.zeta_max - 1e-12)
         d_zeta_min = rnd(settings.d_zeta_min)
-        trips, done, newton_trips, crit_trips = 0, False, [], []
+        trips, done, newton_trips, crit_trips, zeta_trips, cg_trips = 0, False, [], [], [], []
         while not done and trips < settings.max_trips:
             zeta = rnd(zeta_old + d_zeta)
-            U_conv, crit, nits, ncg = inner_newton(U_it, ep, zeta)
+            U_conv, crit, nits, solves = inner_newton(U_it, ep, zeta)
             if crit < accept_tol:  # False for NaN
                 s_rm, _, _, _, ep_new = return_map(U_conv, ep, zeta, apply=accumulate_ep)
                 idx = min(step, settings.max_steps - 1)
@@ -544,9 +547,11 @@ def build_load_stepper(
                 U_it = d_zeta * (U - U_old) / dz_old + U
                 done = zeta_old >= zeta_stop or d_zeta < d_zeta_min
             nits_total += nits
-            ncg_total += ncg
+            ncg_total += sum(k for k, _ in solves)
             newton_trips.append(nits)
             crit_trips.append(crit)
+            zeta_trips.append(zeta_old)
+            cg_trips.append(solves)
             trips += 1
 
         n_plastic = int((ep != 0.0).any(dim=0).sum())
@@ -556,6 +561,7 @@ def build_load_stepper(
             d_zeta=d_zeta, n_plastic=n_plastic, n_cg_total=ncg_total,
             u_old=U_old, u_it=U_it, d_zeta_old=d_zeta_old, aux=float(aux),
             newton_trips=tuple(newton_trips), crit_trips=tuple(crit_trips),
+            zeta_trips=tuple(zeta_trips), cg_trips=tuple(cg_trips),
         )
 
     return run

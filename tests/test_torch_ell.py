@@ -10,9 +10,11 @@ runs them, `plastic_correction_apply` against the JAX package's, and
 `fast_scale(1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell")`
 against the JAX fixture `tsx_scale_l1_ell.npz`, and the other pairings
 of the three format options (and the dense bench preset with the ELL
-residual) against theirs.  The port drops the
-128-lane window (the card gathers from L2), so only the degree-cap spill
-takes the side path; sums add in other orders, hence the tolerances.
+residual) against theirs.  The port stores the operators as sliced ELL
+(32 rows a slice, each slice as wide as its longest row up to the JAX
+package's degree cap, the entries past the cap as a tail that the same
+thread walks), drops the 128-lane window (the card gathers from L2) and
+keeps S as one operator; sums add in other orders, hence the tolerances.
 """
 import pathlib
 
@@ -69,8 +71,10 @@ def test_f32_plain_matches_jax_ell_matvec(jax_l1_ell, which):
     cap, and the product within 2e-6 of max |y| of `ell_matvec`'s."""
     M, arrays, meta = jax_l1_ell[which]
     A = pspmv.build_ell(M, "cpu", np.float32)
-    assert A.values.shape[0] == meta.deg and A.values.dtype == torch.float32
-    assert A.values.shape[1] % pspmv.ELL_ROW_ALIGN == 0 and A.values.shape[1] >= M.shape[0]
+    assert A.cap == meta.deg and A.values.dtype == torch.float32
+    assert A.n_slices == -(-M.shape[0] // pspmv.ELL_SLICE) and int(A.widths().max()) <= meta.deg
+    widths = A.widths()
+    assert A.width == (int(widths[0]) if bool((widths == widths[0]).all()) else 0)
     v = np.random.default_rng(5).standard_normal(M.shape[1]).astype(np.float32)
     exp = np.asarray(jax.jit(lambda a, vv: jspmv.ell_matvec(a, meta, vv))(arrays, jnp.asarray(v)))
     pspmv.LAUNCHES.clear()
@@ -104,17 +108,21 @@ def _split(x64):
 
 @pytest.mark.parametrize("name", ["G", "S"])
 def test_f64_plain_matches_jax_ell_matvec_df(residual_l1, name):
-    """G as one ELL operator, S as three column parts (one a strain
-    component, `SplitColsDfMeta`) summed in f64: the JAX package's degree
-    caps, and the products within 1e-13 normwise of its double-float ones."""
+    """G and S each as one sliced ELL operator (the JAX package splits S
+    into three column parts, `SplitColsDfMeta`, one a strain component):
+    G at the JAX package's degree cap, S at the cap of its own rows, and
+    the products within 1e-13 normwise of the double-float ones."""
     (Ga, Gm, Sa, Sm), (G, S), g = residual_l1
     arrays, meta, A = (Ga, Gm, G) if name == "G" else (Sa, Sm, S)
+    assert isinstance(A, pspmv.EllMatrix)
     if name == "G":
-        assert isinstance(A, pspmv.EllMatrix) and A.values.shape[0] == Gm.ell.deg
+        assert A.cap == Gm.ell.deg
     else:
-        assert isinstance(A, pspmv.SplitCols) and len(A.parts) == len(Sm.metas) == 3
-        assert [p.values.shape[0] for p in A.parts] == [m.ell.deg for m in Sm.metas]
-        assert A.shape == (2 * g.n_nodes, 3 * g.n_int)
+        assert len(Sm.metas) == 3 and A.shape == (2 * g.n_nodes, 3 * g.n_int)
+        _, S_host = pspmv.build_residual_csr(
+            g.B.numpy(), g.weight.numpy(), g.edofs.numpy(), g.n_q, g.n_nodes)
+        assert A.cap == pspmv.ell_degree_cap(np.diff(S_host.indptr), S_host.nnz, 0.005)
+        assert A.cap >= max(m.ell.deg for m in Sm.metas)
     rng = np.random.default_rng(5)
     x = rng.standard_normal(A.shape[1]) * (1e-3 if name == "G" else 1.0)
     hi, lo = _split(x)
@@ -122,7 +130,7 @@ def test_f64_plain_matches_jax_ell_matvec_df(residual_l1, name):
     exp = np.asarray(oh, np.float64) + np.asarray(ol, np.float64)
     pspmv.LAUNCHES.clear()
     got = pspmv.sp_matvec(A, torch.as_tensor(hi.astype(np.float64) + lo.astype(np.float64)))
-    assert pspmv.LAUNCHES == {"ell_spmv_f64_plain": 1 if name == "G" else 3}
+    assert pspmv.LAUNCHES == {"ell_spmv_f64_plain": 1}
     rel = np.linalg.norm(got.numpy() - exp) / np.linalg.norm(exp)
     assert rel <= 1e-13, rel
 
@@ -131,8 +139,8 @@ def test_f64_plain_matches_jax_ell_matvec_df(residual_l1, name):
 def test_degree_cap_spills_outlier_rows_exactly(dtype):
     """A banded operator with a few long rows, and a spill budget that the
     long rows' excess fits (max_overflow_frac 0.2): the cap is the JAX
-    package's, the excess goes to the spill CSR over those rows alone, and
-    the product with it is the scipy product."""
+    package's, the excess goes to the tails of those rows alone, and the
+    product with them is the scipy product."""
     rng = np.random.default_rng(3)
     n = 600
     M = sp.diags([rng.standard_normal(n - abs(k)) for k in range(-3, 4)], range(-3, 4)).tolil()
@@ -142,14 +150,80 @@ def test_degree_cap_spills_outlier_rows_exactly(dtype):
     _, meta = jspmv.build_ell(M, np.float32, max_overflow_frac=0.2)
     A = pspmv.build_ell(M, "cpu", dtype, max_overflow_frac=0.2)
     deg_arr = np.diff(M.indptr)
-    assert A.values.shape[0] == meta.deg == pspmv.ell_degree_cap(deg_arr, M.nnz, 0.2) == 7
-    assert A.spill is not None and A.spill_rows.tolist() == [7, 300, 599]
-    assert A.spill.values.numel() == int(np.maximum(deg_arr - meta.deg, 0).sum())
+    assert A.cap == meta.deg == pspmv.ell_degree_cap(deg_arr, M.nnz, 0.2) == 7
+    tail_counts = (A.tail_ptr[1:] - A.tail_ptr[:-1]).numpy()
+    assert np.flatnonzero(tail_counts).tolist() == [7, 300, 599]
+    assert A.tail_values.numel() == int(np.maximum(deg_arr - meta.deg, 0).sum())
     x = rng.standard_normal(n).astype(dtype)
     got = pspmv.ell_matvec(A, torch.as_tensor(x))
     exp = M.astype(np.float64) @ x.astype(np.float64)
     tol = 2e-6 if dtype == np.float32 else 1e-14
     np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=tol * np.abs(exp).max())
+
+
+def _banded_with_long_rows(rng, n=600):
+    M = sp.diags([rng.standard_normal(n - abs(k)) for k in range(-3, 4)], range(-3, 4)).tolil()
+    for row in (7, n // 2, n - 1):
+        M[row, rng.choice(n, 90, replace=False)] = rng.standard_normal(90)
+    return M.tocsr()
+
+
+@pytest.mark.parametrize("frac", [0.005, 0.2], ids=["cap-full", "cap-7"])
+def test_sliced_layout_slots_widths_and_tails(frac):
+    """Each slice of 32 rows is as wide as its longest row up to the cap
+    (`width` names the one width all slices share, if they do);
+    slot j of a row holds its j-th entry in column order at slice_ptr + 32 j
+    + lane, padding slots value 0 and column 0; the tail holds each row's
+    entries past the cap, in order, and nothing else."""
+    rng = np.random.default_rng(8)
+    M = _banded_with_long_rows(rng)
+    M.sort_indices()
+    A = pspmv.build_ell(M, "cpu", np.float64, max_overflow_frac=frac)
+    deg = np.diff(M.indptr)
+    assert A.cap == pspmv.ell_degree_cap(deg, M.nnz, frac)
+    assert A.cap == 7 if frac == 0.2 else A.cap > 90
+    deg_pad = np.concatenate([deg, np.zeros(A.n_slices * 32 - M.shape[0], int)])
+    widths = A.widths().numpy()
+    assert widths.tolist() == np.minimum(deg_pad.reshape(-1, 32).max(axis=1), A.cap).tolist()
+    assert A.slice_ptr.tolist() == [0, *np.cumsum(32 * widths).tolist()]
+    # one width for every slice (the kernel then computes the offsets) at cap 7
+    assert A.width == (widths[0] if (widths == widths[0]).all() else 0) == (
+        7 if frac == 0.2 else 0)
+    vals, cols, ptr = A.values.numpy(), A.cols.numpy(), A.slice_ptr.numpy()
+    tptr = A.tail_ptr.numpy()
+    for row in range(M.shape[0]):
+        s, lane = divmod(row, 32)
+        lo, hi = M.indptr[row], M.indptr[row + 1]
+        pos = ptr[s] + 32 * np.arange(widths[s]) + lane
+        n_slot = min(hi - lo, A.cap)
+        assert (vals[pos[:n_slot]] == M.data[lo:lo + n_slot]).all()
+        assert (cols[pos[:n_slot]] == M.indices[lo:lo + n_slot]).all()
+        assert (vals[pos[n_slot:]] == 0).all() and (cols[pos[n_slot:]] == 0).all()
+        t = slice(tptr[row], tptr[row + 1])
+        assert (A.tail_values.numpy()[t] == M.data[lo + n_slot:hi]).all()
+        assert (A.tail_cols.numpy()[t] == M.indices[lo + n_slot:hi]).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_plain_adds_slots_then_tail_in_order(dtype):
+    """The plain product sums a row's slots in order and then its tail,
+    the order K6 takes: bitwise equal to that loop in numpy, and within
+    rounding of the CSR product on the same operator."""
+    rng = np.random.default_rng(9)
+    M = _banded_with_long_rows(rng, 200)
+    A = pspmv.build_ell(M, "cpu", dtype, max_overflow_frac=0.2)
+    x = rng.standard_normal(M.shape[1]).astype(dtype)
+    got = pspmv.ell_matvec(A, torch.as_tensor(x)).numpy()
+    exp = np.zeros(M.shape[0], dtype)
+    for row in range(M.shape[0]):
+        acc = dtype(0)
+        for k in range(M.indptr[row], M.indptr[row + 1]):
+            acc = dtype(acc + dtype(dtype(M.data[k]) * x[M.indices[k]]))
+        exp[row] = acc
+    assert got.dtype == dtype and np.array_equal(got, exp)
+    y_csr = pspmv.csr_matvec(pspmv.csr_to_device(M, "cpu", dtype), torch.as_tensor(x)).numpy()
+    tol = 2e-6 if dtype == np.float32 else 1e-14
+    np.testing.assert_allclose(got, y_csr, rtol=0, atol=tol * np.abs(y_csr).max())
 
 
 def test_sp_matvec_dispatches_on_the_operator_type():
@@ -201,7 +275,7 @@ def test_ell_scale_slice_against_jax():
     """`fast_scale(1, spmv_fmt="ell", corr_mode="gather",
     residual_fmt="ell")`: the JAX package's steps, Newton iterations and
     plastic points, u within 1e-8; the CG total printed.  Every operator
-    application is an ELL product (no spill at this size)."""
+    application is an ELL product, and no CSR product runs."""
     cfg = TsxTunnelConfig.fast_scale(1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell")
     pspmv.LAUNCHES.clear()
     r = tsx.solve(cfg, device="cpu")

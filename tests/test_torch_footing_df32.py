@@ -26,6 +26,13 @@ iteration each, the port's last criteria 8.5e-13 to 2.3e-12, and the
 floor trip) and trip 5 of `fast(solver="cg", zeta_max=0.02)` (4.7e-12).
 The native f64 CG run is held to the JAX run's Newton total, and every CG
 run to 5% of its CG iterations.
+
+The full df32 CG schedules part from the JAX runs at load trip 18
+(`tools/port_footing_trips.py`): there a CG solve hits cg_maxiter in the
+JAX run at a Newton iteration where the port's converged (class (b) of
+that tool; in the matrix-free run it is the iteration the two-float floor
+adds).  The trips before it are held to the JAX runs' per-trip records,
+as far as about 20 s of a run on one CPU thread reaches (trip 16 and 13).
 """
 import pathlib
 
@@ -139,6 +146,44 @@ def test_cg_paths_against_jax_fixtures(name):
         assert not {k: v for k, v in launches.items() if not k.endswith("_plain")}
     else:
         assert not launches
+
+
+# the full schedules (no zeta cut); both part from the JAX runs at load
+# trip 18 (tools/port_footing_trips.py prints them whole), and each test
+# run stops at the last trip before it that about 20 s on one CPU thread
+# reaches
+FULL_RUNS = {
+    "footing_df32_cg_full": (dict(solver="cg"), 16),
+    "footing_df32_acg_full": (dict(solver="cg", assembled_cg=True, cg_maxiter=4000), 13),
+}
+
+
+@pytest.mark.parametrize("name", list(FULL_RUNS))
+def test_full_cg_schedule_follows_jax_up_to_its_parting_trip(name):
+    """Every load trip before the parting trip against the JAX run's record
+    (`footing_df32_cg_full.npz`, `footing_df32_acg_full.npz`): Newton
+    iterations by `newton_trip_gaps`, zeta after the trip within 1e-12, the
+    same steps accepted and rejected (the rejected trips are those whose
+    CG solve hit cg_maxiter), CG iterations within 5% of the JAX run's over
+    those trips."""
+    kw, n_trips = FULL_RUNS[name]
+    cfg = FootingConfig.fast(**kw, max_trips=n_trips)
+    r = footing.solve(cfg, device="cpu")
+    exp = np.load(FIXTURES / f"{name}.npz")
+    n = n_trips
+    print(f"{name} through trip {n}: Newton by trip {r.newton_trips}, JAX "
+          f"{tuple(int(k) for k in exp['newton_trips'][:n])}; CG by trip "
+          f"{tuple(sum(k for k, _ in t) for t in r.cg_trips)}, JAX "
+          f"{tuple(int(k) for k in exp['cg_trips'][:n])}")
+    assert len(r.newton_trips) == n
+    assert footing.newton_trip_gaps(r, exp["newton_trips"][:n], cfg) == []
+    np.testing.assert_allclose(r.zeta_trips, exp["zeta_trips"][:n], rtol=0, atol=1e-12)
+    accepted = [c == c and c < cfg.accept_tol for c in r.crit_trips]
+    assert accepted == exp["accepted_trips"][:n].astype(bool).tolist()
+    capped = [k for k, t in enumerate(r.cg_trips) if not all(ok for _, ok in t)]
+    assert capped == [k for k in range(n) if not accepted[k]]
+    cg, cg_jax = sum(k for t in r.cg_trips for k, _ in t), int(exp["cg_trips"][:n].sum())
+    assert abs(cg - cg_jax) <= 0.05 * cg_jax
 
 
 def test_assembled_matches_matrix_free_cg():

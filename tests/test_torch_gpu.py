@@ -278,21 +278,20 @@ def cuda_ell(cuda_scale):
 @pytest.mark.parametrize("which", ["K", "P", "R", "G", "S"])
 def test_k6_matches_plain(cuda_ell, which):
     """f32 (the fine operator and its transfers) within 2e-6 of max |y|,
-    f64 (G, and S as three parts) within 1e-13 normwise; two launches
-    bit-identical."""
+    f64 (G, and S as one operator) within 1e-13 normwise; one launch a
+    product (slots and tail), no K3 / K1; two launches bit-identical."""
     device, hier, (G, S) = cuda_ell
     fine = hier.levels[-1]
     A = {"K": fine.op, "P": fine.P, "R": fine.R, "G": G, "S": S}[which]
-    parts = A.parts if isinstance(A, spmv.SplitCols) else (A,)
-    f64 = parts[0].values.dtype == torch.float64
+    assert isinstance(A, spmv.EllMatrix)
+    f64 = A.values.dtype == torch.float64
     rng = np.random.default_rng(6)
     x = torch.as_tensor(rng.standard_normal(A.shape[1]), device=device,
                         dtype=torch.float64 if f64 else torch.float32)
     spmv.LAUNCHES.clear()
     y = spmv.sp_matvec(A, x)
-    assert spmv.LAUNCHES[f"ell_spmv_{'f64' if f64 else 'f32'}"] == len(parts)
-    w = A.shape[1] // len(parts)
-    y_plain = sum(spmv.ell_matvec_plain(p, x[k * w:(k + 1) * w]) for k, p in enumerate(parts))
+    assert spmv.LAUNCHES == {f"ell_spmv_{'f64' if f64 else 'f32'}": 1}
+    y_plain = spmv.ell_matvec_plain(A, x)
     if f64:
         assert float(torch.linalg.norm(y - y_plain) / torch.linalg.norm(y_plain)) <= 1e-13
     else:
@@ -307,6 +306,8 @@ def test_ell_solve_runs_through_k6(cuda_ell):
     r = tsx.solve(cfg, device=device)
     assert spmv.LAUNCHES["ell_spmv_f32"] > 0 and spmv.LAUNCHES["ell_spmv_f64"] > 0
     assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
+    # every operator of the configuration is ELL: no K3 / K1 launch at all
+    assert not any(v for k, v in spmv.LAUNCHES.items() if k.startswith("csr_spmv"))
     assert (r.n_steps, r.n_newton_total, r.n_plastic) == (17, 37, 20)
     assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8
 
@@ -332,9 +333,8 @@ def test_k7_matches_plain(cuda_k7, n):
     chol.LAUNCHES.clear()
     L, inv = chol.cholesky_factor(K)
     x = chol.cholesky_solve(L, inv, b, n)
-    # the library reports the kernels it launched: 3 nb - 2 for nb panels
-    nb = -(-n // chol.BLOCK)
-    assert chol.LAUNCHES == {"cholesky_factor": 3 * nb - 2, "cholesky_factorizations": 1,
+    # the library reports the kernels it launched: one cooperative launch
+    assert chol.LAUNCHES == {"cholesky_factor": 1, "cholesky_factorizations": 1,
                              "cholesky_solve": 1}
     Lp, ip = chol.cholesky_factor_plain(K)
     xp = chol.cholesky_solve_plain(L, inv, b, n)

@@ -55,7 +55,17 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   `FootingConfig.fast(solver="cg", assembled_cg=True, cg_maxiter=4000,
   zeta_max=0.02)`; the JAX package returns it on its RCM node order and
   sorted elements, and the file holds u and ep restored to the reference
-  order.
+  order;
+* footing_df32_cg_full.npz, footing_df32_acg_full.npz — the full schedules
+  of `FootingConfig.fast(solver="cg")` and `fast(solver="cg",
+  assembled_cg=True, cg_maxiter=4000)`, counts only: for every load trip
+  (one trip a dispatch, as for newton_trips) its Newton iterations
+  (newton_trips), zeta and d_zeta after it (zeta_trips, d_zeta_trips), its
+  CG iterations (cg_trips) and whether it accepted a step (accepted_trips);
+  the totals and the last recorded pressure.  For `fast(solver="cg")` also
+  the CG iterations of the first five Newton iterations of load trip 18
+  (probe_trip, probe_newton, probe_cg: that trip replayed with
+  newton_maxit=5), the trip where the port's CPU run parts from this one.
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
@@ -135,6 +145,19 @@ def main(names) -> None:
     if "tsx_df32_bench_res_ell" in names:
         r = tsx.solve(TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell"))
         np.savez_compressed(OUT / "tsx_df32_bench_res_ell.npz", **_fields(r, "displ_hist"))
+    for name, (cfg, probe) in FOOTING_FULL.items():
+        if name in names:
+            cfg = cfg(FootingConfig)
+            r = footing.solve(cfg)
+            extra = {}
+            if probe is not None:
+                trip, n_newton = probe
+                extra = dict(probe_trip=trip, probe_newton=n_newton,
+                             probe_cg=_trip_cg_prefix(footing, cfg, trip, n_newton))
+            np.savez(OUT / f"{name}.npz", **_trip_record(footing, cfg, r), **extra,
+                     n_steps=r.n_steps, n_newton_total=r.n_newton_total,
+                     n_cg_total=r.n_cg_total, n_plastic=r.n_plastic,
+                     last_pressure=float(np.asarray(r.pressure_hist)[r.n_steps]))
     for name, cfg in FOOTING_RUNS.items():
         if name in names:
             cfg = cfg(FootingConfig)
@@ -143,7 +166,7 @@ def main(names) -> None:
             if cfg.assembled_cg:
                 fields.update(_footing_reference_order(footing, cfg, fields))
             if cfg.precision == "df32":
-                fields["newton_trips"] = _newton_trips(footing, cfg, r)
+                fields["newton_trips"] = _trip_record(footing, cfg, r)["newton_trips"]
             np.savez_compressed(OUT / f"{name}.npz", **fields, n_cg_total=r.n_cg_total)
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
@@ -212,28 +235,54 @@ def _footing_reference_order(footing, cfg, fields) -> dict:
     return dict(u=fields["u"][new_of_old], ep=ep)
 
 
-def _newton_trips(footing, cfg, r):
-    """Newton iterations of every load trip of a df32 footing run: the run
-    again, one trip a dispatch through the stepper's resume carry, its
-    totals held to the single run's `r`."""
+def _trip_record(footing, cfg, r) -> dict:
+    """Every load trip of a df32 footing run: the run again, one trip a
+    dispatch through the stepper's resume carry, its totals held to the
+    single run's `r`.  Per trip: Newton and CG iterations, zeta and d_zeta
+    after it, and whether it accepted a step."""
     import numpy as np
 
     from fem_elastoplasticity_tpu.solve.chunked import carry_of
 
     run, args, _ = footing.build_df32(dataclasses.replace(cfg, max_trips=1))
-    res, trips, total = run(args), [], 0
+    res, total, cg, steps = run(args), 0, 0, 1
+    rec = {k: [] for k in ("newton_trips", "cg_trips", "zeta_trips", "d_zeta_trips",
+                           "accepted_trips")}
     while True:
-        trips.append(int(res.n_newton_total) - total)
-        total = int(res.n_newton_total)
         zeta = float(res.zeta.hi) + float(res.zeta.lo)
         d_zeta = float(res.d_zeta.hi) + float(res.d_zeta.lo)
+        rec["newton_trips"].append(int(res.n_newton_total) - total)
+        rec["cg_trips"].append(int(res.n_cg_total) - cg)
+        rec["zeta_trips"].append(zeta)
+        rec["d_zeta_trips"].append(d_zeta)
+        rec["accepted_trips"].append(int(res.n_steps) - steps)
+        total, cg, steps = int(res.n_newton_total), int(res.n_cg_total), int(res.n_steps)
         if zeta >= cfg.zeta_max - 1e-12 or d_zeta < cfg.d_zeta * cfg.d_zeta_min_ratio:
             break
         res = run(args, carry_of(res))
     if (total, int(res.n_steps) - 1, int(res.n_cg_total)) != (
             r.n_newton_total, r.n_steps, r.n_cg_total):
         raise RuntimeError(f"{cfg}: the one-trip dispatches left the single run's schedule")
-    return np.asarray(trips, np.int64)
+    return {k: np.asarray(v, np.float64 if "zeta" in k else np.int64) for k, v in rec.items()}
+
+
+def _trip_cg_prefix(footing, cfg, trip: int, n_newton: int) -> int:
+    """CG iterations of the first `n_newton` Newton iterations of load trip
+    `trip` (1-based, > 1) of a df32 footing run: the trips before it one a
+    dispatch, then that trip alone under newton_maxit=n_newton."""
+    from fem_elastoplasticity_tpu.solve.chunked import carry_of
+
+    run, args, _ = footing.build_df32(dataclasses.replace(cfg, max_trips=1))
+    res = run(args)
+    for _ in range(trip - 2):
+        res = run(args, carry_of(res))
+    run_m, args_m, _ = footing.build_df32(
+        dataclasses.replace(cfg, max_trips=1, newton_maxit=n_newton))
+    n0, cg0 = int(res.n_newton_total), int(res.n_cg_total)
+    res = run_m(args_m, carry_of(res))
+    if int(res.n_newton_total) - n0 != n_newton:
+        raise RuntimeError(f"{cfg}: trip {trip} ended before {n_newton} Newton iterations")
+    return int(res.n_cg_total) - cg0
 
 
 def _report() -> None:
@@ -249,11 +298,17 @@ FOOTING_RUNS = {
     "footing_df32_acg_z002": lambda F: F.fast(
         solver="cg", assembled_cg=True, cg_maxiter=4000, zeta_max=0.02),
 }
+# name: (config, (load trip, Newton iterations) to probe or None)
+FOOTING_FULL = {
+    "footing_df32_cg_full": (lambda F: F.fast(solver="cg"), (18, 5)),
+    "footing_df32_acg_full": (
+        lambda F: F.fast(solver="cg", assembled_cg=True, cg_maxiter=4000), None),
+}
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
-    "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS,
+    "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
 )
 
 if __name__ == "__main__":
