@@ -75,16 +75,26 @@ them against the repository's anchors:
  14. scale L1 — `solve(TsxTunnelConfig.fast_scale(1))`, the multigrid-CG
                 preset on the once-refined mesh: 17 steps, u[40,0] within
                 1e-8 relative of -2.166787295662e-03, 20 plastic points, K3,
-                K4 and K1 launched and no plain version;
+                K4 and K1 launched and no plain version; the sha256 of u's
+                f64 bytes printed (phases 17 and 21 too), so that two trees'
+                runs compare bit for bit;
  15. K3       — the f32 CSR SpMV against its plain version on the fine
                 elastic operator of the level-4 hierarchy (228,112 rows), on
-                its P and R, and on the level-1 fine operator, seeded x: max
-                abs difference over max |plain| <= 2e-6, two launches
+                its P and R, and on the level-1 fine operator, and after
+                phase 21's build on the level-5 fine operator and the P and
+                R of levels 1-5 of that hierarchy, seeded x: max abs
+                difference over max |plain| <= 2e-6, two launches
                 bit-identical; times, bytes bound and cuSPARSE's time;
- 16. K4       — the fused block-Jacobi sweep against its plain version on
-                the level-4 and level-1 fine operators, seeded z and r, with
-                and without the update: <= 5e-6, exact zeros on constrained
-                rows, two launches bit-identical; times and bytes bound;
+ 16. K4       — the fused block-Jacobi sweep on the 2x2 node blocks
+                (`ops.spmv.node_blocks`; blocks a node printed) of the
+                level-4 and level-1 fine operators, and after phase 21's
+                build on levels 1-4 of the level-5 hierarchy (their CSR
+                from the host hierarchy), seeded z and r, with and without
+                the update: bitwise equal to its plain version on the
+                blocks, <= 5e-6 of the plain version on the CSR, exact
+                zeros on constrained rows, two launches bit-identical;
+                times, the bound of the layout's bytes and that of the CSR
+                entries' bytes;
  17. scale L4 — `build_df32(TsxTunnelConfig.fast_scale(4))` (setup time
                 printed), then two runs: 17 steps, u[40,0] within 1e-6
                 relative of -2.264312e-3, the step / Newton / CG / plastic
@@ -108,19 +118,21 @@ them against the repository's anchors:
                 counts and bit-identical u, both K6 instances launched, no
                 plain version and no K3 or K1 (every operator is ELL);
                 counts printed beside the slot path's;
- 20. K5       — the bf16-valued sweep against its plain version on the
-                level-5 fine operator (910,368 rows) and on the level-1 fine
-                operator packed by force, with and without the update:
-                <= 5e-6, exact zeros on constrained rows, two launches
-                bit-identical, bit for bit K4 on the values widened to f32;
-                times, bytes bound, and K4's time on the level-5 operator's
-                f32 values;
+ 20. K5       — the sweep on bf16 node blocks of the level-5 fine operator
+                (910,368 rows) and of the level-1 fine operator packed by
+                force (the blocks must be the f32 blocks of the level,
+                rounded), with and without the update: bitwise equal to its
+                plain version on the blocks and to K4 on the values widened
+                to f32, <= 5e-6 of the CSR plain version, exact zeros on
+                constrained rows, two launches bit-identical; times, both
+                bounds, and K4's time on the level-5 operator's f32 blocks;
  21. scale L5 — `build_df32(TsxTunnelConfig.fast_scale(5))` (setup time,
                 hierarchy rows and packed levels printed), two runs: 17
                 steps, u[40,0] within 1e-6 relative of -2.265345e-3, counts
                 beside the JAX package's 17 / 59 / 917, equal counts and
                 bit-identical u, K5, K4, K3 and K1 launched and no plain
-                version.
+                version, K4 as often on each of levels 1-4 as K5 on the
+                fine level.
 
 Every phase prints its lines with the card line beside its numbers.  Before
 the last line it prints the run's total wall and a JSON line with the kernel
@@ -133,6 +145,7 @@ Any failed check exits non-zero before that line.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -248,6 +261,13 @@ def check_solve(tag: str, r, n_steps=17, n_newton=28) -> float:
           f"{tag}: {r.n_steps} steps / {r.n_newton_total} Newton iterations")
     check(rel <= 1e-9, f"{tag}: u40 {u40!r} is {rel:.3e} from the anchor")
     return rel
+
+
+def u_digest(u) -> str:
+    """sha256 of u's f64 bytes: two trees' solves compare bit for bit."""
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(u, dtype=np.float64).tobytes()).hexdigest()
 
 
 def timed(torch, fn):
@@ -416,15 +436,41 @@ def k3_phase(torch, spmv, ops, device, card):
     return shapes, max_err
 
 
+def sweep_cost(n: int, nnz: int, n_blocks: int, value_bytes: int, update: bool):
+    """(CSR bytes, node-block layout bytes, operations) of one sweep on an
+    operator of n rows: each input read once, out written once.  The CSR
+    pays a value and an int32 column an entry and n + 1 row offsets, the
+    layout 4 values and one int32 node column a block and n/2 + 1 node
+    offsets; both read z, r, mask (and msf, mpr with the update) and write
+    out."""
+    vec = 4 * n * (6 if update else 4)
+    csr = (value_bytes + 4) * nnz + 4 * (n + 1) + vec
+    layout = (4 * value_bytes + 4) * n_blocks + 4 * (n // 2 + 1) + vec
+    return csr, layout, 2 * nnz + (8 if update else 2) * n
+
+
+def blocks_histogram(torch, B) -> dict:
+    """{blocks a node: nodes} of a node-block operator."""
+    hist = torch.bincount(B.blocks_per_node().long()).tolist()
+    return {k: v for k, v in enumerate(hist) if v}
+
+
 def k4_phase(torch, spmv, levels, device, card):
-    """levels: {tag: MGLevel} -> per-case records."""
+    """levels: {tag: (the level's f32 CSR, its MGLevel with f32 node
+    blocks)} -> per-case records.
+    The kernel equals its plain version on the blocks bit for bit and the
+    plain version on the CSR within K4_TOL."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 4)
     shapes, max_err = {}, 0.0
-    for tag, lev in levels.items():
-        A, aux = lev.op, lev.aux
+    for tag, (A, lev) in levels.items():
+        B, aux = lev.sweep_op, lev.aux
+        check(B.block_values.dtype == torch.float32, f"K4 {tag}: not f32 node blocks")
         n = A.shape[0]
+        hist = blocks_histogram(torch, B)
+        say("K4", f"{tag}: {B.n_nodes} nodes, {B.block_cols.numel()} blocks, blocks a node "
+            f"{hist} | {card}")
         z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
         r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
         # on a like scale: A z is of the stiffness's size
@@ -433,35 +479,41 @@ def k4_phase(torch, spmv, levels, device, card):
         check(n_fixed > 0, f"K4 {tag}: no constrained row in the operator")
         for update in (True, False):
             case = f"{tag}_{'update' if update else 'residual'}"
-            got = spmv.block_jacobi_sweep_cuda(A, aux, z, r, update)
+            got = spmv.block_jacobi_sweep_cuda(B, aux, z, r, update)
+            plain = spmv.node_block_sweep_plain(B, aux, z, r, update)
             exp = spmv.block_jacobi_sweep_plain(A, aux, z, r, update)
             torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"K4 {case}: not bitwise equal to the block plain version")
             err = float((got - exp).abs().max())
             rel = err / float(exp.abs().max())
-            check(rel <= K4_TOL, f"K4 {case}: relative difference {rel:.3e}")
+            check(rel <= K4_TOL, f"K4 {case}: relative difference {rel:.3e} to the CSR plain")
             fixed = got[aux.mask == 0]
             want = z[aux.mask == 0] if update else torch.zeros_like(fixed)
             check(torch.equal(fixed, want), f"K4 {case}: constrained rows moved")
-            check(torch.equal(got, spmv.block_jacobi_sweep_cuda(A, aux, z, r, update)),
+            check(torch.equal(got, spmv.block_jacobi_sweep_cuda(B, aux, z, r, update)),
                   f"K4 {case}: not bitwise repeatable")
             ms, eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_cuda(A, aux, z, r, update))
+                torch, lambda: spmv.block_jacobi_sweep_cuda(B, aux, z, r, update))
             plain_ms, plain_eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_plain(A, aux, z, r, update))
-            nnz = int(A.values.numel())
-            # operator, then z, r, mask (and msf, mpr with the update) in, out written
-            n_bytes = 8 * nnz + 4 * (n + 1) + 4 * n * (6 if update else 4)
-            b_ms, b_by = bound_ms(n_bytes, 2 * nnz + (8 if update else 2) * n, "float32")
+                torch, lambda: spmv.node_block_sweep_plain(B, aux, z, r, update))
+            nnz, n_blocks = int(A.values.numel()), int(B.block_cols.numel())
+            csr_bytes, layout_bytes, flops = sweep_cost(n, nnz, n_blocks, 4, update)
+            b_ms, b_by = bound_ms(layout_bytes, flops, "float32")
+            csr_b_ms, _ = bound_ms(csr_bytes, flops, "float32")
             max_err = max(max_err, err)
             shapes[case] = dict(
-                rows=n, nnz=nnz, constrained_rows=n_fixed, update=update, rel=rel,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
-                plain_eager_ms=plain_eager_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+                rows=n, nnz=nnz, blocks=n_blocks, blocks_a_node=hist,
+                constrained_rows=n_fixed, update=update, rel=rel, max_abs_err=err,
+                bitwise_equal_to_plain=True, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                plain_eager_ms=plain_eager_ms, bytes=layout_bytes, bound_ms=b_ms,
+                bound_by=b_by, csr_bytes=csr_bytes, csr_bound_ms=csr_b_ms,
             )
-            say("K4", f"{case} {n} rows nnz {nnz}: rel {rel:.3e} max_abs {err:.3e}, "
-                f"{n_fixed} constrained rows exact | device: kernel {ms:.5f} ms plain "
-                f"{plain_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}) | eager: kernel "
-                f"{eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms | {card}")
+            say("K4", f"{case} {n} rows nnz {nnz} blocks {n_blocks}: bitwise equal to the block "
+                f"plain version, rel {rel:.3e} max_abs {err:.3e} to the CSR plain, {n_fixed} "
+                f"constrained rows exact | device: kernel {ms:.5f} ms plain {plain_ms:.5f} ms "
+                f"bound {b_ms:.5f} ms ({b_by}; the layout's {layout_bytes} bytes), CSR bytes' "
+                f"bound {csr_b_ms:.5f} ms ({csr_bytes} bytes) | eager: kernel {eager_ms:.5f} ms "
+                f"plain {plain_eager_ms:.5f} ms | {card}")
     return shapes, max_err
 
 
@@ -550,16 +602,20 @@ def k6_phase(torch, spmv, cases, device, card):
 
 
 def k5_phase(torch, spmv, cases, device, card):
-    """cases: {tag: (f32 operator, its bf16 copy, SweepAux)} -> records."""
+    """cases: {tag: (f32 CSR operator, its bf16 node blocks, its f32 node
+    blocks, SweepAux)} -> records."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 5)
     shapes, max_err, bitwise = {}, 0.0, True
-    for tag, (A, pk, aux) in cases.items():
+    for tag, (A, pk, B32, aux) in cases.items():
         n = A.shape[0]
-        check(pk.values.dtype == torch.bfloat16 and pk.indices is A.indices,
-              f"K5 {tag}: not a bf16 copy on A's structure")
-        widened = A._replace(values=pk.values.to(torch.float32).contiguous())
+        check(pk.block_values.dtype == torch.bfloat16 and torch.equal(pk.node_ptr, B32.node_ptr)
+              and torch.equal(pk.block_cols, B32.block_cols)
+              and torch.equal(pk.block_values, B32.block_values.to(torch.bfloat16)),
+              f"K5 {tag}: the bf16 blocks do not round the f32 blocks of the level")
+        widened = pk._replace(block_values=pk.block_values.to(torch.float32).contiguous())
+        widened_csr = A._replace(values=A.values.to(torch.bfloat16).to(torch.float32))
         z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
         r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
         r = r * spmv.csr_matvec_plain(A, z).abs().max()
@@ -569,43 +625,50 @@ def k5_phase(torch, spmv, cases, device, card):
         for update in (True, False):
             case = f"{tag}_{'update' if update else 'residual'}"
             got = spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update)
-            exp = spmv.block_jacobi_sweep_plain(pk, aux, z, r, update)
+            plain = spmv.node_block_sweep_plain(pk, aux, z, r, update)
+            exp = spmv.block_jacobi_sweep_plain(widened_csr, aux, z, r, update)
             k4 = spmv.block_jacobi_sweep_cuda(widened, aux, z, r, update)
             torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"K5 {case}: not bitwise equal to the block plain version")
             err = float((got - exp).abs().max())
             rel = err / float(exp.abs().max())
-            check(rel <= K5_TOL, f"K5 {case}: relative difference {rel:.3e}")
+            check(rel <= K5_TOL, f"K5 {case}: relative difference {rel:.3e} to the CSR plain")
             fixed = got[aux.mask == 0]
             want = z[aux.mask == 0] if update else torch.zeros_like(fixed)
             check(torch.equal(fixed, want), f"K5 {case}: constrained rows moved")
             check(torch.equal(got, spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update)),
                   f"K5 {case}: not bitwise repeatable")
             same_k4 = torch.equal(got, k4)
-            bitwise = bitwise and same_k4
+            check(same_k4, f"K5 {case}: not bitwise equal to K4 on the widened values")
             ms, eager_ms = cuda_ms(torch, lambda: spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update))
             k4_ms, k4_eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_cuda(A, aux, z, r, update))
+                torch, lambda: spmv.block_jacobi_sweep_cuda(B32, aux, z, r, update))
             plain_ms, plain_eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_plain(pk, aux, z, r, update), reps=reps)
-            nnz = int(A.values.numel())
-            vec = 4 * (n + 1) + 4 * n * (6 if update else 4)
-            flops = 2 * nnz + (8 if update else 2) * n
-            b_ms, b_by = bound_ms(6 * nnz + vec, flops, "float32")
-            k4_b_ms, _ = bound_ms(8 * nnz + vec, flops, "float32")
+                torch, lambda: spmv.node_block_sweep_plain(pk, aux, z, r, update), reps=reps)
+            nnz, n_blocks = int(A.values.numel()), int(pk.block_cols.numel())
+            csr_bytes, layout_bytes, flops = sweep_cost(n, nnz, n_blocks, 2, update)
+            b_ms, b_by = bound_ms(layout_bytes, flops, "float32")
+            csr_b_ms, _ = bound_ms(csr_bytes, flops, "float32")
+            k4_bytes = sweep_cost(n, nnz, n_blocks, 4, update)[1]
+            k4_b_ms, _ = bound_ms(k4_bytes, flops, "float32")
             max_err = max(max_err, err)
+            bitwise = bitwise and same_k4
             shapes[case] = dict(
-                rows=n, nnz=nnz, constrained_rows=n_fixed, update=update, rel=rel,
-                max_abs_err=err, bitwise_equal_to_k4_on_widened_values=same_k4, ms=ms,
-                plain_ms=plain_ms, eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
-                k4_f32_ms=k4_ms, k4_f32_eager_ms=k4_eager_ms, bytes=6 * nnz + vec,
-                bound_ms=b_ms, bound_by=b_by, k4_f32_bound_ms=k4_b_ms,
+                rows=n, nnz=nnz, blocks=n_blocks, blocks_a_node=blocks_histogram(torch, pk),
+                constrained_rows=n_fixed,
+                update=update, rel=rel, max_abs_err=err, bitwise_equal_to_plain=True,
+                bitwise_equal_to_k4_on_widened_values=same_k4, ms=ms, plain_ms=plain_ms,
+                eager_ms=eager_ms, plain_eager_ms=plain_eager_ms, k4_f32_ms=k4_ms,
+                k4_f32_eager_ms=k4_eager_ms, bytes=layout_bytes, bound_ms=b_ms, bound_by=b_by,
+                csr_bytes=csr_bytes, csr_bound_ms=csr_b_ms, k4_f32_bound_ms=k4_b_ms,
             )
-            say("K5", f"{case} {n} rows nnz {nnz}: rel {rel:.3e} max_abs {err:.3e}, "
-                f"{n_fixed} constrained rows exact, bitwise K4 on widened values {same_k4} | "
-                f"device: kernel {ms:.5f} ms, K4 on the f32 values {k4_ms:.5f} ms, plain "
-                f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}; K4's {k4_b_ms:.5f}) | eager: "
-                f"kernel {eager_ms:.5f} ms K4 {k4_eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
-                f"| {card}")
+            say("K5", f"{case} {n} rows nnz {nnz} blocks {n_blocks}: bitwise equal to the block plain version and to K4 on the widened values, rel "
+                f"{rel:.3e} max_abs {err:.3e} to the CSR plain, {n_fixed} constrained rows exact | "
+                f"device: kernel {ms:.5f} ms, K4 on the f32 blocks {k4_ms:.5f} ms, plain "
+                f"{plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}; the layout's {layout_bytes} "
+                f"bytes; K4's {k4_b_ms:.5f}), CSR bytes' bound {csr_b_ms:.5f} ms ({csr_bytes} "
+                f"bytes) | eager: kernel {eager_ms:.5f} ms K4 {k4_eager_ms:.5f} ms plain "
+                f"{plain_eager_ms:.5f} ms | {card}")
     return shapes, max_err, bitwise
 
 
@@ -1051,8 +1114,9 @@ def main() -> int:
     check(s1.n_plastic == 20, f"scale L1: {s1.n_plastic} plastic points")
     check_scale_launches("scale L1", l1_launches)
     say("scale L1", f"{s1.n_steps} steps / {s1.n_newton_total} its / {s1.n_cg_total} CG / "
-        f"{s1.n_plastic} plastic, u40 {s1.u[40, 0]:.12e} (rel {l1_rel:.3e}), launches "
-        f"{l1_launches}, wall {s1_wall:.3f} s (setup included) | {card}")
+        f"{s1.n_plastic} plastic, u40 {s1.u[40, 0]:.12e} (rel {l1_rel:.3e}), u sha256 "
+        f"{u_digest(s1.u)}, launches {l1_launches}, wall {s1_wall:.3f} s (setup included) "
+        f"| {card}")
 
     # phases 15-17: level 4, the full width of the scale path
     ex1, ex4 = {}, {}
@@ -1062,13 +1126,14 @@ def main() -> int:
     torch.cuda.synchronize()
     setup4 = time.perf_counter() - t0
     fine4, fine1 = ex4["hierarchy"].levels[-1], ex1["hierarchy"].levels[-1]
-    sizes = [lev.op.shape[0] for lev in ex4["hierarchy"].levels]
+    sizes = [lev.free.shape[0] for lev in ex4["hierarchy"].levels]
     say("scale L4", f"setup {setup4:.2f} s (host: hierarchy, G/S, refresh table); "
         f"{mesh4.n_nodes} nodes, {mesh4.n_elems} elements, hierarchy rows {sizes} | {card}")
     k3_shapes, k3_err = k3_phase(
         torch, spmv, {"K_L4": fine4.op, "P_L4": fine4.P, "R_L4": fine4.R, "K_L1": fine1.op},
         device, card)
-    k4_shapes, k4_err = k4_phase(torch, spmv, {"L4": fine4, "L1": fine1}, device, card)
+    k4_shapes, k4_err = k4_phase(
+        torch, spmv, {"L4": (fine4.op, fine4), "L1": (fine1.op, fine1)}, device, card)
 
     spmv.LAUNCHES.clear()
     q1, q_first = timed(torch, run4)
@@ -1087,7 +1152,8 @@ def main() -> int:
     check_scale_launches("scale L4", l4_launches)
     say("scale L4", f"steps / Newton / CG / plastic {counts4(a1)} (JAX package's record "
         f"{JAX_COUNTS_SCALE_L4}), u40 {a1.u[40, 0]:.9e} (rel {l4_rel:.3e} to "
-        f"{ANCHOR_U40_SCALE_L4}), launches {l4_launches}, repeat bit-identical, "
+        f"{ANCHOR_U40_SCALE_L4}), u sha256 {u_digest(a1.u)}, launches {l4_launches}, "
+        f"repeat bit-identical, "
         f"wall first {q_first:.3f} s warm {q_warm:.3f} s | {card}")
 
     # phases 18-19: the ELL format through K6, with the gather correction
@@ -1147,17 +1213,34 @@ def main() -> int:
     torch.cuda.synchronize()
     setup5 = time.perf_counter() - t0
     levels5 = ex5["hierarchy"].levels
-    sizes5 = [lev.op.shape[0] for lev in levels5]
-    packed5 = [lev.op_bf16 is not None for lev in levels5]
+    sizes5 = [lev.free.shape[0] for lev in levels5]
+    packed5 = [lev.sweep_op.block_values.dtype == torch.bfloat16 for lev in levels5]
     check(packed5 == [n >= 500_000 for n in sizes5] and packed5[-1],
           f"scale L5: packed levels {packed5} of rows {sizes5}")
     say("scale L5", f"setup {setup5:.2f} s (host: hierarchy, G/S, refresh table); "
         f"{mesh5.n_nodes} nodes, {mesh5.n_elems} elements, hierarchy rows {sizes5}, "
         f"packed {packed5} | {card}")
     fine5 = levels5[-1]
+    # K3 on the level-5 fine operator and every level's transfers, whose
+    # launches the small levels dominate
+    k3_l5, k3_l5_err = k3_phase(torch, spmv, {
+        "K_L5": fine5.op,
+        **{f"{name}_L5_level{i}": getattr(levels5[i], name)
+           for i in range(1, len(levels5)) for name in ("P", "R")}}, device, card)
+    k3_shapes.update(k3_l5)
+    k3_err = max(k3_err, k3_l5_err)
+    # K4 on every level it smooths at L5 (levels 1-4; level 0 is solved
+    # directly, level 5 smoothed by K5), against the CSR of the host
+    # hierarchy (the device hierarchy keeps the fine level's only)
+    k4_l5, k4_l5_err = k4_phase(torch, spmv, {
+        f"L5_level{i}": (spmv.csr_to_device(ex5["coarse_K"][i], device, np.float32), levels5[i])
+        for i in range(1, len(levels5) - 1)}, device, card)
+    k4_shapes.update(k4_l5)
+    k4_err = max(k4_err, k4_l5_err)
     k5_shapes, k5_err, k5_bitwise = k5_phase(torch, spmv, {
-        "L5": (fine5.op, fine5.op_bf16, fine5.aux),
-        "L1": (fine1.op, spmv.packed_operator(fine1.op), fine1.aux)}, device, card)
+        "L5": (fine5.op, fine5.sweep_op, spmv.node_blocks(fine5.op), fine5.aux),
+        "L1": (fine1.op, spmv.node_blocks(fine1.op, torch.bfloat16), fine1.sweep_op, fine1.aux)},
+        device, card)
 
     spmv.LAUNCHES.clear()
     v1, v_first = timed(torch, run5)
@@ -1173,9 +1256,16 @@ def main() -> int:
     check(counts4(b1) == counts4(b2), "scale L5: two runs differ in their counts")
     check(torch.equal(v1.u, v2.u), "scale L5: two runs differ in u")
     check_scale_launches("scale L5", l5_launches, SCALE_KERNELS + ("block_jacobi_sweep_bf16",))
+    # every V-cycle sweeps each level alike: K4's launches are K5's on each
+    # of the four levels below the fine one
+    k4_levels5 = len(levels5) - 2
+    check(l5_launches["block_jacobi_sweep"] == k4_levels5 * l5_launches["block_jacobi_sweep_bf16"],
+          f"scale L5: K4 launches not {k4_levels5} x K5's ({l5_launches})")
     say("scale L5", f"steps / Newton / CG / plastic {counts4(b1)} (JAX package's record "
         f"{JAX_COUNTS_SCALE_L5} steps / Newton / CG), u40 {b1.u[40, 0]:.9e} (rel {l5_rel:.3e} "
-        f"to {ANCHOR_U40_SCALE_L5}), launches {l5_launches}, repeat bit-identical, wall first "
+        f"to {ANCHOR_U40_SCALE_L5}), u sha256 {u_digest(b1.u)}, launches {l5_launches} (K4 "
+        f"{l5_launches['block_jacobi_sweep_bf16']} on each of levels 1-{k4_levels5}), repeat "
+        f"bit-identical, wall first "
         f"{v_first:.3f} s warm {v_warm:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
@@ -1245,11 +1335,14 @@ def main() -> int:
         "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches),
         "max_abs_err": k4_err,
-        # one smoother sweep on the fine level of the level-4 solve
+        # one smoother sweep on the fine level of the level-4 solve; the
+        # bound is the node-block layout's bytes, the CSR entries' beside it
         "ms": k4_shapes["L4_update"]["ms"],
         "plain_ms": k4_shapes["L4_update"]["plain_ms"],
         "bound_ms": k4_shapes["L4_update"]["bound_ms"],
         "bound_by": k4_shapes["L4_update"]["bound_by"],
+        "csr_bound_ms": k4_shapes["L4_update"]["csr_bound_ms"],
+        "bitwise_equal_to_plain": all(v["bitwise_equal_to_plain"] for v in k4_shapes.values()),
         # no single PyTorch call computes the sweep: a sparse product plus
         # the masked 2x2 block update
         "library_ms": None,
@@ -1266,6 +1359,8 @@ def main() -> int:
         "plain_ms": k5_shapes["L5_update"]["plain_ms"],
         "bound_ms": k5_shapes["L5_update"]["bound_ms"],
         "bound_by": k5_shapes["L5_update"]["bound_by"],
+        "csr_bound_ms": k5_shapes["L5_update"]["csr_bound_ms"],
+        "bitwise_equal_to_plain": all(v["bitwise_equal_to_plain"] for v in k5_shapes.values()),
         # no single PyTorch call computes the sweep
         "library_ms": None,
         "k4_f32_ms_same_operator": k5_shapes["L5_update"]["k4_f32_ms"],

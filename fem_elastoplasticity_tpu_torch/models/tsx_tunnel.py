@@ -229,6 +229,9 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         extras["reference_mesh"] = mesh_ref
         extras["monitor_node"] = monitor_node
         extras["hierarchy"] = hier
+        # the host f64 CSR of the levels below the finest, whose device CSR
+        # the hierarchy does not keep (a CSR reference for their sweeps)
+        extras["coarse_K"] = [h["K"] for h in coarse["levels"][:-1]]
     # static plastic-slot cap of the tangent correction (the JAX package's
     # formula, `models/tsx_tunnel.py:491`): observed plastic fractions are
     # under 1% (1,477 of 227,072 points at level 4); 1/64 with a floor of
@@ -305,8 +308,9 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     `mesh` and the run's result are in that ordering.  `extras`, if given,
     receives what `_df32_result` needs to restore the reference order:
     `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them the
-    permuted `monitor_node`, the device `hierarchy` and the residual
-    operators `residual_op` (G, S).
+    permuted `monitor_node`, the device `hierarchy`, the host CSR of its
+    levels below the finest `coarse_K` and the residual operators
+    `residual_op` (G, S).
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")

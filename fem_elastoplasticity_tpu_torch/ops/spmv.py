@@ -29,11 +29,12 @@ Device half:
   `slot_matvec` (`spmv.py:1431`) for f32 values, kernel K3
   `csrc/csr_spmv_f32.cu`;
 * `block_jacobi_sweep` replaces `slot_sweep` / `slot_sweep_b`
-  (`spmv.py:1610`, `:1699`), kernel K4, on an operator with f32 values,
-  and `slot_sweep_pk` (`spmv.py:1936`), kernel K5, on one with bf16 values
-  (`packed_operator`); both are in `csrc/block_jacobi_sweep.cu`, with
-  `sweep_aux` for `build_sweep_aux` (`spmv.py:1583`); `packed_matvec`
-  replaces `slot_matvec_pk` (`spmv.py:1909`) through K5;
+  (`spmv.py:1610`, `:1699`), kernel K4, on a `NodeBlockMatrix` (the 2x2
+  node-block layout `node_blocks` builds from a level's CSR) with f32
+  values, and `slot_sweep_pk` (`spmv.py:1936`), kernel K5, on one with
+  bf16 values; both are in `csrc/block_jacobi_sweep.cu`, with `sweep_aux`
+  for `build_sweep_aux` (`spmv.py:1583`); `packed_matvec` replaces
+  `slot_matvec_pk` (`spmv.py:1909`) through K5;
 * `ell_matvec` replaces `ell_matvec` / `ell_matvec_df` (`spmv.py:417`,
   `:902`), kernel K6 `csrc/ell_spmv.cu` (f32 and f64), one launch a
   product, slots and tail;
@@ -475,7 +476,7 @@ def csr_matvec(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K4: the fused damped block-Jacobi sweep
+# K4 and K5: the fused damped block-Jacobi sweep on 2x2 node blocks
 # ---------------------------------------------------------------------------
 class SweepAux(NamedTuple):
     """Per-level constants of the fused sweep, flat (2*n_n,) f32 vectors:
@@ -504,38 +505,156 @@ def sweep_aux(inv: np.ndarray, free_flat: np.ndarray, device) -> SweepAux:
     )
 
 
-# the sweep's kernel, by the operator's value type
+# the sweep's kernel, by the block values' type
 SWEEP_KERNELS = {torch.float32: "block_jacobi_sweep", torch.bfloat16: "block_jacobi_sweep_bf16"}
 
 
-def packed_operator(A: CsrMatrix) -> CsrMatrix:
-    """A's structure with its f32 values rounded to bf16 (nearest even), the
-    value stream of K5 (`pack_slot_bf16` without its tile packing)."""
+class NodeBlockMatrix(NamedTuple):
+    """A square operator with 2x2 nodal blocks, the sweep's layout (K4, K5).
+
+    Node k (rows 2k and 2k+1) owns blocks node_ptr[k] .. node_ptr[k+1]-1,
+    in ascending neighbour node m = block_cols[b]; block_values[b] holds
+    a(2k,2m), a(2k,2m+1), a(2k+1,2m), a(2k+1,2m+1), f32 (K4) or bf16 (K5).
+    `width` is the most blocks a node has (kept so that the plain version
+    needs no host read)."""
+
+    node_ptr: torch.Tensor  # (n_nodes + 1,) int32
+    block_cols: torch.Tensor  # (n_blocks,) int32
+    block_values: torch.Tensor  # (n_blocks, 4) float32 or bfloat16
+    width: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_ptr.shape[0] - 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (2 * self.n_nodes, 2 * self.n_nodes)
+
+    def blocks_per_node(self) -> torch.Tensor:
+        return self.node_ptr[1:] - self.node_ptr[:-1]
+
+
+def node_blocks(A: CsrMatrix, dtype: torch.dtype = torch.float32) -> NodeBlockMatrix:
+    """The 2x2 node-block layout of a level's f32 operator, on A's device,
+    with f32 values (K4) or bf16 ones rounded to nearest even (K5, the
+    rounding of the JAX package's `pack_slot_bf16`).
+
+    Raises ValueError unless A is square with an even size, its column
+    indices ascend strictly within each row, and rows 2k and 2k+1 have the
+    same node columns m (every entry in a 2x2 block whose rows share their
+    node columns).  An entry missing from a block that is present is stored
+    as an explicit zero."""
     if A.values.dtype != torch.float32:
-        raise ValueError(f"packed_operator needs f32 values; got {A.values.dtype}")
-    return A._replace(values=A.values.to(torch.bfloat16))
+        raise ValueError(f"node_blocks needs f32 values; got {A.values.dtype}")
+    if dtype not in SWEEP_KERNELS:
+        raise ValueError(f"node_blocks: no sweep kernel for {dtype} values")
+    n = A.shape[0]
+    if A.shape[0] != A.shape[1] or n % 2:
+        raise ValueError(f"node_blocks: operator {A.shape} is not square with an even size")
+    dev = A.values.device
+    cols = A.indices.long()
+    nnz = cols.shape[0]
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=dev), (A.indptr[1:] - A.indptr[:-1]).long(), output_size=nnz)
+    same_row = rows[1:] == rows[:-1]
+    if bool((same_row & (cols[1:] <= cols[:-1])).any()):
+        raise ValueError("node_blocks: column indices do not ascend strictly within a row")
+    m = cols // 2
+    # the first entry of each (row, node column) pair
+    first = torch.ones(nnz, dtype=torch.bool, device=dev)
+    first[1:] = ~same_row | (m[1:] != m[:-1])
+    u_rows, u_m = rows[first], m[first]
+    per_row = torch.bincount(u_rows, minlength=n)
+    even = u_rows % 2 == 0
+    if not (torch.equal(per_row[0::2], per_row[1::2]) and torch.equal(u_m[even], u_m[~even])):
+        raise ValueError("node_blocks: rows 2k and 2k+1 differ in their node columns; "
+                         "the operator is not 2x2-blocked")
+    per_node = per_row[0::2]
+    node_ptr = torch.zeros(n // 2 + 1, dtype=torch.long, device=dev)
+    node_ptr[1:] = torch.cumsum(per_node, 0)
+    n_blocks = int(node_ptr[-1])
+    assert n_blocks < np.iinfo(np.int32).max // 4, "node blocks too many for int32 offsets"
+    # pair j of row 2k and pair j of row 2k+1 are block node_ptr[k] + j
+    rank = torch.where(even, torch.cumsum(even.long(), 0), torch.cumsum((~even).long(), 0)) - 1
+    blk = rank[torch.cumsum(first.long(), 0) - 1]
+    values = torch.zeros(n_blocks * 4, dtype=torch.float32, device=dev)
+    values[4 * blk + 2 * (rows % 2) + cols % 2] = A.values
+    return NodeBlockMatrix(
+        node_ptr=node_ptr.to(torch.int32),
+        block_cols=u_m[even].to(torch.int32),
+        block_values=values.reshape(n_blocks, 4).to(dtype),
+        width=int(per_node.max()) if n // 2 else 0,
+    )
 
 
-def block_jacobi_sweep_plain(
-    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+def node_block_sweep_plain(
+    B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
-    """Plain PyTorch sweep: res = mask (r - A z); with `update`
-    z + mask (msf res + mpr res_partner), else res.  bf16 values are
-    widened to f32 (exactly) and the arithmetic is f32."""
-    if A.values.dtype == torch.bfloat16:
-        A = A._replace(values=A.values.to(torch.float32))
-    res = (r - csr_matvec_plain(A, z)) * aux.mask
+    """Plain PyTorch sweep on the node-block layout, in the kernel's order.
+
+    The layout is padded to `B.width` blocks a node (padding blocks: value
+    0, column 0).  Over the blocks j in order, each row adds
+    a(., 2m) z_2m, then a(., 2m+1) z_2m+1, as separate `torch.mul` and
+    `torch.add` calls (each rounded, nothing fuses them into an FMA): the
+    kernel's order and rounding, so the two agree bit for bit.  bf16 values
+    are widened to f32 (exactly) and the arithmetic is f32."""
+    dev = z.device
+    n_nodes, n_blocks, width = B.n_nodes, B.block_cols.shape[0], B.width
+    # no host sync (the card's timings capture this in a CUDA graph)
+    node = torch.repeat_interleave(torch.arange(n_nodes, device=dev),
+                                   B.blocks_per_node().long(), output_size=n_blocks)
+    slot = torch.arange(n_blocks, device=dev) - B.node_ptr.long()[node]
+    vals = torch.zeros(n_nodes, width, 2, 2, dtype=torch.float32, device=dev)
+    vals[node, slot] = B.block_values.to(torch.float32).reshape(-1, 2, 2)
+    cols = torch.zeros(n_nodes, width, dtype=torch.long, device=dev)
+    cols[node, slot] = B.block_cols.long()
+    z2 = z.reshape(-1, 2)
+    acc = torch.zeros(n_nodes, 2, dtype=torch.float32, device=dev)
+    for j in range(width):
+        zj = z2[cols[:, j]]
+        for d in range(2):
+            acc = torch.add(acc, torch.mul(vals[:, j, :, d], zj[:, d:d + 1]))
+    return _sweep_epilogue(aux, z, r, acc.reshape(-1), update)
+
+
+def _sweep_epilogue(aux: SweepAux, z, r, Az, update: bool):
+    res = (r - Az) * aux.mask
     if not update:
         return res
     res_sw = res.reshape(-1, 2).flip(1).reshape(-1)
     return z + (aux.msf * res + aux.mpr * res_sw) * aux.mask
 
 
+def block_jacobi_sweep_plain(
+    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+) -> torch.Tensor:
+    """Plain PyTorch sweep on the CSR operator the node blocks were made
+    from: res = mask (r - A z); with `update` z + mask (msf res + mpr
+    res_partner), else res.  The second reference of K4 and K5: its row sum
+    (`index_add_`) may take another order than the kernel's.  bf16 values
+    are widened to f32 (exactly) and the arithmetic is f32."""
+    if A.values.dtype == torch.bfloat16:
+        A = A._replace(values=A.values.to(torch.float32))
+    return _sweep_epilogue(aux, z, r, csr_matvec_plain(A, z), update)
+
+
+def _sweep_kernel(B) -> str:
+    """The sweep kernel's name for B's block values; raises unless B is a
+    `NodeBlockMatrix` with f32 or bf16 values (no route for a CSR)."""
+    if not isinstance(B, NodeBlockMatrix):
+        raise ValueError(f"block_jacobi_sweep needs a NodeBlockMatrix; got {type(B).__name__}")
+    name = SWEEP_KERNELS.get(B.block_values.dtype)
+    if name is None:
+        raise ValueError(f"block_jacobi_sweep: no kernel for {B.block_values.dtype} values")
+    return name
+
+
 def block_jacobi_sweep_cuda(
-    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor,
+    B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor,
     update: bool = True, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch K4 (f32 values) or K5 (bf16 values) on z's device and
+    """Launch K4 (f32 blocks) or K5 (bf16 blocks) on z's device and
     PyTorch's current stream; no sync.
 
     The sweep is Jacobi: every row reads the old z, so `out` (allocated
@@ -543,28 +662,35 @@ def block_jacobi_sweep_cuda(
     """
     if not z.is_cuda:
         raise ValueError(f"block_jacobi_sweep needs a CUDA tensor; got one on {z.device}")
-    name = SWEEP_KERNELS.get(A.values.dtype)
-    if name is None:
-        raise ValueError(f"block_jacobi_sweep: no kernel for {A.values.dtype} values")
-    n2 = A.n_rows
-    if A.shape[0] != A.shape[1] or n2 % 2:
-        raise ValueError(f"{name}: operator {A.shape} is not square with 2x2 blocks")
-    vecs = [("r", r, (n2,)), ("mask", aux.mask, (n2,)), ("msf", aux.msf, (n2,)),
-            ("mpr", aux.mpr, (n2,))]
+    name = _sweep_kernel(B)
+    n2, n_blocks = 2 * B.n_nodes, B.block_cols.shape[0]
     if out is None:
         out = torch.empty(n2, dtype=torch.float32, device=z.device)
-    else:
-        vecs.append(("out", out, (n2,)))
-    _check_csr(name, A, z, torch.float32, vecs, values_dtype=A.values.dtype)
+    named = [("node_ptr", B.node_ptr, torch.int32, (B.n_nodes + 1,)),
+             ("block_cols", B.block_cols, torch.int32, (n_blocks,)),
+             ("block_values", B.block_values, B.block_values.dtype, (n_blocks, 4))]
+    named += [(nm, t, torch.float32, (n2,)) for nm, t in (
+        ("z", z), ("r", r), ("mask", aux.mask), ("msf", aux.msf), ("mpr", aux.mpr),
+        ("out", out))]
+    for nm, t, dt, shape in named:
+        if t.device != z.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be a contiguous {dt} tensor on {z.device}; "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
     if out.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
         raise ValueError(f"{name}: out must not alias z")
-    if any(t.data_ptr() % 8 for t in (z, r, out, *aux)):
-        raise ValueError(f"{name}: vectors must be 8-byte aligned")
+    # float2 loads of the vectors and of z's gathered pairs; one 16-byte
+    # (f32) or 8-byte (bf16) load a block
+    if any(t.data_ptr() % 8 for t in (z, r, out, *aux)) or (
+            B.block_values.data_ptr() % (4 * B.block_values.element_size())):
+        raise ValueError(f"{name}: vectors must be 8-byte aligned, block values "
+                         f"{4 * B.block_values.element_size()}-byte aligned")
     stream = torch.cuda.current_stream(z.device).cuda_stream
     err = getattr(_library_sweep(), name)(
-        n2 // 2, A.indptr.data_ptr(), A.indices.data_ptr(), A.values.data_ptr(),
-        z.data_ptr(), r.data_ptr(), aux.mask.data_ptr(), aux.msf.data_ptr(),
-        aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)), stream,
+        B.n_nodes, B.node_ptr.data_ptr(), B.block_cols.data_ptr(),
+        B.block_values.data_ptr(), z.data_ptr(), r.data_ptr(), aux.mask.data_ptr(),
+        aux.msf.data_ptr(), aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)), stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -573,29 +699,26 @@ def block_jacobi_sweep_cuda(
 
 
 def block_jacobi_sweep(
-    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+    B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
-    """One fused smoother sweep, or the masked residual, on a square
+    """One fused smoother sweep, or the masked residual, on a node-block
     operator with f32 values (K4) or bf16 values (K5): the kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
     if z.is_cuda:
-        return block_jacobi_sweep_cuda(A, aux, z, r, update)
+        return block_jacobi_sweep_cuda(B, aux, z, r, update)
     if z.device.type != "cpu":
         raise ValueError(f"block_jacobi_sweep: no route for device {z.device}")
-    name = SWEEP_KERNELS.get(A.values.dtype)
-    if name is None:
-        raise ValueError(f"block_jacobi_sweep: no kernel for {A.values.dtype} values")
-    LAUNCHES[name + "_plain"] += 1
-    return block_jacobi_sweep_plain(A, aux, z, r, update)
+    LAUNCHES[_sweep_kernel(B) + "_plain"] += 1
+    return node_block_sweep_plain(B, aux, z, r, update)
 
 
-def packed_matvec(A: CsrMatrix, v: torch.Tensor) -> torch.Tensor:
-    """y = A v on a square bf16-valued operator (`slot_matvec_pk`, which only
-    the JAX package's tests call), through K5's masked residual: with r = 0
-    and mask = 1 that residual is -(A v) exactly, so y is its negation."""
+def packed_matvec(B: NodeBlockMatrix, v: torch.Tensor) -> torch.Tensor:
+    """y = B v on bf16 node blocks (`slot_matvec_pk`, which only the JAX
+    package's tests call), through K5's masked residual: with r = 0 and
+    mask = 1 that residual is -(B v) exactly, so y is its negation."""
     zeros = torch.zeros_like(v)
     aux = SweepAux(mask=torch.ones_like(v), msf=zeros, mpr=zeros)
-    return -block_jacobi_sweep(A, aux, v, zeros, update=False)
+    return -block_jacobi_sweep(B, aux, v, zeros, update=False)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,12 @@ in one of two formats (the JAX package's `fmt`):
 
 * "slot" (the default): CSR.  Smoothing is damped block-Jacobi (symmetric,
   so the V-cycle is SPD and valid as a CG preconditioner) in the fused
-  kernel K4 (`ops.spmv.block_jacobi_sweep`), or, on a level that is packed,
-  in K5, which reads the operator's values rounded to bf16: with the
-  default `pack_bf16="auto"` the levels of 500,000 rows or more, as in the
-  JAX package.  CG's operator and the criterion keep the f32 values.  The
+  kernel K4 (`ops.spmv.block_jacobi_sweep`), which reads the level's
+  operator in 2x2 node blocks (`ops.spmv.node_blocks`, built once here),
+  or, on a level that is packed, in K5, which reads those blocks rounded
+  to bf16: with the default `pack_bf16="auto"` the levels of 500,000 rows
+  or more, as in the JAX package.  CG's operator and the criterion keep
+  the fine level's f32 CSR, the only CSR operator kept on the device.  The
   transfers run in K3;
 * "ell": `ops.spmv.EllMatrix` operators, P and R, applied by K6.  A level
   smooths through the unfused chain of the JAX package (its `_fused` is
@@ -59,17 +61,21 @@ def packs_bf16(n_rows: int, pack_bf16="auto") -> bool:
 
 class MGLevel(NamedTuple):
     """One level on the device.  P and R are None on the coarsest level.
-    Operators are `ops.spmv.CsrMatrix` (fmt "slot") or `EllMatrix` ("ell")."""
+    Operators are `ops.spmv.CsrMatrix` (fmt "slot") or `EllMatrix` ("ell").
+    On a slot level below the finest, `op` is None: the V-cycle reads the
+    node blocks there (the host CSR stays in `build_hierarchy_ell`'s
+    `coarse["levels"]`)."""
 
-    op: spmv.CsrMatrix  # (2n_n, 2n_n) f32 elastic operator, BC rows unit-diagonal
+    # (2n_n, 2n_n) f32 elastic operator, BC rows unit-diagonal
+    op: Optional[spmv.CsrMatrix]
     inv: torch.Tensor  # (n_n, 2, 2) f32 damped block-Jacobi inverse
     free: torch.Tensor  # (2n_n,) bool
     aux: spmv.SweepAux
     P: Optional[spmv.CsrMatrix]  # (2n_n, 2n_c) f32 prolongation from the level below
     R: Optional[spmv.CsrMatrix]  # (2n_c, 2n_n) f32 restriction, P^T
-    # op's structure with bf16 values, on a packed level: the smoother's
-    # operator (K5); None where the level smooths from op itself
-    op_bf16: Optional[spmv.CsrMatrix] = None
+    # the smoother's operator on a slot level: op in 2x2 node blocks, f32
+    # (K4) or, on a packed level, bf16 (K5); None on an ELL level
+    sweep_op: Optional[spmv.NodeBlockMatrix] = None
 
 
 class Hierarchy(NamedTuple):
@@ -97,7 +103,7 @@ def hierarchy_to_device(
         return spmv.csr_to_device(A, device, np.float32)
 
     levels = []
-    for h in host_levels:
+    for l, h in enumerate(host_levels):
         K = h["K"]
         free_flat = np.asarray(h["free"]).reshape(-1)
         P = R = None
@@ -107,14 +113,19 @@ def hierarchy_to_device(
             Rh.sum_duplicates()
             P, R = to_device(Ph), to_device(Rh)
         op = to_device(K)
-        pack = fmt == "slot" and packs_bf16(K.shape[0], pack_bf16)
+        sweep_op = None
+        if fmt == "slot":
+            pack = packs_bf16(K.shape[0], pack_bf16)
+            sweep_op = spmv.node_blocks(op, torch.bfloat16 if pack else torch.float32)
+            if l < len(host_levels) - 1:
+                op = None  # the fine level's CSR is CG's operator; the others go
         levels.append(MGLevel(
             op=op,
             inv=torch.as_tensor(np.array(h["inv"], np.float32), device=device),
             free=torch.as_tensor(free_flat.astype(bool), device=device),
             aux=spmv.sweep_aux(h["inv"], free_flat, device),
             P=P, R=R,
-            op_bf16=spmv.packed_operator(op) if pack else None,
+            sweep_op=sweep_op,
         ))
     return Hierarchy(
         levels=levels,
@@ -257,8 +268,9 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
     nu: smoothing sweeps, an int (symmetric) or a (pre, post) tuple.  The
     first pre-sweep from z = 0 is the damped block inverse applied to r (no
     operator application).  On a slot level the other sweeps and the masked
-    residual are K4 launches, K5 on a packed level; on an ELL level a K6
-    product and elementwise ops each.  The transfers are K3 or K6 launches.
+    residual are K4 launches on the level's node blocks, K5 on a packed
+    level; on an ELL level a K6 product and elementwise ops each.  The
+    transfers are K3 or K6 launches.
     """
     if cycle != "v":
         raise NotImplementedError(f"make_vcycle_ell: cycle {cycle!r} is not ported")
@@ -275,11 +287,10 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
         return lev.aux.msf * x + lev.aux.mpr * x.reshape(-1, 2).flip(1).reshape(-1)
 
     def sweep(lev: MGLevel, z: torch.Tensor, r: torch.Tensor, update: bool = True):
-        if isinstance(lev.op, spmv.EllMatrix):
+        if lev.sweep_op is None:  # ELL
             res = torch.where(lev.free, r - spmv.sp_matvec(lev.op, z), zero)
             return z + torch.where(lev.free, block_inverse(lev, res), zero) if update else res
-        op = lev.op if lev.op_bf16 is None else lev.op_bf16
-        return spmv.block_jacobi_sweep(op, lev.aux, z, r, update)
+        return spmv.block_jacobi_sweep(lev.sweep_op, lev.aux, z, r, update)
 
     def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
         lev = levels[li]

@@ -191,40 +191,104 @@ def test_k3_refuses_wrong_inputs(cuda_scale):
 
 @pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
 def test_k4_matches_plain(cuda_scale, update):
+    """K4 on the level-1 fine operator's node blocks: bit for bit its plain
+    version on the blocks (the same order of summation), within 5e-6 of the
+    plain version on the CSR, constrained rows exact, launches
+    bit-identical."""
     device, hier = cuda_scale
     lev = hier.levels[-1]
+    B = lev.sweep_op
+    assert B.block_values.dtype == torch.float32
     n = lev.op.shape[0]
     rng = np.random.default_rng(4)
     z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
     r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
     r = r * spmv.csr_matvec_plain(lev.op, z).abs().max()
-    got = spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update)
+    got = spmv.block_jacobi_sweep(B, lev.aux, z, r, update)
+    assert torch.equal(got, spmv.node_block_sweep_plain(B, lev.aux, z, r, update))
     exp = spmv.block_jacobi_sweep_plain(lev.op, lev.aux, z, r, update)
     assert float((got - exp).abs().max()) <= 5e-6 * float(exp.abs().max())
     fixed = lev.aux.mask == 0
     assert int(fixed.sum()) > 0
     assert torch.equal(got[fixed], z[fixed] if update else torch.zeros_like(z[fixed]))
-    assert torch.equal(got, spmv.block_jacobi_sweep(lev.op, lev.aux, z, r, update))
+    assert torch.equal(got, spmv.block_jacobi_sweep(B, lev.aux, z, r, update))
+
+
+def test_k4_and_its_plain_version_replay_in_a_cuda_graph(cuda_scale):
+    """The kernel and its plain version on the blocks are captured in a CUDA
+    graph, as `chip_smoke.py` times them: neither may read the card from
+    the host (the plain version pads to the layout's stored width), and the
+    replays give the eager bits."""
+    device, hier = cuda_scale
+    lev = hier.levels[-1]
+    B = lev.sweep_op
+    n = 2 * B.n_nodes
+    rng = np.random.default_rng(6)
+    z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    for fn in (spmv.block_jacobi_sweep_cuda, spmv.node_block_sweep_plain):
+        eager = fn(B, lev.aux, z, r, True)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(B, lev.aux, z, r, True)  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(B, lev.aux, z, r, True)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), fn.__name__
 
 
 def test_k4_refuses_wrong_inputs_and_aliasing(cuda_scale):
     device, hier = cuda_scale
     lev = hier.levels[-1]
+    B = lev.sweep_op
     n = lev.op.shape[0]
     z = torch.zeros(n, dtype=torch.float32, device=device)
     r = torch.ones(n, dtype=torch.float32, device=device)
     with pytest.raises(ValueError):  # out aliases z: the sweep is Jacobi
-        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r, out=z)
+        spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r, out=z)
     with pytest.raises(ValueError):  # dtype
-        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r.double())
+        spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r.double())
     with pytest.raises(ValueError):  # shape
-        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r[:-2])
+        spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r[:-2])
     with pytest.raises(ValueError):  # device
-        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r.cpu())
-    with pytest.raises(ValueError):  # a rectangular operator has no 2x2 diagonal blocks
-        spmv.block_jacobi_sweep_cuda(lev.P, lev.aux, z, r)
+        spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r.cpu())
+    with pytest.raises(ValueError):  # the CSR operator: the sweep reads node blocks only
+        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r)
+    with pytest.raises(ValueError):  # a rectangular operator has no 2x2 node blocks
+        spmv.node_blocks(lev.P)
+    misaligned = B.block_values.new_zeros(B.block_values.numel() + 2)[2:].view(-1, 4)
+    with pytest.raises(ValueError):  # f32 block values off their 16-byte alignment
+        spmv.block_jacobi_sweep_cuda(B._replace(block_values=misaligned), lev.aux, z, r)
     out = torch.empty_like(z)
-    assert spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r, out=out) is out
+    assert spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r, out=out) is out
+
+
+def test_node_blocks_raise_on_the_card(cuda_scale):
+    """The layout builder refuses an unsorted or non-blocked operator on the
+    card as on the CPU: no route back to a CSR sweep."""
+    _, hier = cuda_scale
+    A = hier.levels[-1].op
+    spmv.node_blocks(A)
+    idx = A.indices.clone()
+    lo, hi = int(A.indptr[5]), int(A.indptr[6])
+    idx[lo:hi] = idx[lo:hi].flip(0)
+    with pytest.raises(ValueError, match="ascend"):
+        spmv.node_blocks(A._replace(indices=idx))
+    # row 0 loses its first entry's node column where row 1 keeps it
+    lo, hi = int(A.indptr[0]), int(A.indptr[1])
+    first = int(A.indices[lo]) // 2
+    keep = torch.ones(A.indices.shape[0], dtype=torch.bool, device=A.indices.device)
+    keep[lo:hi] = A.indices[lo:hi] // 2 != first
+    dropped = int(hi - lo - keep[lo:hi].sum())
+    indptr = A.indptr.clone()
+    indptr[1:] -= dropped
+    with pytest.raises(ValueError, match="differ"):
+        spmv.node_blocks(spmv.CsrMatrix(indptr, A.indices[keep].contiguous(),
+                                        A.values[keep].contiguous(), A.shape))
 
 
 def test_scale_solve_runs_through_k3_k4_k1(cuda_scale):
@@ -245,8 +309,9 @@ def test_k5_matches_plain_and_k4_on_rounded_values(cuda_scale, update):
     template, one order), constrained rows exact, launches bit-identical."""
     device, hier = cuda_scale
     lev = hier.levels[-1]
-    pk = spmv.packed_operator(lev.op)
-    widened = lev.op._replace(values=pk.values.to(torch.float32).contiguous())
+    pk = spmv.node_blocks(lev.op, torch.bfloat16)
+    widened = pk._replace(block_values=pk.block_values.to(torch.float32).contiguous())
+    widened_csr = lev.op._replace(values=lev.op.values.to(torch.bfloat16).to(torch.float32))
     n = lev.op.shape[0]
     rng = np.random.default_rng(5)
     z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
@@ -255,14 +320,15 @@ def test_k5_matches_plain_and_k4_on_rounded_values(cuda_scale, update):
     spmv.LAUNCHES.clear()
     got = spmv.block_jacobi_sweep(pk, lev.aux, z, r, update)
     assert spmv.LAUNCHES == {"block_jacobi_sweep_bf16": 1}
-    exp = spmv.block_jacobi_sweep_plain(pk, lev.aux, z, r, update)
+    assert torch.equal(got, spmv.node_block_sweep_plain(pk, lev.aux, z, r, update))
+    exp = spmv.block_jacobi_sweep_plain(widened_csr, lev.aux, z, r, update)
     assert float((got - exp).abs().max()) <= 5e-6 * float(exp.abs().max())
     assert torch.equal(got, spmv.block_jacobi_sweep_cuda(widened, lev.aux, z, r, update))
     fixed = lev.aux.mask == 0
     assert torch.equal(got[fixed], z[fixed] if update else torch.zeros_like(z[fixed]))
     assert torch.equal(got, spmv.block_jacobi_sweep(pk, lev.aux, z, r, update))
     y = spmv.packed_matvec(pk, z)
-    assert float((y - spmv.csr_matvec_plain(widened, z)).abs().max()) <= 2e-6 * float(y.abs().max())
+    assert float((y - spmv.csr_matvec_plain(widened_csr, z)).abs().max()) <= 2e-6 * float(y.abs().max())
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from fem_elastoplasticity_tpu.models.materials import lame_moduli
@@ -74,14 +75,23 @@ def test_hierarchy_equals_jax(levels):
         np.testing.assert_array_equal(host["elems"], jl["elems"])
         np.testing.assert_array_equal(lev.inv.numpy(), np.asarray(ja["inv"]))
         np.testing.assert_array_equal(lev.free.numpy(), np.asarray(ja["free"]))
-        # the device operator is the host CSR rounded to f32, entry for entry
-        np.testing.assert_array_equal(lev.op.values.numpy(), host["K"].data.astype(np.float32))
-        np.testing.assert_array_equal(lev.op.indices.numpy(), host["K"].indices)
+        # the device operator is the host CSR rounded to f32, entry for
+        # entry: as CSR on the fine level, as node blocks on every level
+        K32 = host["K"].astype(np.float32)
+        if l == levels:
+            np.testing.assert_array_equal(lev.op.values.numpy(), K32.data)
+            np.testing.assert_array_equal(lev.op.indices.numpy(), host["K"].indices)
+        else:
+            assert lev.op is None
+        B = lev.sweep_op
+        blocks = sp.bsr_matrix((B.block_values.numpy().reshape(-1, 2, 2), B.block_cols.numpy(),
+                                B.node_ptr.numpy()), shape=B.shape)
+        assert (blocks != K32).nnz == 0
         if l == 0:
             assert host["P"] is None and lev.P is None and lev.R is None
         else:
             _same_csr(host["P"], jl["P"])
-            assert lev.P.shape == (lev.op.shape[0], hier.levels[l - 1].op.shape[0])
+            assert lev.P.shape == (lev.free.shape[0], hier.levels[l - 1].free.shape[0])
             assert lev.R.shape == lev.P.shape[::-1]
             assert set(np.unique(lev.P.values.numpy())) <= {0.5, 1.0}
     np.testing.assert_array_equal(hier.inv0.numpy(), np.asarray(jcoarse["inv0"]))
@@ -187,9 +197,9 @@ def test_level_of_half_a_million_rows_is_packed():
                                      pack_bf16=True)
     ell = pmg.hierarchy_to_device(host, jcoarse["inv0"], jcoarse["free_idx0"], "cpu",
                                   pack_bf16=True, fmt="ell")
-    assert all(lev.op_bf16 is None for lev in auto.levels)
-    assert all(lev.op_bf16.values.dtype == torch.bfloat16 for lev in forced.levels)
-    assert all(lev.op_bf16 is None and isinstance(lev.op, pspmv.EllMatrix) for lev in ell.levels)
+    assert all(lev.sweep_op.block_values.dtype == torch.float32 for lev in auto.levels)
+    assert all(lev.sweep_op.block_values.dtype == torch.bfloat16 for lev in forced.levels)
+    assert all(lev.sweep_op is None and isinstance(lev.op, pspmv.EllMatrix) for lev in ell.levels)
 
 
 def test_w_cycle_raises():

@@ -55,39 +55,73 @@ def jax_l1_packed():
 
 
 def test_bf16_values_are_the_jax_packages_bits(jax_l1_packed):
-    """The port's bf16 operator values are, bit for bit, the JAX package's
-    `_bf16_bits` of the f32 values (f64 -> f32 -> bf16, nearest even),
-    on every level of the level-1 hierarchy."""
+    """The port's bf16 node blocks hold, bit for bit, the JAX package's
+    `_bf16_bits` of the f32 values (f64 -> f32 -> bf16, nearest even), at
+    the places of the f32 operator's entries, on every level of the level-1
+    hierarchy; the FEM operators' blocks are whole, so no other value."""
     jarr, jmeta, jcoarse, hier = jax_l1_packed
     for lev, host in zip(hier.levels, jcoarse["levels"]):
-        assert lev.op_bf16 is not None and lev.op_bf16.values.dtype == torch.bfloat16
-        want = jspmv._bf16_bits(host["K"].data.astype(np.float32)).astype(np.uint16)
-        got = lev.op_bf16.values.view(torch.int16).numpy().view(np.uint16)
-        np.testing.assert_array_equal(got, want)
-        # the packed operator shares the f32 operator's structure
-        assert lev.op_bf16.indptr is lev.op.indptr and lev.op_bf16.indices is lev.op.indices
+        B = lev.sweep_op
+        assert B is not None and B.block_values.dtype == torch.bfloat16
+        K = host["K"].tocsr()
+        K.sort_indices()
+        assert 4 * B.block_cols.shape[0] == K.nnz
+        rows = np.repeat(np.arange(K.shape[0]), np.diff(K.indptr))
+        # the block of each entry: node rows // 2, neighbour K.indices // 2;
+        # blocks ascend by (node, neighbour)
+        n_n = B.n_nodes
+        node = np.repeat(np.arange(n_n), B.blocks_per_node().numpy())
+        blk = np.searchsorted(node * n_n + B.block_cols.numpy(),
+                              rows // 2 * n_n + K.indices // 2)
+        got = B.block_values.view(torch.int16).numpy().view(np.uint16)
+        want = jspmv._bf16_bits(K.data.astype(np.float32)).astype(np.uint16)
+        np.testing.assert_array_equal(got[blk, 2 * (rows % 2) + K.indices % 2], want)
 
 
-def _random_spd():
-    """The small random SPD operator with constrained rows of
-    `tests/test_spmv.py::test_packed_slot_matches_bf16_rounded`."""
+def _drop_block_entries(K, share: float, seed: int):
+    """K without a seeded share of its off-diagonal blocks' (even row, odd
+    column) entries: blocks partly present, the pattern still 2x2-blocked."""
+    coo = K.tocoo()
+    r, c = coo.row, coo.col
+    drop = ((r // 2) != (c // 2)) & (r % 2 == 0) & (c % 2 == 1)
+    drop &= np.random.default_rng(seed).random(coo.nnz) < share
+    out = sp.csr_matrix((coo.data[~drop], (r[~drop], c[~drop])), shape=K.shape)
+    out.sort_indices()
+    return out
+
+
+def _random_spd(partial: float = 0.0):
+    """A small random SPD operator with constrained rows, of the size of
+    `tests/test_spmv.py::test_packed_slot_matches_bf16_rounded`'s, with
+    2x2 nodal blocks (every operator the sweep reads has them); with
+    `partial`, that share of its off-diagonal blocks lacks an entry."""
     rng = np.random.default_rng(11)
     n_n = 350
     n = 2 * n_n
-    A = sp.random(n, n, density=0.02, random_state=5)
+    N = sp.random(n_n, n_n, density=0.02, random_state=5)
+    A = sp.kron(((N + N.T + sp.eye(n_n)) != 0).astype(np.float64), np.ones((2, 2)), format="csr")
+    A.data = np.random.default_rng(5).random(A.nnz)
     K = (A + A.T + 10 * sp.eye(n)).tocsr()
+    if partial:
+        K = _drop_block_entries(K, partial, 5)
     free = rng.random(n) > 0.15
     Kb = jspmv.apply_bc_csr(K.copy(), free)
     inv = rng.standard_normal((n_n, 2, 2)).astype(np.float32)
     return rng, Kb, free, inv
 
 
-@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
-def test_plain_packed_sweep_matches_jax_slot_sweep_pk(update):
+# on whole 2x2 blocks and on partly present ones (stored as zeros)
+SWEEP_OPERATORS = [pytest.param(True, 0.0, id="update"), pytest.param(False, 0.0, id="residual"),
+                   pytest.param(True, 0.3, id="update-partly_filled"),
+                   pytest.param(False, 0.3, id="residual-partly_filled")]
+
+
+@pytest.mark.parametrize("update,partial", SWEEP_OPERATORS)
+def test_plain_packed_sweep_matches_jax_slot_sweep_pk(update, partial):
     """`slot_sweep_pk` on `pack_slot_bf16` against the port's sweep on the
     bf16-valued operator: the same f32 arithmetic on the same bf16 values,
     rows summed in another order, within 1e-6 of max |y|."""
-    rng, Kb, free, inv = _random_spd()
+    rng, Kb, free, inv = _random_spd(partial)
     n = Kb.shape[0]
     arrays, meta = jspmv.build_slot(Kb)
     pk = jspmv.pack_slot_bf16(arrays, meta)
@@ -97,7 +131,7 @@ def test_plain_packed_sweep_matches_jax_slot_sweep_pk(update):
     exp = np.asarray(jspmv.slot_sweep_pk(
         pk, meta, aux_j, jnp.asarray(z), jspmv.pad_rhs(jnp.asarray(r), meta), update))
 
-    A = pspmv.packed_operator(pspmv.csr_to_device(Kb, "cpu", np.float32))
+    A = pspmv.node_blocks(pspmv.csr_to_device(Kb, "cpu", np.float32), torch.bfloat16)
     aux = pspmv.sweep_aux(inv, free, "cpu")
     pspmv.LAUNCHES.clear()
     got = pspmv.block_jacobi_sweep(A, aux, torch.as_tensor(z), torch.as_tensor(r), update)
@@ -110,13 +144,25 @@ def test_plain_packed_sweep_matches_jax_slot_sweep_pk(update):
 def test_packed_matvec_matches_jax_slot_matvec_pk():
     """`slot_matvec_pk` and the port's `packed_matvec` (K5's masked residual
     with r = 0, mask = 1, negated): within 1e-6 of max |y|."""
-    rng, Kb, _, _ = _random_spd()
+    _packed_matvec_against_jax(0.0)
+
+
+def test_packed_matvec_matches_jax_slot_matvec_pk_on_partly_filled_blocks():
+    """As above, on an operator of which 30% of the off-diagonal blocks lack
+    an entry (stored as zeros in the node blocks)."""
+    _packed_matvec_against_jax(0.3)
+
+
+def _packed_matvec_against_jax(partial: float):
+    rng, Kb, _, _ = _random_spd(partial)
     arrays, meta = jspmv.build_slot(Kb)
     pk = jspmv.pack_slot_bf16(arrays, meta)
     v = rng.standard_normal(Kb.shape[0]).astype(np.float32)
     exp = np.asarray(jspmv.slot_matvec_pk(pk, meta, jnp.asarray(v)))
-    A = pspmv.packed_operator(pspmv.csr_to_device(Kb, "cpu", np.float32))
+    A = pspmv.node_blocks(pspmv.csr_to_device(Kb, "cpu", np.float32), torch.bfloat16)
+    pspmv.LAUNCHES.clear()
     got = pspmv.packed_matvec(A, torch.as_tensor(v)).numpy()
+    assert pspmv.LAUNCHES == {"block_jacobi_sweep_bf16_plain": 1}
     np.testing.assert_allclose(got, exp, rtol=0, atol=1e-6 * np.abs(exp).max())
 
 

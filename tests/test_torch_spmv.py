@@ -136,7 +136,9 @@ def test_kernel_wrapper_refuses_cpu_tensors(operators):
     with pytest.raises(ValueError, match="CUDA"):
         pspmv.csr_spmv_f32_cuda(A, torch.zeros(A.shape[1], dtype=torch.float32))
     with pytest.raises(ValueError, match="CUDA"):
-        pspmv.block_jacobi_sweep_cuda(A, None, torch.zeros(4), torch.zeros(4))
+        pspmv.block_jacobi_sweep_cuda(
+            pspmv.node_blocks(pspmv.csr_to_device(sp.eye(4, format="csr"), "cpu", np.float32)),
+            None, torch.zeros(4), torch.zeros(4))
     assert not pspmv.LAUNCHES["csr_spmv_f32"] and not pspmv.LAUNCHES["block_jacobi_sweep"]
 
 
@@ -190,15 +192,39 @@ def test_k3_plain_matches_jax_slot_matvec(case):
     np.testing.assert_allclose(got.numpy(), M @ v.astype(np.float64), rtol=0, atol=2e-6 * scale)
 
 
-@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
-def test_k4_plain_matches_jax_slot_sweep(update):
+def _drop_block_entries(K, share: float, seed: int):
+    """K without a seeded share of its off-diagonal blocks' (even row, odd
+    column) entries: blocks partly present, the pattern still 2x2-blocked."""
+    coo = K.tocoo()
+    r, c = coo.row, coo.col
+    drop = ((r // 2) != (c // 2)) & (r % 2 == 0) & (c % 2 == 1)
+    drop &= np.random.default_rng(seed).random(coo.nnz) < share
+    out = sp.csr_matrix((coo.data[~drop], (r[~drop], c[~drop])), shape=K.shape)
+    out.sort_indices()
+    return out
+
+
+# on whole 2x2 blocks and on partly present ones (stored as zeros)
+SWEEP_OPERATORS = [pytest.param(True, 0.0, id="update"), pytest.param(False, 0.0, id="residual"),
+                   pytest.param(True, 0.3, id="update-partly_filled"),
+                   pytest.param(False, 0.3, id="residual-partly_filled")]
+
+
+@pytest.mark.parametrize("update,partial", SWEEP_OPERATORS)
+def test_k4_plain_matches_jax_slot_sweep(update, partial):
     """`slot_sweep` with `build_sweep_aux` against `block_jacobi_sweep` on
-    one operator, iterate and right-hand side: within 5e-6."""
+    one operator (2x2-blocked, as every operator the sweep reads; with
+    `partial`, that share of blocks lacks an entry), iterate and right-hand
+    side: within 5e-6."""
     rng = np.random.default_rng(3)
     n_n = 300
     n = 2 * n_n
-    A = sp.random(n, n, density=0.02, random_state=7)
+    N = sp.random(n_n, n_n, density=0.02, random_state=7)
+    A = sp.kron(((N + N.T + sp.eye(n_n)) != 0).astype(np.float64), np.ones((2, 2)), format="csr")
+    A.data = np.random.default_rng(7).random(A.nnz)
     K = (A + A.T + 10 * sp.eye(n)).tocsr()
+    if partial:
+        K = _drop_block_entries(K, partial, 7)
     free = rng.random(n) > 0.15
     Kb = jspmv.apply_bc_csr(K.copy(), free)
     arrays, meta = jspmv.build_slot(Kb)
@@ -220,7 +246,8 @@ def test_k4_plain_matches_jax_slot_sweep(update):
         np.testing.assert_array_equal(
             getattr(aux, name).numpy(), np.asarray(aux_j[name]).reshape(-1)[:n])
     pspmv.LAUNCHES.clear()
-    got = pspmv.block_jacobi_sweep(At, aux, torch.as_tensor(z), torch.as_tensor(r), update=update)
+    B = pspmv.node_blocks(At)
+    got = pspmv.block_jacobi_sweep(B, aux, torch.as_tensor(z), torch.as_tensor(r), update=update)
     assert pspmv.LAUNCHES == {"block_jacobi_sweep_plain": 1}
     np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=5e-6 * np.abs(exp).max())
     fixed = ~free

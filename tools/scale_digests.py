@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Digests of the scale solves' displacements, to compare two trees bit for bit.
+
+Runs, on the card, the scale solves whose digests `chip_smoke.py` prints
+(phases 14, 17 and 21): `solve(TsxTunnelConfig.fast_scale(1))`, and
+`build_df32(fast_scale(L))`'s `run()` once for L = 4 and 5.  For each it prints the steps / Newton / CG /
+plastic counts, u[40,0], the sha256 of u's f64 bytes (as `chip_smoke.py`
+prints it) and the sweep kernels' launches, and ends with one JSON line.
+
+    python tools/scale_digests.py [--root DIR]
+
+DIR is the checkout whose `fem_elastoplasticity_tpu_torch` is imported
+(default: the one holding this script), so one command can run an older
+tree unpacked beside this one and this tree, and the two lines compare.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import pathlib
+import sys
+import time
+
+LEVELS = (1, 4, 5)  # the refine levels of chip_smoke.py's scale solves
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("scale_digests: no CUDA device visible", file=sys.stderr)
+        return 2
+    from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
+    from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+    from fem_elastoplasticity_tpu_torch.ops import spmv
+
+    device = torch.device("cuda")
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    for level in LEVELS:
+        cfg = TsxTunnelConfig.fast_scale(level)
+        t0 = time.perf_counter()
+        if level == 1:
+            spmv.LAUNCHES.clear()
+            r = tsx.solve(cfg, device=device)
+        else:
+            extras = {}
+            run, mesh = tsx.build_df32(cfg, device=device, extras=extras)
+            spmv.LAUNCHES.clear()
+            r = tsx._df32_result(run(), mesh, extras)
+        torch.cuda.synchronize()
+        u = np.ascontiguousarray(r.u, dtype=np.float64)
+        rec = dict(
+            counts=[r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic],
+            u40=float(u[40, 0]), u_sha256=hashlib.sha256(u.tobytes()).hexdigest(),
+            launches={k: v for k, v in spmv.LAUNCHES.items() if "sweep" in k},
+            wall_s=time.perf_counter() - t0,
+        )
+        out[f"L{level}"] = rec
+        print(f"[L{level}] {rec}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
