@@ -7,10 +7,13 @@ them against the repository's anchors:
   1. device   — a CUDA card is required; prints its name and power limit
                 as `nvidia-smi --query-gpu=name,power.limit` gives them;
   2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
-                (ops/csrc/dp_return_map.cu), K3 (ops/csrc/csr_spmv_f32.cu),
-                K4 and K5 (ops/csrc/block_jacobi_sweep.cu), K6
-                (ops/csrc/ell_spmv.cu) and K7 (ops/csrc/cholesky_blocked.cu)
-                with nvcc, one process a source, all at once;
+                (ops/csrc/dp_return_map.cu), K3 (its product on node blocks
+                in ops/csrc/block_jacobi_sweep.cu, its transfers in
+                ops/csrc/node_transfer.cu, and its earlier design
+                ops/csrc/csr_spmv_f32.cu), K4 and K5
+                (ops/csrc/block_jacobi_sweep.cu), K6 (ops/csrc/ell_spmv.cu)
+                and K7 (ops/csrc/cholesky_blocked.cu) with nvcc, one process
+                a source, all at once;
   3. K1       — the kernel against its plain PyTorch version on the strain
                 and force operators G/S of the tsx mesh at refine levels 0
                 and 4, seeded inputs, normwise relative difference <= 1e-13;
@@ -64,27 +67,35 @@ them against the repository's anchors:
                 phase 11 (df32) or in total (f64), CG within 5%, the last
                 pressure within 1e-8 (f64) / 1e-6 (df32), the df32 runs
                 twice and bit-identical, the matrix-free runs through no
-                kernel, the assembled run through K3 (at least once a CG
-                iteration) and K1 and no plain version, its schedule the
-                matrix-free df32 run's;
+                kernel, the assembled run through K3's node-block product
+                (at least once a CG iteration) and K1, no plain version and
+                no CSR K3, its schedule the matrix-free df32 run's;
  13. footing L3 — `build_df32(FootingConfig.fast(level=3, solver="cg",
                 assembled_cg=True, cg_maxiter=4000, max_trips=2))` (13k
                 unknowns; setup time printed), two runs bit-identical, the
                 same gates against the JAX package's 2 / 17 / 21,074 /
-                3,004 and pressure 14.473212, K3 and K1 and no plain;
+                3,004 and pressure 14.473212, K3's product and K1, no plain
+                version and no CSR K3;
  14. scale L1 — `solve(TsxTunnelConfig.fast_scale(1))`, the multigrid-CG
                 preset on the once-refined mesh: 17 steps, u[40,0] within
-                1e-8 relative of -2.166787295662e-03, 20 plastic points, K3,
-                K4 and K1 launched and no plain version; the sha256 of u's
+                1e-8 relative of -2.166787295662e-03, 20 plastic points, K3
+                (both node kernels), K4 and K1 launched, no plain version
+                and no CSR K3 (phases 17 and 21 too); the sha256 of u's
                 f64 bytes printed (phases 17 and 21 too), so that two trees'
                 runs compare bit for bit;
- 15. K3       — the f32 CSR SpMV against its plain version on the fine
-                elastic operator of the level-4 hierarchy (228,112 rows), on
-                its P and R, and on the level-1 fine operator, and after
-                phase 21's build on the level-5 fine operator and the P and
-                R of levels 1-5 of that hierarchy, seeded x: max abs
-                difference over max |plain| <= 2e-6, two launches
-                bit-identical; times, bytes bound and cuSPARSE's time;
+ 15. K3       — the product on f32 node blocks (`node_block_spmv`) on the
+                fine elastic operators of the level-1 and level-4
+                hierarchies and, after phase 21's build, of level 5, and the
+                transfers (`node_transfer`) of every level of the level-4
+                and level-5 hierarchies, R masked with the coarse level's
+                free DOFs and P masked and added to z as the V-cycle runs
+                them, seeded inputs: each bitwise equal to its plain
+                version, to the earlier design (the f32 CSR kernel on the
+                host CSR, then `torch.where` and the add) and to itself on
+                a second launch; device (CUDA graph) and eager times beside
+                the CSR kernel's (with its elementwise ops) and cuSPARSE's
+                product on the same CSR, the bound of the layout's bytes
+                and that of the CSR's;
  16. K4       — the fused block-Jacobi sweep on the 2x2 node blocks
                 (`ops.spmv.node_blocks`; blocks a node printed) of the
                 level-4 and level-1 fine operators, and after phase 21's
@@ -100,7 +111,7 @@ them against the repository's anchors:
                 relative of -2.264312e-3, the step / Newton / CG / plastic
                 counts beside the JAX package's recorded 17 / 52 / 605 /
                 1,477, equal counts and bit-identical u in both runs, K3, K4
-                and K1 launched and no plain version;
+                and K1 launched, no plain version and no CSR K3;
  18. K6       — the sliced ELL product against its plain version: f32 on
                 the level-4 fine operator, its P and R (the ELL build of
                 `spmv_fmt="ell"`), f64 on level 4's G and S, each one
@@ -130,9 +141,10 @@ them against the repository's anchors:
                 hierarchy rows and packed levels printed), two runs: 17
                 steps, u[40,0] within 1e-6 relative of -2.265345e-3, counts
                 beside the JAX package's 17 / 59 / 917, equal counts and
-                bit-identical u, K5, K4, K3 and K1 launched and no plain
-                version, K4 as often on each of levels 1-4 as K5 on the
-                fine level.
+                bit-identical u, K5, K4, K3 and K1 launched, no plain
+                version and no CSR K3, K4 as often on each of levels 1-4 as
+                K5 on the fine level, the transfers twice a V-cycle level;
+                the solve's peak device memory (reset before its setup).
 
 Every phase prints its lines with the card line beside its numbers.  Before
 the last line it prints the run's total wall and a JSON line with the kernel
@@ -157,7 +169,7 @@ ANCHOR_U40_F64 = -1.9794499636012143e-03
 ANCHOR_U40_F32 = -1.979450e-03  # tests/test_pallas_return_map.py:89
 K1_TOL = 1e-13  # normwise relative, kernel vs plain, both f64
 K2_TOL = {"float32": 1e-6, "float64": 1e-13}  # max abs diff / max |plain|
-K3_TOL = 2e-6  # max abs diff / max |plain|, kernel vs plain, both f32
+K3_TOL = 2e-6  # max abs diff / max |plain|: cuSPARSE against K3, both f32
 K4_TOL = 5e-6
 K5_TOL = 5e-6
 K6_TOL = {"float32": 2e-6, "float64": 1e-13}  # max-abs over max |plain|; normwise
@@ -394,46 +406,113 @@ def k2_phase(torch, rm, device, card):
     return shapes, max_err, bitwise
 
 
-def k3_phase(torch, spmv, ops, device, card):
-    """ops: {tag: CsrMatrix (f32)} -> per-operator records."""
+def host_transfers(host: dict):
+    """(P, R = P^T) of a host level, scipy CSR, as the hierarchy builds them."""
+    import scipy.sparse as sp
+
+    P = sp.csr_matrix(host["P"])
+    R = P.T.tocsr()
+    R.sum_duplicates()
+    return P, R
+
+
+def k3_cases(spmv, hier, host_levels, device, tag: str, fine_only: bool = False):
+    """{case: (node operator, the same operator as f32 CSR, mask, adds)}:
+    the fine level's product and, unless `fine_only`, every level's P
+    (masked with its own free DOFs and added to z) and R (masked with the
+    level below's), as the V-cycle runs them."""
+    import numpy as np
+
+    csr = lambda A: spmv.csr_to_device(A, device, np.float32)  # noqa: E731
+    levels = hier.levels
+    cases = {f"K_{tag}": (levels[-1].op, csr(host_levels[-1]["K"]), None, False)}
+    if not fine_only:
+        for i in range(1, len(levels)):
+            P, R = host_transfers(host_levels[i])
+            cases[f"P_{tag}_level{i}"] = (levels[i].P, csr(P), levels[i].free, True)
+            cases[f"R_{tag}_level{i}"] = (levels[i].R, csr(R), levels[i - 1].free, False)
+    return cases
+
+
+def k3_phase(torch, spmv, cases, device, card):
+    """cases: `k3_cases` -> per-case records.  Each node kernel equals its
+    plain version and the earlier design (the CSR kernel, then the
+    V-cycle's `torch.where` and add) bit for bit."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 3)
-    shapes, max_err = {}, 0.0
-    for tag, A in ops.items():
-        x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=device)
-        y = spmv.csr_spmv_f32_cuda(A, x)
-        y_plain = spmv.csr_matvec_plain(A, x)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    shapes = {}
+    for tag, (T, C, mask, adds) in cases.items():
+        x = torch.as_tensor(rng.standard_normal(C.shape[1]).astype(np.float32), device=device)
+        z = (torch.as_tensor(rng.standard_normal(C.shape[0]).astype(np.float32), device=device)
+             if adds else None)
+        if isinstance(T, spmv.NodeBlockMatrix):
+            kernel = lambda: spmv.node_block_spmv_cuda(T, x)  # noqa: E731
+            plain = lambda: spmv.node_block_matvec_plain(T, x)  # noqa: E731
+            mode = "product"
+        else:
+            kernel = lambda: spmv.node_transfer_cuda(T, x, mask, z)  # noqa: E731
+            plain = lambda: spmv.node_transfer_plain(T, x, mask, z)  # noqa: E731
+            mode = "masked and added" if adds else "masked"
+
+        def earlier():
+            # the earlier design: the CSR kernel, then the V-cycle's ops
+            y = spmv.csr_spmv_f32_cuda(C, x)
+            if mask is not None:
+                y = torch.where(mask, y, zero)
+            return y if z is None else z + y
+
+        y, y_plain = kernel(), plain()
         torch.cuda.synchronize()
         err = float((y - y_plain).abs().max())
-        rel = err / float(y_plain.abs().max())
-        check(rel <= K3_TOL, f"K3 {tag}: relative difference {rel:.3e}")
-        check(torch.equal(y, spmv.csr_spmv_f32_cuda(A, x)), f"K3 {tag}: not bitwise repeatable")
-        # the yardstick: one PyTorch call (cuSPARSE) for the same product
-        A_lib = torch.sparse_csr_tensor(
-            A.indptr, A.indices, A.values, A.shape, check_invariants=False)
-        y_lib = torch.mv(A_lib, x)
+        check(torch.equal(y, y_plain), f"K3 {tag}: not bitwise equal to its plain version")
+        check(torch.equal(y, earlier()), f"K3 {tag}: not bitwise equal to the CSR kernel's path")
+        check(torch.equal(y, kernel()), f"K3 {tag}: not bitwise repeatable")
+        # the yardstick: one PyTorch call (cuSPARSE) for the product on the CSR
+        C_lib = torch.sparse_csr_tensor(C.indptr, C.indices, C.values, C.shape,
+                                        check_invariants=False)
+        y_csr = spmv.csr_spmv_f32_cuda(C, x)
+        y_lib = torch.mv(C_lib, x)
         torch.cuda.synchronize()
-        lib_rel = float((y_lib - y_plain).abs().max() / y_plain.abs().max())
+        lib_err = float((y_lib - y_csr).abs().max())
+        lib_rel = lib_err / float(y_csr.abs().max())
         check(lib_rel <= K3_TOL, f"K3 {tag}: cuSPARSE differs by {lib_rel:.3e}")
-        ms, eager_ms = cuda_ms(torch, lambda: spmv.csr_spmv_f32_cuda(A, x))
-        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.csr_matvec_plain(A, x))
-        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(A_lib, x))
-        nnz = int(A.values.numel())
-        n_bytes = 8 * nnz + 4 * (A.shape[0] + 1) + 4 * A.shape[1] + 4 * A.shape[0]
-        b_ms, b_by = bound_ms(n_bytes, 2 * nnz, "float32")
-        max_err = max(max_err, err)
+        # in turns: kernel, earlier design, cuSPARSE, plain, then again
+        ms, eager_ms = cuda_ms(torch, kernel)
+        csr_ms, csr_eager_ms = cuda_ms(torch, earlier)
+        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(C_lib, x))
+        plain_ms, plain_eager_ms = cuda_ms(torch, plain, reps=50)
+        ms2, _ = cuda_ms(torch, kernel)
+        csr_ms2, _ = cuda_ms(torch, earlier)
+        rows, cols, nnz = C.shape[0], C.shape[1], int(C.values.numel())
+        # the epilogue's inputs: a mask byte a row, z
+        vec = 4 * (rows + cols) + (rows if mask is not None else 0) + (4 * rows if adds else 0)
+        if mode == "product":
+            layout = 20 * T.block_cols.numel() + 4 * (T.n_nodes + 1) + vec
+        else:
+            layout = 8 * T.node_cols.numel() + 4 * (T.n_nodes + 1) + vec
+        csr_bytes = 8 * nnz + 4 * (rows + 1) + vec
+        flops = 2 * nnz + (rows if adds else 0)
+        b_ms, b_by = bound_ms(layout, flops, "float32")
+        csr_b_ms, _ = bound_ms(csr_bytes, flops, "float32")
         shapes[tag] = dict(
-            rows=A.shape[0], cols=A.shape[1], nnz=nnz, rel=rel, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, eager_ms=eager_ms,
-            plain_eager_ms=plain_eager_ms, library_eager_ms=lib_eager_ms,
-            bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+            rows=rows, cols=cols, nnz=nnz, mode=mode, max_abs_err=err, bitwise_equal_to_plain=True,
+            bitwise_equal_to_csr_kernel=True, ms=ms, ms_again=ms2, eager_ms=eager_ms,
+            plain_ms=plain_ms, plain_eager_ms=plain_eager_ms, csr_kernel_ms=csr_ms,
+            csr_kernel_ms_again=csr_ms2, csr_kernel_eager_ms=csr_eager_ms, library_ms=lib_ms,
+            library_eager_ms=lib_eager_ms, library_max_abs_err=lib_err, bytes=layout,
+            bound_ms=b_ms, bound_by=b_by, csr_bytes=csr_bytes, csr_bound_ms=csr_b_ms,
         )
-        say("K3", f"{tag} {A.shape[0]}x{A.shape[1]} nnz {nnz}: rel {rel:.3e} max_abs {err:.3e} | "
-            f"device: kernel {ms:.5f} ms plain {plain_ms:.5f} ms cuSPARSE {lib_ms:.5f} ms "
-            f"bound {b_ms:.5f} ms ({b_by}) | eager: kernel {eager_ms:.5f} ms plain "
-            f"{plain_eager_ms:.5f} ms cuSPARSE {lib_eager_ms:.5f} ms | {card}")
-    return shapes, max_err
+        say("K3", f"{tag} {rows}x{cols} nnz {nnz} ({mode}): bitwise equal to the plain version "
+            f"and to the CSR kernel's path | device: kernel {ms:.5f} / {ms2:.5f} ms, CSR kernel "
+            f"{'and its ops ' if mask is not None else ''}{csr_ms:.5f} / {csr_ms2:.5f} ms, "
+            f"cuSPARSE (product) {lib_ms:.5f} ms (rel {lib_rel:.3e}), plain {plain_ms:.5f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}; the layout's {layout} bytes), CSR bytes' bound "
+            f"{csr_b_ms:.5f} ms ({csr_bytes} bytes) | eager: kernel {eager_ms:.5f} ms CSR "
+            f"{csr_eager_ms:.5f} ms cuSPARSE {lib_eager_ms:.5f} ms plain {plain_eager_ms:.5f} "
+            f"ms | {card}")
+    return shapes
 
 
 def sweep_cost(n: int, nnz: int, n_blocks: int, value_bytes: int, update: bool):
@@ -839,8 +918,9 @@ def check_footing_cg(tag: str, r, cfg, want: tuple, p_want: float, jax_trips,
     return p_rel
 
 
-SCALE_KERNELS = ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64")
+SCALE_KERNELS = ("node_block_spmv", "node_transfer", "block_jacobi_sweep", "csr_spmv_f64")
 ELL_KERNELS = ("ell_spmv_f32", "ell_spmv_f64")
+FOOTING_ACG_KERNELS = ("node_block_spmv", "csr_spmv_f64")
 
 
 def check_scale_launches(tag: str, launches: dict, kernels=SCALE_KERNELS) -> None:
@@ -848,6 +928,8 @@ def check_scale_launches(tag: str, launches: dict, kernels=SCALE_KERNELS) -> Non
         check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
     plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
     check(not plain, f"{tag}: a plain version ran on the card ({plain})")
+    # no path keeps a CSR operator for K3: its CSR kernel is the earlier design
+    check(not launches.get("csr_spmv_f32"), f"{tag}: the CSR K3 launched ({launches})")
     if kernels == ELL_KERNELS:  # every operator is ELL: no CSR product, no side path
         csr = {k: v for k, v in launches.items() if k.startswith("csr_spmv") and v}
         check(not csr, f"{tag}: K3 / K1 launched for an ELL operator ({csr})")
@@ -889,17 +971,19 @@ def main() -> int:
         load()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         futs = {name: pool.submit(build, load) for name, load in (
             ("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
             ("csr_spmv_f32", spmv.load_kernel_f32),
             ("block_jacobi_sweep", spmv.load_sweep_kernel),
+            ("node_transfer", spmv.load_transfer_kernel),
             ("ell_spmv", spmv.load_ell_kernel), ("cholesky_blocked", chol.load_kernel))}
         build_s = {name: f.result() for name, f in futs.items()}
     say("build", f"csr_spmv_f64 {build_s['csr_spmv_f64']:.2f} s, dp_return_map (-fmad=false) "
         f"{build_s['dp_return_map']:.2f} s, csr_spmv_f32 (-fmad=false) "
-        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep with its bf16 instance "
-        f"(-fmad=false) {build_s['block_jacobi_sweep']:.2f} s, ell_spmv f32 and f64 "
+        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep with its bf16 instance and the "
+        f"node-block product (-fmad=false) {build_s['block_jacobi_sweep']:.2f} s, "
+        f"node_transfer (-fmad=false) {build_s['node_transfer']:.2f} s, ell_spmv f32 and f64 "
         f"(-fmad=false) {build_s['ell_spmv']:.2f} s, cholesky_blocked "
         f"{build_s['cholesky_blocked']:.2f} s, in parallel "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -1058,9 +1142,8 @@ def main() -> int:
             check(footing_counts(c1) == footing_counts(c2) and np.array_equal(c1.u, c2.u),
                   f"footing {tag}: two runs differ")
         if fcfg.assembled_cg:
-            check_scale_launches(f"footing {tag}", foot_launches[tag],
-                                 ("csr_spmv_f32", "csr_spmv_f64"))
-            check(foot_launches[tag]["csr_spmv_f32"] >= c1.n_cg_total,
+            check_scale_launches(f"footing {tag}", foot_launches[tag], FOOTING_ACG_KERNELS)
+            check(foot_launches[tag]["node_block_spmv"] >= c1.n_cg_total,
                   f"footing {tag}: fewer K3 launches than CG iterations")
         else:
             check(not foot_launches[tag], f"footing {tag}: launches {foot_launches[tag]}")
@@ -1094,7 +1177,7 @@ def main() -> int:
     p3_rel = check_footing_cg("footing L3", g3a, cfg3, *JAX_FOOTING_ACG_L3, 1e-5)
     check(footing_counts(g3a) == footing_counts(g3b) and np.array_equal(g3a.u, g3b.u),
           "footing L3: two runs differ")
-    check_scale_launches("footing L3", foot_launches["df32_acg_L3"], ("csr_spmv_f32", "csr_spmv_f64"))
+    check_scale_launches("footing L3", foot_launches["df32_acg_L3"], FOOTING_ACG_KERNELS)
     say("footing L3", f"setup {setup3:.3f} s; {mesh3.n_nodes} nodes, {mesh3.n_elems} elements, "
         f"{int(mesh3.free.sum())} unknowns; steps / Newton / CG / plastic {footing_counts(g3a)} "
         f"(JAX package's {JAX_FOOTING_ACG_L3[0]}), last pressure "
@@ -1129,11 +1212,16 @@ def main() -> int:
     sizes = [lev.free.shape[0] for lev in ex4["hierarchy"].levels]
     say("scale L4", f"setup {setup4:.2f} s (host: hierarchy, G/S, refresh table); "
         f"{mesh4.n_nodes} nodes, {mesh4.n_elems} elements, hierarchy rows {sizes} | {card}")
-    k3_shapes, k3_err = k3_phase(
-        torch, spmv, {"K_L4": fine4.op, "P_L4": fine4.P, "R_L4": fine4.R, "K_L1": fine1.op},
-        device, card)
+    # the fine levels' f32 CSR (the hierarchy keeps none): K3's earlier
+    # design and the CSR references of K4, K5 and K6
+    csr4, csr1 = (spmv.csr_to_device(ex["host_levels"][-1]["K"], device, np.float32)
+                  for ex in (ex4, ex1))
+    k3_shapes = k3_phase(torch, spmv, {
+        **k3_cases(spmv, ex4["hierarchy"], ex4["host_levels"], device, "L4"),
+        **k3_cases(spmv, ex1["hierarchy"], ex1["host_levels"], device, "L1",
+                   fine_only=True)}, device, card)
     k4_shapes, k4_err = k4_phase(
-        torch, spmv, {"L4": (fine4.op, fine4), "L1": (fine1.op, fine1)}, device, card)
+        torch, spmv, {"L4": (csr4, fine4), "L1": (csr1, fine1)}, device, card)
 
     spmv.LAUNCHES.clear()
     q1, q_first = timed(torch, run4)
@@ -1168,8 +1256,10 @@ def main() -> int:
           "scale ELL L4: an operator is not ELL")
     say("scale ELL L4", f"setup {setup4e:.2f} s; degree caps: fine operator {fine4e.op.cap}, "
         f"P {fine4e.P.cap}, R {fine4e.R.cap}, G {G4e.cap}, S {S4e.cap} | {card}")
+    P4, R4 = (spmv.csr_to_device(A, device, np.float32)
+              for A in host_transfers(ex4["host_levels"][-1]))
     k6_shapes, k6_err = k6_phase(torch, spmv, {
-        "K_L4": (fine4e.op, fine4.op), "P_L4": (fine4e.P, fine4.P), "R_L4": (fine4e.R, fine4.R),
+        "K_L4": (fine4e.op, csr4), "P_L4": (fine4e.P, P4), "R_L4": (fine4e.R, R4),
         "G_L4": (G4e, G4), "S_L4": (S4e, S4)}, device, card)
 
     spmv.LAUNCHES.clear()
@@ -1208,6 +1298,9 @@ def main() -> int:
 
     # phases 20-21: level 5, its fine level smoothed from bf16 values (K5)
     ex5 = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before5 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     run5, mesh5 = tsx.build_df32(TsxTunnelConfig.fast_scale(5), device=device, extras=ex5)
     torch.cuda.synchronize()
@@ -1221,30 +1314,37 @@ def main() -> int:
         f"{mesh5.n_nodes} nodes, {mesh5.n_elems} elements, hierarchy rows {sizes5}, "
         f"packed {packed5} | {card}")
     fine5 = levels5[-1]
-    # K3 on the level-5 fine operator and every level's transfers, whose
-    # launches the small levels dominate
-    k3_l5, k3_l5_err = k3_phase(torch, spmv, {
-        "K_L5": fine5.op,
-        **{f"{name}_L5_level{i}": getattr(levels5[i], name)
-           for i in range(1, len(levels5)) for name in ("P", "R")}}, device, card)
-    k3_shapes.update(k3_l5)
-    k3_err = max(k3_err, k3_l5_err)
-    # K4 on every level it smooths at L5 (levels 1-4; level 0 is solved
-    # directly, level 5 smoothed by K5), against the CSR of the host
-    # hierarchy (the device hierarchy keeps the fine level's only)
-    k4_l5, k4_l5_err = k4_phase(torch, spmv, {
-        f"L5_level{i}": (spmv.csr_to_device(ex5["coarse_K"][i], device, np.float32), levels5[i])
-        for i in range(1, len(levels5) - 1)}, device, card)
-    k4_shapes.update(k4_l5)
-    k4_err = max(k4_err, k4_l5_err)
-    k5_shapes, k5_err, k5_bitwise = k5_phase(torch, spmv, {
-        "L5": (fine5.op, fine5.sweep_op, spmv.node_blocks(fine5.op), fine5.aux),
-        "L1": (fine1.op, spmv.node_blocks(fine1.op, torch.bfloat16), fine1.sweep_op, fine1.aux)},
-        device, card)
-
+    check(fine5.op.block_values.dtype == torch.float32
+          and fine5.op.node_ptr is fine5.sweep_op.node_ptr
+          and fine5.op.block_cols is fine5.sweep_op.block_cols,
+          "scale L5: the f32 product blocks do not share the bf16 blocks' structure")
+    # the first solve's peak: setup, then one run, before the smoke's own
+    # reference tensors of phases 15, 16 and 20
     spmv.LAUNCHES.clear()
     v1, v_first = timed(torch, run5)
     l5_launches = dict(spmv.LAUNCHES)
+    peak5 = torch.cuda.max_memory_allocated() - mem_before5
+    # K3 on the level-5 fine operator and every level's transfers, whose
+    # launches the small levels dominate
+    k3_shapes.update(k3_phase(
+        torch, spmv, k3_cases(spmv, ex5["hierarchy"], ex5["host_levels"], device, "L5"),
+        device, card))
+    # K4 on every level it smooths at L5 (levels 1-4; level 0 is solved
+    # directly, level 5 smoothed by K5), against the CSR of the host
+    # hierarchy
+    k4_l5, k4_l5_err = k4_phase(torch, spmv, {
+        f"L5_level{i}": (spmv.csr_to_device(ex5["host_levels"][i]["K"], device, np.float32),
+                         levels5[i])
+        for i in range(1, len(levels5) - 1)}, device, card)
+    k4_shapes.update(k4_l5)
+    k4_err = max(k4_err, k4_l5_err)
+    csr5 = spmv.csr_to_device(ex5["host_levels"][-1]["K"], device, np.float32)
+    k5_shapes, k5_err, k5_bitwise = k5_phase(torch, spmv, {
+        "L5": (csr5, fine5.sweep_op, fine5.op, fine5.aux),
+        "L1": (csr1, spmv.node_blocks(csr1, torch.bfloat16), fine1.sweep_op, fine1.aux)},
+        device, card)
+    del csr5
+
     v2, v_warm = timed(torch, run5)
     b1, b2 = tsx._df32_result(v1, mesh5, ex5), tsx._df32_result(v2, mesh5, ex5)
     check(b1.u.shape == (mesh5.n_nodes, 2) and b1.ep.shape[0] == 4
@@ -1261,13 +1361,19 @@ def main() -> int:
     k4_levels5 = len(levels5) - 2
     check(l5_launches["block_jacobi_sweep"] == k4_levels5 * l5_launches["block_jacobi_sweep_bf16"],
           f"scale L5: K4 launches not {k4_levels5} x K5's ({l5_launches})")
+    # each V-cycle level above the coarsest runs one R and one P (four
+    # sweeps, nu = 2): two transfers for every two sweeps
+    n_sweeps = l5_launches["block_jacobi_sweep"] + l5_launches["block_jacobi_sweep_bf16"]
+    check(2 * l5_launches["node_transfer"] == n_sweeps,
+          f"scale L5: transfers not one R and one P a level of a V-cycle ({l5_launches})")
     say("scale L5", f"steps / Newton / CG / plastic {counts4(b1)} (JAX package's record "
         f"{JAX_COUNTS_SCALE_L5} steps / Newton / CG), u40 {b1.u[40, 0]:.9e} (rel {l5_rel:.3e} "
         f"to {ANCHOR_U40_SCALE_L5}), u sha256 {u_digest(b1.u)}, launches {l5_launches} (K4 "
         f"{l5_launches['block_jacobi_sweep_bf16']} on each of levels 1-{k4_levels5}), repeat "
         f"bit-identical, wall first "
-        f"{v_first:.3f} s warm {v_warm:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+        f"{v_first:.3f} s warm {v_warm:.3f} s, peak device memory of setup and first run "
+        f"{peak5 / 2**30:.3f} GiB above the {mem_before5 / 2**30:.3f} GiB held before | "
+        f"{card}")
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -1310,23 +1416,43 @@ def main() -> int:
         "bitwise_equal_to_plain": k2_bitwise,
         "shapes": k2_shapes,
     }, {
-        "name": "csr_spmv_f32",
+        "name": "node_block_spmv",
         "route": "cuda",
-        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
-        "launches_by_path": by_path("csr_spmv_f32", scale_L1=l1_launches, scale_L4=l4_launches,
-                                    scale_ELL_L1=e1_launches, scale_ELL_L4=e4_launches,
-                                    scale_L5=l5_launches,
+        "launches_by_path": by_path("node_block_spmv", scale_L1=l1_launches,
+                                    scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"]),
-        "max_abs_err": k3_err,
-        # the CG operator of the level-4 solve
-        "ms": k3_shapes["K_L4"]["ms"],
-        "plain_ms": k3_shapes["K_L4"]["plain_ms"],
-        "bound_ms": k3_shapes["K_L4"]["bound_ms"],
-        "bound_by": k3_shapes["K_L4"]["bound_by"],
-        "library_ms": k3_shapes["K_L4"]["library_ms"],
-        "shapes": k3_shapes,
+        # bitwise equal to its plain version (and to the earlier design)
+        "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
+        # the CG operator of the level-5 solve; the bound is the node-block
+        # layout's bytes, the CSR entries' beside it
+        "ms": k3_shapes["K_L5"]["ms"],
+        "plain_ms": k3_shapes["K_L5"]["plain_ms"],
+        "bound_ms": k3_shapes["K_L5"]["bound_ms"],
+        "bound_by": k3_shapes["K_L5"]["bound_by"],
+        "csr_bound_ms": k3_shapes["K_L5"]["csr_bound_ms"],
+        "library_ms": k3_shapes["K_L5"]["library_ms"],
+        "csr_kernel_ms_same_operator": k3_shapes["K_L5"]["csr_kernel_ms"],
+        "bitwise_equal_to_plain": True,
+        "shapes": {k: v for k, v in k3_shapes.items() if k.startswith("K_")},
+    }, {
+        "name": "node_transfer",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/node_transfer.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
+        "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
+                                    scale_L4=l4_launches, scale_L5=l5_launches),
+        "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
+                           if not k.startswith("K_")),
+        # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
+        **{key: sum(v[key] for k, v in k3_shapes.items() if k[1:].startswith("_L5_level"))
+           for key in ("ms", "plain_ms", "bound_ms", "csr_bound_ms", "library_ms",
+                       "csr_kernel_ms")},
+        "bound_by": "bytes",
+        "bitwise_equal_to_plain": True,
+        "shapes": {k: v for k, v in k3_shapes.items() if not k.startswith("K_")},
     }, {
         "name": "block_jacobi_sweep",
         "route": "cuda",

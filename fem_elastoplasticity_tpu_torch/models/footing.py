@@ -13,8 +13,9 @@ ramps adaptively with the reference's pressure-based d_zeta doubling rule
 * `build_df32` is the double-float preset `FootingConfig.fast()`: f64
   state and residual, f32 tangent solves, dense (the explicit elastic
   inverse and f32 Cholesky factors) or CG; with `assembled_cg=True` the
-  CG operator is the assembled elastic stiffness refreshed from every
-  integration point once per Newton iteration (kernel K3), and the Newton
+  CG operator is the assembled elastic stiffness in 2x2 node blocks,
+  refreshed from every integration point once per Newton iteration
+  (kernel K3's product), and the Newton
   residual runs on the assembled G/S operators (kernel K1), on an RCM node
   ordering whose result is handed back in the reference order.
 
@@ -219,11 +220,13 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
 def _assembled_setup(cfg: FootingConfig, mesh: Mesh, device: torch.device):
     """Host setup of `assembled_cg` (JAX `models/footing.py:266-292`): the
     RCM node order, elements sorted by their smallest node, the elastic
-    CSR with unit-diagonal constrained rows (K3's f32 operator) and the
-    refresh's destination table for every element.  Returns the permuted
-    mesh, the operator, the table (rows of the runtime geometry's padding
-    elements appended as -1 by the caller), and `new_of_old` and the
-    element sort for `spmv.restore_reference_order`."""
+    CSR with unit-diagonal constrained rows (`apply_bc_csr` keeps the full
+    element pattern, so every 2x2 node block is whole), on the device as
+    f32 node blocks (K3's operator), and the refresh's destination table
+    for every element, in the blocks' value positions.  Returns the
+    permuted mesh, the operator, the table (rows of the runtime geometry's
+    padding elements appended as -1 by the caller), and `new_of_old` and
+    the element sort for `spmv.restore_reference_order`."""
     order = spmv.rcm_node_order(np.asarray(mesh.elems), mesh.n_nodes)
     coords2, elems2, new_of_old = spmv.permute_mesh(
         np.asarray(mesh.coords, np.float64), np.asarray(mesh.elems), order
@@ -236,8 +239,9 @@ def _assembled_setup(cfg: FootingConfig, mesh: Mesh, device: torch.device):
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     K_csr = spmv.build_elastic_csr(coords2, elems2, volume_element(cfg.etype), shear, bulk,
                                    free=free2)
-    corr = spmv.element_corr_dest(K_csr, elems2, free2)
-    return mesh2, spmv.csr_to_device(K_csr, device, np.float32), corr, new_of_old, esort
+    corr = spmv.node_block_dest(spmv.element_corr_dest(K_csr, elems2, free2), K_csr, device)
+    op = spmv.node_blocks(spmv.csr_to_device(K_csr, device, np.float32))
+    return mesh2, op, corr, new_of_old, esort
 
 
 def build_df32(cfg: FootingConfig, device=None):
@@ -245,14 +249,15 @@ def build_df32(cfg: FootingConfig, device=None):
 
     Host setup happens here: the mesh, the f64 geometry and its f32 heads,
     the dense assembly plan (dense solver) or, with `assembled_cg`, the RCM
-    permutation, the f32 elastic operator (K3), the refresh table and the
-    f64 residual operators G/S (K1).  `run()` does the device work of one
-    solve: the f32 elastic factors or the elastic preconditioner, the df32
-    elastic predictor (iterative refinement of an f32 inner solve, a
-    Cholesky solve or block-Jacobi PCG, against the f64 residual) and the
-    load stepping; it returns the FootingResult on `mesh`, the reference
-    mesh (with `assembled_cg` the solve runs on the RCM node order and
-    sorted elements, and u and ep are moved back).
+    permutation, the f32 elastic operator in node blocks (K3's product),
+    the refresh table and the f64 residual operators G/S (K1).  `run()`
+    does the device work of one solve: the f32 elastic factors or the
+    elastic preconditioner, the df32 elastic predictor (iterative
+    refinement of an f32 inner solve, a Cholesky solve or block-Jacobi PCG,
+    against the f64 residual) and the load stepping; it returns the
+    FootingResult on `mesh`, the reference mesh (with `assembled_cg` the
+    solve runs on the RCM node order and sorted elements, and u and ep are
+    moved back).
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
@@ -274,8 +279,8 @@ def build_df32(cfg: FootingConfig, device=None):
     if cfg.assembled_cg:
         # padding elements carry zero stiffness blocks: their rows are
         # dropped (-1)
-        pad = np.full((geom.n_elems - corr.shape[0],) + corr.shape[1:], -1, corr.dtype)
-        corr_dest = torch.as_tensor(np.concatenate([corr, pad]), device=device)
+        pad = corr.new_full((geom.n_elems - corr.shape[0],) + tuple(corr.shape[1:]), -1)
+        corr_dest = torch.cat([corr, pad])
         residual_op = spmv.residual_operators(geom, device)
         elem_sort = (esort, int(geom.n_q), int(geom.n_real))
     dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=torch.float64, device=device)

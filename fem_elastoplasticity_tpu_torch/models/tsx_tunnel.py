@@ -6,9 +6,10 @@ native presets, f64 (parity) and f32 (`TsxTunnelConfig.fast_f32`, the
 return map in kernel K2), or, for `precision="df32"`, `build_df32`: the
 bench preset on the dense solver, and on refined meshes the scale preset
 (`TsxTunnelConfig.fast_scale`, `solver="ell"`), whose tangent solves are CG
-preconditioned by a multigrid V-cycle on assembled operators (kernels K3
-and K4, K5 on the levels of 500,000 rows or more, the residual through K1;
-K6 for every operator with `spmv_fmt="ell"` and `residual_fmt="ell"`).
+preconditioned by a multigrid V-cycle on assembled operators in node
+layouts (kernels K3 and K4, K5 on the levels of 500,000 rows or more, the
+residual through K1; K6 for every operator with `spmv_fmt="ell"` and
+`residual_fmt="ell"`).
 Anchors: 17 accepted load steps, 28
 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
 reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
@@ -229,9 +230,10 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         extras["reference_mesh"] = mesh_ref
         extras["monitor_node"] = monitor_node
         extras["hierarchy"] = hier
-        # the host f64 CSR of the levels below the finest, whose device CSR
-        # the hierarchy does not keep (a CSR reference for their sweeps)
-        extras["coarse_K"] = [h["K"] for h in coarse["levels"][:-1]]
+        # the host data of every level (f64 CSR operator K, transfer P,
+        # free, inv): the device hierarchy keeps no CSR, so this is the CSR
+        # reference of its node blocks and node transfers
+        extras["host_levels"] = coarse["levels"]
     # static plastic-slot cap of the tangent correction (the JAX package's
     # formula, `models/tsx_tunnel.py:491`): observed plastic fractions are
     # under 1% (1,477 of 227,072 points at level 4); 1/64 with a floor of
@@ -244,12 +246,11 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     fine = hier.levels[-1]
     corr_dest = None
     if cfg.corr_mode == "scatter":
-        # the table indexes the exact CSR the fine operator was made from;
-        # its rows follow the sorted element order of the run-time geometry
-        corr_dest = torch.as_tensor(
-            spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"]),
-            device=device,
-        )
+        # the table indexes the exact CSR the fine node blocks were made
+        # from, mapped to the blocks' value positions; its rows follow the
+        # sorted element order of the run-time geometry
+        dest = spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"])
+        corr_dest = spmv.node_block_dest(dest, coarse["fine_K"], device)
     free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
     cg_tol = cfg.cg_tol if cfg.cg_tol is not None else 2e-7
     pre = mgm.make_vcycle_ell(hier, nu=cfg.mg_nu, cycle=cfg.mg_cycle)
@@ -308,9 +309,9 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     `mesh` and the run's result are in that ordering.  `extras`, if given,
     receives what `_df32_result` needs to restore the reference order:
     `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them the
-    permuted `monitor_node`, the device `hierarchy`, the host CSR of its
-    levels below the finest `coarse_K` and the residual operators
-    `residual_op` (G, S).
+    permuted `monitor_node`, the device `hierarchy`, the host data of its
+    levels `host_levels` (`multigrid.build_hierarchy_ell`'s
+    `coarse["levels"]`) and the residual operators `residual_op` (G, S).
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")

@@ -17,6 +17,11 @@
 // Without `update` the kernel returns the masked residual, the input of the
 // multigrid restriction.
 //
+// Its third epilogue is the plain product out_i = sum_j A_ij z_j on f32
+// blocks (node_block_spmv): K3's square half, which replaces the JAX
+// package's slot_matvec (_slot_kernel) for the CG operator, the Newton
+// criterion and the elastic predictor.  It reads no r, mask, msf or mpr.
+//
 // The layout (ops/spmv.py NodeBlockMatrix, built once per multigrid level):
 // node k owns blocks node_ptr[k] .. node_ptr[k+1]-1, in ascending neighbour
 // node m = block_cols[b]; block b holds a(2k,2m), a(2k,2m+1), a(2k+1,2m),
@@ -50,6 +55,11 @@
 // far below the bytes.  Lane 1 hands its row to lane 0, which runs the
 // epilogue: float2 loads of r, mask, msf, mpr (and z), one float2 store.
 //
+// The product's bits are K3's: the CSR kernel it replaces (csr_spmv_f32.cu,
+// a thread a row) sums a row in index order from +0 with the same rounded
+// products, and an entry missing from a present block adds +0 exactly (the
+// FEM operators have none: every block of an element pattern is whole).
+//
 // Jacobi: every row reads the old z, so `out` must not alias z.  No
 // atomics: two launches give bit-identical output.  The file is built with
 // -fmad=false.  TMA and wgmma do not apply: there is no matrix product and
@@ -62,6 +72,11 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int G = 8;                   // lanes a node
 constexpr int kGroups = kThreads / G;  // nodes a block
+
+// the epilogue, an argument of the launch
+constexpr int kResidual = 0;  // out = mask (r - A z)
+constexpr int kUpdate = 1;    // out = z + mask (msf res + mpr res_partner)
+constexpr int kProduct = 2;   // out = A z
 
 struct Block {
   float a00, a01, a10, a11;
@@ -85,7 +100,7 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
                           const int* __restrict__ block_cols, const V* __restrict__ values,
                           const float* __restrict__ z, const float* __restrict__ r,
                           const float* __restrict__ mask, const float* __restrict__ msf,
-                          const float* __restrict__ mpr, float* __restrict__ out, int update) {
+                          const float* __restrict__ mpr, float* __restrict__ out, int mode) {
   // a group's products, a float4 a lane (row 2k: x, y; row 2k+1: z, w); the
   // slot after each group keeps the row walkers of a warp on distinct banks
   __shared__ float4 prod[kGroups * (G + 1)];
@@ -99,10 +114,10 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
 
   // the epilogue's inputs, requested before the row walk
   float2 rr = make_float2(0.f, 0.f), mk = rr, zz = rr, sf = rr, pr = rr;
-  if (live && sub == 0) {
+  if (live && sub == 0 && mode != kProduct) {
     rr = __ldg(reinterpret_cast<const float2*>(r + i0));
     mk = __ldg(reinterpret_cast<const float2*>(mask + i0));
-    if (update) {
+    if (mode == kUpdate) {
       zz = __ldg(reinterpret_cast<const float2*>(z + i0));
       sf = __ldg(reinterpret_cast<const float2*>(msf + i0));
       pr = __ldg(reinterpret_cast<const float2*>(mpr + i0));
@@ -139,11 +154,15 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
   }
   const float acc1 = __shfl_down_sync(0xffffffffu, acc, 1);
   if (!live || sub != 0) return;
+  if (mode == kProduct) {
+    *reinterpret_cast<float2*>(out + i0) = make_float2(acc, acc1);
+    return;
+  }
 
   const float res0 = __fmul_rn(__fsub_rn(rr.x, acc), mk.x);
   const float res1 = __fmul_rn(__fsub_rn(rr.y, acc1), mk.y);
   float2 o;
-  if (update) {
+  if (mode == kUpdate) {
     const float d0 = __fadd_rn(__fmul_rn(sf.x, res0), __fmul_rn(pr.x, res1));
     const float d1 = __fadd_rn(__fmul_rn(sf.y, res1), __fmul_rn(pr.y, res0));
     o.x = __fadd_rn(zz.x, __fmul_rn(d0, mk.x));
@@ -158,18 +177,18 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
 template <typename V>
 int launch(int n_nodes, const int* node_ptr, const int* block_cols, const V* values,
            const float* z, const float* r, const float* mask, const float* msf,
-           const float* mpr, float* out, int update, void* stream) {
+           const float* mpr, float* out, int mode, void* stream) {
   if (n_nodes <= 0) return 0;
   // 16 nodes a block: level 1 (1,839 nodes) spreads over 115 blocks
   const int blocks = (n_nodes + kGroups - 1) / kGroups;
   block_jacobi_sweep_kernel<V><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out, update);
+      n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both launch on `stream` (a cudaStream_t passed as a pointer) and return the
+// All launch on `stream` (a cudaStream_t passed as a pointer) and return the
 // cudaError_t of the launch; 0 means the kernel was queued.  All vectors
 // have 2*n_nodes entries; z, r, mask, msf, mpr and out are 8-byte aligned,
 // the f32 block values 16-byte aligned.
@@ -180,7 +199,15 @@ extern "C" int block_jacobi_sweep(int n_nodes, const int* node_ptr,
                                   const float* mpr, float* out, int update,
                                   void* stream) {
   return launch(n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out,
-                update, stream);
+                update ? kUpdate : kResidual, stream);
+}
+
+// The product y = A x on f32 blocks: the sweep's row walk, no epilogue input.
+extern "C" int node_block_spmv(int n_nodes, const int* node_ptr, const int* block_cols,
+                               const float* values, const float* x, float* y,
+                               void* stream) {
+  return launch(n_nodes, node_ptr, block_cols, values, x, nullptr, nullptr, nullptr,
+                nullptr, y, kProduct, stream);
 }
 
 // K5: `values` are bf16 bit patterns (torch.bfloat16 storage), four a block.
@@ -192,5 +219,5 @@ extern "C" int block_jacobi_sweep_bf16(int n_nodes, const int* node_ptr,
                                        const float* mpr, float* out, int update,
                                        void* stream) {
   return launch(n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out,
-                update, stream);
+                update ? kUpdate : kResidual, stream);
 }

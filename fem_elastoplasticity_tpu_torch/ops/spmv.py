@@ -1,5 +1,5 @@
-"""Assembled sparse operators: host CSR and ELL assembly and the kernels
-K1, K3, K4, K5 and K6.
+"""Assembled sparse operators: host CSR and ELL assembly, the node layouts,
+and the kernels K1, K3, K4, K5 and K6.
 
 Port of `fem_elastoplasticity_tpu/ops/spmv.py`.
 
@@ -25,9 +25,19 @@ carried over: the card takes the CSR as it is.
 Device half:
 
 * `csr_matvec` replaces `sp_matvec_df` / `slot_matvec_df` (`spmv.py:975`,
-  `:1370`) for f64 values, kernel K1 `csrc/csr_spmv_f64.cu`, and
-  `slot_matvec` (`spmv.py:1431`) for f32 values, kernel K3
-  `csrc/csr_spmv_f32.cu`;
+  `:1370`) for f64 values, kernel K1 `csrc/csr_spmv_f64.cu`; for f32
+  values it runs `csrc/csr_spmv_f32.cu`, K3's earlier design (a thread a
+  CSR row), which no solve path launches any more;
+* `node_block_matvec` replaces `slot_matvec` (`spmv.py:1431`) on a square
+  operator, K3's product (the CG operator, the criterion, the predictor):
+  the f32 `NodeBlockMatrix` the sweep reads, through the sweep kernel's
+  third epilogue (`node_block_spmv` in `csrc/block_jacobi_sweep.cu`);
+  `node_block_positions` maps a CSR entry to its place in the blocks,
+  which the tangent refresh's table goes through (`node_block_dest`);
+* `transfer` replaces `slot_matvec` on the multigrid transfers (its
+  `_rslot_kernel` for R, `spmv.py:1455`), K3's transfers: a `NodeTransfer`
+  (P or R = P^T, a node-level operator times I_2) in `csrc/node_transfer.cu`,
+  with the V-cycle's mask, or mask and add, fused in;
 * `block_jacobi_sweep` replaces `slot_sweep` / `slot_sweep_b`
   (`spmv.py:1610`, `:1699`), kernel K4, on a `NodeBlockMatrix` (the 2x2
   node-block layout `node_blocks` builds from a level's CSR) with f32
@@ -39,18 +49,20 @@ Device half:
   `:902`), kernel K6 `csrc/ell_spmv.cu` (f32 and f64), one launch a
   product, slots and tail;
 * `sp_matvec` dispatches on the operator type, as `sp_matvec` /
-  `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix` or `EllMatrix`
-  (the JAX package's `SplitCols` S is one `EllMatrix` here).
+  `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix`,
+  `NodeBlockMatrix` or `EllMatrix` (the JAX package's `SplitCols` S is
+  one `EllMatrix` here).
 
 On a CUDA tensor a wrapper launches its hand-written kernel; on a CPU
 tensor it runs the plain PyTorch version beside it.  It never falls back
 from one to the other.
 
 `LAUNCHES` counts, per process, kernel launches ("csr_spmv_f64",
-"csr_spmv_f32", "block_jacobi_sweep", "block_jacobi_sweep_bf16",
-"ell_spmv_f32", "ell_spmv_f64") and calls routed to a plain version (the
-same names with "_plain").  A run shows that it went through the kernels
-by clearing the counts before it and reading them after.
+"csr_spmv_f32", "node_block_spmv", "node_transfer", "block_jacobi_sweep",
+"block_jacobi_sweep_bf16", "ell_spmv_f32", "ell_spmv_f64") and calls
+routed to a plain version (the same names with "_plain").  A run shows
+that it went through the kernels by clearing the counts before it and
+reading them after.
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ _CSRC = pathlib.Path(__file__).parent / "csrc"
 KERNEL_SOURCE = _CSRC / "csr_spmv_f64.cu"
 KERNEL_SOURCE_F32 = _CSRC / "csr_spmv_f32.cu"
 SWEEP_SOURCE = _CSRC / "block_jacobi_sweep.cu"
+TRANSFER_SOURCE = _CSRC / "node_transfer.cu"
 ELL_SOURCE = _CSRC / "ell_spmv.cu"
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -375,6 +388,19 @@ def _library_sweep() -> ctypes.CDLL:
     for fn in (lib.block_jacobi_sweep, lib.block_jacobi_sweep_bf16):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.node_block_spmv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+    lib.node_block_spmv.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library_transfer() -> ctypes.CDLL:
+    from ..utils.cuda_build import build_library
+
+    lib = build_library(TRANSFER_SOURCE, "node_transfer", ("-fmad=false",))
+    lib.node_transfer.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                                         ctypes.c_void_p]
+    lib.node_transfer.restype = ctypes.c_int
     return lib
 
 
@@ -395,13 +421,21 @@ def load_kernel() -> None:
 
 
 def load_kernel_f32() -> None:
-    """Build (first use) and load K3; raises if the build fails."""
+    """Build (first use) and load the f32 CSR kernel (K3's earlier design);
+    raises if the build fails."""
     _library_f32()
 
 
 def load_sweep_kernel() -> None:
-    """Build (first use) and load K4 and K5; raises if the build fails."""
+    """Build (first use) and load K4, K5 and K3's node-block product; raises
+    if the build fails."""
     _library_sweep()
+
+
+def load_transfer_kernel() -> None:
+    """Build (first use) and load K3's transfer kernel; raises if the build
+    fails."""
+    _library_transfer()
 
 
 def load_ell_kernel() -> None:
@@ -454,16 +488,16 @@ def csr_spmv_f64_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def csr_spmv_f32_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Launch K3 on x's device and PyTorch's current stream; no sync.
-    A may be rectangular (the multigrid transfers)."""
+    """Launch the f32 CSR kernel (K3's earlier design) on x's device and
+    PyTorch's current stream; no sync.  A may be rectangular."""
     if not x.is_cuda:
         raise ValueError(f"csr_spmv_f32 needs a CUDA tensor; got one on {x.device}")
     return _csr_spmv_cuda("csr_spmv_f32", _library_f32(), torch.float32, A, x)
 
 
 def csr_matvec(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A x.  On a CUDA tensor: K1 for f64 values, K3 for f32 values; on
-    a CPU tensor the plain version."""
+    """y = A x.  On a CUDA tensor: K1 for f64 values, the f32 CSR kernel
+    for f32 values; on a CPU tensor the plain version."""
     if A.values.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"csr_matvec: no kernel for {A.values.dtype} values")
     f64 = A.values.dtype == torch.float64
@@ -510,7 +544,8 @@ SWEEP_KERNELS = {torch.float32: "block_jacobi_sweep", torch.bfloat16: "block_jac
 
 
 class NodeBlockMatrix(NamedTuple):
-    """A square operator with 2x2 nodal blocks, the sweep's layout (K4, K5).
+    """A square operator with 2x2 nodal blocks: the sweep's layout (K4, K5)
+    and, with f32 values, the fine level's product's (K3).
 
     Node k (rows 2k and 2k+1) owns blocks node_ptr[k] .. node_ptr[k+1]-1,
     in ascending neighbour node m = block_cols[b]; block_values[b] holds
@@ -535,24 +570,14 @@ class NodeBlockMatrix(NamedTuple):
         return self.node_ptr[1:] - self.node_ptr[:-1]
 
 
-def node_blocks(A: CsrMatrix, dtype: torch.dtype = torch.float32) -> NodeBlockMatrix:
-    """The 2x2 node-block layout of a level's f32 operator, on A's device,
-    with f32 values (K4) or bf16 ones rounded to nearest even (K5, the
-    rounding of the JAX package's `pack_slot_bf16`).
-
-    Raises ValueError unless A is square with an even size, its column
-    indices ascend strictly within each row, and rows 2k and 2k+1 have the
-    same node columns m (every entry in a 2x2 block whose rows share their
-    node columns).  An entry missing from a block that is present is stored
-    as an explicit zero."""
-    if A.values.dtype != torch.float32:
-        raise ValueError(f"node_blocks needs f32 values; got {A.values.dtype}")
-    if dtype not in SWEEP_KERNELS:
-        raise ValueError(f"node_blocks: no sweep kernel for {dtype} values")
+def _node_block_layout(A: CsrMatrix):
+    """(node_ptr, block_cols, the block-value position of each entry of A,
+    blocks a node) of A's 2x2 node blocks, on A's device; raises as
+    `node_blocks` does."""
     n = A.shape[0]
     if A.shape[0] != A.shape[1] or n % 2:
         raise ValueError(f"node_blocks: operator {A.shape} is not square with an even size")
-    dev = A.values.device
+    dev = A.indices.device
     cols = A.indices.long()
     nnz = cols.shape[0]
     rows = torch.repeat_interleave(
@@ -573,49 +598,109 @@ def node_blocks(A: CsrMatrix, dtype: torch.dtype = torch.float32) -> NodeBlockMa
     per_node = per_row[0::2]
     node_ptr = torch.zeros(n // 2 + 1, dtype=torch.long, device=dev)
     node_ptr[1:] = torch.cumsum(per_node, 0)
-    n_blocks = int(node_ptr[-1])
-    assert n_blocks < np.iinfo(np.int32).max // 4, "node blocks too many for int32 offsets"
+    block_cols = u_m[even]
+    assert block_cols.shape[0] < np.iinfo(np.int32).max // 4, \
+        "node blocks too many for int32 offsets"
     # pair j of row 2k and pair j of row 2k+1 are block node_ptr[k] + j
     rank = torch.where(even, torch.cumsum(even.long(), 0), torch.cumsum((~even).long(), 0)) - 1
     blk = rank[torch.cumsum(first.long(), 0) - 1]
-    values = torch.zeros(n_blocks * 4, dtype=torch.float32, device=dev)
-    values[4 * blk + 2 * (rows % 2) + cols % 2] = A.values
+    return node_ptr, block_cols, 4 * blk + 2 * (rows % 2) + cols % 2, per_node
+
+
+def node_block_positions(A: CsrMatrix) -> torch.Tensor:
+    """(nnz,) int64 on A's device: where `node_blocks(A)` puts CSR entry k
+    in `block_values.reshape(-1)`, 4 blk + 2 (row % 2) + col % 2.  A
+    bijection onto the present entries; raises as `node_blocks` does."""
+    return _node_block_layout(A)[2]
+
+
+def node_block_dest(dest: np.ndarray, K_csr, device) -> torch.Tensor:
+    """`element_corr_dest`'s table for `K_csr` (positions in its CSR values,
+    -1 for dropped entries) mapped to the positions of the same entries in
+    the values of `node_blocks` of that CSR (-1 kept): an int32 tensor on
+    `device`, where the map is computed.
+
+    The map is a bijection, so a refresh through the mapped table adds the
+    same contributions to each entry in the same order: its block values
+    are `node_blocks` of the refreshed CSR bit for bit."""
+    pos = node_block_positions(csr_to_device(K_csr, device, np.float32))
+    d = torch.as_tensor(np.asarray(dest), device=device).long()
+    return torch.where(d >= 0, pos[d.clamp(min=0)], -1).to(torch.int32)
+
+
+def node_blocks(A: CsrMatrix, dtype: torch.dtype = torch.float32) -> NodeBlockMatrix:
+    """The 2x2 node-block layout of a level's f32 operator, on A's device,
+    with f32 values (K4, K3's product) or bf16 ones rounded to nearest even
+    (K5, the rounding of the JAX package's `pack_slot_bf16`).
+
+    Raises ValueError unless A is square with an even size, its column
+    indices ascend strictly within each row, and rows 2k and 2k+1 have the
+    same node columns m (every entry in a 2x2 block whose rows share their
+    node columns).  An entry missing from a block that is present is stored
+    as an explicit zero."""
+    if A.values.dtype != torch.float32:
+        raise ValueError(f"node_blocks needs f32 values; got {A.values.dtype}")
+    if dtype not in SWEEP_KERNELS:
+        raise ValueError(f"node_blocks: no sweep kernel for {dtype} values")
+    node_ptr, block_cols, pos, per_node = _node_block_layout(A)
+    n_blocks = block_cols.shape[0]
+    values = torch.zeros(n_blocks * 4, dtype=torch.float32, device=A.values.device)
+    values[pos] = A.values
     return NodeBlockMatrix(
         node_ptr=node_ptr.to(torch.int32),
-        block_cols=u_m[even].to(torch.int32),
+        block_cols=block_cols.to(torch.int32),
         block_values=values.reshape(n_blocks, 4).to(dtype),
-        width=int(per_node.max()) if n // 2 else 0,
+        width=int(per_node.max()) if per_node.numel() else 0,
     )
+
+
+def _padded(node_ptr: torch.Tensor, width: int, n_entries: int):
+    """Slot-major padding of a node layout: (width * n_nodes,) entry index
+    of node k's slot j at j * n_nodes + k, `n_entries` (an appended padding
+    entry) past the node's own, and the (width, n_nodes) mask of the
+    node's own slots.  No host read (the card's timings capture the plain
+    versions in a CUDA graph)."""
+    j = torch.arange(width, device=node_ptr.device)[:, None]
+    own = j < (node_ptr[1:] - node_ptr[:-1])
+    return torch.where(own, node_ptr[:-1] + j, n_entries).reshape(-1), own
+
+
+def _node_block_accumulate(B: NodeBlockMatrix, z: torch.Tensor) -> torch.Tensor:
+    """B z in the kernel's order, (2 n_nodes,) f32: the layout padded to
+    `B.width` blocks a node (padding blocks: value 0, column 0); over the
+    blocks j in order, each row adds a(., 2m) z_2m, then a(., 2m+1)
+    z_2m+1, each product and each sum rounded on its own (`torch.mul`,
+    `torch.add`: nothing fuses them into an FMA).  bf16 values are widened
+    to f32 (exactly) and the arithmetic is f32."""
+    n_nodes, width = B.n_nodes, B.width
+    idx, _ = _padded(B.node_ptr.long(), width, B.block_cols.shape[0])
+    vals = torch.cat([B.block_values.to(torch.float32),
+                      B.block_values.new_zeros(1, 4, dtype=torch.float32)]).index_select(0, idx)
+    cols = torch.cat([B.block_cols, B.block_cols.new_zeros(1)]).index_select(0, idx).long()
+    # z_2m, z_2m+1, z_2m, z_2m+1 against a(2k,2m), a(2k,2m+1), a(2k+1,2m), a(2k+1,2m+1)
+    lanes = torch.arange(4, device=z.device) % 2  # no host copy: CUDA graph capture
+    zg = z.index_select(0, (2 * cols[:, None] + lanes).reshape(-1)).view(-1, 4)
+    # [j, node, row, d] -> [j, d, node, row]: each add reads a contiguous (n_nodes, 2)
+    prods = torch.mul(vals, zg).view(width, n_nodes, 2, 2).permute(0, 3, 1, 2).contiguous()
+    acc = torch.zeros(n_nodes, 2, dtype=torch.float32, device=z.device)
+    for j in range(width):
+        for d in range(2):
+            acc = torch.add(acc, prods[j, d])
+    return acc.reshape(-1)
 
 
 def node_block_sweep_plain(
     B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
-    """Plain PyTorch sweep on the node-block layout, in the kernel's order.
+    """Plain PyTorch sweep on the node-block layout: the kernel's order and
+    rounding (`_node_block_accumulate`), so the two agree bit for bit."""
+    return _sweep_epilogue(aux, z, r, _node_block_accumulate(B, z), update)
 
-    The layout is padded to `B.width` blocks a node (padding blocks: value
-    0, column 0).  Over the blocks j in order, each row adds
-    a(., 2m) z_2m, then a(., 2m+1) z_2m+1, as separate `torch.mul` and
-    `torch.add` calls (each rounded, nothing fuses them into an FMA): the
-    kernel's order and rounding, so the two agree bit for bit.  bf16 values
-    are widened to f32 (exactly) and the arithmetic is f32."""
-    dev = z.device
-    n_nodes, n_blocks, width = B.n_nodes, B.block_cols.shape[0], B.width
-    # no host sync (the card's timings capture this in a CUDA graph)
-    node = torch.repeat_interleave(torch.arange(n_nodes, device=dev),
-                                   B.blocks_per_node().long(), output_size=n_blocks)
-    slot = torch.arange(n_blocks, device=dev) - B.node_ptr.long()[node]
-    vals = torch.zeros(n_nodes, width, 2, 2, dtype=torch.float32, device=dev)
-    vals[node, slot] = B.block_values.to(torch.float32).reshape(-1, 2, 2)
-    cols = torch.zeros(n_nodes, width, dtype=torch.long, device=dev)
-    cols[node, slot] = B.block_cols.long()
-    z2 = z.reshape(-1, 2)
-    acc = torch.zeros(n_nodes, 2, dtype=torch.float32, device=dev)
-    for j in range(width):
-        zj = z2[cols[:, j]]
-        for d in range(2):
-            acc = torch.add(acc, torch.mul(vals[:, j, :, d], zj[:, d:d + 1]))
-    return _sweep_epilogue(aux, z, r, acc.reshape(-1), update)
+
+def node_block_matvec_plain(B: NodeBlockMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = B x: the sweep's accumulation without its
+    epilogue, in the kernel's order, so the two agree bit for bit."""
+    return _node_block_accumulate(B, x)
 
 
 def _sweep_epilogue(aux: SweepAux, z, r, Az, update: bool):
@@ -650,6 +735,28 @@ def _sweep_kernel(B) -> str:
     return name
 
 
+def _check_args(name: str, device: torch.device, named) -> None:
+    """Raise unless each (name, tensor, dtype, shape) of `named` is a
+    contiguous tensor of that dtype and shape on `device`."""
+    for nm, t, dt, shape in named:
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be a contiguous {dt} tensor on {device}; "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _node_block_args(B: NodeBlockMatrix):
+    n_blocks = B.block_cols.shape[0]
+    return [("node_ptr", B.node_ptr, torch.int32, (B.n_nodes + 1,)),
+            ("block_cols", B.block_cols, torch.int32, (n_blocks,)),
+            ("block_values", B.block_values, B.block_values.dtype, (n_blocks, 4))]
+
+
+def _aliases(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
 def block_jacobi_sweep_cuda(
     B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor,
     update: bool = True, out: Optional[torch.Tensor] = None,
@@ -663,22 +770,14 @@ def block_jacobi_sweep_cuda(
     if not z.is_cuda:
         raise ValueError(f"block_jacobi_sweep needs a CUDA tensor; got one on {z.device}")
     name = _sweep_kernel(B)
-    n2, n_blocks = 2 * B.n_nodes, B.block_cols.shape[0]
+    n2 = 2 * B.n_nodes
     if out is None:
         out = torch.empty(n2, dtype=torch.float32, device=z.device)
-    named = [("node_ptr", B.node_ptr, torch.int32, (B.n_nodes + 1,)),
-             ("block_cols", B.block_cols, torch.int32, (n_blocks,)),
-             ("block_values", B.block_values, B.block_values.dtype, (n_blocks, 4))]
-    named += [(nm, t, torch.float32, (n2,)) for nm, t in (
-        ("z", z), ("r", r), ("mask", aux.mask), ("msf", aux.msf), ("mpr", aux.mpr),
-        ("out", out))]
-    for nm, t, dt, shape in named:
-        if t.device != z.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: {nm} must be a contiguous {dt} tensor on {z.device}; "
-                             f"got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
-    if out.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
+    _check_args(name, z.device, _node_block_args(B) + [
+        (nm, t, torch.float32, (n2,)) for nm, t in (
+            ("z", z), ("r", r), ("mask", aux.mask), ("msf", aux.msf), ("mpr", aux.mpr),
+            ("out", out))])
+    if _aliases(out, z):
         raise ValueError(f"{name}: out must not alias z")
     # float2 loads of the vectors and of z's gathered pairs; one 16-byte
     # (f32) or 8-byte (bf16) load a block
@@ -719,6 +818,202 @@ def packed_matvec(B: NodeBlockMatrix, v: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros_like(v)
     aux = SweepAux(mask=torch.ones_like(v), msf=zeros, mpr=zeros)
     return -block_jacobi_sweep(B, aux, v, zeros, update=False)
+
+
+# ---------------------------------------------------------------------------
+# K3: the product on f32 node blocks, and the transfers node by node
+# ---------------------------------------------------------------------------
+def _check_f32_blocks(name: str, B) -> None:
+    if not isinstance(B, NodeBlockMatrix):
+        raise ValueError(f"{name} needs a NodeBlockMatrix; got {type(B).__name__}")
+    if B.block_values.dtype != torch.float32:
+        raise ValueError(f"{name}: no kernel for {B.block_values.dtype} values")
+
+
+def node_block_spmv_cuda(B: NodeBlockMatrix, x: torch.Tensor,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3's product y = B x on f32 node blocks (the sweep kernel's
+    product epilogue) on x's device and PyTorch's current stream; no sync.
+    `out` (allocated here unless given) must not share memory with x."""
+    name = "node_block_spmv"
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor; got one on {x.device}")
+    _check_f32_blocks(name, B)
+    n2 = 2 * B.n_nodes
+    if out is None:
+        out = torch.empty(n2, dtype=torch.float32, device=x.device)
+    _check_args(name, x.device, _node_block_args(B) + [
+        ("x", x, torch.float32, (n2,)), ("out", out, torch.float32, (n2,))])
+    if _aliases(out, x):
+        raise ValueError(f"{name}: out must not alias x")
+    if x.data_ptr() % 8 or out.data_ptr() % 8 or B.block_values.data_ptr() % 16:
+        raise ValueError(f"{name}: vectors must be 8-byte aligned, block values 16-byte aligned")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _library_sweep().node_block_spmv(
+        B.n_nodes, B.node_ptr.data_ptr(), B.block_cols.data_ptr(), B.block_values.data_ptr(),
+        x.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def node_block_matvec(B: NodeBlockMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = B x on f32 node blocks: K3's product on a CUDA tensor, the plain
+    version on a CPU tensor.  It equals the CSR row sums in index order
+    (the earlier K3, `csr_spmv_f32`) bit for bit."""
+    if x.is_cuda:
+        return node_block_spmv_cuda(B, x)
+    if x.device.type != "cpu":
+        raise ValueError(f"node_block_matvec: no route for device {x.device}")
+    _check_f32_blocks("node_block_matvec", B)
+    LAUNCHES["node_block_spmv_plain"] += 1
+    return node_block_matvec_plain(B, x)
+
+
+class NodeTransfer(NamedTuple):
+    """A multigrid transfer that acts on both displacement components
+    alike: P (fine node i copies or averages coarse nodes) or R = P^T, in
+    node form (K3's transfers).
+
+    Node k (rows 2k and 2k+1) owns entries node_ptr[k] .. node_ptr[k+1]-1:
+    node column m = node_cols[e], ascending, and weight w = weights[e],
+    standing for the DOF entries (2k, 2m, w) and (2k+1, 2m+1, w).  `width`
+    is the most entries a node has (kept so that the plain version needs no
+    host read)."""
+
+    node_ptr: torch.Tensor  # (n_nodes + 1,) int32
+    node_cols: torch.Tensor  # (n_entries,) int32
+    weights: torch.Tensor  # (n_entries,) float32
+    shape: Tuple[int, int]  # the DOF operator's (rows, columns)
+    width: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_ptr.shape[0] - 1
+
+
+def node_transfer(T, device) -> NodeTransfer:
+    """Host scipy CSR of a transfer (P or R) -> `NodeTransfer` on `device`,
+    weights rounded to f32.
+
+    Raises ValueError unless both sizes are even and rows 2k and 2k+1 carry
+    the same node columns, row 2k's in even columns and row 2k+1's in odd
+    ones, with equal weights: an operator that is not a node-level one
+    times I_2."""
+    T = sp.csr_matrix(T, copy=True)
+    T.sort_indices()
+    n_rows, n_cols = T.shape
+    if n_rows % 2 or n_cols % 2:
+        raise ValueError(f"node_transfer: operator {T.shape} has an odd size")
+    assert max(T.nnz, n_cols) < np.iinfo(np.int32).max, "transfer too large for int32 indices"
+    deg = np.diff(T.indptr)
+    rows = np.repeat(np.arange(n_rows), deg)
+    ev = rows % 2 == 0
+    ce, co = T.indices[ev], T.indices[~ev]
+    if not (np.array_equal(deg[0::2], deg[1::2]) and np.array_equal(ce // 2, co // 2)
+            and (ce % 2 == 0).all() and (co % 2 == 1).all()
+            and np.array_equal(T.data[ev], T.data[~ev])):
+        raise ValueError("node_transfer: rows 2k and 2k+1 differ in their node columns or "
+                         "weights; the operator is not a node-level one times I_2")
+    per_node = deg[0::2]
+
+    def dev(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
+
+    return NodeTransfer(
+        node_ptr=dev(np.concatenate([[0], np.cumsum(per_node)]), np.int32),
+        node_cols=dev(ce // 2, np.int32), weights=dev(T.data[ev], np.float32),
+        shape=(int(n_rows), int(n_cols)), width=int(per_node.max(initial=0)),
+    )
+
+
+def _transfer_epilogue(y: torch.Tensor, mask: Optional[torch.Tensor],
+                       z: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return y
+    y = torch.where(mask, y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return y if z is None else z + y
+
+
+def node_transfer_plain(T: NodeTransfer, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch transfer in the kernel's order: each node's entries in
+    order, w x_2m and w x_2m+1 as separate `torch.mul` and `torch.add`
+    calls from +0 (entries past a node's own are skipped, not added as
+    zeros); then `torch.where(mask, y, 0)` and `z + ...` as the V-cycle
+    writes them (`transfer`'s modes)."""
+    idx, own = _padded(T.node_ptr.long(), T.width, T.node_cols.shape[0])
+    w = torch.cat([T.weights, T.weights.new_zeros(1)]).index_select(0, idx)
+    cols = torch.cat([T.node_cols, T.node_cols.new_zeros(1)]).index_select(0, idx).long()
+    # [j, node, component]
+    prods = torch.mul(w[:, None], x.reshape(-1, 2).index_select(0, cols)).view(
+        T.width, T.n_nodes, 2)
+    acc = torch.zeros(T.n_nodes, 2, dtype=torch.float32, device=x.device)
+    for j in range(T.width):
+        acc = torch.where(own[j, :, None], torch.add(acc, prods[j]), acc)
+    return _transfer_epilogue(acc.reshape(-1), mask, z)
+
+
+_TRANSFER_MODES = {(False, False): 0, (True, False): 1, (True, True): 2}
+
+
+def node_transfer_cuda(T: NodeTransfer, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                       z: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3's transfer on x's device and PyTorch's current stream; no
+    sync.  `out` (allocated here unless given) must not share memory with
+    x or z."""
+    name = "node_transfer"
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor; got one on {x.device}")
+    if not isinstance(T, NodeTransfer):
+        raise ValueError(f"{name} needs a NodeTransfer; got {type(T).__name__}")
+    mode = _TRANSFER_MODES.get((mask is not None, z is not None))
+    if mode is None:
+        raise ValueError(f"{name}: z is added only under a mask")
+    n_out = T.shape[0]
+    if out is None:
+        out = torch.empty(n_out, dtype=torch.float32, device=x.device)
+    named = [("node_ptr", T.node_ptr, torch.int32, (T.n_nodes + 1,)),
+             ("node_cols", T.node_cols, torch.int32, tuple(T.weights.shape)),
+             ("weights", T.weights, torch.float32, tuple(T.node_cols.shape)),
+             ("x", x, torch.float32, (T.shape[1],)), ("out", out, torch.float32, (n_out,))]
+    if mask is not None:
+        named.append(("mask", mask, torch.bool, (n_out,)))
+    if z is not None:
+        named.append(("z", z, torch.float32, (n_out,)))
+    _check_args(name, x.device, named)
+    if _aliases(out, x) or (z is not None and _aliases(out, z)):
+        raise ValueError(f"{name}: out must not alias x or z")
+    if any(t.data_ptr() % 8 for t in (x, out) + ((z,) if z is not None else ())):
+        raise ValueError(f"{name}: x, z and out must be 8-byte aligned")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _library_transfer().node_transfer(
+        T.n_nodes, T.node_ptr.data_ptr(), T.node_cols.data_ptr(), T.weights.data_ptr(),
+        x.data_ptr(), 0 if mask is None else mask.data_ptr(), 0 if z is None else z.data_ptr(),
+        out.data_ptr(), mode, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def transfer(T: NodeTransfer, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A multigrid transfer with the V-cycle's epilogue: y = T x; with
+    `mask` (bool, the output level's free DOFs) where(mask, T x, 0), the
+    restriction's right-hand side; with `mask` and `z` z + where(mask, T x,
+    0), the prolongated correction.  K3's transfer kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if x.is_cuda:
+        return node_transfer_cuda(T, x, mask, z)
+    if x.device.type != "cpu":
+        raise ValueError(f"transfer: no route for device {x.device}")
+    if z is not None and mask is None:
+        raise ValueError("transfer: z is added only under a mask")
+    LAUNCHES["node_transfer_plain"] += 1
+    return node_transfer_plain(T, x, mask, z)
 
 
 # ---------------------------------------------------------------------------
@@ -882,7 +1177,10 @@ def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def sp_matvec(A, x: torch.Tensor) -> torch.Tensor:
     """Format-generic y = A x, by the operator's type: `CsrMatrix` through
-    K1/K3, `EllMatrix` through K6."""
+    K1 (or the f32 CSR kernel), f32 `NodeBlockMatrix` through K3's
+    product, `EllMatrix` through K6."""
+    if isinstance(A, NodeBlockMatrix):
+        return node_block_matvec(A, x)
     if isinstance(A, CsrMatrix):
         return csr_matvec(A, x)
     if isinstance(A, EllMatrix):

@@ -12,15 +12,19 @@ Every level's elastic operator, its transfers and its smoother blocks are
 assembled once on the host (NumPy/SciPy, f64) and go to the device in f32,
 in one of two formats (the JAX package's `fmt`):
 
-* "slot" (the default): CSR.  Smoothing is damped block-Jacobi (symmetric,
-  so the V-cycle is SPD and valid as a CG preconditioner) in the fused
-  kernel K4 (`ops.spmv.block_jacobi_sweep`), which reads the level's
-  operator in 2x2 node blocks (`ops.spmv.node_blocks`, built once here),
-  or, on a level that is packed, in K5, which reads those blocks rounded
-  to bf16: with the default `pack_bf16="auto"` the levels of 500,000 rows
-  or more, as in the JAX package.  CG's operator and the criterion keep
-  the fine level's f32 CSR, the only CSR operator kept on the device.  The
-  transfers run in K3;
+* "slot" (the default): node layouts, no CSR operator on the device.  Each
+  level's operator is stored once in 2x2 node blocks (`ops.spmv.node_blocks`,
+  built here from the host CSR).  Smoothing is damped block-Jacobi
+  (symmetric, so the V-cycle is SPD and valid as a CG preconditioner) in
+  the fused kernel K4 (`ops.spmv.block_jacobi_sweep`) on f32 blocks or, on
+  a level that is packed, in K5 on those blocks rounded to bf16: with the
+  default `pack_bf16="auto"` the levels of 500,000 rows or more, as in the
+  JAX package.  The fine level's f32 blocks are also CG's operator, the
+  criterion's and the predictor's (K3's product, `ops.spmv.node_block_matvec`;
+  on a packed fine level they keep f32 values of their own beside the bf16
+  ones, on the same structure).  The transfers are `ops.spmv.NodeTransfer`s
+  (K3's transfer kernel), which apply the V-cycle's masks and its
+  correction's add in the same launch;
 * "ell": `ops.spmv.EllMatrix` operators, P and R, applied by K6.  A level
   smooths through the unfused chain of the JAX package (its `_fused` is
   false for ELL): the masked residual r - A z through K6, then the 2x2
@@ -32,7 +36,7 @@ block.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import scipy.linalg as sla
@@ -61,18 +65,21 @@ def packs_bf16(n_rows: int, pack_bf16="auto") -> bool:
 
 class MGLevel(NamedTuple):
     """One level on the device.  P and R are None on the coarsest level.
-    Operators are `ops.spmv.CsrMatrix` (fmt "slot") or `EllMatrix` ("ell").
-    On a slot level below the finest, `op` is None: the V-cycle reads the
-    node blocks there (the host CSR stays in `build_hierarchy_ell`'s
-    `coarse["levels"]`)."""
+    On a slot level `op` is the fine level's f32 node blocks
+    (`ops.spmv.NodeBlockMatrix`) and None below it, where the V-cycle
+    reads `sweep_op` alone (the host CSR of every level stays in
+    `build_hierarchy_ell`'s `coarse["levels"]`); P and R are
+    `ops.spmv.NodeTransfer`s.  On an ELL level all three are
+    `ops.spmv.EllMatrix`."""
 
     # (2n_n, 2n_n) f32 elastic operator, BC rows unit-diagonal
-    op: Optional[spmv.CsrMatrix]
+    op: Optional[Union[spmv.NodeBlockMatrix, spmv.EllMatrix]]
     inv: torch.Tensor  # (n_n, 2, 2) f32 damped block-Jacobi inverse
     free: torch.Tensor  # (2n_n,) bool
     aux: spmv.SweepAux
-    P: Optional[spmv.CsrMatrix]  # (2n_n, 2n_c) f32 prolongation from the level below
-    R: Optional[spmv.CsrMatrix]  # (2n_c, 2n_n) f32 restriction, P^T
+    # (2n_n, 2n_c) f32 prolongation from the level below, and R = P^T
+    P: Optional[Union[spmv.NodeTransfer, spmv.EllMatrix]]
+    R: Optional[Union[spmv.NodeTransfer, spmv.EllMatrix]]
     # the smoother's operator on a slot level: op in 2x2 node blocks, f32
     # (K4) or, on a packed level, bf16 (K5); None on an ELL level
     sweep_op: Optional[spmv.NodeBlockMatrix] = None
@@ -91,16 +98,16 @@ def hierarchy_to_device(
     """Host level data -> `Hierarchy` on `device`.
 
     host_levels[l]: dict(K=scipy CSR (f64), inv=(n_n, 2, 2), free=(n_n, 2)
-    or flat bool, P=scipy CSR or None on level 0).  fmt: "slot" (CSR) or
-    "ell"; pack_bf16: `packs_bf16` for the slot levels.
+    or flat bool, P=scipy CSR or None on level 0).  fmt: "slot" (node
+    blocks and node transfers) or "ell"; pack_bf16: `packs_bf16` for the
+    slot levels.
     """
     if fmt not in FORMATS:
         raise ValueError(f"fmt must be one of {FORMATS}; got {fmt!r}")
-
-    def to_device(A):
-        if fmt == "ell":
-            return spmv.build_ell(A, device, np.float32)
-        return spmv.csr_to_device(A, device, np.float32)
+    if fmt == "ell":
+        to_transfer = lambda A: spmv.build_ell(A, device, np.float32)  # noqa: E731
+    else:
+        to_transfer = lambda A: spmv.node_transfer(A, device)  # noqa: E731
 
     levels = []
     for l, h in enumerate(host_levels):
@@ -111,14 +118,17 @@ def hierarchy_to_device(
             Ph = sp.csr_matrix(h["P"])
             Rh = Ph.T.tocsr()
             Rh.sum_duplicates()
-            P, R = to_device(Ph), to_device(Rh)
-        op = to_device(K)
-        sweep_op = None
-        if fmt == "slot":
-            pack = packs_bf16(K.shape[0], pack_bf16)
-            sweep_op = spmv.node_blocks(op, torch.bfloat16 if pack else torch.float32)
-            if l < len(host_levels) - 1:
-                op = None  # the fine level's CSR is CG's operator; the others go
+            P, R = to_transfer(Ph), to_transfer(Rh)
+        if fmt == "ell":
+            op, sweep_op = spmv.build_ell(K, device, np.float32), None
+        else:
+            # the level's f32 CSR lives only while its blocks are built
+            blocks = spmv.node_blocks(spmv.csr_to_device(K, device, np.float32))
+            sweep_op = blocks
+            if packs_bf16(K.shape[0], pack_bf16):
+                sweep_op = blocks._replace(block_values=blocks.block_values.to(torch.bfloat16))
+            # the fine level's f32 blocks are CG's operator
+            op = blocks if l == len(host_levels) - 1 else None
         levels.append(MGLevel(
             op=op,
             inv=torch.as_tensor(np.array(h["inv"], np.float32), device=device),
@@ -269,8 +279,12 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
     first pre-sweep from z = 0 is the damped block inverse applied to r (no
     operator application).  On a slot level the other sweeps and the masked
     residual are K4 launches on the level's node blocks, K5 on a packed
-    level; on an ELL level a K6 product and elementwise ops each.  The
-    transfers are K3 or K6 launches.
+    level; on an ELL level a K6 product and elementwise ops each.  On a
+    slot level each transfer is one K3 launch that also masks R's output
+    with the coarse level's free DOFs, or adds P's masked output to z; on
+    an ELL level a K6 launch and the elementwise `torch.where` (and add),
+    the same operations, as the JAX package writes them
+    (`multigrid.py:961`, `:1014-1015`).
     """
     if cycle != "v":
         raise NotImplementedError(f"make_vcycle_ell: cycle {cycle!r} is not ported")
@@ -292,9 +306,21 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
             return z + torch.where(lev.free, block_inverse(lev, res), zero) if update else res
         return spmv.block_jacobi_sweep(lev.sweep_op, lev.aux, z, r, update)
 
+    def restrict(li: int, res: torch.Tensor) -> torch.Tensor:
+        # the right-hand side of level li - 1, masked by its free DOFs
+        lev, free_c = levels[li], levels[li - 1].free
+        if isinstance(lev.R, spmv.NodeTransfer):
+            return spmv.transfer(lev.R, res, mask=free_c)
+        return torch.where(free_c, spmv.sp_matvec(lev.R, res), zero)
+
+    def prolong_add(lev: MGLevel, z: torch.Tensor, z_c: torch.Tensor) -> torch.Tensor:
+        if isinstance(lev.P, spmv.NodeTransfer):
+            return spmv.transfer(lev.P, z_c, mask=lev.free, z=z)
+        return z + torch.where(lev.free, spmv.sp_matvec(lev.P, z_c), zero)
+
     def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
+        # r: masked by the level's free DOFs
         lev = levels[li]
-        r = torch.where(lev.free, r, zero)
         if li == 0:
             z = torch.zeros_like(r)
             z[hier.free_idx0] = hier.inv0 @ r[hier.free_idx0]
@@ -304,10 +330,10 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
         for _ in range(nu_pre - 1):
             z = sweep(lev, z, r)
         res = sweep(lev, z, r, update=False)
-        z_c = vcycle(li - 1, spmv.sp_matvec(lev.R, res))
-        z = z + torch.where(lev.free, spmv.sp_matvec(lev.P, z_c), zero)
+        z = prolong_add(lev, z, vcycle(li - 1, restrict(li, res)))
         for _ in range(nu_post):
             z = sweep(lev, z, r)
         return z
 
-    return lambda r: vcycle(len(levels) - 1, r)
+    fine = levels[-1]
+    return lambda r: vcycle(len(levels) - 1, torch.where(fine.free, r, zero))

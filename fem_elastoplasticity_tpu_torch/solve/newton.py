@@ -43,7 +43,7 @@ import torch
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
-from ..ops.spmv import sp_matvec
+from ..ops.spmv import NodeBlockMatrix, sp_matvec
 from .cg import block_jacobi_preconditioner, solve_cg
 
 
@@ -75,6 +75,19 @@ def _spd_solve_mixed(K: torch.Tensor, b: torch.Tensor, ir_iters: int = 3) -> tor
     for _ in range(ir_iters):
         x = x + apply_inv(b - K @ x)
     return torch.where(info == 0, x, torch.full_like(x, math.nan))
+
+
+def refreshed_values(values: torch.Tensor, corr: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """A copy of the flat `values` with `corr` added at the positions `dest`
+    (a `corr`-shaped int64 table; `values.numel()` for a dropped entry,
+    which lands on a slot past the values and is cut off again: it must not
+    wrap round to the last entry).  Two blocks of neighbouring elements hit
+    the same entry, and the accumulating index_put_ sorts the destinations
+    and adds each entry's contributions in their given order, so the sum
+    has a fixed order (an atomic scatter-add would not)."""
+    vals = torch.cat([values, values.new_zeros(1)])
+    vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
+    return vals[:values.numel()]
 
 
 class LoadSteppingResult(NamedTuple):
@@ -198,16 +211,18 @@ def build_load_stepper(
                 otherwise.
       mg_preconditioner: r -> z, `solve.multigrid.make_vcycle_ell`.
       elastic_op: the assembled elastic stiffness (f32) with
-                unit-diagonal constrained rows, `ops.spmv.CsrMatrix` (kernel
-                K3) or `EllMatrix` (K6).  It applies the criterion norms,
+                unit-diagonal constrained rows, `ops.spmv.NodeBlockMatrix`
+                (kernel K3's product) or `EllMatrix` (K6).  It applies the
+                criterion norms,
                 and with the plastic slot set's B_p^T (w delta) B_p blocks
                 it is the tangent (exact: the tangent equals the elastic one
                 off the plastic set).
       plastic_cap: static size of the plastic slot set; invalid slots carry
                 zero blocks.  More plastic points than the cap degrade the
                 tangent (extra Newton iterations), never the residual.
-      corr_dest: (n_e, 2n_p, 2n_p) integer table, `ops.spmv.element_corr_dest`:
-                the position in a CSR `elastic_op.values` of each
+      corr_dest: (n_e, 2n_p, 2n_p) integer table, `ops.spmv.element_corr_dest`
+                mapped through `ops.spmv.node_block_dest`: the position in
+                the node-block `elastic_op.block_values` (flat) of each
                 element-block entry, -1 where a DOF is constrained
                 (dropped).  Given (the JAX package's corr_mode="scatter"),
                 each Newton iteration scatters the blocks into a copy of the
@@ -240,6 +255,8 @@ def build_load_stepper(
         raise NotImplementedError(
             "solver='cg' is ported matrix-free or on elastic_op refreshed through corr_dest"
         )
+    if corr_dest is not None and not isinstance(elastic_op, NodeBlockMatrix):
+        raise NotImplementedError("the tangent refresh writes the values of f32 node blocks")
     if solver == "mg" and (
         mg_preconditioner is None or elastic_op is None or plastic_cap is None
     ):
@@ -316,8 +333,8 @@ def build_load_stepper(
         # q1 = |dU|_K, q2 = |U_it|_K, q3 = |U_it + dU|_K in the elastic
         # energy norm, q3^2 = q2^2 + 2 dU.K.U_it + q1^2
         if elastic_op is not None:
-            # assembled elastic operator through K3 or K6: its constrained
-            # rows are unit-diagonal, but dU and U_it vanish there
+            # assembled elastic operator through K3's product or K6: its
+            # constrained rows are unit-diagonal, but dU and U_it vanish there
             KdU = sp_matvec(elastic_op, dU)
             KU = sp_matvec(elastic_op, U_head)
         else:
@@ -367,22 +384,15 @@ def build_load_stepper(
         if solver == "cg":
             slot_map = asm.node_slot_map(geom_t)
         if corr_dest is not None:
-            n_vals = elastic_op.values.shape[0]
-            # -1 (constrained) destinations go to a slot past the values,
-            # which is cut off again: they must not wrap round to the last
-            # entry
+            # -1 (constrained) destinations go past the block values
+            n_vals = elastic_op.block_values.numel()
             dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
 
     def refreshed(corr, dest):
-        """The elastic operator with `corr` added at the value positions
-        `dest` (`dest_table` rows, past-the-end for dropped entries).  Two
-        blocks of neighbouring elements hit the same entry, and the
-        accumulating index_put_ sorts the destinations and adds each
-        entry's contributions in their given order, so the sum has a fixed
-        order (an atomic scatter-add would not)."""
-        vals = torch.cat([elastic_op.values, elastic_op.values.new_zeros(1)])
-        vals.index_put_((dest.reshape(-1),), corr.reshape(-1).to(vals.dtype), accumulate=True)
-        return elastic_op._replace(values=vals[:n_vals].contiguous())
+        """The elastic node blocks with `corr` added at the block-value
+        positions `dest` (`dest_table` rows), `refreshed_values`."""
+        vals = refreshed_values(elastic_op.block_values.reshape(-1), corr, dest)
+        return elastic_op._replace(block_values=vals.reshape(-1, 4))
 
     def tangent_operator(d, ind_p):
         """v -> K_tangent v.  solver="cg": the matrix-free tangent, or the

@@ -293,9 +293,11 @@ def test_ell_scale_slice_against_jax():
 
 @pytest.mark.parametrize("name,kw,kernels", [
     ("tsx_scale_l1_gather", dict(corr_mode="gather"),
-     {"csr_spmv_f32_plain", "block_jacobi_sweep_plain", "csr_spmv_f64_plain"}),
+     {"node_block_spmv_plain", "node_transfer_plain", "block_jacobi_sweep_plain",
+      "csr_spmv_f64_plain"}),
     ("tsx_scale_l1_res_ell", dict(residual_fmt="ell"),
-     {"csr_spmv_f32_plain", "block_jacobi_sweep_plain", "ell_spmv_f64_plain"}),
+     {"node_block_spmv_plain", "node_transfer_plain", "block_jacobi_sweep_plain",
+      "ell_spmv_f64_plain"}),
     ("tsx_scale_l1_ell_res_csr", dict(spmv_fmt="ell", corr_mode="gather"),
      {"ell_spmv_f32_plain", "csr_spmv_f64_plain"}),
 ], ids=["slot-gather", "slot-scatter-res_ell", "ell-gather-res_csr"])

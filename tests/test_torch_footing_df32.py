@@ -141,7 +141,7 @@ def test_cg_paths_against_jax_fixtures(name):
     assert rel(r.pressure_hist[1:s + 1], exp["pressure_hist"][1:s + 1]) < (
         1e-9 if name.startswith("footing_cg_f64") else 1e-6)
     if "acg" in name:
-        assert launches["csr_spmv_f32_plain"] >= r.n_cg_total  # every CG product
+        assert launches["node_block_spmv_plain"] >= r.n_cg_total  # every CG product
         assert launches["csr_spmv_f64_plain"] > 0  # the residual's G and S
         assert not {k: v for k, v in launches.items() if not k.endswith("_plain")}
     else:

@@ -141,26 +141,36 @@ def test_f32_solves_run_through_k2(cuda_k2):
 
 @pytest.fixture(scope="module")
 def cuda_scale():
-    """The card with K1, K3 and K4 built, and the level-1 hierarchy on it."""
+    """The card with K1, K3 (its node kernels and its earlier CSR one), K4
+    and K6 built; the level-1 hierarchy on it; and its fine level's
+    operator and transfers as f32 CSR on the card (the hierarchy keeps
+    none), {"K", "P", "R"}."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     spmv.load_kernel()
     spmv.load_kernel_f32()
     spmv.load_sweep_kernel()
+    spmv.load_transfer_kernel()
     spmv.load_ell_kernel()
     device = torch.device("cuda")
     extras = {}
     tsx.build_df32(TsxTunnelConfig.fast_scale(1), device=device, extras=extras)
-    return device, extras["hierarchy"]
+    top = extras["host_levels"][-1]
+    P = top["P"].tocsr()
+    R = P.T.tocsr()
+    R.sum_duplicates()
+    csr = {k: spmv.csr_to_device(A, device, np.float32) for k, A in (("K", top["K"]), ("P", P),
+                                                                       ("R", R))}
+    return device, extras["hierarchy"], csr
 
 
 @pytest.mark.parametrize("which", ["K", "P", "R"])
 def test_k3_matches_plain(cuda_scale, which):
-    """Square (the fine elastic operator) and rectangular (the transfers):
-    the kernel and the plain version differ by the order of the row sum."""
-    device, hier = cuda_scale
-    fine = hier.levels[-1]
-    A = {"K": fine.op, "P": fine.P, "R": fine.R}[which]
+    """K3's earlier design, the f32 CSR kernel, square (the fine elastic
+    operator) and rectangular (the transfers): the kernel and the plain
+    version differ by the order of the row sum."""
+    device, _, csr = cuda_scale
+    A = csr[which]
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.standard_normal(A.shape[1]).astype(np.float32), device=device)
     y = spmv.csr_matvec(A, x)
@@ -174,8 +184,8 @@ def test_k3_matches_plain(cuda_scale, which):
 
 
 def test_k3_refuses_wrong_inputs(cuda_scale):
-    device, hier = cuda_scale
-    A = hier.levels[-1].op
+    device, _, csr = cuda_scale
+    A = csr["K"]
     x = torch.zeros(A.shape[1], dtype=torch.float32, device=device)
     with pytest.raises(ValueError):  # dtype
         spmv.csr_spmv_f32_cuda(A, x.double())
@@ -195,18 +205,18 @@ def test_k4_matches_plain(cuda_scale, update):
     version on the blocks (the same order of summation), within 5e-6 of the
     plain version on the CSR, constrained rows exact, launches
     bit-identical."""
-    device, hier = cuda_scale
+    device, hier, csr = cuda_scale
     lev = hier.levels[-1]
     B = lev.sweep_op
     assert B.block_values.dtype == torch.float32
-    n = lev.op.shape[0]
+    n = B.shape[0]
     rng = np.random.default_rng(4)
     z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
     r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
-    r = r * spmv.csr_matvec_plain(lev.op, z).abs().max()
+    r = r * spmv.csr_matvec_plain(csr["K"], z).abs().max()
     got = spmv.block_jacobi_sweep(B, lev.aux, z, r, update)
     assert torch.equal(got, spmv.node_block_sweep_plain(B, lev.aux, z, r, update))
-    exp = spmv.block_jacobi_sweep_plain(lev.op, lev.aux, z, r, update)
+    exp = spmv.block_jacobi_sweep_plain(csr["K"], lev.aux, z, r, update)
     assert float((got - exp).abs().max()) <= 5e-6 * float(exp.abs().max())
     fixed = lev.aux.mask == 0
     assert int(fixed.sum()) > 0
@@ -219,7 +229,7 @@ def test_k4_and_its_plain_version_replay_in_a_cuda_graph(cuda_scale):
     graph, as `chip_smoke.py` times them: neither may read the card from
     the host (the plain version pads to the layout's stored width), and the
     replays give the eager bits."""
-    device, hier = cuda_scale
+    device, hier, _ = cuda_scale
     lev = hier.levels[-1]
     B = lev.sweep_op
     n = 2 * B.n_nodes
@@ -242,10 +252,10 @@ def test_k4_and_its_plain_version_replay_in_a_cuda_graph(cuda_scale):
 
 
 def test_k4_refuses_wrong_inputs_and_aliasing(cuda_scale):
-    device, hier = cuda_scale
+    device, hier, csr = cuda_scale
     lev = hier.levels[-1]
     B = lev.sweep_op
-    n = lev.op.shape[0]
+    n = B.shape[0]
     z = torch.zeros(n, dtype=torch.float32, device=device)
     r = torch.ones(n, dtype=torch.float32, device=device)
     with pytest.raises(ValueError):  # out aliases z: the sweep is Jacobi
@@ -257,9 +267,9 @@ def test_k4_refuses_wrong_inputs_and_aliasing(cuda_scale):
     with pytest.raises(ValueError):  # device
         spmv.block_jacobi_sweep_cuda(B, lev.aux, z, r.cpu())
     with pytest.raises(ValueError):  # the CSR operator: the sweep reads node blocks only
-        spmv.block_jacobi_sweep_cuda(lev.op, lev.aux, z, r)
+        spmv.block_jacobi_sweep_cuda(csr["K"], lev.aux, z, r)
     with pytest.raises(ValueError):  # a rectangular operator has no 2x2 node blocks
-        spmv.node_blocks(lev.P)
+        spmv.node_blocks(csr["P"])
     misaligned = B.block_values.new_zeros(B.block_values.numel() + 2)[2:].view(-1, 4)
     with pytest.raises(ValueError):  # f32 block values off their 16-byte alignment
         spmv.block_jacobi_sweep_cuda(B._replace(block_values=misaligned), lev.aux, z, r)
@@ -270,8 +280,8 @@ def test_k4_refuses_wrong_inputs_and_aliasing(cuda_scale):
 def test_node_blocks_raise_on_the_card(cuda_scale):
     """The layout builder refuses an unsorted or non-blocked operator on the
     card as on the CPU: no route back to a CSR sweep."""
-    _, hier = cuda_scale
-    A = hier.levels[-1].op
+    _, _, csr = cuda_scale
+    A = csr["K"]
     spmv.node_blocks(A)
     idx = A.indices.clone()
     lo, hi = int(A.indptr[5]), int(A.indptr[6])
@@ -292,12 +302,13 @@ def test_node_blocks_raise_on_the_card(cuda_scale):
 
 
 def test_scale_solve_runs_through_k3_k4_k1(cuda_scale):
-    device, _ = cuda_scale
+    device, _, _ = cuda_scale
     spmv.LAUNCHES.clear()
     r = tsx.solve(TsxTunnelConfig.fast_scale(1), device=device)
-    for name in ("csr_spmv_f32", "block_jacobi_sweep", "csr_spmv_f64"):
+    for name in ("node_block_spmv", "node_transfer", "block_jacobi_sweep", "csr_spmv_f64"):
         assert spmv.LAUNCHES[name] > 0, name
     assert not any(v for k, v in spmv.LAUNCHES.items() if k.endswith("_plain"))
+    assert spmv.LAUNCHES["csr_spmv_f32"] == 0  # no CSR operator on the path
     assert (r.n_steps, r.n_plastic) == (17, 20)
     assert abs(r.u[40, 0] + 2.166787295662e-03) / 2.166787295662e-03 < 1e-8
 
@@ -307,16 +318,17 @@ def test_k5_matches_plain_and_k4_on_rounded_values(cuda_scale, update):
     """K5 on the level-1 fine operator's bf16 values: within 5e-6 of its
     plain version, bit for bit K4 on the same values widened to f32 (one
     template, one order), constrained rows exact, launches bit-identical."""
-    device, hier = cuda_scale
+    device, hier, csr = cuda_scale
     lev = hier.levels[-1]
-    pk = spmv.node_blocks(lev.op, torch.bfloat16)
+    A = csr["K"]
+    pk = spmv.node_blocks(A, torch.bfloat16)
     widened = pk._replace(block_values=pk.block_values.to(torch.float32).contiguous())
-    widened_csr = lev.op._replace(values=lev.op.values.to(torch.bfloat16).to(torch.float32))
-    n = lev.op.shape[0]
+    widened_csr = A._replace(values=A.values.to(torch.bfloat16).to(torch.float32))
+    n = A.shape[0]
     rng = np.random.default_rng(5)
     z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
     r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
-    r = r * spmv.csr_matvec_plain(lev.op, z).abs().max()
+    r = r * spmv.csr_matvec_plain(A, z).abs().max()
     spmv.LAUNCHES.clear()
     got = spmv.block_jacobi_sweep(pk, lev.aux, z, r, update)
     assert spmv.LAUNCHES == {"block_jacobi_sweep_bf16": 1}
@@ -331,10 +343,129 @@ def test_k5_matches_plain_and_k4_on_rounded_values(cuda_scale, update):
     assert float((y - spmv.csr_matvec_plain(widened_csr, z)).abs().max()) <= 2e-6 * float(y.abs().max())
 
 
+def test_node_block_product_matches_plain_and_the_csr_kernel(cuda_scale):
+    """K3's product on the level-1 fine operator's f32 node blocks: bit for
+    bit its plain version and the CSR kernel (its earlier design) on the
+    same operator and vector, launches bit-identical; a new value array on
+    the same blocks, as the tangent refresh passes it, scales exactly."""
+    device, hier, csr = cuda_scale
+    B = hier.levels[-1].op
+    assert B.block_values.dtype == torch.float32
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal(B.shape[0]).astype(np.float32),
+                        device=device)
+    spmv.LAUNCHES.clear()
+    y = spmv.sp_matvec(B, x)
+    assert spmv.LAUNCHES == {"node_block_spmv": 1}
+    assert torch.equal(y, spmv.node_block_matvec_plain(B, x))
+    assert torch.equal(y, spmv.csr_spmv_f32_cuda(csr["K"], x))
+    assert torch.equal(y, spmv.node_block_matvec(B, x))
+    B2 = B._replace(block_values=(2.0 * B.block_values).contiguous())
+    assert torch.equal(spmv.node_block_matvec(B2, x), 2.0 * y)
+
+
+@pytest.mark.parametrize("mode", ["plain", "masked", "masked_add"])
+@pytest.mark.parametrize("which", ["P", "R"])
+def test_node_transfer_matches_plain_and_the_csr_kernel(cuda_scale, which, mode):
+    """K3's transfer kernel on the level-1 hierarchy's P and R in each
+    mode: bit for bit its plain version, and the CSR kernel followed by
+    `torch.where` (and the add), as the V-cycle ran them before."""
+    device, hier, csr = cuda_scale
+    T = getattr(hier.levels[-1], which)
+    mask = {"P": hier.levels[-1].free, "R": hier.levels[0].free}[which]
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.standard_normal(T.shape[1]).astype(np.float32), device=device)
+    z = torch.as_tensor(rng.standard_normal(T.shape[0]).astype(np.float32), device=device)
+    mask, z = {"plain": (None, None), "masked": (mask, None), "masked_add": (mask, z)}[mode]
+    spmv.LAUNCHES.clear()
+    y = spmv.transfer(T, x, mask, z)
+    assert spmv.LAUNCHES == {"node_transfer": 1}
+    assert torch.equal(y, spmv.node_transfer_plain(T, x, mask, z))
+    want = spmv.csr_spmv_f32_cuda(csr[which], x)
+    if mask is not None:
+        want = torch.where(mask, want, torch.zeros((), device=device))
+    if z is not None:
+        want = z + want
+    assert torch.equal(y, want)
+    assert torch.equal(y, spmv.transfer(T, x, mask, z))
+
+
+def test_k3_node_kernels_and_plain_versions_replay_in_a_cuda_graph(cuda_scale):
+    """Both node kernels of K3 and their plain versions are captured in a
+    CUDA graph, as `chip_smoke.py` times them: none reads the card from the
+    host, and the replays give the eager bits."""
+    device, hier, _ = cuda_scale
+    fine, coarse = hier.levels[-1], hier.levels[0]
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor(rng.standard_normal(fine.op.shape[0]).astype(np.float32), device=device)
+    xc = torch.as_tensor(rng.standard_normal(fine.P.shape[1]).astype(np.float32), device=device)
+    calls = [lambda: spmv.node_block_spmv_cuda(fine.op, x),
+             lambda: spmv.node_block_matvec_plain(fine.op, x),
+             lambda: spmv.node_transfer_cuda(fine.P, xc, fine.free, x),
+             lambda: spmv.node_transfer_plain(fine.P, xc, fine.free, x),
+             lambda: spmv.node_transfer_cuda(fine.R, x, coarse.free),
+             lambda: spmv.node_transfer_plain(fine.R, x, coarse.free)]
+    for i, fn in enumerate(calls):
+        eager = fn()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), i
+
+
+def test_k3_node_kernels_refuse_wrong_inputs_and_aliasing(cuda_scale):
+    device, hier, csr = cuda_scale
+    fine, coarse = hier.levels[-1], hier.levels[0]
+    B, P, R = fine.op, fine.P, fine.R
+    x = torch.zeros(B.shape[0], dtype=torch.float32, device=device)
+    xc = torch.zeros(P.shape[1], dtype=torch.float32, device=device)
+    spmv.LAUNCHES.clear()
+    with pytest.raises(ValueError):  # dtype
+        spmv.node_block_spmv_cuda(B, x.double())
+    with pytest.raises(ValueError):  # shape
+        spmv.node_block_spmv_cuda(B, x[:-2])
+    with pytest.raises(ValueError):  # device
+        spmv.node_block_spmv_cuda(B, x.cpu())
+    with pytest.raises(ValueError):  # out aliases x
+        spmv.node_block_spmv_cuda(B, x, out=x)
+    with pytest.raises(ValueError):  # bf16 blocks: no product kernel
+        spmv.node_block_spmv_cuda(B._replace(block_values=B.block_values.to(torch.bfloat16)), x)
+    with pytest.raises(ValueError):  # a CSR operator
+        spmv.node_block_spmv_cuda(csr["K"], x)
+    misaligned = B.block_values.new_zeros(B.block_values.numel() + 2)[2:].view(-1, 4)
+    with pytest.raises(ValueError):  # f32 block values off their 16-byte alignment
+        spmv.node_block_spmv_cuda(B._replace(block_values=misaligned), x)
+    with pytest.raises(ValueError):  # dtype
+        spmv.node_transfer_cuda(P, xc.double())
+    with pytest.raises(ValueError):  # shape: R's input to P
+        spmv.node_transfer_cuda(P, x)
+    with pytest.raises(ValueError):  # device
+        spmv.node_transfer_cuda(R, x.cpu())
+    with pytest.raises(ValueError):  # a float mask
+        spmv.node_transfer_cuda(R, x, coarse.free.float())
+    with pytest.raises(ValueError):  # the mask of the wrong level
+        spmv.node_transfer_cuda(R, x, fine.free)
+    with pytest.raises(ValueError):  # z without a mask
+        spmv.node_transfer_cuda(P, xc, None, x)
+    with pytest.raises(ValueError):  # out aliases z
+        spmv.node_transfer_cuda(P, xc, fine.free, x, out=x)
+    with pytest.raises(ValueError):  # a CSR transfer
+        spmv.node_transfer_cuda(csr["P"], xc)
+    assert not spmv.LAUNCHES
+    out = torch.empty_like(x)
+    assert spmv.node_block_spmv_cuda(B, xc.new_zeros(B.shape[0]), out=out) is out
+
+
 @pytest.fixture(scope="module")
 def cuda_ell(cuda_scale):
     """The level-1 ELL hierarchy and the ELL residual operators on the card."""
-    device, _ = cuda_scale
+    device, _, _ = cuda_scale
     extras = {}
     cfg = TsxTunnelConfig.fast_scale(1, spmv_fmt="ell", corr_mode="gather", residual_fmt="ell")
     tsx.build_df32(cfg, device=device, extras=extras)

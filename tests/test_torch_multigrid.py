@@ -76,11 +76,11 @@ def test_hierarchy_equals_jax(levels):
         np.testing.assert_array_equal(lev.inv.numpy(), np.asarray(ja["inv"]))
         np.testing.assert_array_equal(lev.free.numpy(), np.asarray(ja["free"]))
         # the device operator is the host CSR rounded to f32, entry for
-        # entry: as CSR on the fine level, as node blocks on every level
+        # entry, in node blocks on every level; the fine level's f32 blocks
+        # are also CG's operator, and no level keeps a CSR on the device
         K32 = host["K"].astype(np.float32)
         if l == levels:
-            np.testing.assert_array_equal(lev.op.values.numpy(), K32.data)
-            np.testing.assert_array_equal(lev.op.indices.numpy(), host["K"].indices)
+            assert lev.op is lev.sweep_op
         else:
             assert lev.op is None
         B = lev.sweep_op
@@ -93,7 +93,14 @@ def test_hierarchy_equals_jax(levels):
             _same_csr(host["P"], jl["P"])
             assert lev.P.shape == (lev.free.shape[0], hier.levels[l - 1].free.shape[0])
             assert lev.R.shape == lev.P.shape[::-1]
-            assert set(np.unique(lev.P.values.numpy())) <= {0.5, 1.0}
+            assert set(np.unique(lev.P.weights.numpy())) <= {0.5, 1.0}
+            # node transfers times I_2 are the host P and R in f32
+            P32 = host["P"].astype(np.float32)
+            for T, want in ((lev.P, P32), (lev.R, P32.T.tocsr())):
+                nodes = sp.csr_matrix((T.weights.numpy(), T.node_cols.numpy(),
+                                       T.node_ptr.numpy()),
+                                      shape=(T.shape[0] // 2, T.shape[1] // 2))
+                assert (sp.kron(nodes, sp.eye(2, dtype=np.float32)) != want).nnz == 0
     np.testing.assert_array_equal(hier.inv0.numpy(), np.asarray(jcoarse["inv0"]))
     np.testing.assert_array_equal(hier.free_idx0.numpy(), np.asarray(jcoarse["free_idx0"]))
     _same_csr(coarse["fine_K"], jcoarse["fine_K"])
@@ -127,9 +134,10 @@ def test_vcycle_matches_jax(levels):
     exp = np.asarray(_jax_vcycle(jarr, jmeta, jcoarse)(jnp.asarray(r)))
     pspmv.LAUNCHES.clear()
     got = pmg.make_vcycle_ell(hier, nu=2)(torch.as_tensor(r)).numpy()
-    # nu = 2: per level above the coarsest 1 + 1 + 2 K4 calls and R, P
+    # nu = 2: per level above the coarsest 1 + 1 + 2 K4 calls and R, P,
+    # each transfer one call with its mask (and add)
     assert pspmv.LAUNCHES == {"block_jacobi_sweep_plain": 4 * levels,
-                              "csr_spmv_f32_plain": 2 * levels}
+                              "node_transfer_plain": 2 * levels}
     assert np.abs(got - exp).max() <= 2e-5 * np.abs(exp).max()
     assert (got[~np.asarray(hier.levels[-1].free)] == 0).all()
 
@@ -161,7 +169,7 @@ def test_vcycle_preconditioned_cg_matches_jax():
         lambda v: jspmv.sp_matvec(jarr[-1]["op"], jmeta[-1]["op"], v), jnp.asarray(b),
         jnp.asarray(free), precond=jpre, tol=1e-5, maxiter=40)
     rp = pcg.solve_cg(
-        lambda v: pspmv.csr_matvec(fine.op, v), torch.as_tensor(b), fine.free,
+        lambda v: pspmv.sp_matvec(fine.op, v), torch.as_tensor(b), fine.free,
         precond=pmg.make_vcycle_ell(hier, nu=2), tol=1e-5, maxiter=40)
     assert rp.converged and bool(rj.converged)
     assert abs(rp.iters - int(rj.iters)) <= 1 and rp.iters <= 25

@@ -175,8 +175,8 @@ def test_block_plain_sweep_keeps_the_csr_order(update):
     Kp = blocked_spd(300, 9, partial=0.3)
     cases = [(pspmv.csr_to_device(Kb, "cpu", np.float32), pspmv.sweep_aux(inv, free, "cpu")),
              (pspmv.csr_to_device(Kp, "cpu", np.float32), pspmv.sweep_aux(inv, free, "cpu"))]
-    fine = scale_levels(2)[0].levels[-1]
-    cases.append((fine.op, fine.aux))
+    hier, ops = scale_levels(2)
+    cases.append((ops[-1], hier.levels[-1].aux))
     rng = np.random.default_rng(7)
     for A, aux in cases:
         n = A.shape[0]

@@ -186,7 +186,7 @@ def test_packed_vcycle_matches_jax(jax_l1_packed):
     exp = np.asarray(_jax_vcycle(jarr, jmeta, jcoarse)(jnp.asarray(r)))
     pspmv.LAUNCHES.clear()
     got = pmg.make_vcycle_ell(hier, nu=2)(torch.as_tensor(r)).numpy()
-    assert pspmv.LAUNCHES == {"block_jacobi_sweep_bf16_plain": 4, "csr_spmv_f32_plain": 2}
+    assert pspmv.LAUNCHES == {"block_jacobi_sweep_bf16_plain": 4, "node_transfer_plain": 2}
     assert np.abs(got - exp).max() <= 1e-5 * np.abs(exp).max()
     assert (got[~hier.levels[-1].free.numpy()] == 0).all()
 

@@ -69,7 +69,8 @@ def test_level1_full_schedule_against_jax(l1):
     np.testing.assert_array_equal((r.ep != 0).any(axis=0), (exp["ep"] != 0).any(axis=0))
     assert np.abs(r.ep - exp["ep"]).max() <= 1e-7 * np.abs(exp["ep"]).max()
     # on the CPU every operator application is a plain version
-    assert set(launches) == {"csr_spmv_f32_plain", "block_jacobi_sweep_plain", "csr_spmv_f64_plain"}
+    assert set(launches) == {"node_block_spmv_plain", "node_transfer_plain",
+                             "block_jacobi_sweep_plain", "csr_spmv_f64_plain"}
     assert all(v > 0 for v in launches.values())
 
 

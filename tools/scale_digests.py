@@ -5,7 +5,11 @@ Runs, on the card, the scale solves whose digests `chip_smoke.py` prints
 (phases 14, 17 and 21): `solve(TsxTunnelConfig.fast_scale(1))`, and
 `build_df32(fast_scale(L))`'s `run()` once for L = 4 and 5.  For each it prints the steps / Newton / CG /
 plastic counts, u[40,0], the sha256 of u's f64 bytes (as `chip_smoke.py`
-prints it) and the sweep kernels' launches, and ends with one JSON line.
+prints it), the launches of each hand-written kernel, and device memory
+(`torch.cuda.max_memory_allocated` after a reset, above what the process
+held before): for L = 4 and 5 the setup's peak, what the setup leaves
+allocated and the solve's peak; for L = 1 the peak of `solve`.  It ends
+with one JSON line.
 
     python tools/scale_digests.py [--root DIR]
 
@@ -45,6 +49,9 @@ def main() -> int:
     out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
     for level in LEVELS:
         cfg = TsxTunnelConfig.fast_scale(level)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held, mem = torch.cuda.memory_allocated(), {}
         t0 = time.perf_counter()
         if level == 1:
             spmv.LAUNCHES.clear()
@@ -52,18 +59,26 @@ def main() -> int:
         else:
             extras = {}
             run, mesh = tsx.build_df32(cfg, device=device, extras=extras)
+            torch.cuda.synchronize()
+            mem["setup_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            mem["after_setup_gib"] = (torch.cuda.memory_allocated() - held) / 2**30
+            torch.cuda.reset_peak_memory_stats()
             spmv.LAUNCHES.clear()
             r = tsx._df32_result(run(), mesh, extras)
         torch.cuda.synchronize()
+        mem["solve_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
         u = np.ascontiguousarray(r.u, dtype=np.float64)
         rec = dict(
             counts=[r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic],
             u40=float(u[40, 0]), u_sha256=hashlib.sha256(u.tobytes()).hexdigest(),
-            launches={k: v for k, v in spmv.LAUNCHES.items() if "sweep" in k},
-            wall_s=time.perf_counter() - t0,
+            launches={k: v for k, v in spmv.LAUNCHES.items() if v},
+            wall_s=time.perf_counter() - t0, **mem,
         )
         out[f"L{level}"] = rec
         print(f"[L{level}] {rec}", flush=True)
+        del r, u
+        if level != 1:
+            del run, mesh, extras
     print(json.dumps(out), flush=True)
     return 0
 
