@@ -9,8 +9,9 @@ them against the repository's anchors:
   2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
                 (ops/csrc/dp_return_map.cu), K3 (its product on node blocks
                 in ops/csrc/block_jacobi_sweep.cu, its transfers in
-                ops/csrc/node_transfer.cu, and its earlier design
-                ops/csrc/csr_spmv_f32.cu), K4 and K5
+                ops/csrc/node_transfer.cu, and its CSR kernel
+                ops/csrc/csr_spmv_f32.cu, the footing scale path's Galerkin
+                value maps), K4 and K5
                 (ops/csrc/block_jacobi_sweep.cu), K6 (ops/csrc/ell_spmv.cu)
                 and K7 (ops/csrc/cholesky_blocked.cu) with nvcc, one process
                 a source, all at once;
@@ -145,6 +146,39 @@ them against the repository's anchors:
                 version and no CSR K3, K4 as often on each of levels 1-4 as
                 K5 on the fine level, the transfers twice a V-cycle level;
                 the solve's peak device memory (reset before its setup).
+ 22. elasticity — `models.elasticity.solve`: the dense energies of P1 L1,
+                P1 L2, Q1 L1 and Q2 L1 within 1e-10 of their anchors, the P2
+                hole mesh solves, CG at level 1 within 1e-11 of dense (P1,
+                Q2), CG at level 5 (154,882 DOFs) within 1e-9 of the JAX
+                package's energy (fixture elasticity_cg.npz), no kernel
+                launched;
+ 23. footing scale L2, L3 — `build_df32(FootingConfig.fast_scale(L,
+                max_trips=3))` at L = 2 (undamped and with newton_damping=3)
+                and 3, against the JAX package's runs (fixtures
+                footing_scale_*_t3.npz): steps equal, Newton iterations by
+                trip (`footing.newton_trip_gaps`), CG within 5%, accepted
+                load factors within 1e-12, pressures within 1e-5, two runs
+                bit-identical; K1, K3's product, transfers and CSR kernel
+                (the Galerkin value maps, one launch a coarse level a
+                Newton iteration) and K4 launched, no plain version; before
+                the runs, the path's kernels at the shapes of L2 and L3 as
+                in phase 24;
+ 24. new shapes — at level 4 (and at L2, L3 in phase 23, L5 in phase 26,
+                `footing_scale_phase`): K1 on the footing's G and S, K3's
+                CSR kernel on every Galerkin value map, K3's product on the
+                fine blocks refreshed from a seeded tangent and the
+                hierarchy's transfers (`k3_phase`), K4 on every refreshed
+                level (`k4_phase`), each against its plain version and
+                beside cuSPARSE where a call exists;
+ 25. footing scale L4 — `fast_scale(4, max_trips=3)` (51,842 DOFs) twice:
+                counts, walls, the wall a CG iteration and u's digest
+                printed, bit-identical, the launches as in phase 23;
+ 26. footing scale L5 — `fast_scale(5, max_trips=1)`, damped, resumed from
+                `checkpoints/footing_l5_k16.npz` (`utils.convert.
+                load_checkpoint`): the path's kernels at level 5's shapes
+                as in phase 24; setup, the trip's Newton and CG counts,
+                zeta, d_zeta and wall printed, the launches as in phase 23,
+                twice bit-identical unless one trip takes over 120 s.
 
 Every phase prints its lines with the card line beside its numbers.  Before
 the last line it prints the run's total wall and a JSON line with the kernel
@@ -189,6 +223,12 @@ JAX_COUNTS_SCALE_L4 = (17, 52, 605, 1477)  # steps, Newton, CG, plastic (BENCH_N
 ANCHOR_U40_SCALE_L5 = -2.265345e-3  # BENCH_NOTES.md:142
 JAX_COUNTS_SCALE_L5 = (17, 59, 917)  # steps, Newton, CG (BENCH_NOTES.md:126)
 SEED = 20261016
+# stored energies of the square with a hole (tests/test_elasticity.py:17-23)
+ELASTICITY_ANCHORS = {("P1", 1): 2786.3472189077, ("P1", 2): 2717.5492666201,
+                      ("Q1", 1): 2728.399597423172, ("Q2", 1): 2642.1861301492}
+# one load trip of the level-5 footing resumed from the banked checkpoint
+# runs twice only below this wall; above it bit-identity is held at level 4
+L5_REPEAT_LIMIT_S = 120.0
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 / f64 rates outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -292,8 +332,7 @@ def timed(torch, fn):
 
 
 def k1_phase(torch, spmv, tsx, asm, ElementType, volume_element, device, card):
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    shapes, max_err = {}, 0.0
+    cases = {}
     for level in (0, 4):
         mesh = tsx.tsx_mesh(ElementType.P1, level)
         coords = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
@@ -302,41 +341,62 @@ def k1_phase(torch, spmv, tsx, asm, ElementType, volume_element, device, card):
             geom.B.cpu().numpy(), geom.weight.cpu().numpy(), geom.edofs.cpu().numpy(),
             geom.n_q, geom.n_nodes,
         )
-        for name, A in (("G", spmv.csr_to_device(G, device)), ("S", spmv.csr_to_device(S, device))):
-            x = torch.randn(A.shape[1], generator=gen, dtype=torch.float64, device=device)
-            y = spmv.csr_spmv_f64_cuda(A, x)
-            y_plain = spmv.csr_matvec_plain(A, x)
-            torch.cuda.synchronize()
-            err = float((y - y_plain).abs().max())
+        cases[f"G_L{level}"] = spmv.csr_to_device(G, device)
+        cases[f"S_L{level}"] = spmv.csr_to_device(S, device)
+    return csr_phase(torch, spmv, cases, device, card)
+
+
+def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
+    """cases: {tag: CsrMatrix} -> (per-case records, max abs error).  f64
+    values run K1 (normwise relative difference to the plain version <=
+    K1_TOL), f32 values K3's CSR kernel (max abs difference over max |plain|
+    <= K3_TOL); each also bitwise repeatable, and beside cuSPARSE."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes, max_err = {}, 0.0
+    for tag, A in cases.items():
+        f64 = A.values.dtype == torch.float64
+        name, kernel = ("K1", spmv.csr_spmv_f64_cuda) if f64 else ("K3 CSR", spmv.csr_spmv_f32_cuda)
+        x = torch.randn(A.shape[1], generator=gen, dtype=A.values.dtype, device=device)
+        y = kernel(A, x)
+        y_plain = spmv.csr_matvec_plain(A, x)
+        torch.cuda.synchronize()
+        err = float((y - y_plain).abs().max())
+        if f64:
             rel = float(torch.linalg.norm(y - y_plain) / torch.linalg.norm(y_plain))
-            check(rel <= K1_TOL, f"K1 {name} L{level}: relative difference {rel:.3e}")
-            check(torch.equal(y, spmv.csr_spmv_f64_cuda(A, x)),
-                  f"K1 {name} L{level}: not bitwise repeatable")
-            # the yardstick: one PyTorch call (cuSPARSE) for the same product
-            A_lib = torch.sparse_csr_tensor(
-                A.indptr, A.indices, A.values, A.shape, check_invariants=False)
-            y_lib = torch.mv(A_lib, x)
-            torch.cuda.synchronize()
+        else:
+            rel = err / float(y_plain.abs().max())
+        tol = K1_TOL if f64 else K3_TOL
+        check(rel <= tol, f"{name} {tag}: relative difference {rel:.3e}")
+        check(torch.equal(y, kernel(A, x)), f"{name} {tag}: not bitwise repeatable")
+        # the yardstick: one PyTorch call (cuSPARSE) for the same product
+        A_lib = torch.sparse_csr_tensor(
+            A.indptr, A.indices, A.values, A.shape, check_invariants=False)
+        y_lib = torch.mv(A_lib, x)
+        torch.cuda.synchronize()
+        if f64:
             lib_rel = float(torch.linalg.norm(y_lib - y_plain) / torch.linalg.norm(y_plain))
-            check(lib_rel <= K1_TOL, f"K1 {name} L{level}: cuSPARSE differs by {lib_rel:.3e}")
-            ms, eager_ms = cuda_ms(torch, lambda: spmv.csr_spmv_f64_cuda(A, x))
-            plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.csr_matvec_plain(A, x))
-            lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(A_lib, x))
-            nnz = int(A.values.numel())
-            n_bytes = 12 * nnz + 4 * (A.shape[0] + 1) + 8 * A.shape[1] + 8 * A.shape[0]
-            b_ms, b_by = bound_ms(n_bytes, 2 * nnz, "float64")
-            max_err = max(max_err, err)
-            shapes[f"{name}_L{level}"] = dict(
-                rows=A.shape[0], cols=A.shape[1], nnz=nnz,
-                rel=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
-                library_eager_ms=lib_eager_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
-            )
-            say("K1", f"{name} L{level} {A.shape[0]}x{A.shape[1]} nnz {nnz}: "
-                f"rel {rel:.3e} max_abs {err:.3e} | device: kernel {ms:.5f} ms plain "
-                f"{plain_ms:.5f} ms cuSPARSE {lib_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}) | "
-                f"eager: kernel {eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
-                f"cuSPARSE {lib_eager_ms:.5f} ms | {card}")
+        else:
+            lib_rel = float((y_lib - y_plain).abs().max()) / float(y_plain.abs().max())
+        check(lib_rel <= tol, f"{name} {tag}: cuSPARSE differs by {lib_rel:.3e}")
+        ms, eager_ms = cuda_ms(torch, lambda: kernel(A, x))
+        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.csr_matvec_plain(A, x))
+        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(A_lib, x))
+        nnz, vsize = int(A.values.numel()), (8 if f64 else 4)
+        # entries (value and column) and row offsets, x read and y written once
+        n_bytes = (vsize + 4) * nnz + 4 * (A.shape[0] + 1) + vsize * (A.shape[1] + A.shape[0])
+        b_ms, b_by = bound_ms(n_bytes, 2 * nnz, "float64" if f64 else "float32")
+        max_err = max(max_err, err)
+        shapes[tag] = dict(
+            rows=A.shape[0], cols=A.shape[1], nnz=nnz,
+            rel=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
+            library_eager_ms=lib_eager_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+        )
+        say(name, f"{tag} {A.shape[0]}x{A.shape[1]} nnz {nnz}: "
+            f"rel {rel:.3e} max_abs {err:.3e} | device: kernel {ms:.5f} ms plain "
+            f"{plain_ms:.5f} ms cuSPARSE {lib_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}) | "
+            f"eager: kernel {eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
+            f"cuSPARSE {lib_eager_ms:.5f} ms | {card}")
     return shapes, max_err
 
 
@@ -928,11 +988,110 @@ def check_scale_launches(tag: str, launches: dict, kernels=SCALE_KERNELS) -> Non
         check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
     plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
     check(not plain, f"{tag}: a plain version ran on the card ({plain})")
-    # no path keeps a CSR operator for K3: its CSR kernel is the earlier design
+    # these paths keep no CSR operator: K3's CSR kernel runs only the footing
+    # tangent multigrid's Galerkin value maps
     check(not launches.get("csr_spmv_f32"), f"{tag}: the CSR K3 launched ({launches})")
     if kernels == ELL_KERNELS:  # every operator is ELL: no CSR product, no side path
         csr = {k: v for k, v in launches.items() if k.startswith("csr_spmv") and v}
         check(not csr, f"{tag}: K3 / K1 launched for an ELL operator ({csr})")
+
+
+# the footing's tangent-multigrid path: K1 (residual), K3's product (CG
+# operator), transfers and CSR kernel (the Galerkin value maps), K4
+FOOTING_SCALE_KERNELS = ("csr_spmv_f64", "node_block_spmv", "node_transfer",
+                         "block_jacobi_sweep", "csr_spmv_f32")
+
+
+def check_footing_scale_launches(tag: str, launches: dict, n_levels: int, n_newton: int,
+                                 n_cg: int) -> None:
+    """Every kernel of the path launched, no plain version; one CSR product
+    a level below the fine one a Newton iteration (the Galerkin maps), and
+    K3's product at least once a CG iteration."""
+    for name in FOOTING_SCALE_KERNELS:
+        check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
+    plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
+    check(not plain, f"{tag}: a plain version ran on the card ({plain})")
+    check(launches["csr_spmv_f32"] == (n_levels - 1) * n_newton,
+          f"{tag}: {launches['csr_spmv_f32']} Galerkin products for {n_newton} Newton "
+          f"iterations on {n_levels} levels")
+    check(launches["node_block_spmv"] >= n_cg,
+          f"{tag}: fewer K3 products than CG iterations ({launches})")
+
+
+def check_footing_scale(tag: str, r, cfg, name: str) -> dict:
+    """Gate a fast_scale run against the JAX package's run of the same
+    configuration (fixture `name`): steps equal, Newton iterations by trip
+    (`footing.newton_trip_gaps`), CG within 5% in total, the accepted load
+    factors within 1e-12 and the pressures within 1e-5.  Returns the gaps."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.models import footing
+
+    f = np.load(FIXTURES / f"{name}.npz")
+    check(bool(np.isfinite(r.u).all() and np.isfinite(r.ep).all()), f"{tag}: non-finite field")
+    check(r.n_steps == int(f["n_steps"]), f"{tag}: {r.n_steps} steps, JAX {int(f['n_steps'])}")
+    bad = footing.newton_trip_gaps(r, f["newton_trips"], cfg)
+    check(not bad, f"{tag}: Newton by trip {r.newton_trips}, JAX {tuple(f['newton_trips'])}; "
+          f"off {bad}")
+    cg_jax = int(f["n_cg_total"])
+    check(abs(r.n_cg_total - cg_jax) <= 0.05 * cg_jax, f"{tag}: {r.n_cg_total} CG, JAX {cg_jax}")
+    zeta_gap = float(np.abs(np.asarray(r.zeta_trips) - f["zeta_trips"]).max())
+    check(zeta_gap <= 1e-12, f"{tag}: accepted load factors {zeta_gap:.3e} from JAX's")
+    n = r.n_steps + 1
+    p_gap = float(np.abs(r.pressure_hist[1:n] - f["pressure_hist"][1:n]).max()
+                  / np.abs(f["pressure_hist"][1:n]).max())
+    check(p_gap <= 1e-5, f"{tag}: pressures {p_gap:.3e} from JAX's")
+    return dict(jax=(int(f["n_steps"]), tuple(int(k) for k in f["newton_trips"]), cg_jax),
+                zeta_gap=zeta_gap, pressure_gap=p_gap)
+
+
+def refreshed_csr(spmv, host_K, blocks, device):
+    """The f32 CSR of a refreshed level: its node-block values gathered at
+    the positions of the level's CSR entries."""
+    import numpy as np
+
+    C = spmv.csr_to_device(host_K, device, np.float32)
+    return C._replace(values=blocks.block_values.reshape(-1)[spmv.node_block_positions(C)])
+
+
+def seeded_tangent(torch, n_int: int, shear: float, bulk: float, device):
+    """A softened elastic tangent (3, 3, n_int), f32: SPD, other at every point."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.models.materials import elastic_tangent_lanes
+
+    scale = 1.0 - 0.5 * np.random.default_rng(SEED + 9).random((1, 1, n_int))
+    return elastic_tangent_lanes(shear, bulk, n_int, torch.float32, device) * torch.as_tensor(
+        scale, dtype=torch.float32, device=device)
+
+
+def footing_scale_phase(torch, spmv, mg, ex: dict, level: int, shear: float, bulk: float,
+                        device, card):
+    """The footing tangent multigrid's kernels at the shapes of its level-L
+    build (`build_df32(..., extras=ex)`): K1 on the footing's G and S, K3's
+    CSR kernel on every Galerkin value map, K3's product on the fine blocks
+    refreshed from a seeded tangent and the hierarchy's transfers
+    (`k3_phase`), K4 on every refreshed level (`k4_phase`), each against
+    its plain version.  Returns (CSR records, their max abs error, K3
+    records, K4 records, their max abs error)."""
+    hier, th, host = ex["hierarchy"], ex["tangent"], ex["host_levels"]
+    tag = f"footing_L{level}"
+    ref = mg.refresh_hierarchy(th, hier, seeded_tangent(torch, th.geom.n_int, shear, bulk,
+                                                        device), shear, bulk)
+    G, S = ex["residual_op"]
+    csr, csr_err = csr_phase(torch, spmv, {
+        f"footing_G_L{level}": G, f"footing_S_L{level}": S,
+        **{f"Mhat_L{level}_level{l + 1}to{l}": M for l, M in enumerate(th.mhat)}}, device, card)
+    cases = k3_cases(spmv, hier, host, device, tag)
+    cases[f"K_{tag}"] = (ref.levels[-1].op,
+                         refreshed_csr(spmv, host[-1]["K"], ref.levels[-1].op, device),
+                         None, False)
+    k3 = k3_phase(torch, spmv, cases, device, card)
+    k4, k4_err = k4_phase(torch, spmv, {
+        f"{tag}_level{i}": (refreshed_csr(spmv, host[i]["K"], ref.levels[i].sweep_op, device),
+                            ref.levels[i])
+        for i in range(1, len(ref.levels))}, device, card)
+    return csr, csr_err, k3, k4, k4_err
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -1374,10 +1533,189 @@ def main() -> int:
         f"{v_first:.3f} s warm {v_warm:.3f} s, peak device memory of setup and first run "
         f"{peak5 / 2**30:.3f} GiB above the {mem_before5 / 2**30:.3f} GiB held before | "
         f"{card}")
+    del run5, ex5, levels5, fine5, v1, v2, b1, b2
+
+    # phase 22: the elasticity problem (no kernel on its path)
+    from fem_elastoplasticity_tpu_torch.models import elasticity
+    from fem_elastoplasticity_tpu_torch.models.config import ElasticityConfig
+    from fem_elastoplasticity_tpu_torch.models.materials import lame_moduli
+    from fem_elastoplasticity_tpu_torch.solve import multigrid as mg
+    from fem_elastoplasticity_tpu_torch.utils.convert import load_checkpoint
+
+    spmv.LAUNCHES.clear()
+    el = {}
+    for (et, lvl), want in ELASTICITY_ANCHORS.items():
+        r, w = timed(torch, lambda: elasticity.solve(
+            ElasticityConfig(etype=ElementType[et], level=lvl), device=device))
+        gap = abs(r.energy - want) / want
+        check(gap <= 1e-10, f"elasticity {et} L{lvl}: energy {r.energy!r} is {gap:.3e} from "
+              f"{want!r}")
+        el[(et, lvl)] = r
+        say("elasticity", f"dense {et} L{lvl}: {r.mesh.n_nodes} nodes, energy {r.energy!r} (rel "
+            f"{gap:.3e} to {want!r}), wall {w:.3f} s | {card}")
+    r, w = timed(torch, lambda: elasticity.solve(ElasticityConfig(etype=ElementType.P2),
+                                                 device=device))
+    check(bool(np.isfinite(r.u).all()) and r.u.shape == (r.mesh.n_nodes, 2) and np.isfinite(
+        r.energy), "elasticity P2 L1: bad result")
+    say("elasticity", f"dense P2 L1: {r.mesh.n_nodes} nodes, energy {r.energy!r}, wall {w:.3f} s "
+        f"| {card}")
+    for et in ("P1", "Q2"):
+        r, w = timed(torch, lambda: elasticity.solve(
+            ElasticityConfig(etype=ElementType[et], solver="cg"), device=device))
+        gap = abs(r.energy - el[(et, 1)].energy) / abs(el[(et, 1)].energy)
+        check(gap <= 1e-11, f"elasticity cg {et} L1: {gap:.3e} from dense")
+        say("elasticity", f"cg {et} L1: energy {r.energy!r} (rel {gap:.3e} to dense), "
+            f"{r.cg_iters} CG iterations, wall {w:.3f} s | {card}")
+    r, w = timed(torch, lambda: elasticity.solve(ElasticityConfig(level=5, solver="cg"),
+                                                 device=device))
+    want = float(np.load(FIXTURES / "elasticity_cg.npz")["energy_l5"])
+    gap = abs(r.energy - want) / want
+    check(gap <= 1e-9, f"elasticity cg L5: energy {r.energy!r} is {gap:.3e} from JAX's {want!r}")
+    check(not spmv.LAUNCHES, f"elasticity: launches {dict(spmv.LAUNCHES)}")
+    say("elasticity", f"cg P1 L5: {r.mesh.n_nodes} nodes, {2 * r.mesh.n_nodes} DOFs, energy "
+        f"{r.energy!r} (rel {gap:.3e} to the JAX package's {want!r}), {r.cg_iters} CG "
+        f"iterations, wall {w:.3f} s | {card}")
+
+    # phase 23: the footing's tangent-multigrid preset at levels 2 and 3,
+    # three load trips, against the JAX package's runs; before each run
+    # the path's kernels at its shapes (once a level)
+    shear, bulk = lame_moduli(1e7, 0.48)
+    fs_launches, fs_walls = {}, {}
+    csr_shapes, csr_err = {}, 0.0
+    for level, fixture, kw in ((2, "footing_scale_l2_t3", {}),
+                               (2, "footing_scale_l2_damped_t3", dict(newton_damping=3)),
+                               (3, "footing_scale_l3_t3", {})):
+        tag = f"footing scale L{level}" + (" damped" if kw else "")
+        fcfg = FootingConfig.fast_scale(level, max_trips=3, **kw)
+        ex_f = {}
+        t0 = time.perf_counter()
+        run_f, mesh_f = footing.build_df32(fcfg, device=device, extras=ex_f)
+        torch.cuda.synchronize()
+        setup_f = time.perf_counter() - t0
+        if not kw:
+            c_f, c_err, k3_f, k4_f, k4_f_err = footing_scale_phase(
+                torch, spmv, mg, ex_f, level, shear, bulk, device, card)
+            csr_shapes.update(c_f)
+            k3_shapes.update(k3_f)
+            k4_shapes.update(k4_f)
+            csr_err, k4_err = max(csr_err, c_err), max(k4_err, k4_f_err)
+        del ex_f
+        spmv.LAUNCHES.clear()
+        fa, fa_wall = timed(torch, run_f)
+        launch_f = dict(spmv.LAUNCHES)
+        fb, fb_wall = timed(torch, run_f)
+        gaps = check_footing_scale(tag, fa, fcfg, fixture)
+        check(footing_counts(fa) == footing_counts(fb) and np.array_equal(fa.u, fb.u),
+              f"{tag}: two runs differ")
+        check_footing_scale_launches(tag, launch_f, level, fa.n_newton_total, fa.n_cg_total)
+        fs_launches[tag.replace(" ", "_")] = launch_f
+        say(tag, f"setup {setup_f:.2f} s; {mesh_f.n_nodes} nodes; steps / Newton by trip / CG "
+            f"{fa.n_steps} / {fa.newton_trips} / {fa.n_cg_total} (JAX package's {gaps['jax']}), "
+            f"load factors {gaps['zeta_gap']:.3e} and pressures {gaps['pressure_gap']:.3e} from "
+            f"JAX's, launches {launch_f}, repeat bit-identical, wall first {fa_wall:.3f} s warm "
+            f"{fb_wall:.3f} s | {card}")
+        del run_f
+
+    # phase 24: the path's kernels at level 4's shapes
+    cfg4f = FootingConfig.fast_scale(4, max_trips=3)
+    ex4f = {}
+    t0 = time.perf_counter()
+    run4f, mesh4f = footing.build_df32(cfg4f, device=device, extras=ex4f)
+    torch.cuda.synchronize()
+    setup4f = time.perf_counter() - t0
+    say("footing scale L4", f"setup {setup4f:.2f} s (host: hierarchy, Galerkin maps, G/S); "
+        f"{mesh4f.n_nodes} nodes, {int(mesh4f.free.sum())} unknowns, hierarchy rows "
+        f"{[lev.free.shape[0] for lev in ex4f['hierarchy'].levels]}, Galerkin map entries "
+        f"{[int(M.values.numel()) for M in ex4f['tangent'].mhat]} | {card}")
+    c_f, c_err, k3_f, k4_f, k4_f_err = footing_scale_phase(
+        torch, spmv, mg, ex4f, 4, shear, bulk, device, card)
+    csr_shapes.update(c_f)
+    k3_shapes.update(k3_f)
+    k4_shapes.update(k4_f)
+    csr_err, k4_err = max(csr_err, c_err), max(k4_err, k4_f_err)
+    del ex4f
+
+    # phase 25: fast_scale(4), three load trips, twice
+    spmv.LAUNCHES.clear()
+    f4a, f4_first = timed(torch, run4f)
+    fs_launches["footing_scale_L4"] = dict(spmv.LAUNCHES)
+    f4b, f4_warm = timed(torch, run4f)
+    check(f4a.u.shape == (mesh4f.n_nodes, 2) and bool(np.isfinite(f4a.u).all()
+                                                      and np.isfinite(f4a.ep).all()),
+          "footing scale L4: bad field")
+    check(f4a.n_steps >= 1, f"footing scale L4: {f4a.n_steps} steps in three trips")
+    check(footing_counts(f4a) == footing_counts(f4b) and np.array_equal(f4a.u, f4b.u),
+          "footing scale L4: two runs differ")
+    check_footing_scale_launches("footing scale L4", fs_launches["footing_scale_L4"], 4,
+                                 f4a.n_newton_total, f4a.n_cg_total)
+    say("footing scale L4", f"steps / Newton by trip / CG / plastic {f4a.n_steps} / "
+        f"{f4a.newton_trips} / {f4a.n_cg_total} / {f4a.n_plastic}, zeta {f4a.zeta_trips}, last "
+        f"pressure {float(f4a.pressure_hist[f4a.n_steps])!r}, u sha256 {u_digest(f4a.u)}, "
+        f"launches {fs_launches['footing_scale_L4']}, repeat bit-identical, wall first "
+        f"{f4_first:.3f} s warm {f4_warm:.3f} s, {1e3 * f4_warm / f4a.n_cg_total:.4f} ms a CG "
+        f"iteration (warm wall over CG iterations) | {card}")
+    del run4f
+
+    # phase 26: level 5, one load trip resumed from the banked checkpoint
+    # (damped Newton, deflation ring)
+    cfg5f = FootingConfig.fast_scale(5, max_trips=1)
+    ex5f = {}
+    t0 = time.perf_counter()
+    run5f, mesh5f = footing.build_df32(cfg5f, device=device, extras=ex5f)
+    torch.cuda.synchronize()
+    setup5f = time.perf_counter() - t0
+    th5f = ex5f["tangent"]
+    carry5 = load_checkpoint(ROOT / "checkpoints" / "footing_l5_k16.npz", device=device)
+    check(carry5["u"].shape == (2 * mesh5f.n_nodes,) and carry5["ep"].shape[1] == mesh5f.n_elems
+          and carry5["defl_w"].shape == (2 * mesh5f.n_nodes, 16),
+          f"footing scale L5: the checkpoint's shapes do not fit the mesh")
+    say("footing scale L5", f"setup {setup5f:.2f} s (host: hierarchy, Galerkin maps, G/S); "
+        f"{mesh5f.n_nodes} nodes, {int(mesh5f.free.sum())} unknowns, hierarchy rows "
+        f"{[lev.free.shape[0] for lev in ex5f['hierarchy'].levels]}, Galerkin map entries "
+        f"{[int(M.values.numel()) for M in th5f.mhat]}; checkpoint at step "
+        f"{carry5['step']}, zeta {carry5['zeta_old']!r}, d_zeta {carry5['d_zeta']!r} | {card}")
+    c_f, c_err, k3_f, k4_f, k4_f_err = footing_scale_phase(
+        torch, spmv, mg, ex5f, 5, shear, bulk, device, card)
+    csr_shapes.update(c_f)
+    k3_shapes.update(k3_f)
+    k4_shapes.update(k4_f)
+    csr_err, k4_err = max(csr_err, c_err), max(k4_err, k4_f_err)
+    del th5f, ex5f
+    spmv.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    g5a, g5_first = timed(torch, lambda: run5f(resume=carry5))
+    fs_launches["footing_scale_L5"] = dict(spmv.LAUNCHES)
+    n_newton5 = g5a.n_newton_total - carry5["nits_total"]
+    n_cg5 = g5a.n_cg_total - carry5["ncg_total"]
+    check(g5a.u.shape == (mesh5f.n_nodes, 2) and bool(np.isfinite(g5a.u).all()
+                                                      and np.isfinite(g5a.ep).all()),
+          "footing scale L5: bad field")
+    check_footing_scale_launches("footing scale L5", fs_launches["footing_scale_L5"], 5,
+                                 n_newton5, n_cg5)
+    accepted5 = g5a.n_steps + 1 > carry5["step"]
+    p5 = float(g5a.pressure_hist[g5a.n_steps]) if accepted5 else None
+    if g5_first <= L5_REPEAT_LIMIT_S:
+        g5b, g5_warm = timed(torch, lambda: run5f(resume=carry5))
+        check(footing_counts(g5a) == footing_counts(g5b) and np.array_equal(g5a.u, g5b.u),
+              "footing scale L5: two runs differ")
+        repeat5 = f"repeat bit-identical, wall first {g5_first:.3f} s warm {g5_warm:.3f} s"
+    else:
+        repeat5 = (f"wall {g5_first:.3f} s, over {L5_REPEAT_LIMIT_S:.0f} s: run once, "
+                   f"bit-identity held at level 4")
+    say("footing scale L5", f"one trip from the checkpoint: {n_newton5} Newton iterations, "
+        f"{n_cg5} CG iterations, CG solves {g5a.cg_trips[0]}, "
+        f"{'accepted' if accepted5 else 'rejected'}, zeta {g5a.zeta_trips[0]!r}, "
+        f"d_zeta {g5a.carry['d_zeta']!r}, pressure {p5!r}, last criterion "
+        f"{g5a.crit_trips[0]:.3e}, u sha256 {u_digest(g5a.u)}, launches "
+        f"{fs_launches['footing_scale_L5']}, {repeat5}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
+    del run5f, carry5
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
     l0 = ("G_L0", "S_L0")
+    mhat_top5 = max((k for k in csr_shapes if k.startswith("Mhat_L5")), key=lambda k: csr_shapes[k]["nnz"])
     by_path = lambda name, **paths: {k: v.get(name, 0) for k, v in paths.items()}  # noqa: E731
     main_k2 = k2_shapes["n896_float32_noep"]  # one Newton-iteration call of the f32 paths
     kernels = [{
@@ -1389,15 +1727,17 @@ def main() -> int:
                                     scale_L4=l4_launches, scale_ELL_L1=e1_launches,
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
-                                    footing_acg_L3=foot_launches["df32_acg_L3"]),
-        "max_abs_err": k1_err,
+                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches),
+        "max_abs_err": max(k1_err, max(v["max_abs_err"] for k, v in csr_shapes.items()
+                                       if k.startswith("footing_"))),
         # one residual evaluation of the main path: G u then S s, level 0
         "ms": sum(k1_shapes[k]["ms"] for k in l0),
         "plain_ms": sum(k1_shapes[k]["plain_ms"] for k in l0),
         "bound_ms": sum(k1_shapes[k]["bound_ms"] for k in l0),
         "bound_by": "bytes",
         "library_ms": sum(k1_shapes[k]["library_ms"] for k in l0),
-        "shapes": k1_shapes,
+        "shapes": {**k1_shapes, **{k: v for k, v in csr_shapes.items()
+                                   if k.startswith("footing_")}},
     }, {
         "name": "dp_return_map",
         "route": "cuda",
@@ -1423,7 +1763,7 @@ def main() -> int:
         "launches_by_path": by_path("node_block_spmv", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
-                                    footing_acg_L3=foot_launches["df32_acg_L3"]),
+                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches),
         # bitwise equal to its plain version (and to the earlier design)
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
         # the CG operator of the level-5 solve; the bound is the node-block
@@ -1443,7 +1783,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/node_transfer.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
         "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
-                                    scale_L4=l4_launches, scale_L5=l5_launches),
+                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches),
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
                            if not k.startswith("K_")),
         # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
@@ -1459,7 +1799,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
         "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
-                                    scale_L4=l4_launches, scale_L5=l5_launches),
+                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches),
         "max_abs_err": k4_err,
         # one smoother sweep on the fine level of the level-4 solve; the
         # bound is the node-block layout's bytes, the CSR entries' beside it
@@ -1473,6 +1813,20 @@ def main() -> int:
         # the masked 2x2 block update
         "library_ms": None,
         "shapes": k4_shapes,
+    }, {
+        "name": "csr_spmv_f32",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
+        # the Galerkin value maps of the footing's tangent multigrid
+        "launches_by_path": by_path("csr_spmv_f32", **fs_launches),
+        "max_abs_err": max(v["max_abs_err"] for k, v in csr_shapes.items()
+                           if k.startswith("Mhat_")),
+        # the level-5 solve's map of its fine values onto level 4's (the
+        # largest; one launch a Newton iteration)
+        **{key: csr_shapes[mhat_top5][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": {k: v for k, v in csr_shapes.items() if k.startswith("Mhat_")},
     }, {
         "name": "block_jacobi_sweep_bf16",
         "route": "cuda",

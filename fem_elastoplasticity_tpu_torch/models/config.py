@@ -1,8 +1,10 @@
-"""TSX tunnel and strip-footing configurations.
+"""Elasticity, TSX tunnel and strip-footing configurations.
 
-Port of `fem_elastoplasticity_tpu/models/config.py` (`FootingConfig` at
-:39, `TsxTunnelConfig` at :188) with the same field names and defaults, so
-a configuration reads the same in both packages.  The port runs P1
+Port of `fem_elastoplasticity_tpu/models/config.py` (`ElasticityConfig` at
+:16, `FootingConfig` at :39, `TsxTunnelConfig` at :188) with the same field
+names and defaults, so a configuration reads the same in both packages.
+The elasticity problem runs P1, P2, Q1 and Q2 elements, dense or by
+matrix-free CG.  The plastic problems run P1
 elements: with the dense solver the tsx in the "native" f64 and f32 and the
 "df32" precisions and the footing in native f64 and f32 and in "df32",
 with dense or block-Jacobi CG tangent solves (`FootingConfig`); with
@@ -23,6 +25,33 @@ import numpy as np
 
 from ..ops.elements import ElementType
 from ..utils.precision import dtype_policy
+
+@dataclass(frozen=True)
+class ElasticityConfig:
+    """Square-with-hole linear elasticity (`Elasticity2D/pythonFEM.py:1052-1179`)."""
+
+    etype: ElementType = ElementType.P1
+    level: int = 1
+    young: float = 206900.0
+    poisson: float = 0.29
+    volume_force: tuple = (0.0, -1.0)
+    traction_force: tuple = (0.0, 450.0)
+    size_xy: float = 10.0
+    size_hole: float = 5.0
+    dirichlet_scale: float = 0.5  # ud = 0.5 * dirichlet pattern (E:1141)
+    dtype: str = "float64"
+    # "dense" (Cholesky of the free-DOF stiffness) | "cg" (matrix-free
+    # block-Jacobi PCG)
+    solver: str = "dense"
+    cg_tol: float = None  # None -> 1e-12 (f64) / 2e-7 (f32)
+    cg_maxiter: int = 5000
+
+    def __post_init__(self):
+        if self.solver not in ("dense", "cg"):
+            raise NotImplementedError(f"ElasticityConfig.solver={self.solver!r}")
+        if self.dtype not in ("float64", "float32"):
+            raise NotImplementedError(f"ElasticityConfig.dtype={self.dtype!r}")
+
 
 # fields of paths that later slices port: only their defaults are accepted
 _NOT_PORTED = dict(
@@ -181,18 +210,16 @@ class TsxTunnelConfig:
         return cls.fast(refine_levels=refine_levels, **kw)
 
 
-# fields of the footing's tangent-multigrid scale path, which a later slice
-# ports: only their defaults are accepted
+# footing fields of paths the port does not run yet: only their defaults are
+# accepted
 _FOOTING_NOT_PORTED = dict(
-    tangent_mg=False,
     cg_structure="while",
-    cg_deflate=0,
-    newton_damping=0,
     residual_fmt=None,
 )
 # fields that only the footing's iterative tangent solves (solver="cg")
 # read: with the dense solver only their defaults are accepted
-_FOOTING_CG_ONLY = dict(cg_eta0=None, cg_tol=None, cg_maxiter=2000, cg_cap_relax=None)
+_FOOTING_CG_ONLY = dict(cg_eta0=None, cg_tol=None, cg_maxiter=2000, cg_cap_relax=None,
+                        cg_deflate=0)
 
 
 @dataclass(frozen=True)
@@ -203,7 +230,12 @@ class FootingConfig:
     (`fast()`), and `solver="cg"` (block-Jacobi preconditioned CG tangent
     solves, matrix-free) in native precision and in df32, where
     `assembled_cg=True` runs CG on the assembled elastic operator refreshed
-    from every integration point once per Newton iteration (kernel K3).
+    from every integration point once per Newton iteration (kernel K3), and
+    `tangent_mg=True` (`fast_scale`) preconditions it with a multigrid
+    V-cycle whose every level is refreshed from the consistent tangent once
+    per Newton iteration (kernels K3 and K4).  `cg_deflate` recycles a
+    Krylov deflation basis across the CG solves, `newton_damping` halves a
+    Newton step while the residual norm grows.
     """
 
     etype: ElementType = ElementType.P1
@@ -226,6 +258,11 @@ class FootingConfig:
     # solver="cg" with precision="df32": CG on the assembled operator,
     # refreshed from all integration points once per Newton iteration
     assembled_cg: bool = False
+    # solver="cg" with precision="df32", P1, level >= 2: the tangent
+    # multigrid, a red-refinement hierarchy of the level-1 mesh whose every
+    # level is refreshed from the consistent tangent once per Newton
+    # iteration; the problem runs on the hierarchy's fine mesh (the lattice
+    # and triangulation of square_mesh(level), fine-RCM node order)
     tangent_mg: bool = False
     dense_mode: str = "f64"  # "f64" | "mixed" (f32 Cholesky + f64 refinement)
     # Eisenstat-Walker forcing ceiling of the df32 CG tangent solves
@@ -235,9 +272,13 @@ class FootingConfig:
     cg_maxiter: int = 2000
     cg_structure: str = "while"
     # accept a capped CG solve whose preconditioned residual fell by this
-    # factor; None: a capped solve counts as divergence
+    # factor; None: a capped solve counts as divergence (tangent_mg: 1e-2)
     cg_cap_relax: float = None
+    # size of the recycled deflation basis of the CG tangent solves (A-DEF2,
+    # `solve.cg.solve_cg` deflate); 0: off
     cg_deflate: int = 0
+    # halvings of a Newton step while the free-DOF residual norm does not
+    # fall (`solve.newton.build_load_stepper`); 0: the undamped iteration
     newton_damping: int = 0
     residual_fmt: str = None
     # reproduce the reference's apex plastic strain from the trial strain
@@ -275,6 +316,18 @@ class FootingConfig:
         if self.cg_eta0 is not None and self.precision != "df32":
             # the JAX package's native footing never passes cg_eta0 on
             raise NotImplementedError("cg_eta0 with precision='native'")
+        if self.tangent_mg:
+            # the JAX package's asserts (models/footing.py build_df32)
+            if self.solver != "cg" or self.precision != "df32" or self.assembled_cg:
+                raise NotImplementedError("tangent_mg=True needs solver='cg', "
+                                          "precision='df32' and assembled_cg=False")
+            if self.level < 2:
+                raise ValueError("tangent_mg needs level >= 2: at least one refinement")
+        if self.cg_deflate < 0 or self.newton_damping < 0:
+            raise ValueError("cg_deflate and newton_damping must be >= 0")
+        if (self.cg_deflate or self.newton_damping) and self.precision != "df32":
+            # ported and held to the JAX package on the df32 scale path
+            raise NotImplementedError("cg_deflate and newton_damping need precision='df32'")
 
     @classmethod
     def fast(cls, **kw):
@@ -302,5 +355,20 @@ class FootingConfig:
 
     @classmethod
     def fast_scale(cls, level: int, **kw):
-        """Tangent-multigrid scale preset: not ported yet."""
-        raise NotImplementedError("FootingConfig.fast_scale is not ported yet")
+        """Tangent-multigrid scale preset (level >= 2): CG tangent solves
+        preconditioned by the tangent V-cycle, Eisenstat-Walker forcing from
+        1e-2, capped solves accepted at a 1e-2 reduction, a recycled
+        16-vector deflation basis, and the tolerances newton 1e-10 / accept
+        1e-8 (the reference's 1e-12 / 1e-10 are out of reach of f32
+        preconditioned solves at this size).  From level 5 on the Newton
+        step is damped (3 halvings): the undamped iteration oscillates
+        between active sets at the sharply resolved plastic front."""
+        kw.setdefault("solver", "cg")
+        kw.setdefault("tangent_mg", True)
+        kw.setdefault("cg_maxiter", 3000)
+        kw.setdefault("cg_eta0", 1e-2)
+        kw.setdefault("newton_tol", 1e-10)
+        kw.setdefault("accept_tol", 1e-8)
+        kw.setdefault("cg_deflate", 16)
+        kw.setdefault("newton_damping", 3 if level >= 5 else 0)
+        return cls.fast(level=level, **kw)

@@ -17,7 +17,15 @@ ramps adaptively with the reference's pressure-based d_zeta doubling rule
   refreshed from every integration point once per Newton iteration
   (kernel K3's product), and the Newton
   residual runs on the assembled G/S operators (kernel K1), on an RCM node
-  ordering whose result is handed back in the reference order.
+  ordering whose result is handed back in the reference order; with
+  `tangent_mg=True` (`FootingConfig.fast_scale`) CG runs on the fine level
+  of a red-refinement hierarchy of the level-1 mesh, preconditioned by its
+  V-cycle, every level refreshed from the tangent once a Newton iteration
+  (kernels K3 and K4, `solve.multigrid.tangent_vcycle`), the residual on
+  G/S (K1), and the result stays on the hierarchy's fine mesh (fine-RCM
+  node order), as the JAX package returns it.  `run(resume=carry)`
+  continues from a carry (`FootingResult.carry`, or
+  `utils.convert.load_checkpoint` of a JAX package checkpoint).
 
 Anchors of the f64 run: 16 accepted steps, zeta ending at 1.032, the
 reference's pressure curve within 1e-4; the dense df32 run follows the
@@ -27,7 +35,8 @@ take other schedules; their limit pressures agree with the f64 one to
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,8 +46,9 @@ from ..ops import assembly as asm
 from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import volume_element
+from ..solve import multigrid as mg
 from ..solve.cg import block_jacobi_preconditioner, solve_cg
-from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
+from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper, carry_of
 from ..utils.precision import dtype_policy, resolve_device
 from .config import FootingConfig
 from .materials import drucker_prager_fit, elastic_tangent_lanes, lame_moduli
@@ -60,6 +70,9 @@ class FootingResult(NamedTuple):
     crit_trips: tuple = ()  # the last Newton criterion of each load trip
     zeta_trips: tuple = ()  # the accepted load factor after each load trip
     cg_trips: tuple = ()  # each trip's CG solves: ((iterations, converged), ...)
+    # df32 runs: the stepper's resume carry (`solve.newton.carry_of`) on the
+    # solver's node order, for `run(resume=...)` of the same build
+    carry: Optional[dict] = None
 
 
 # the two-float criterion's floor band, [newton_tol / FLOOR_BAND, newton_tol)
@@ -87,19 +100,41 @@ def newton_trip_gaps(r: FootingResult, ref_trips, cfg: FootingConfig) -> list:
             if not (got == k or (got < k and (k == cfg.newton_maxit or crit >= band)))]
 
 
-def build_mesh(cfg: FootingConfig) -> Mesh:
-    """Footing mesh + BCs (`Plasticity2D_DP/pythonFEM.py:175-184`)."""
-    mesh = square_mesh(cfg.level, cfg.etype, cfg.size_xy)
-    coords = mesh.coords
+def _free_mask(cfg: FootingConfig, coords: np.ndarray) -> np.ndarray:
+    """(n_n, 2) free DOFs (`Plasticity2D_DP/pythonFEM.py:175-184`): the
+    footing's vertical DOFs, the symmetry axis x = 0 and the far side
+    x = size_xy are constrained."""
     footing = (coords[:, 1] == cfg.size_xy) & (coords[:, 0] <= 1.0001)
-    dirichlet = np.zeros((mesh.n_nodes, 2))
-    dirichlet[footing, 1] = 1.0
     free = coords > 0.0
     free[footing, 1] = False
     free[coords[:, 0] == cfg.size_xy, 0] = False
-    mesh.dirichlet = dirichlet
-    mesh.free = free
+    return free
+
+
+def _with_bcs(cfg: FootingConfig, mesh: Mesh) -> Mesh:
+    """The mesh with the footing's Dirichlet pattern and free DOFs."""
+    footing = (mesh.coords[:, 1] == cfg.size_xy) & (mesh.coords[:, 0] <= 1.0001)
+    mesh.dirichlet = np.zeros((mesh.n_nodes, 2))
+    mesh.dirichlet[footing, 1] = 1.0
+    mesh.free = _free_mask(cfg, mesh.coords)
     return mesh
+
+
+def build_mesh(cfg: FootingConfig) -> Mesh:
+    """Footing mesh + BCs (`Plasticity2D_DP/pythonFEM.py:175-184`)."""
+    return _with_bcs(cfg, square_mesh(cfg.level, cfg.etype, cfg.size_xy))
+
+
+def tangent_mg_mesh(cfg: FootingConfig) -> Mesh:
+    """The mesh a `tangent_mg` run solves on and returns: the level-1 mesh
+    refined cfg.level - 1 times, in fine-RCM node order, with the BCs (the
+    lattice and triangulation of `build_mesh(cfg)`, other numbers).  The
+    hierarchy's fine level, without its operators."""
+    base = square_mesh(1, cfg.etype, cfg.size_xy)
+    chain = mg.refinement_chain(base.coords, base.elems, cfg.level - 1)
+    coords, elems, _ = spmv.permute_mesh(chain[-1][0], chain[-1][1],
+                                         mg.fine_rcm_orders(chain)[-1])
+    return _with_bcs(cfg, Mesh(coords, elems, cfg.etype))
 
 
 def _settings(cfg: FootingConfig) -> NewtonSettings:
@@ -244,28 +279,64 @@ def _assembled_setup(cfg: FootingConfig, mesh: Mesh, device: torch.device):
     return mesh2, op, corr, new_of_old, esort
 
 
-def build_df32(cfg: FootingConfig, device=None):
+def _tangent_mg_setup(cfg: FootingConfig, device: torch.device, extras: Optional[dict]):
+    """Host setup of `tangent_mg` (JAX `models/footing.py:221-266`): the
+    elastic hierarchy of the level-1 mesh refined cfg.level - 1 times
+    (fine-RCM order, node blocks, f32 values on every level) and its
+    tangent-refresh tables.  Returns (`tangent_mg_mesh`, checked against
+    the hierarchy's fine level, the hierarchy, the tangent hierarchy);
+    `extras`, if given, receives the host levels ("host_levels") and both
+    hierarchies."""
+    base = square_mesh(1, cfg.etype, cfg.size_xy)
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    ref = volume_element(cfg.etype)
+    hier, _, coarse = mg.build_hierarchy_ell(
+        base.coords, base.elems, cfg.level - 1, functools.partial(_free_mask, cfg),
+        shear, bulk, ref, device=device, fmt="slot", pack_bf16=False,
+    )
+    th = mg.build_tangent_hierarchy(hier, coarse, ref, device)
+    fine = coarse["levels"][-1]
+    mesh = tangent_mg_mesh(cfg)
+    if not (np.array_equal(mesh.coords, fine["coords"])
+            and np.array_equal(mesh.elems, np.asarray(fine["elems"]))):
+        raise AssertionError("tangent_mg_mesh is not the hierarchy's fine level")
+    if extras is not None:
+        extras.update(host_levels=coarse["levels"], hierarchy=hier, tangent=th)
+    return mesh, hier, th
+
+
+def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
     """Build the df32 footing solver: returns (run, mesh).
 
     Host setup happens here: the mesh, the f64 geometry and its f32 heads,
     the dense assembly plan (dense solver) or, with `assembled_cg`, the RCM
     permutation, the f32 elastic operator in node blocks (K3's product),
-    the refresh table and the f64 residual operators G/S (K1).  `run()`
+    the refresh table and the f64 residual operators G/S (K1), or, with
+    `tangent_mg`, the hierarchy, its refresh tables and G/S.  `run()`
     does the device work of one solve: the f32 elastic factors or the
     elastic preconditioner, the df32 elastic predictor (iterative
-    refinement of an f32 inner solve, a Cholesky solve or block-Jacobi PCG,
-    against the f64 residual) and the load stepping; it returns the
-    FootingResult on `mesh`, the reference mesh (with `assembled_cg` the
-    solve runs on the RCM node order and sorted elements, and u and ep are
-    moved back).
+    refinement of an f32 inner solve, a Cholesky solve or PCG by
+    block-Jacobi or the elastic V-cycle, against the f64 residual) and the
+    load stepping; it returns the FootingResult on `mesh`: the reference
+    mesh (with `assembled_cg` the solve runs on the RCM node order and
+    sorted elements, and u and ep are moved back) or, with `tangent_mg`, the
+    hierarchy's fine mesh (`tangent_mg_mesh`).  `run(resume=carry)` skips
+    the predictor and continues from the carry (on the solver's node order:
+    `FootingResult.carry`, or `utils.convert.load_checkpoint`).  `extras`,
+    if given, receives the residual operators G/S ("residual_op") and, with
+    tangent_mg, the host levels and the hierarchies.
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
     device = resolve_device(device)
-    mesh = reference_mesh = build_mesh(cfg)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
-    elastic_op = corr_dest = residual_op = None
+    elastic_op = corr_dest = residual_op = hier = th = None
+    if cfg.tangent_mg:
+        mesh, hier, th = _tangent_mg_setup(cfg, device, extras)
+    else:
+        mesh = build_mesh(cfg)
+    reference_mesh = mesh
     if cfg.assembled_cg:
         mesh, elastic_op, corr, new_of_old, esort = _assembled_setup(cfg, mesh, device)
     fmap, n_free = asm.free_dof_map(mesh.free)
@@ -281,8 +352,11 @@ def build_df32(cfg: FootingConfig, device=None):
         # dropped (-1)
         pad = corr.new_full((geom.n_elems - corr.shape[0],) + tuple(corr.shape[1:]), -1)
         corr_dest = torch.cat([corr, pad])
-        residual_op = spmv.residual_operators(geom, device)
         elem_sort = (esort, int(geom.n_q), int(geom.n_real))
+    if cfg.assembled_cg or cfg.tangent_mg:
+        residual_op = spmv.residual_operators(geom, device)
+        if extras is not None:
+            extras["residual_op"] = residual_op
     dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=torch.float64, device=device)
     monitor, accept_hook = _monitor_and_hook(cfg, mesh, geom32, torch.float32)
     cg_tol = _cg_tol(cfg, torch.float32)
@@ -291,7 +365,7 @@ def build_df32(cfg: FootingConfig, device=None):
     else:
         apply_fn = lambda u: adf.elastic_apply(geom, u, shear, bulk)  # noqa: E731
 
-    def run() -> FootingResult:
+    def run(resume: Optional[dict] = None) -> FootingResult:
         # elastic predictor with inhomogeneous Dirichlet (P:996-1004): the
         # iterate starts at ud = -d_zeta * dirichlet, exact on the
         # constrained DOFs, and refinement drives K U -> 0 on the free ones
@@ -302,12 +376,19 @@ def build_df32(cfg: FootingConfig, device=None):
         if cfg.solver == "dense":
             L, Ki = adf.dense_elastic_factors(geom32, D, plan)
             U_it0 = adf.refine_elastic_solve_df(L, free_idx, apply_fn, ud, zero_f)
+        elif resume is not None:
+            U_it0 = ud  # unused: the carry supplies the state
         else:
-            pre = _block_jacobi(geom32, D, free_mask)
-            if elastic_op is not None:
-                K_op = lambda v: spmv.sp_matvec(elastic_op, v)  # noqa: E731
+            if hier is not None:
+                # the static elastic V-cycle on the fine elastic blocks
+                pre = mg.make_vcycle_ell(hier)
+                K_op = lambda v: spmv.sp_matvec(hier.levels[-1].op, v)  # noqa: E731
             else:
-                K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
+                pre = _block_jacobi(geom32, D, free_mask)
+                if elastic_op is not None:
+                    K_op = lambda v: spmv.sp_matvec(elastic_op, v)  # noqa: E731
+                else:
+                    K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
             U_it0 = adf.refine_elastic_solve_with(
                 apply_fn,
                 lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
@@ -323,9 +404,16 @@ def build_df32(cfg: FootingConfig, device=None):
             residual_op=residual_op,
             solver=cfg.solver, elastic_op=elastic_op, corr_dest=corr_dest,
             cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
-            cg_cap_relax=cfg.cg_cap_relax,
+            # capped solves of the tangent multigrid count as inexact
+            # Newton steps by default (JAX `models/footing.py:572-578`)
+            cg_cap_relax=(cfg.cg_cap_relax if cfg.cg_cap_relax is not None
+                          else (1e-2 if cfg.tangent_mg else None)),
+            tangent_mg=(None if th is None else functools.partial(
+                mg.tangent_vcycle, th, hier, shear=shear, bulk=bulk)),
+            cg_deflate=cfg.cg_deflate, newton_damping=cfg.newton_damping,
         )
-        out = _result(stepper(U_it0, 0.0, cfg.d_zeta), reference_mesh)
+        res = stepper(U_it0, 0.0, cfg.d_zeta, resume=resume)
+        out = _result(res, reference_mesh)._replace(carry=carry_of(res))
         if elastic_op is None:
             return out
         u, ep = spmv.restore_reference_order(out.u, out.ep, new_of_old, elem_sort)

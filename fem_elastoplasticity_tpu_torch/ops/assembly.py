@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .elements import ReferenceElement
+from .elements import ReferenceElement, SurfaceElement
 
 LANE_PAD = 128
 
@@ -309,6 +309,48 @@ def assemble_dense_free(ke: torch.Tensor, plan: DensePlan) -> torch.Tensor:
     K = ke.new_zeros(plan.n_free * plan.n_free)
     K[plan.target] = _gather_fold(ke.reshape(-1), plan.table)
     return K.reshape(plan.n_free, plan.n_free)
+
+
+# ---------------------------------------------------------------------------
+# load vectors
+# ---------------------------------------------------------------------------
+def volume_force_vector(geom: Geometry, ref: ReferenceElement, f: torch.Tensor) -> torch.Tensor:
+    """Volume load vector, the scatter of N^T (w f), (2*n_n,)
+    (`get_vector_volume`, `Elasticity2D/pythonFEM.py:246-292`).  f: (2,)
+    constant body force or (2, n_int) field.  Summed by the geometry's DOF
+    gather map in a fixed order."""
+    dtype, device = geom.B.dtype, geom.B.device
+    N = torch.as_tensor(ref.N, dtype=dtype, device=device)  # (n_q, n_p)
+    f = torch.as_tensor(f, dtype=dtype, device=device)
+    if f.ndim == 1:
+        f = f[:, None].expand(2, geom.n_int)
+    wf = geom.weight[None, :] * f  # (2, n_int)
+    n_p = geom.n_p2 // 2
+    Nt = N.T[:, None, :].expand(n_p, geom.n_elems, geom.n_q).reshape(n_p, -1)
+    vals = Nt[:, None, :] * wf[None, :, :]  # (n_p, 2, n_int): row 2p + c
+    vals = vals.reshape(geom.n_p2, geom.n_elems, geom.n_q).sum(-1)
+    return _gather_sum(vals.reshape(-1), geom.gmap)
+
+
+def traction_force_vector(coords: torch.Tensor, edges: np.ndarray, surf: SurfaceElement,
+                          t, n_nodes: int) -> torch.Tensor:
+    """Traction load vector over boundary edges, (2*n_n,)
+    (`get_vector_traction`, `Elasticity2D/pythonFEM.py:295-364`), with its
+    x-projected line measure |j11| (right for the axis-aligned traction
+    faces of the benchmarks).  t: (2,) traction.  Summed by a gather map
+    built here on the host, in a fixed order."""
+    dtype, device = coords.dtype, coords.device
+    edges = np.asarray(edges, np.int64)
+    xe = coords[torch.as_tensor(edges, device=device)]  # (n_s, n_p_s, 2)
+    N = torch.as_tensor(surf.N, dtype=dtype, device=device)  # (n_q, n_p_s)
+    dN = torch.as_tensor(surf.dN, dtype=dtype, device=device)
+    j11 = torch.einsum("qp,sp->sq", dN, xe[..., 0])
+    w = j11.abs() * torch.as_tensor(surf.w, dtype=dtype, device=device)[None, :]
+    t = torch.as_tensor(t, dtype=dtype, device=device).expand(edges.shape[0], surf.n_q, 2)
+    vals = torch.einsum("qp,sq,sqc->spc", N, w, t)
+    dofs = element_dofs(edges).reshape(-1)
+    _, table = _grouped_gather(dofs, np.arange(dofs.size), dofs.size, n_rows=2 * n_nodes)
+    return _gather_sum(vals.reshape(-1), torch.as_tensor(table, device=device))
 
 
 # ---------------------------------------------------------------------------

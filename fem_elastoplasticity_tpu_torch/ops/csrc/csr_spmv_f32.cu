@@ -7,9 +7,10 @@
 // gather; its function is y = A v in f32, and that is what is kept.  The
 // card gathers from L2 at full rate, so the matrix stays in CSR.
 //
-// The operators are the assembled elastic (or refreshed tangent) stiffness of
-// a multigrid level (about 14 entries a row for P1 triangles) and the
-// transfers P (2 entries a row) and R = P^T.  One thread owns one row, walks
+// The solvers apply it to the Galerkin value maps of the footing's tangent
+// multigrid (rectangular, one coarse node-block value a row, a dozen entries
+// a row); it was designed for a level's stiffness (about 14 entries a row for
+// P1 triangles) and the transfers P and R = P^T.  One thread owns one row, walks
 // it in index order and keeps one f32 accumulator, with the product and the
 // sum rounded separately as the TPU kernel rounds them.  The order of the sum
 // is fixed and there are no atomics, so two launches give bit-identical y.

@@ -26,8 +26,9 @@ Device half:
 
 * `csr_matvec` replaces `sp_matvec_df` / `slot_matvec_df` (`spmv.py:975`,
   `:1370`) for f64 values, kernel K1 `csrc/csr_spmv_f64.cu`; for f32
-  values it runs `csrc/csr_spmv_f32.cu`, K3's earlier design (a thread a
-  CSR row), which no solve path launches any more;
+  values it runs `csrc/csr_spmv_f32.cu`, K3's CSR kernel (a thread a CSR
+  row), which applies the footing tangent multigrid's Galerkin value maps
+  (`solve.multigrid.refresh_hierarchy`; rectangular) and no operator;
 * `node_block_matvec` replaces `slot_matvec` (`spmv.py:1431`) on a square
   operator, K3's product (the CG operator, the criterion, the predictor):
   the f32 `NodeBlockMatrix` the sweep reads, through the sweep kernel's
@@ -421,7 +422,7 @@ def load_kernel() -> None:
 
 
 def load_kernel_f32() -> None:
-    """Build (first use) and load the f32 CSR kernel (K3's earlier design);
+    """Build (first use) and load K3's f32 CSR kernel;
     raises if the build fails."""
     _library_f32()
 
@@ -488,7 +489,7 @@ def csr_spmv_f64_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def csr_spmv_f32_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Launch the f32 CSR kernel (K3's earlier design) on x's device and
+    """Launch K3's f32 CSR kernel on x's device and
     PyTorch's current stream; no sync.  A may be rectangular."""
     if not x.is_cuda:
         raise ValueError(f"csr_spmv_f32 needs a CUDA tensor; got one on {x.device}")

@@ -1,7 +1,8 @@
 """Projected preconditioned conjugate gradients: a host loop over device tensors.
 
 Port of `fem_elastoplasticity_tpu/solve/cg.py` (`solve_cg` with
-`structure="while"`, and the block-Jacobi preconditioner).  The JAX package
+`structure="while"` and its A-DEF2 deflation, `deflation_harvest`, and the
+block-Jacobi preconditioner).  The JAX package
 runs the iteration as a `while_loop` on the device; here the loop is
 Python, and the stopping test reads one boolean back per iteration.  The
 iterates and the iteration count are exactly the while-loop's: `alpha`,
@@ -10,7 +11,7 @@ tensors, so no scalar passes through a Python float (on CUDA a division by
 a Python scalar is a product with its rounded reciprocal).
 
 Dirichlet constraints are enforced by a multiplicative projector (the input
-and output of the operator are masked).  Deflation (A-DEF2) is not ported.
+and output of the operator are masked).
 """
 from __future__ import annotations
 
@@ -25,8 +26,12 @@ class CGResult(NamedTuple):
     residual: torch.Tensor  # |r_k|_M of the unscaled system
     converged: bool  # the residual met the tolerance within maxiter
     # preconditioned-residual reduction |r_k|_M / |b|_M: 1.0 = no progress,
-    # tol = converged exactly at the requested floor
+    # tol = converged exactly at the requested floor; a deflated solve
+    # reports it in the undeflated preconditioner's norm
     rel_residual: torch.Tensor
+    # the final preconditioned residual M r, unscaled (`deflation_harvest`
+    # reads it)
+    z: torch.Tensor
 
 
 def block_jacobi_preconditioner(blocks: torch.Tensor, free: torch.Tensor):
@@ -65,7 +70,7 @@ def solve_cg(
     tol=1e-12,
     maxiter: int = 1000,
     structure: str = "while",
-    deflate=None,
+    deflate: Optional[torch.Tensor] = None,
 ) -> CGResult:
     """Projected preconditioned CG on the free-DOF subspace.
 
@@ -79,14 +84,33 @@ def solve_cg(
               Python float or a 0-d tensor of b's dtype (the Newton
               solver's forcing term).
 
+      deflate: optional (n_dofs, k) recycled deflation basis W (orthonormal
+              columns, all-zero columns for empty slots): two-level
+              deflated PCG in the A-DEF2 form (Tang, Nabben, Vuik and
+              Erlangga, J. Sci. Comput. 2009).  PCG starts from
+              x0 = W E^-1 W^T b (E = W^T A W, so W^T r0 = 0) and each
+              preconditioner application z = M r is followed by the coarse
+              correction z - W E^-1 ((AW)^T z - W^T r).  A factor of the
+              scaled E that fails (an indefinite tangent) switches the
+              corrections off for the solve.  x0 must be None.  An all-zero
+              basis gives plain PCG bit for bit.
+
+    The stopping scale is |b| in the norm of the undeflated
+    preconditioner M0 in both cases: the deflated start residual's norm
+    would tighten the tolerance by what the basis captured, and b's norm
+    in the deflated preconditioner is inflated by the coarse term
+    ~ (w.b)^2 / lambda_small.  A deflated solve reports its progress
+    (`rel_residual`) in the M0 norm too, so that `cg_cap_relax` keeps one
+    calibration.
+
     Non-convergence is not silent: `CGResult.converged` is False when the
     iteration cap was hit before the tolerance, or when the breakdown guard
     (p.Ap <= 0: stagnation at the dtype floor or an indefinite operator)
     stopped the iteration; `solve.newton` treats that like Newton
     divergence.
     """
-    if deflate is not None:
-        raise NotImplementedError("solve_cg: deflation is not ported")
+    if deflate is not None and x0 is not None:
+        raise ValueError("solve_cg: deflate needs x0=None")
     if structure != "while":
         raise NotImplementedError(f"solve_cg: structure {structure!r} is not ported")
     fmask = free.reshape(-1)
@@ -106,7 +130,41 @@ def solve_cg(
     inv_s = torch.where(ok_b, one / torch.where(ok_b, bscale, one), zero)
     b = b * inv_s
 
-    if x0 is None:
+    M0 = M
+    if deflate is not None:
+        W = torch.where(fmask[:, None], deflate, zero)
+        k = W.shape[1]
+        AW = torch.stack([A(W[:, j]) for j in range(k)], dim=1)
+        # the Gram matrix in the A inner product; empty slots get a unit
+        # diagonal (their coefficients multiply zero columns).  Symmetric
+        # unit-diagonal scaling and a small jitter keep the f32 factor
+        # well posed across the basis' Rayleigh quotients
+        eye = torch.eye(k, dtype=b.dtype, device=b.device)
+        E = W.T @ AW
+        E = 0.5 * (E + E.T) + torch.diag(torch.where((W * W).sum(0) > 0.5, zero, one))
+        sE = torch.rsqrt(torch.clamp(torch.diagonal(E), min=1e-30))
+        Es = E * sE[:, None] * sE[None, :] + 1e-5 * eye
+        Lc, info = torch.linalg.cholesky_ex(Es)
+        ok_d = (info == 0) & torch.isfinite(Lc).all()
+        # the explicit k x k inverse, once a solve
+        Ei = torch.cholesky_solve(eye, Lc)
+
+        def dsolve(t):
+            return torch.where(ok_d, sE * (Ei @ (sE * t)), zero)
+
+        def deflated(r):
+            # A-DEF2: the coarse correction after M0
+            z = M0(r)
+            return z - W @ dsolve(AW.T @ z - W.T @ r)
+
+        M = deflated
+        mu = dsolve(W.T @ b)
+        x = W @ mu
+        r = b - AW @ mu
+        z = proj(M(r))
+        gamma = r @ z
+        bnorm = torch.sqrt((b @ proj(M0(b))).abs())
+    elif x0 is None:
         x = torch.zeros_like(b)
         r = b
         z = proj(M(r))
@@ -141,10 +199,42 @@ def solve_cg(
         k += 1
         go = k < maxiter and bool(ok & (torch.sqrt(gamma.abs()) > limit))
     res = torch.sqrt(gamma.abs())
+    # progress in the undeflated preconditioner's norm (one M0 at exit)
+    res_rep = res if deflate is None else torch.sqrt((r @ proj(M0(r))).abs())
     return CGResult(
         x=x * bscale,
         iters=k,
         residual=res * bscale,
         converged=bool(res <= limit),
-        rel_residual=res / torch.where(bnorm > 0.0, bnorm, one),
+        rel_residual=res_rep / torch.where(bnorm > 0.0, bnorm, one),
+        z=z * bscale,
     )
+
+
+def deflation_harvest(W: torch.Tensor, ring: int, vecs, gates=None):
+    """Insert candidate vectors into the recycled deflation basis.
+
+    W: (n, k) orthonormal columns (zero columns are empty slots); ring: the
+    next slot to overwrite (oldest first); vecs: candidates, e.g. a tangent
+    solve's solution x and its final preconditioned residual z; gates: an
+    optional bool per candidate, False skips it without using a slot (the
+    residual of a converged solve is noise at the tolerance floor).  Each
+    candidate is orthogonalized against the basis (two passes of
+    Gram-Schmidt) and kept if at least 1e-3 of its norm survives; columns
+    are never changed after insertion.  Returns (W, ring), W a new tensor
+    when a candidate was inserted."""
+    k = W.shape[1]
+    gates = [None] * len(vecs) if gates is None else gates
+    tiny = torch.tensor(1e-30, dtype=W.dtype, device=W.device)
+    for v, gate in zip(vecs, gates):
+        if gate is not None and not gate:
+            continue
+        nv0 = torch.sqrt(v @ v)
+        v1 = v - W @ (W.T @ v)
+        v1 = v1 - W @ (W.T @ v1)
+        nv = torch.sqrt(v1 @ v1)
+        if bool(nv > 1e-3 * (nv0 + tiny)):  # False for NaN
+            W = W.clone()
+            W[:, ring % k] = v1 / nv
+            ring = (ring + 1) % k
+    return W, ring

@@ -33,6 +33,12 @@ in one of two formats (the JAX package's `fmt`):
 
 The coarsest level is solved with the explicit f32 inverse of its free-DOF
 block.
+
+`build_tangent_hierarchy` (`:441`) and `tangent_vcycle` (`:623`) make
+the same hierarchy a tangent multigrid: every level refreshed from the
+consistent tangent once a Newton iteration, the fine level by the element
+scatter and each coarser one through a Galerkin value map (K3's CSR kernel),
+with the smoother constants and the coarsest inverse rebuilt on the card.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ import scipy.sparse as sp
 import torch
 
 from ..mesh.midpoints import _edge_scan
+from ..models.materials import elastic_tangent_lanes
+from ..ops import assembly as asm
 from ..ops import spmv
 from ..ops.elements import ReferenceElement
 
@@ -144,6 +152,59 @@ def hierarchy_to_device(
     )
 
 
+def refinement_chain(coords0: np.ndarray, elems0: np.ndarray, levels: int) -> list:
+    """Red refinement of a P1 mesh `levels` times: [(coords, elems,
+    parents), ...] from the given mesh (parents None) to the finest, in
+    refinement order; a new node's parents are the ends of its edge."""
+    chain = []
+    coords, elems = np.asarray(coords0, np.float64), np.asarray(elems0)
+    chain.append((coords, elems, None))
+    for _ in range(levels):
+        v = elems
+        directed = np.stack(
+            [v[:, [1, 2]], v[:, [2, 0]], v[:, [0, 1]]], axis=1
+        ).reshape(-1, 2)
+        first_pos, edge_id, _ = _edge_scan(directed)
+        owners = directed[first_pos]
+        mids = 0.5 * (coords[owners[:, 0]] + coords[owners[:, 1]])
+        coords_f = np.concatenate([coords, mids], axis=0)
+        n_c = coords.shape[0]
+        mid_nodes = (n_c + edge_id).reshape(-1, 3)
+        m23, m31, m12 = mid_nodes[:, 0], mid_nodes[:, 1], mid_nodes[:, 2]
+        v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+        children = np.stack(
+            [
+                np.stack([v0, m12, m31], axis=1),
+                np.stack([v1, m23, m12], axis=1),
+                np.stack([v2, m31, m23], axis=1),
+                np.stack([m12, m23, m31], axis=1),
+            ],
+            axis=1,
+        ).reshape(-1, 3)
+        chain.append((coords_f, children.astype(np.int64), owners))
+        coords, elems = coords_f, children
+    return chain
+
+
+def fine_rcm_orders(chain: list) -> list:
+    """Each level's node order (old id at each new position): reverse
+    Cuthill-McKee on the finest mesh, and on every coarser level the order
+    its nodes have in the next-finer one (coarse nodes are ids 0..n_l-1 of
+    the finer level under red refinement)."""
+    fine_orders = [None] * len(chain)
+    noo_next = None
+    for l in reversed(range(len(chain))):
+        n_l = chain[l][0].shape[0]
+        if l == len(chain) - 1:
+            order_l = spmv.rcm_node_order(chain[-1][1], n_l)
+        else:
+            order_l = np.argsort(noo_next[:n_l], kind="stable")
+        noo_next = np.empty(n_l, np.int64)
+        noo_next[order_l] = np.arange(n_l)
+        fine_orders[l] = order_l
+    return fine_orders
+
+
 def build_hierarchy_ell(
     coords0: np.ndarray,
     elems0: np.ndarray,
@@ -173,47 +234,8 @@ def build_hierarchy_ell(
                  `fine_free`, `fine_coords`
     fmt, pack_bf16: the device format and packing (`hierarchy_to_device`).
     """
-    chain = []
-    coords, elems = np.asarray(coords0, np.float64), np.asarray(elems0)
-    chain.append((coords, elems, None))
-    for _ in range(levels):
-        v = elems
-        directed = np.stack(
-            [v[:, [1, 2]], v[:, [2, 0]], v[:, [0, 1]]], axis=1
-        ).reshape(-1, 2)
-        first_pos, edge_id, _ = _edge_scan(directed)
-        owners = directed[first_pos]
-        mids = 0.5 * (coords[owners[:, 0]] + coords[owners[:, 1]])
-        coords_f = np.concatenate([coords, mids], axis=0)
-        n_c = coords.shape[0]
-        mid_nodes = (n_c + edge_id).reshape(-1, 3)
-        m23, m31, m12 = mid_nodes[:, 0], mid_nodes[:, 1], mid_nodes[:, 2]
-        v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
-        children = np.stack(
-            [
-                np.stack([v0, m12, m31], axis=1),
-                np.stack([v1, m23, m12], axis=1),
-                np.stack([v2, m31, m23], axis=1),
-                np.stack([m12, m23, m31], axis=1),
-            ],
-            axis=1,
-        ).reshape(-1, 3)
-        chain.append((coords_f, children.astype(np.int64), owners))
-        coords, elems = coords_f, children
-
-    # fine RCM, then induce coarser orderings by restriction: level l's
-    # nodes are ids 0..n_l-1 inside level l+1
-    fine_orders = [None] * len(chain)
-    noo_next = None
-    for l in reversed(range(len(chain))):
-        n_l = chain[l][0].shape[0]
-        if l == len(chain) - 1:
-            order_l = spmv.rcm_node_order(chain[-1][1], n_l)
-        else:
-            order_l = np.argsort(noo_next[:n_l], kind="stable")
-        noo_next = np.empty(n_l, np.int64)
-        noo_next[order_l] = np.arange(n_l)
-        fine_orders[l] = order_l
+    chain = refinement_chain(coords0, elems0, levels)
+    fine_orders = fine_rcm_orders(chain)
 
     host_levels, perms = [], []
     prev_new_of_old = prev_n = None
@@ -337,3 +359,200 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
 
     fine = levels[-1]
     return lambda r: vcycle(len(levels) - 1, torch.where(fine.free, r, zero))
+
+
+# ---------------------------------------------------------------------------
+# the tangent hierarchy: every level refreshed once a Newton iteration
+# ---------------------------------------------------------------------------
+class TangentHierarchy(NamedTuple):
+    """Device tables of the per-Newton-iteration tangent refresh
+    (`build_tangent_hierarchy`), all positions in the levels' flat node-block
+    values (`MGLevel.sweep_op.block_values.reshape(-1)`)."""
+
+    geom: asm.Geometry  # the fine level's f32 geometry, from f32 coordinates
+    # (n_elems, 2n_p, 2n_p) int64: each element-block entry's position in the
+    # fine values, the values' size for a dropped (constrained) entry
+    dest: torch.Tensor
+    # mhat[l - 1]: the Galerkin value map of level l -> level l - 1, f32 CSR
+    mhat: List[spmv.CsrMatrix]
+    base: List[torch.Tensor]  # base[l - 1]: level l - 1's static f32 offset
+    diag_blocks: List[torch.Tensor]  # per level, (n_n,) int64 diagonal block
+    d0_idx: torch.Tensor  # flat positions in the coarsest (n_free0, n_free0)
+    pos0_ff: torch.Tensor  # the level-0 values that land there
+    n_free0: int
+
+
+def _prolongation_rows(P) -> tuple:
+    """The prolongation's rows padded to 2 (coarse DOF, weight) entries."""
+    P = sp.csr_matrix(P)
+    P.sum_duplicates()
+    deg = np.diff(P.indptr)
+    assert deg.max() <= 2, "a P1 prolongation row has at most two parents"
+    n = P.shape[0]
+    pidx = np.zeros((n, 2), np.int64)
+    pw = np.zeros((n, 2), np.float64)
+    r = np.repeat(np.arange(n), deg)
+    k = np.arange(P.nnz) - np.repeat(P.indptr[:-1], deg)
+    pidx[r, k] = P.indices
+    pw[r, k] = P.data
+    return pidx, pw
+
+
+def build_tangent_hierarchy(hier: Hierarchy, coarse: dict, ref: ReferenceElement,
+                            device=None) -> TangentHierarchy:
+    """Host setup of the tangent multigrid (`build_tangent_hierarchy`,
+    JAX `multigrid.py:441`) for a P1 slot hierarchy with f32 values on every
+    level (`build_hierarchy_ell(fmt="slot", pack_bf16=False)`).
+
+    The fine level's values are the elastic ones plus every element's
+    tangent deviation (`element_corr_dest` mapped to the node blocks).  Each
+    coarser level is the Galerkin restriction P^T K P of the level above:
+    for nested P1 spaces its pattern is the built coarse operator's, and the
+    map from the fine values to the coarse ones is a fixed sparse matrix
+    (`Mhat`, at most four coarse entries a fine one through the 0.5 / 1.0
+    weights of P), built here over the node-block value positions of both
+    levels and applied on the card as one CSR product.  The static offset
+    base = vals_c_elastic - Mhat vals_f_elastic (the constrained rows' unit
+    diagonals) makes the elastic chain reproduce the built hierarchy.  The
+    diagonal blocks give each level's smoother constants, and the coarsest
+    level's free-free entries its dense matrix."""
+    levels = coarse["levels"]
+    top = len(levels) - 1
+    fine = levels[top]
+    g = asm.compute_geometry(torch.as_tensor(fine["coords"], dtype=torch.float32, device=device),
+                             np.asarray(fine["elems"]), ref)
+    if g.n_q != 1:
+        raise NotImplementedError("the tangent hierarchy needs P1 elements (one point each)")
+    for lev in hier.levels:
+        if lev.sweep_op is None or lev.sweep_op.block_values.dtype != torch.float32:
+            raise ValueError("the tangent hierarchy needs f32 node blocks on every level "
+                             "(fmt='slot', pack_bf16=False)")
+    n_vals = [lev.sweep_op.block_values.numel() for lev in hier.levels]
+    dest = spmv.node_block_dest(
+        spmv.element_corr_dest(fine["K"], np.asarray(fine["elems"]), fine["free"]),
+        fine["K"], device).long()
+    pad = dest.new_full((g.n_elems - dest.shape[0],) + tuple(dest.shape[1:]), -1)
+    dest = torch.cat([dest, pad])
+    dest = torch.where(dest >= 0, dest, n_vals[top])
+    # every level's CSR entry -> its place in the flat block values
+    pos = [spmv.node_block_positions(spmv.csr_to_device(lv["K"], "cpu", np.float32)).numpy()
+           for lv in levels]
+
+    mhat, base = [None] * top, [None] * top
+    for l in range(top, 0, -1):
+        K_f, K_c = levels[l]["K"], levels[l - 1]["K"]
+        free_c = np.asarray(levels[l - 1]["free"]).reshape(-1)
+        pidx, pw = _prolongation_rows(levels[l]["P"])
+        rows_f = np.repeat(np.arange(K_f.shape[0], dtype=np.int64), np.diff(K_f.indptr))
+        cols_f = K_f.indices.astype(np.int64)
+        t = np.arange(K_f.nnz, dtype=np.int64)
+        rM, cM, vM = [], [], []
+        for a in range(2):
+            for b in range(2):
+                ci, cj = pidx[rows_f, a], pidx[cols_f, b]
+                wgt = pw[rows_f, a] * pw[cols_f, b]
+                keep = (wgt != 0.0) & free_c[ci] & free_c[cj]
+                kc = spmv.csr_lookup(K_c, ci[keep], cj[keep])
+                assert (kc >= 0).all(), "the Galerkin pattern is not the coarse pattern"
+                rM.append(pos[l - 1][kc])
+                cM.append(pos[l][t[keep]])
+                vM.append(wgt[keep])
+        M = sp.coo_matrix((np.concatenate(vM), (np.concatenate(rM), np.concatenate(cM))),
+                          shape=(n_vals[l - 1], n_vals[l])).tocsr()
+        M.sum_duplicates()
+        vf_el = np.zeros(n_vals[l])
+        vf_el[pos[l]] = K_f.data
+        vc_el = np.zeros(n_vals[l - 1])
+        vc_el[pos[l - 1]] = K_c.data
+        base[l - 1] = torch.as_tensor((vc_el - M @ vf_el).astype(np.float32), device=device)
+        mhat[l - 1] = spmv.csr_to_device(M, device, np.float32)
+
+    diag_blocks = []
+    for l, lv in enumerate(levels):
+        k = np.arange(lv["coords"].shape[0], dtype=np.int64)
+        kk = spmv.csr_lookup(lv["K"], 2 * k, 2 * k)
+        assert (kk >= 0).all(), "a node's diagonal block is missing"
+        diag_blocks.append(torch.as_tensor(pos[l][kk] // 4, device=device))
+
+    K0 = levels[0]["K"]
+    free0 = np.asarray(levels[0]["free"]).reshape(-1)
+    fmap0, n_free0 = asm.free_dof_map(free0)
+    r0 = np.repeat(np.arange(K0.shape[0], dtype=np.int64), np.diff(K0.indptr))
+    c0 = K0.indices.astype(np.int64)
+    ff0 = free0[r0] & free0[c0]
+    return TangentHierarchy(
+        geom=g, dest=dest, mhat=mhat, base=base, diag_blocks=diag_blocks,
+        d0_idx=torch.as_tensor(fmap0[r0[ff0]].astype(np.int64) * n_free0 + fmap0[c0[ff0]],
+                               device=device),
+        pos0_ff=torch.as_tensor(pos[0][ff0], device=device),
+        n_free0=int(n_free0),
+    )
+
+
+def refresh_hierarchy(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tensor,
+                      shear: float, bulk: float, omega: float = 0.7) -> Hierarchy:
+    """The hierarchy refreshed from the consistent tangent d_fine ((3, 3,
+    n_int) f32, the fine level's points), on new tensors: `hier`, the
+    elastic hierarchy, is read and never written.
+
+    Every element's K_e(d) - K_e(d_elastic) is added into a copy of the
+    fine elastic values (`solve.newton.refreshed_values`); each coarser
+    level's values are Mhat times the level above's plus the static offset
+    (one launch of K3's CSR kernel a level); each level's damped
+    block-Jacobi constants come from its refreshed diagonal blocks
+    (closed-form 2x2 inverse times omega), and the coarsest level's solve
+    from the explicit inverse of its Jacobi-scaled free-free matrix, one
+    f32 factorization (`torch.linalg`; NaN where it fails, which CG
+    reports)."""
+    from .newton import refreshed_values
+
+    f32 = torch.float32
+    g = th.geom
+    device = d_fine.device
+    d_el = elastic_tangent_lanes(shear, bulk, g.n_int, f32, device)
+    ke = asm.element_stiffness(g, d_fine - d_el).permute(2, 0, 1)
+    top = len(hier.levels) - 1
+    vals = [None] * (top + 1)
+    vals[top] = refreshed_values(hier.levels[top].sweep_op.block_values.reshape(-1), ke, th.dest)
+    for l in range(top, 0, -1):
+        vals[l - 1] = spmv.csr_matvec(th.mhat[l - 1], vals[l]) + th.base[l - 1]
+
+    eye = torch.eye(2, dtype=f32, device=device)
+    levels = []
+    for l, lev in enumerate(hier.levels):
+        blocks = lev.sweep_op._replace(block_values=vals[l].reshape(-1, 4))
+        free2 = lev.free.reshape(-1, 2)
+        b = blocks.block_values[th.diag_blocks[l]].reshape(-1, 2, 2)
+        b = torch.where(free2[:, :, None] & free2[:, None, :], b, torch.zeros_like(b))
+        b = b + eye * (~free2).to(f32)[:, :, None]
+        a_, b_, c_, d_ = b[:, 0, 0], b[:, 0, 1], b[:, 1, 0], b[:, 1, 1]
+        det = a_ * d_ - b_ * c_
+        i00, i01, i10, i11 = d_ / det * omega, -b_ / det * omega, -c_ / det * omega, a_ / det * omega
+        levels.append(lev._replace(
+            op=None if lev.op is None else blocks,
+            sweep_op=blocks,
+            inv=torch.stack([torch.stack([i00, i01], -1), torch.stack([i10, i11], -1)], -2),
+            aux=lev.aux._replace(msf=torch.stack([i00, i11], 1).reshape(-1),
+                                 mpr=torch.stack([i01, i10], 1).reshape(-1)),
+        ))
+
+    n0 = th.n_free0
+    K0 = torch.zeros(n0 * n0, dtype=f32, device=device)
+    K0[th.d0_idx] = vals[0][th.pos0_ff]
+    K0 = K0.reshape(n0, n0)
+    dsc = torch.rsqrt(torch.diagonal(K0))
+    L0, info = torch.linalg.cholesky_ex(K0 * dsc[:, None] * dsc[None, :])
+    Ki = torch.cholesky_solve(torch.eye(n0, dtype=f32, device=device), L0)
+    Ki = torch.where(info == 0, Ki, torch.full_like(Ki, float("nan"))) * dsc[:, None] * dsc[None, :]
+    return Hierarchy(levels=levels, inv0=Ki, free_idx0=hier.free_idx0)
+
+
+def tangent_vcycle(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tensor,
+                   shear: float, bulk: float, nu=2, omega: float = 0.7):
+    """The tangent refresh of one Newton iteration (`tangent_vcycle`, JAX
+    `multigrid.py:623`) -> (CG operator v -> K_t v, V-cycle r -> z): K3's
+    product on the refreshed fine blocks and `make_vcycle_ell` over the
+    refreshed levels (`refresh_hierarchy`: K4 sweeps, K3 transfers)."""
+    refreshed = refresh_hierarchy(th, hier, d_fine, shear, bulk, omega)
+    fine = refreshed.levels[-1].op
+    return (lambda v: spmv.node_block_matvec(fine, v)), make_vcycle_ell(refreshed, nu=nu)

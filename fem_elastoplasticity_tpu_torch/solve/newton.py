@@ -4,9 +4,14 @@ Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`;
 `solver="cg"` (inexact Newton: CG tangent solves preconditioned by the
 tangent's 2x2 nodal diagonal blocks, rebuilt every Newton iteration, on the
 matrix-free tangent or on the assembled elastic operator refreshed from
-every integration point); and, with the assembled elastic operator and a
-multigrid preconditioner, `solver="mg"` (CG on the elastic operator with
-the plastic correction, refreshed into its values or gathered).
+every integration point, or, with `tangent_mg`, preconditioned by a
+multigrid V-cycle whose every level is refreshed from the tangent); and,
+with the assembled elastic operator and a multigrid preconditioner,
+`solver="mg"` (CG on the elastic operator with the plastic correction,
+refreshed into its values or gathered).  The CG solves can recycle a
+deflation basis (`cg_deflate`), carried across Newton iterations and load
+steps and through the resume carry; `newton_damping` backtracks a Newton
+step on the residual norm.
 The JAX package runs the whole schedule as one jitted `while_loop`; here the
 controller is Python, and each Newton iteration reads its criterion (and
 the plastic count) back to the host.  The controller semantics are kept
@@ -44,7 +49,7 @@ from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
 from ..ops.spmv import NodeBlockMatrix, sp_matvec
-from .cg import block_jacobi_preconditioner, solve_cg
+from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg
 
 
 # Eisenstat-Walker forcing: the share of the last Newton criterion that the
@@ -110,6 +115,10 @@ class LoadSteppingResult(NamedTuple):
     crit_trips: tuple = ()  # the last Newton criterion of each trip (NaN: failed)
     zeta_trips: tuple = ()  # the accepted load factor after each trip
     cg_trips: tuple = ()  # the CG solves of each trip: ((iterations, converged), ...)
+    # the recycled deflation basis (cg_deflate > 0): (n_dofs, k) f32 and
+    # the next slot to overwrite
+    defl_w: Optional[torch.Tensor] = None
+    defl_ring: int = 0
 
 
 class NewtonSettings(NamedTuple):
@@ -126,18 +135,23 @@ class NewtonSettings(NamedTuple):
 CARRY_KEYS = (
     "u", "u_old", "u_it", "ep", "zeta_old", "d_zeta", "d_zeta_old", "step",
     "aux", "zeta_hist", "monitor_hist", "nits_total", "ncg_total",
+    "defl_w", "defl_ring",
 )
 
 
 def carry_of(res: LoadSteppingResult) -> dict:
-    """LoadSteppingResult -> the stepper's resume carry (`chunked.carry_of`)."""
-    return dict(
+    """LoadSteppingResult -> the stepper's resume carry (`chunked.carry_of`),
+    the deflation basis and ring included where the run had one."""
+    carry = dict(
         u=res.u, u_old=res.u_old, u_it=res.u_it, ep=res.ep,
         zeta_old=res.zeta, d_zeta=res.d_zeta, d_zeta_old=res.d_zeta_old,
         step=res.n_steps, aux=res.aux, zeta_hist=res.zeta_hist,
         monitor_hist=res.monitor_hist, nits_total=res.n_newton_total,
         ncg_total=res.n_cg_total,
     )
+    if res.defl_w is not None:
+        carry.update(defl_w=res.defl_w, defl_ring=res.defl_ring)
+    return carry
 
 
 def build_load_stepper(
@@ -168,6 +182,9 @@ def build_load_stepper(
     cg_maxiter: int = 2000,
     cg_eta0: Optional[float] = None,
     cg_cap_relax: Optional[float] = None,
+    tangent_mg: Optional[Callable] = None,
+    cg_deflate: int = 0,
+    newton_damping: int = 0,
 ):
     """Build the load-stepping solver (dense or CG tangent solves).
 
@@ -239,6 +256,23 @@ def build_load_stepper(
                 cg_eta0), in f32; the first iteration uses cg_eta0.
       cg_cap_relax: accept a capped solve whose preconditioned residual
                 fell by this factor.  None: strict cap-as-divergence.
+      tangent_mg: with solver="cg" and no elastic_op: d -> (operator,
+                preconditioner), `solve.multigrid.tangent_vcycle` bound to
+                its hierarchies; called once a Newton iteration on the
+                consistent tangent, its operator is CG's and its V-cycle
+                CG's preconditioner.
+      cg_deflate: size k of a recycled deflation basis of the CG solves
+                (`solve.cg.solve_cg` deflate): every solve runs deflated PCG
+                against the basis, and then its solution, and its final
+                preconditioned residual if it did not converge, are
+                orthonormalized into the ring (`deflation_harvest`).  The
+                basis lives across Newton iterations and load steps (it
+                advances on rejected steps too) and in the resume carry
+                (`defl_w`, `defl_ring`).  0: off.
+      newton_damping: residual-norm backtracking: the step s dU with s
+                halved up to this many times while the free-DOF residual
+                2-norm does not fall below the current one.  The criterion
+                still measures the undamped dU.  0: the undamped iteration.
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -251,6 +285,10 @@ def build_load_stepper(
         raise NotImplementedError("elastic_factor must be None, ('inv', Ki) or ('cho', L)")
     if solver not in ("dense", "cg", "mg"):
         raise NotImplementedError(f"solver {solver!r}")
+    if tangent_mg is not None and (solver != "cg" or elastic_op is not None):
+        raise NotImplementedError("tangent_mg needs solver='cg' without elastic_op")
+    if cg_deflate and solver == "dense":
+        raise NotImplementedError("cg_deflate needs an iterative solver")
     if solver == "cg" and elastic_op is not None and corr_dest is None:
         raise NotImplementedError(
             "solver='cg' is ported matrix-free or on elastic_op refreshed through corr_dest"
@@ -377,11 +415,11 @@ def build_load_stepper(
         y = torch.linalg.solve(A, Ct)
         return z - KiU @ y
 
+    free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
+    free_mask[free_idx] = True
     if solver != "dense":
-        free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
-        free_mask[free_idx] = True
         d_el = elastic_tangent_lanes(shear, bulk, n_int, tdtype, device)
-        if solver == "cg":
+        if solver == "cg" and tangent_mg is None:
             slot_map = asm.node_slot_map(geom_t)
         if corr_dest is not None:
             # -1 (constrained) destinations go past the block values
@@ -418,10 +456,12 @@ def build_load_stepper(
         A_t = refreshed(corr, dest_table[idx_p // geom_t.n_q])
         return lambda v: sp_matvec(A_t, v)
 
-    def cg_solve(d, f_int, ind_p, crit_prev):
-        """Inexact Newton step by preconditioned CG -> (dU, ok, its): the
-        multigrid V-cycle (solver="mg") or the block-Jacobi inverse of the
-        tangent's nodal blocks, rebuilt from d ("cg")."""
+    def cg_solve(d, f_int, ind_p, crit_prev, defl):
+        """Inexact Newton step by preconditioned CG -> (dU, ok, its, defl):
+        the multigrid V-cycle (solver="mg"), the tangent V-cycle refreshed
+        from d (tangent_mg), or the block-Jacobi inverse of the tangent's
+        nodal blocks, rebuilt from d ("cg"); defl, the deflation (W, ring)
+        or None, after this solve's harvest."""
         tol = cg_tol
         if cg_eta0 is not None:
             # Eisenstat-Walker forcing in f32, as the JAX loop computes it;
@@ -430,19 +470,26 @@ def build_load_stepper(
             t = f32(crit_prev) * f32(CG_ETA_SAFETY)
             t = f32(cg_eta0) if np.isposinf(t) else np.nan_to_num(t)
             tol = float(np.clip(t, f32(cg_tol), f32(cg_eta0)))
-        if solver == "cg":
+        if tangent_mg is not None:
+            op, pre = tangent_mg(d)
+        elif solver == "cg":
+            op = tangent_operator(d, ind_p)
             pre = block_jacobi_preconditioner(
                 asm.node_block_diagonal(geom_t, d, slot_map), free_mask)
         else:
-            pre = mg_preconditioner
+            op, pre = tangent_operator(d, ind_p), mg_preconditioner
         res = solve_cg(
-            tangent_operator(d, ind_p), -f_int, free_mask,
-            precond=pre, tol=tol, maxiter=cg_maxiter,
+            op, -f_int, free_mask, precond=pre, tol=tol, maxiter=cg_maxiter,
+            deflate=None if defl is None else defl[0],
         )
+        if defl is not None:
+            # the solution (small modes amplified) and, of a solve that did
+            # not converge, the residual it left feed the next solves' basis
+            defl = deflation_harvest(*defl, [res.x, res.z], gates=[None, not res.converged])
         ok = res.converged
         if not ok and cg_cap_relax is not None:
             ok = bool(res.rel_residual <= cg_cap_relax)  # False for NaN
-        return res.x, ok, res.iters
+        return res.x, ok, res.iters, defl
 
     def newton_solve(d, f_int, ind_p, n_plastic):
         """One Newton linear solve K_tangent dU = -F on the free DOFs."""
@@ -466,32 +513,60 @@ def build_load_stepper(
         dU[free_idx] = dU_free
         return dU
 
-    def inner_newton(U_it, ep, zeta):
+    def residual_norm(f):
+        return torch.linalg.vector_norm(torch.where(free_mask, f, torch.zeros_like(f)))
+
+    def damped(U_it, dU, f_int, ep, zeta):
+        """U_it + s dU, s halved up to newton_damping times while the
+        free-DOF residual norm of the trial is not below the current one
+        (`newton.py:840-876`).  A quirk kept for parity with the JAX
+        package: if no halving lowers the norm, the smallest trial step is
+        taken all the same, and the caller's criterion measures the
+        undamped dU, not the step taken."""
+        phi0 = residual_norm(f_int)
+        s = torch.ones((), dtype=tdtype, device=device)
+
+        def phi(s):
+            return residual_norm(residual_force(return_map(U_it + (s * dU).to(sdtype), ep, zeta)[0]))
+
+        t, phi_s = 0, phi(s)
+        while t < newton_damping and bool(phi_s >= phi0):  # False for NaN
+            s = 0.5 * s
+            phi_s = phi(s)
+            t += 1
+        return U_it + (s * dU).to(sdtype)
+
+    def inner_newton(U_it, ep, zeta, defl):
         """Semi-smooth Newton at a fixed load factor -> (U, crit, nits,
-        the CG solves ((iterations, converged), ...))."""
+        the CG solves ((iterations, converged), ...), defl)."""
         crit, it, fail, solves = math.inf, 0, False, []
         while not fail and crit >= newton_tol and it < settings.maxit:
             s, ds, ind_p, _, _ = return_map(U_it, ep, zeta)
             f_int = residual_force(s)
             if solver != "dense":
-                dU, ok, cg_its = cg_solve(ds, f_int, ind_p, crit)
+                dU, ok, cg_its, defl = cg_solve(ds, f_int, ind_p, crit, defl)
                 solves.append((int(cg_its), bool(ok)))
             else:
                 n_plastic = int(ind_p.sum())
                 dU, ok = newton_solve(ds, f_int, ind_p, n_plastic), True
-            U_new = U_it + dU.to(sdtype)
+            if newton_damping and ok:
+                U_new = damped(U_it, dU, f_int, ep, zeta)
+            else:
+                U_new = U_it + dU.to(sdtype)
             crit = float(criterion(dU, U_it.to(tdtype)))
             fail = math.isnan(crit) or not ok
             if not fail:
                 U_it = U_new
             it += 1
-        return U_it, (math.nan if fail else crit), it, tuple(solves)
+        return U_it, (math.nan if fail else crit), it, tuple(solves), defl
 
     def run(U_it0: torch.Tensor, aux0: float, d_zeta0: float, resume: Optional[dict] = None):
         """Execute the load-stepping schedule.
 
         `resume`: optional carry (`carry_of`, `utils.convert.carry_from_jax`)
         with keys CARRY_KEYS to restart from; missing keys use fresh values.
+        The deflation keys are read with cg_deflate > 0 and dropped
+        otherwise; a carry without them starts from an empty basis.
         """
         zeros_h = torch.zeros((settings.max_steps,), dtype=sdtype, device=device)
         st = dict(
@@ -501,15 +576,25 @@ def build_load_stepper(
             step=settings.step0, aux=float(aux0),
             zeta_hist=zeros_h, monitor_hist=zeros_h.clone(),
             nits_total=0, ncg_total=0,
+            defl_w=(torch.zeros((n_dofs, cg_deflate), dtype=tdtype, device=device)
+                    if cg_deflate else None),
+            defl_ring=0,
         )
         if resume is not None:
             unknown = set(resume) - set(CARRY_KEYS)
             if unknown:
                 raise ValueError(f"unknown resume keys {sorted(unknown)}")
             for k, v in resume.items():
-                if isinstance(v, torch.Tensor):
+                if k.startswith("defl_") and not cg_deflate:
+                    continue
+                if k == "defl_w":
+                    if tuple(v.shape) != (n_dofs, cg_deflate):
+                        raise ValueError(f"resume defl_w has shape {tuple(v.shape)}, "
+                                         f"expected {(n_dofs, cg_deflate)}")
+                    v = torch.as_tensor(v).to(dtype=tdtype, device=device).clone()
+                elif isinstance(v, torch.Tensor):
                     v = v.to(dtype=sdtype, device=device).clone()
-                elif k in ("step", "nits_total", "ncg_total"):
+                elif k in ("step", "nits_total", "ncg_total", "defl_ring"):
                     v = int(v)
                 else:
                     v = float(v)
@@ -519,6 +604,7 @@ def build_load_stepper(
         step, aux = st["step"], st["aux"]
         zeta_hist, mon_hist = st["zeta_hist"], st["monitor_hist"]
         nits_total, ncg_total = st["nits_total"], st["ncg_total"]
+        defl = None if st["defl_w"] is None else (st["defl_w"], st["defl_ring"])
 
         # stop thresholds, rounded as the JAX package's weakly typed
         # Python floats are against its dtype scalars
@@ -527,7 +613,8 @@ def build_load_stepper(
         trips, done, newton_trips, crit_trips, zeta_trips, cg_trips = 0, False, [], [], [], []
         while not done and trips < settings.max_trips:
             zeta = rnd(zeta_old + d_zeta)
-            U_conv, crit, nits, solves = inner_newton(U_it, ep, zeta)
+            # the deflation basis advances on rejected steps too
+            U_conv, crit, nits, solves, defl = inner_newton(U_it, ep, zeta, defl)
             if crit < accept_tol:  # False for NaN
                 s_rm, _, _, _, ep_new = return_map(U_conv, ep, zeta, apply=accumulate_ep)
                 idx = min(step, settings.max_steps - 1)
@@ -572,6 +659,7 @@ def build_load_stepper(
             u_old=U_old, u_it=U_it, d_zeta_old=d_zeta_old, aux=float(aux),
             newton_trips=tuple(newton_trips), crit_trips=tuple(crit_trips),
             zeta_trips=tuple(zeta_trips), cg_trips=tuple(cg_trips),
+            defl_w=None if defl is None else defl[0], defl_ring=0 if defl is None else defl[1],
         )
 
     return run

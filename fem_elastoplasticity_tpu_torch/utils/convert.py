@@ -11,12 +11,17 @@ packages can compute from identical inputs:
   format, or as `save_checkpoint` writes it (`key__hi`/`key__lo`), -> the
   port's resume carry;
 * `carry_to_jax`: the inverse, in `save_checkpoint` format;
+* `load_checkpoint` / `save_checkpoint`: the npz checkpoint of
+  `solve/chunked.py` (`:58`, `:45`) as a port carry, and a port carry
+  written in that format (atomic replace), so that either package resumes
+  the other's run (`checkpoints/footing_l5_k16.npz`);
 * `hierarchy_from_numpy`: the host data of the JAX package's multigrid
   hierarchy -> the port's device hierarchy, so that V-cycle and CG tests run
   both packages on identical operators.
 """
 from __future__ import annotations
 
+import os
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -27,8 +32,10 @@ from ..ops.assembly_df import split_f64_np
 
 # carry fields the JAX df32 stepper holds as DF pairs
 DF_KEYS = ("u", "u_old", "u_it", "ep", "zeta_old", "d_zeta", "d_zeta_old", "monitor_hist")
-INT_KEYS = ("step", "nits_total", "ncg_total")
+INT_KEYS = ("step", "nits_total", "ncg_total", "defl_ring")
 ARRAY_KEYS = ("u", "u_old", "u_it", "ep", "zeta_hist", "monitor_hist")
+# the recycled deflation basis: an f32 array in both packages
+F32_ARRAY_KEYS = ("defl_w",)
 
 
 def df_to_f64(hi, lo) -> np.ndarray:
@@ -58,7 +65,8 @@ def _value(carry: Mapping, key: str):
 
 def carry_from_jax(carry: Mapping, device=None) -> dict:
     """JAX load-stepping carry -> the port's resume carry (f64 tensors for
-    arrays, Python floats and ints for scalars)."""
+    arrays, the deflation basis `defl_w` as an f32 tensor, Python floats and
+    ints for scalars)."""
     out = {}
     keys = {k[: -len("__hi")] if k.endswith("__hi") else k for k in carry
             if not k.endswith("__lo")}
@@ -66,6 +74,8 @@ def carry_from_jax(carry: Mapping, device=None) -> dict:
         v = _value(carry, key)
         if key in ARRAY_KEYS:
             out[key] = torch.as_tensor(np.asarray(v, np.float64), device=device)
+        elif key in F32_ARRAY_KEYS:
+            out[key] = torch.as_tensor(np.asarray(v, np.float32), device=device)
         elif key in INT_KEYS:
             out[key] = int(v)
         else:
@@ -75,18 +85,37 @@ def carry_from_jax(carry: Mapping, device=None) -> dict:
 
 def carry_to_jax(carry: Mapping) -> dict:
     """The port's carry -> `save_checkpoint` format of the JAX df32 stepper:
-    DF fields split into `key__hi`/`key__lo` f32 arrays, `zeta_hist` and
-    `aux` as f32, counters as int."""
+    DF fields split into `key__hi`/`key__lo` f32 arrays, `zeta_hist`, `aux`
+    and `defl_w` as f32, the counters as int64 and `defl_ring` as int32 (the
+    JAX carry's types).  An f64 value keeps 48 of its 53 bits in a pair."""
     out = {}
     for key, v in carry.items():
         x = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         if key in DF_KEYS:
             out[key + "__hi"], out[key + "__lo"] = split_f64_np(x)
         elif key in INT_KEYS:
-            out[key] = np.asarray(int(x))
+            out[key] = np.asarray(int(x), np.int32 if key == "defl_ring" else np.int64)
         else:
             out[key] = np.asarray(x, np.float32)
     return out
+
+
+def load_checkpoint(path, device=None) -> dict:
+    """A checkpoint npz of the JAX package (`solve/chunked.py
+    save_checkpoint`, or `save_checkpoint` here) -> the port's resume carry
+    on `device` (`carry_from_jax`): DF pairs summed exactly into f64, the
+    deflation basis and ring included."""
+    with np.load(path) as raw:
+        return carry_from_jax({k: raw[k] for k in raw.files}, device=device)
+
+
+def save_checkpoint(path, carry: Mapping) -> None:
+    """Write a port carry (`solve.newton.carry_of`) as the JAX package's
+    checkpoint npz (`carry_to_jax`), atomically: to `path`.tmp.npz, then
+    renamed over `path`."""
+    tmp = str(path) + ".tmp.npz"
+    np.savez(tmp, **carry_to_jax(carry))
+    os.replace(tmp, str(path))
 
 
 def hierarchy_from_numpy(levels: Sequence[Mapping], inv0, free_idx0, device=None,

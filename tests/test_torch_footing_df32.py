@@ -253,7 +253,7 @@ def test_unported_combinations_are_refused(kw):
 
 def test_refusals_outside_the_config():
     with pytest.raises(NotImplementedError):
-        FootingConfig.fast_scale(4)
+        FootingConfig.fast_scale(4, residual_fmt="ell")
     with pytest.raises(ValueError):
         footing.build_df32(FootingConfig(), device="cpu")
     # the stepper's CG on an assembled operator needs the full refresh

@@ -568,3 +568,61 @@ def test_footing_fast_on_the_card(cuda):
     np.testing.assert_allclose(r.zeta_hist[1:17], r64.zeta_hist[1:17], rtol=1e-6)
     r2 = footing.solve(FootingConfig.fast(), device=cuda)
     assert np.array_equal(r.u, r2.u) and r.n_newton_total == r2.n_newton_total
+
+
+@pytest.fixture(scope="module")
+def cuda_tangent():
+    """The level-3 tangent-multigrid build on the card (extras: hierarchy,
+    tangent tables, host levels), its kernels built."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for load in (spmv.load_kernel, spmv.load_kernel_f32, spmv.load_sweep_kernel,
+                 spmv.load_transfer_kernel):
+        load()
+    device = torch.device("cuda")
+    extras = {}
+    run, _ = footing.build_df32(FootingConfig.fast_scale(3, max_trips=2), device=device,
+                                extras=extras)
+    return device, run, extras
+
+
+def test_galerkin_maps_through_the_csr_kernel_match_plain(cuda_tangent):
+    """K3's CSR kernel on the rectangular Galerkin maps: within 2e-6 of
+    max |plain|, repeatable bit for bit."""
+    device, _, extras = cuda_tangent
+    vals = extras["hierarchy"].levels[-1].sweep_op.block_values.reshape(-1)
+    for M in extras["tangent"].mhat[::-1]:
+        y = spmv.csr_matvec(M, vals)
+        y_plain = spmv.csr_matvec_plain(M, vals)
+        assert float((y - y_plain).abs().max()) <= 2e-6 * float(y_plain.abs().max())
+        assert torch.equal(y, spmv.csr_matvec(M, vals))
+        vals = y
+
+
+def test_tangent_multigrid_solve_on_the_card(cuda_tangent):
+    """fast_scale(3) for two load trips on the card: every kernel of the
+    path, one Galerkin product a coarse level a Newton iteration, no plain
+    version, the CPU run's steps and Newton counts, two runs bit-identical;
+    a refresh at the elastic tangent leaves the built hierarchy unchanged."""
+    from fem_elastoplasticity_tpu_torch.models.materials import elastic_tangent_lanes
+    from fem_elastoplasticity_tpu_torch.solve import multigrid as mgm
+
+    device, run, extras = cuda_tangent
+    spmv.LAUNCHES.clear()
+    a = run()
+    launches = dict(spmv.LAUNCHES)
+    b = run()
+    assert np.array_equal(a.u, b.u) and a.n_cg_total == b.n_cg_total
+    assert not {k: v for k, v in launches.items() if k.endswith("_plain") and v}
+    for name in ("csr_spmv_f64", "csr_spmv_f32", "node_block_spmv", "node_transfer",
+                 "block_jacobi_sweep"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    assert launches["csr_spmv_f32"] == 2 * a.n_newton_total  # 3 levels
+    assert (a.n_steps, a.newton_trips) == (2, (8, 9))  # the CPU run's (and the JAX run's)
+    hier, th = extras["hierarchy"], extras["tangent"]
+    before = hier.levels[-1].sweep_op.block_values.clone()
+    shear, bulk = lame_moduli(1e7, 0.48)
+    d_el = elastic_tangent_lanes(shear, bulk, th.geom.n_int, torch.float32, device)
+    ref = mgm.refresh_hierarchy(th, hier, d_el, shear, bulk)
+    assert torch.equal(ref.levels[-1].sweep_op.block_values, before)
+    assert torch.equal(hier.levels[-1].sweep_op.block_values, before)

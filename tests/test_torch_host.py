@@ -116,8 +116,15 @@ def test_config_refuses_unported_presets():
         if f.name != "etype":
             assert getattr(foot, f.name) == getattr(jfoot, f.name), f.name
     assert (foot.dtype, foot.precision, foot.newton_tol) == ("float32", "df32", 5e-12)
+    # and its tangent-multigrid scale preset, field by field, except for
+    # the variants still to port
+    for level in (2, 5):
+        scale, jscale = FootingConfig.fast_scale(level), JaxFootingConfig.fast_scale(level)
+        for f in dataclasses.fields(FootingConfig):
+            if f.name != "etype":
+                assert getattr(scale, f.name) == getattr(jscale, f.name), f.name
     with pytest.raises(NotImplementedError):
-        FootingConfig.fast_scale(4)
+        FootingConfig.fast_scale(4, cg_structure="scan")
     fast32 = TsxTunnelConfig.fast_f32()
     assert (fast32.dtype, fast32.precision, fast32.newton_tol, fast32.accept_tol) == (
         "float32", "native", 1e-6, 1e-5)

@@ -67,6 +67,25 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   (probe_trip, probe_newton, probe_cg: that trip replayed with
   newton_maxit=5), the trip where the port's CPU run parts from this one.
 
+* footing_scale_l2_t3.npz, footing_scale_l3_t3.npz — the footing's
+  tangent-multigrid scale preset `FootingConfig.fast_scale(L, max_trips=3)`
+  at levels 2 and 3 (3,362 and 13,122 DOFs): its first three load trips,
+  u and ep on the hierarchy's fine mesh (fine-RCM node order, the mesh the
+  JAX package returns), zeta_hist, pressure_hist, the step, Newton, CG and
+  plastic counts, and for every trip (one trip a dispatch through the
+  stepper's resume carry, deflation ring included, whose totals must equal
+  the single run's) its Newton and CG iterations, zeta and d_zeta after it
+  and whether it accepted a step;
+* footing_scale_l2_damped_t3.npz — the same at level 2 with
+  newton_damping=3 (the residual-norm backtracking the preset turns on
+  from level 5);
+* footing_scale_l2_ckpt2.npz — the level-2 preset's load-stepping carry
+  after two load trips, deflation ring (defl_w, defl_ring) included, as
+  `save_checkpoint` writes it;
+* elasticity_cg.npz — the square-with-hole energies of
+  `ElasticityConfig(level=L, solver="cg")` (P1, matrix-free block-Jacobi
+  PCG in f64) at levels 3 and 5 (energy_l3, energy_l5).
+
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
 Pallas kernels in interpret mode and take about 35 s and 45 s, the packed
@@ -168,6 +187,23 @@ def main(names) -> None:
             if cfg.precision == "df32":
                 fields["newton_trips"] = _trip_record(footing, cfg, r)["newton_trips"]
             np.savez_compressed(OUT / f"{name}.npz", **fields, n_cg_total=r.n_cg_total)
+    if "elasticity_cg" in names:
+        from fem_elastoplasticity_tpu.models import elasticity
+        from fem_elastoplasticity_tpu.models.config import ElasticityConfig
+
+        np.savez(OUT / "elasticity_cg.npz", **{
+            f"energy_l{lvl}": float(elasticity.solve(ElasticityConfig(level=lvl,
+                                                                       solver="cg")).energy)
+            for lvl in (3, 5)})
+    for name, (cfg, n_trips, ckpt) in FOOTING_SCALE.items():
+        if name in names or (ckpt is not None and ckpt in names):
+            cfg = cfg(FootingConfig)
+            r = footing.solve(cfg)
+            rec = _trip_record(footing, cfg, r, n_trips=n_trips,
+                               checkpoint=(ckpt is not None and ckpt in names and
+                                           (OUT / f"{ckpt}.npz", 2)))
+            np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "pressure_hist"), **rec,
+                                n_cg_total=r.n_cg_total)
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -235,14 +271,16 @@ def _footing_reference_order(footing, cfg, fields) -> dict:
     return dict(u=fields["u"][new_of_old], ep=ep)
 
 
-def _trip_record(footing, cfg, r) -> dict:
+def _trip_record(footing, cfg, r, n_trips=None, checkpoint=None) -> dict:
     """Every load trip of a df32 footing run: the run again, one trip a
     dispatch through the stepper's resume carry, its totals held to the
     single run's `r`.  Per trip: Newton and CG iterations, zeta and d_zeta
-    after it, and whether it accepted a step."""
+    after it, and whether it accepted a step.  `n_trips`: the run `r` was
+    cut at that many trips (cfg.max_trips); `checkpoint`: (path, trips),
+    write the carry after that many trips with `save_checkpoint`."""
     import numpy as np
 
-    from fem_elastoplasticity_tpu.solve.chunked import carry_of
+    from fem_elastoplasticity_tpu.solve.chunked import carry_of, save_checkpoint
 
     run, args, _ = footing.build_df32(dataclasses.replace(cfg, max_trips=1))
     res, total, cg, steps = run(args), 0, 0, 1
@@ -257,6 +295,10 @@ def _trip_record(footing, cfg, r) -> dict:
         rec["d_zeta_trips"].append(d_zeta)
         rec["accepted_trips"].append(int(res.n_steps) - steps)
         total, cg, steps = int(res.n_newton_total), int(res.n_cg_total), int(res.n_steps)
+        if checkpoint and len(rec["newton_trips"]) == checkpoint[1]:
+            save_checkpoint(checkpoint[0], carry_of(res))
+        if len(rec["newton_trips"]) == n_trips:
+            break
         if zeta >= cfg.zeta_max - 1e-12 or d_zeta < cfg.d_zeta * cfg.d_zeta_min_ratio:
             break
         res = run(args, carry_of(res))
@@ -304,11 +346,20 @@ FOOTING_FULL = {
     "footing_df32_acg_full": (
         lambda F: F.fast(solver="cg", assembled_cg=True, cg_maxiter=4000), None),
 }
+# name: (config, load trips, the checkpoint fixture its trip record writes)
+FOOTING_SCALE = {
+    "footing_scale_l2_t3": (lambda F: F.fast_scale(2, max_trips=3), 3,
+                            "footing_scale_l2_ckpt2"),
+    "footing_scale_l3_t3": (lambda F: F.fast_scale(3, max_trips=3), 3, None),
+    "footing_scale_l2_damped_t3": (
+        lambda F: F.fast_scale(2, max_trips=3, newton_damping=3), 3, None),
+}
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
+    *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg",
 )
 
 if __name__ == "__main__":

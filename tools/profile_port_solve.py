@@ -34,8 +34,19 @@ iteration.  Last it times, without the profiler, the assembled preset at
 level 4 (25,921 nodes, 51,342 unknowns) for its first two load trips
 (`max_trips=2`): setup, wall, counts and launches.
 
+`--footing-scale L [L ...]` runs the footing's tangent-multigrid preset
+`FootingConfig.fast_scale(L)` (kernels K1, K3 with its CSR kernel on the
+Galerkin maps, K4): at levels 2-4 its first three load trips
+(`max_trips=3`), at level 5 one load trip resumed from the banked
+checkpoint `checkpoints/footing_l5_k16.npz`.  It reports the host setup,
+a first and two timed walls, the counts, the wall per CG iteration and the
+launches, then profiles one run (at level 5 the resumed trip cut to its
+first three Newton iterations, `newton_maxit=3`, to keep the profile's
+events in hand): device idle share, top kernels, kernels and host syncs
+per CG iteration.
+
     python tools/profile_port_solve.py [OUT] [--scale L ...] [--ell L ...] [--no-dense]
-                                       [--footing]
+                                       [--footing] [--footing-scale L ...]
 """
 from __future__ import annotations
 
@@ -160,6 +171,63 @@ def footing_runs(torch, profile, activities, device, card, tables) -> dict:
     return out
 
 
+def footing_scale_runs(torch, profile, activities, device, card, tables, levels) -> dict:
+    """The `--footing-scale` measurements (module doc)."""
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+    from fem_elastoplasticity_tpu_torch.ops import spmv
+    from fem_elastoplasticity_tpu_torch.utils.convert import load_checkpoint
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    out = {}
+    for level in levels:
+        tag = f"footing_scale_L{level}"
+        cfg = FootingConfig.fast_scale(level, max_trips=1 if level >= 5 else 3)
+        (run, mesh), setup = timed(lambda: footing.build_df32(cfg, device=device))
+        resume, profiled_run = None, run
+        if level >= 5:
+            resume = load_checkpoint(ROOT / "checkpoints" / "footing_l5_k16.npz", device=device)
+            cut, _ = footing.build_df32(dataclasses.replace(cfg, newton_maxit=3), device=device)
+            profiled_run = lambda: cut(resume=resume)  # noqa: E731
+        base_newton = resume["nits_total"] if resume else 0
+        base_cg = resume["ncg_total"] if resume else 0
+        spmv.LAUNCHES.clear()
+        res, first = timed(lambda: run(resume=resume))
+        launches = dict(spmv.LAUNCHES)
+        walls = [timed(lambda: run(resume=resume))[1] for _ in range(2)]
+        n_newton, n_cg = res.n_newton_total - base_newton, res.n_cg_total - base_cg
+        rec = dict(
+            unknowns=int(mesh.free.sum()), setup_s=setup, wall_first_s=first, walls_s=walls,
+            counts=dict(steps=res.n_steps, newton=n_newton, cg=n_cg, plastic=res.n_plastic),
+            newton_trips=list(res.newton_trips), zeta_trips=list(res.zeta_trips),
+            cg_iteration_ms=1e3 * min(walls) / n_cg, kernel_launches_by_name=launches,
+        )
+        pres, wall_p, prof = profiled(torch, profile, activities, profiled_run)
+        dev = device_summary(prof, wall_p)
+        p_cg = pres.n_cg_total - base_cg
+        host = [e for e in prof.events() if e.device_type.name != "CUDA"]
+        dev.update(
+            profiled_cg=p_cg,
+            device_kernels_per_cg_iteration=dev["kernel_launches"] / p_cg,
+            host_scalar_reads_per_cg_iteration=dev["host_scalar_reads"] / p_cg,
+            stream_syncs_per_cg_iteration=sum(
+                e.name == "cudaStreamSynchronize" for e in host) / p_cg,
+        )
+        rec["profiled_run"] = dev
+        out[tag] = rec
+        tables.append(f"== {tag} | {card}\n"
+                      + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        print(json.dumps({tag: rec}), flush=True)
+        del run, profiled_run
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out", nargs="?", default="profile_port_solve.txt")
@@ -167,6 +235,7 @@ def main() -> int:
     ap.add_argument("--ell", type=int, nargs="*", default=[], metavar="L")
     ap.add_argument("--no-dense", action="store_true")
     ap.add_argument("--footing", action="store_true")
+    ap.add_argument("--footing-scale", type=int, nargs="*", default=[], metavar="L")
     opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -241,6 +310,9 @@ def main() -> int:
             sort_by="self_device_time_total", row_limit=40))
     if opts.footing:
         summary["footing"] = footing_runs(torch, profile, activities, device, card, tables)
+    if opts.footing_scale:
+        summary["footing_scale"] = footing_scale_runs(torch, profile, activities, device, card,
+                                                      tables, opts.footing_scale)
     out = pathlib.Path(opts.out)
     out.write_text("\n\n".join(tables))
     print(json.dumps(summary), flush=True)
