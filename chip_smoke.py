@@ -180,7 +180,56 @@ them against the repository's anchors:
                 zeta, d_zeta and wall printed, the launches as in phase 23,
                 twice bit-identical unless one trip takes over 120 s.
 
-Every phase prints its lines with the card line beside its numbers.  Before
+ 27. tsx P4 — the reference's own configuration on the production
+                route, `build_df32(TsxTunnelConfig.fast(etype=P4,
+                solver="ell"))` (p-multigrid through the P1 hierarchy of the
+                P4 node lattice, gs_tangent auto: the tangent S (d (G v)) on
+                the f32 heads of G and S through K3's CSR kernel), full
+                schedule, twice: 17 steps / 40 Newton iterations / 79
+                plastic points (the f64 anchor's; by trip where it parts),
+                u40 within 1e-6 of -2.267020043e-03, bit-identical; setup,
+                walls, CG total, the profiled run's idle share; K1, K3's
+                CSR kernel and transfers and K4 launched, no plain version
+                and no product of the P1 fine operator;
+ 28. high-order routes — P2 cut at zeta 2/17 and P4 at 1/17 on five routes
+                (`TsxTunnelConfig(solver="cg")` native f64,
+                `fast(solver="cg")`, `fast(solver="cg", assembled_cg=True)`,
+                `fast(solver="ell")` with gs_tangent True and False), each
+                built from the configuration its fixture stores, twice
+                each, against the JAX runs (fixtures tsx_p2_*_z2.npz,
+                tsx_p4_*_z1.npz; elastic): steps and plastic points equal,
+                Newton iterations by trip (`footing.newton_trip_gaps`) or in
+                total (native), CG within 5% (not held for the P4
+                matrix-free route, HIGH_ORDER_CG_FREE), u within 1e-9,
+                bit-identical; the matrix-free routes launch nothing, the
+                assembled one K3's product (once a CG iteration at least)
+                and K1, p-multigrid as phase 27;
+ 29. high-order plastic routes — the routes past the first plastic step
+                (load step 11), once each, by phase 28's rules: P2 on the
+                five routes at the full schedule (fixtures
+                tsx_p2_*_z17.npz) and P4 on the three block-Jacobi routes
+                cut at zeta 12/17 (tsx_p4_*_z12.npz), each against its own
+                route's JAX run; P4 p-multigrid with gs_tangent True and
+                False at 12/17 against the JAX matrix-free df32 run (CG
+                not held: another preconditioner); plastic points and a
+                trip of more than one Newton iteration in every run;
+ 30. 228,112 DOFs — `fast(etype=P4, solver="ell", refine_levels=2)` and
+                `fast(etype=P2, solver="ell", refine_levels=3)` (the P1
+                refine-4 lattice), full schedule, twice each: 17 steps, u40
+                within 1% of phase 27's (no JAX run exists at this size: a
+                plausibility check), bit-identical, counts, walls, setup
+                and peak device memory printed;
+ 31. high-order kernels — K1 on G and S and K3's CSR kernel on their f32
+                heads at P2 and P4 on the tsx mesh and at P4 refine 2
+                (`csr_phase`, beside cuSPARSE), K3's product on the
+                assembled P2 and P4 elastic K (node blocks a node printed),
+                K3's transfers on the P4 and P4-refine-2 p-multigrid levels
+                (`k3_phase`) and K4 on the P4 levels and the refine-2 fine
+                level (`k4_phase`), each against its plain version by the
+                earlier phases' rules.
+
+Every phase prints its lines with the card line beside its numbers, and
+the later phases their seconds.  Before
 the last line it prints the run's total wall and a JSON line with the kernel
 table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -222,6 +271,8 @@ ANCHOR_U40_SCALE_L4 = -2.264312e-3  # BENCH_NOTES.md:436
 JAX_COUNTS_SCALE_L4 = (17, 52, 605, 1477)  # steps, Newton, CG, plastic (BENCH_NOTES.md:124)
 ANCHOR_U40_SCALE_L5 = -2.265345e-3  # BENCH_NOTES.md:142
 JAX_COUNTS_SCALE_L5 = (17, 59, 917)  # steps, Newton, CG (BENCH_NOTES.md:126)
+ANCHOR_U40_P4 = -2.267020043e-03  # tests/test_tsx_tunnel.py:373, PARITY.md
+JAX_COUNTS_P4 = (17, 40, 79)  # steps, Newton, plastic of the f64 P4 run (PARITY.md)
 SEED = 20261016
 # stored energies of the square with a hole (tests/test_elasticity.py:17-23)
 ELASTICITY_ANCHORS = {("P1", 1): 2786.3472189077, ("P1", 2): 2717.5492666201,
@@ -1094,6 +1145,195 @@ def footing_scale_phase(torch, spmv, mg, ex: dict, level: int, shear: float, bul
     return csr, csr_err, k3, k4, k4_err
 
 
+HIGH_ORDER_KERNELS = ("csr_spmv_f64", "csr_spmv_f32", "node_transfer", "block_jacobi_sweep")
+# the P4 matrix-free df32 route's count at zeta 1/17 is not held: its one
+# counted solve is the Newton step on the predictor's rounding residual and
+# its count moves with the order of the f32 sums (tools/cg_order_spread.py,
+# PERF.md); the route's CG is held on its plastic cut (tsx_p4_cg_z12)
+HIGH_ORDER_CG_FREE = ("tsx_p4_cg_z1",)
+
+
+def fixture_config(TsxTunnelConfig, ElementType, want):
+    """The configuration of a high-order fixture's JAX run: its `config`
+    (etype, the load steps of the cut, the route's keywords), which
+    tools/make_port_fixtures.py stores with the run."""
+    c = json.loads(want["config"].item())
+    kw = {k: v for k, v in c.items() if k not in ("etype", "steps", "route")}
+    return TsxTunnelConfig(etype=ElementType[c["etype"]], zeta_max=c["steps"] / 17, **kw)
+
+
+def idle_share(torch, fn):
+    """(device busy s, idle share, kernels) of one run of fn() under
+    torch.profiler: the share of its host wall in which no kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = 1e-6 * sum(e.device_time_total for e in kernels)
+    return busy, 1.0 - busy / wall, len(kernels)
+
+
+def df32_twice(torch, spmv, tsx, cfg, device):
+    """Build `cfg` and run it twice: (TsxResult, LoadSteppingResult, setup s,
+    first wall, warm wall, the first run's launches, extras, run, mesh),
+    the two runs' counts and u held equal bit for bit."""
+    extras = {}
+    t0 = time.perf_counter()
+    run, mesh = tsx.build_df32(cfg, device=device, extras=extras)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    spmv.LAUNCHES.clear()
+    res1, first = timed(torch, run)
+    launches = dict(spmv.LAUNCHES)
+    res2, warm = timed(torch, run)
+    counts = lambda r: (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)  # noqa: E731
+    check(counts(res1) == counts(res2) and torch.equal(res1.u, res2.u),
+          f"{cfg.etype.name} {cfg.solver}: two runs differ")
+    r = tsx._df32_result(res1, mesh, extras)
+    return r, res1, setup, first, warm, launches, extras, run, mesh
+
+
+def check_no_plain(tag: str, launches: dict) -> None:
+    check(not any(k.endswith("_plain") for k in launches),
+          f"{tag}: a plain version ran on the card ({launches})")
+
+
+def check_pmg_launches(tag: str, launches: dict, n_cg: int, gs: bool) -> None:
+    """The p-multigrid route's kernels: K1 (residual), K3's CSR kernel (the
+    f32 heads of G and S: the predictor, and with gs_tangent two a CG
+    iteration), K3's transfers and K4 (the V-cycle); no plain version and
+    no product of the P1 fine operator, which only preconditions."""
+    for name in HIGH_ORDER_KERNELS:
+        check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
+    check_no_plain(tag, launches)
+    check("node_block_spmv" not in launches, f"{tag}: the P1 fine operator ran ({launches})")
+    if gs:
+        check(launches["csr_spmv_f32"] >= 2 * n_cg,
+              f"{tag}: fewer than two K3 CSR launches a CG iteration ({launches})")
+
+
+def high_order_run(torch, spmv, tsx, cfg, device, twice: bool):
+    """Run a high-order route (native f64 through `solve`, df32 through
+    `build_df32`), with `twice` a second time held bit-identical ->
+    (TsxResult, LoadSteppingResult or None, the first run's launches,
+    first wall, warm wall or None)."""
+    import numpy as np
+
+    tag = f"tsx {cfg.etype.name} {cfg.solver}"
+    if cfg.precision != "native":
+        if twice:
+            r, res, _, first, warm, launches, _, _, _ = df32_twice(torch, spmv, tsx, cfg, device)
+            return r, res, launches, first, warm
+        run, mesh = tsx.build_df32(cfg, device=device, extras=(extras := {}))
+        spmv.LAUNCHES.clear()
+        res, first = timed(torch, run)
+        return tsx._df32_result(res, mesh, extras), res, dict(spmv.LAUNCHES), first, None
+    spmv.LAUNCHES.clear()
+    r, first = timed(torch, lambda: tsx.solve(cfg, device=device))
+    launches, warm = dict(spmv.LAUNCHES), None
+    if twice:
+        r2, warm = timed(torch, lambda: tsx.solve(cfg, device=device))
+        check(np.array_equal(r.u, r2.u) and r.n_cg_total == r2.n_cg_total,
+              f"{tag}: two runs differ")
+    return r, None, launches, first, warm
+
+
+def check_high_order(tag: str, cfg, r, res, launches: dict, want, hold_cg: bool) -> str:
+    """A high-order run against a JAX run's fixture `want`: steps and
+    plastic points equal, Newton iterations by trip (`check_newton`, df32)
+    or in total (native), CG within 5% where `hold_cg` (the fixture is the
+    same route's), u within 1e-9 of max |u|; the route's kernels launched
+    and no plain version.  Returns the comparison for the phase's line."""
+    import numpy as np
+
+    jax_counts = tuple(int(want[k]) for k in ("n_steps", "n_newton_total", "n_cg_total",
+                                             "n_plastic"))
+    want_solver = json.loads(want["config"].item())["solver"]
+    check(r.n_steps == jax_counts[0] and r.n_plastic == jax_counts[3],
+          f"{tag}: steps / plastic {r.n_steps} / {r.n_plastic}, JAX {jax_counts}")
+    if res is None:
+        check_newton(tag, r, cfg, jax_counts[1], None)
+        trips = "total"
+    else:
+        jax_trips = tuple(int(k) for k in want["newton_trips"])
+        check_newton(tag, res, cfg, jax_counts[1], jax_trips)
+        trips = f"{res.newton_trips} (JAX {jax_trips})"
+    cg_gap = abs(r.n_cg_total - jax_counts[2]) / jax_counts[2]
+    if hold_cg:
+        check(cg_gap <= 0.05, f"{tag}: {r.n_cg_total} CG iterations, JAX {jax_counts[2]}")
+    u_rel = float(np.abs(r.u - want["u"]).max() / np.abs(want["u"]).max())
+    check(u_rel <= 1e-9, f"{tag}: u {u_rel:.3e} from JAX's")
+    check_no_plain(tag, launches)
+    if cfg.solver == "cg" and not cfg.assembled_cg:
+        check(not launches, f"{tag}: launches {launches} on the matrix-free route")
+    elif cfg.assembled_cg:
+        check(launches.get("node_block_spmv", 0) >= r.n_cg_total
+              and launches.get("csr_spmv_f64", 0) > 0, f"{tag}: launches {launches}")
+    else:
+        check_pmg_launches(tag, launches, r.n_cg_total, cfg.gs_tangent_on)
+    cg_line = (f"CG {100 * cg_gap:.1f}% off, held to 5%" if hold_cg else
+               "CG not compared" if cfg.solver != want_solver else
+               f"CG {100 * cg_gap:.1f}% off, not held")
+    return (f"steps / Newton / CG / plastic {(r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)} "
+            f"(JAX {jax_counts}; {cg_line}), Newton by trip {trips}, u {u_rel:.3e} "
+            f"from JAX's, launches {launches}")
+
+
+def high_order_route_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card):
+    """Phase 28: the P2 and P4 routes cut at the JAX fixtures' load steps
+    (elastic), twice each, against the fixtures -> {route: launches}."""
+    import numpy as np
+
+    launches_by = {}
+    for f in sorted(FIXTURES.glob("tsx_p2_*_z2.npz")) + sorted(FIXTURES.glob("tsx_p4_*_z1.npz")):
+        want = np.load(f)
+        cfg = fixture_config(TsxTunnelConfig, ElementType, want)
+        tag = f"tsx {f.stem}"
+        r, res, launches, first, warm = high_order_run(torch, spmv, tsx, cfg, device, True)
+        line = check_high_order(tag, cfg, r, res, launches, want, f.stem not in HIGH_ORDER_CG_FREE)
+        launches_by[f.stem] = launches
+        say("high order", f"{tag}: {line}, repeat bit-identical, wall first {first:.3f} s warm "
+            f"{warm:.3f} s | {card}")
+    return launches_by
+
+
+def high_order_plastic_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card):
+    """Phase 29: the routes past the first plastic step (load step 11),
+    once each: P2 on the five routes at the full schedule and P4 on the
+    three block-Jacobi routes cut at zeta 12/17, each against the JAX run
+    of its own route (fixtures tsx_p2_*_z17, tsx_p4_*_z12); the two P4
+    p-multigrid routes at 12/17 against the JAX matrix-free df32 run
+    (tsx_p4_cg_z12), CG not held (another preconditioner) -> {route:
+    launches}."""
+    import numpy as np
+
+    launches_by = {}
+    runs = [(f, None) for f in sorted(FIXTURES.glob("tsx_p2_*_z17.npz"))
+            + sorted(FIXTURES.glob("tsx_p4_*_z12.npz"))]
+    runs += [(FIXTURES / "tsx_p4_cg_z12.npz", gs) for gs in (True, False)]
+    for f, gs in runs:
+        want = np.load(f)
+        cfg = fixture_config(TsxTunnelConfig, ElementType, want)
+        name, tag = f.stem, f"tsx {f.stem}"
+        if gs is not None:  # p-multigrid against the matrix-free df32 run
+            cfg = TsxTunnelConfig.fast(etype=cfg.etype, zeta_max=cfg.zeta_max, solver="ell",
+                                       gs_tangent=gs)
+            name = f"tsx_p4_pmg_{'gs' if gs else 'mf'}_z12"
+            tag = f"tsx {name} (against {f.stem})"
+        r, res, launches, first, _ = high_order_run(torch, spmv, tsx, cfg, device, False)
+        line = check_high_order(tag, cfg, r, res, launches, want, gs is None)
+        check(r.n_plastic > 0 and r.n_newton_total > r.n_steps,
+              f"{tag}: no plastic step ({r.n_plastic} plastic points)")
+        launches_by[name] = launches
+        say("high order plastic", f"{tag}: {line}, wall {first:.3f} s | {card}")
+    return launches_by
+
+
 def ell_config(TsxTunnelConfig, level: int):
     return TsxTunnelConfig.fast_scale(level, spmv_fmt="ell", corr_mode="gather",
                                       residual_fmt="ell")
@@ -1711,6 +1951,133 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}")
     del run5f, carry5
 
+    # phase 27: the P4 production route, the reference's own
+    # configuration (p-multigrid, the tangent on the f32 heads of G and S),
+    # full schedule, twice
+    from fem_elastoplasticity_tpu_torch.ops import assembly_df as adf
+
+    t_phase = time.perf_counter()
+    hi_launches = {}
+    cfg_p4 = TsxTunnelConfig.fast(etype=ElementType.P4, solver="ell")
+    check(cfg_p4.gs_tangent_on, "tsx P4: gs_tangent auto is off")
+    p4, p4_res, p4_setup, p4_first, p4_warm, l_p4, ex_p4, run_p4, _ = df32_twice(
+        torch, spmv, tsx, cfg_p4, device)
+    hi_launches["tsx_P4_pmg"] = l_p4
+    p4_busy, p4_idle, p4_kernels = idle_share(torch, run_p4)
+    check(p4.u.shape == (7226, 2) and bool(np.isfinite(p4.u).all() and np.isfinite(p4.ep).all()),
+          f"tsx P4: bad field {p4.u.shape}")
+    p4_counts = (p4.n_steps, p4.n_newton_total, p4.n_plastic)
+    if p4_counts != JAX_COUNTS_P4:
+        say("tsx P4", f"parts from the f64 anchor's {JAX_COUNTS_P4}: Newton by trip "
+            f"{p4_res.newton_trips}, last criterion by trip {p4_res.crit_trips}, zeta "
+            f"{p4_res.zeta_trips} | {card}")
+    check(p4_counts == JAX_COUNTS_P4, f"tsx P4: steps / Newton / plastic {p4_counts}, the f64 "
+          f"anchor's {JAX_COUNTS_P4}")
+    p4_u40 = float(p4.u[40, 0])
+    p4_rel = abs(p4_u40 - ANCHOR_U40_P4) / abs(ANCHOR_U40_P4)
+    check(p4_rel <= 1e-6, f"tsx P4: u40 {p4_u40!r} is {p4_rel:.3e} from the anchor")
+    check_pmg_launches("tsx P4", l_p4, p4.n_cg_total, True)
+    say("tsx P4", f"fast(etype=P4, solver='ell'), gs_tangent auto (on): setup {p4_setup:.3f} s; "
+        f"steps / Newton / CG / plastic {(p4.n_steps, p4.n_newton_total, p4.n_cg_total, p4.n_plastic)} "
+        f"(the f64 anchor's steps / Newton / plastic {JAX_COUNTS_P4}), Newton by trip "
+        f"{p4_res.newton_trips}, u40 {p4_u40:.12e} (rel {p4_rel:.3e} to {ANCHOR_U40_P4}), u sha256 "
+        f"{u_digest(p4.u)}, launches {l_p4}, repeat bit-identical, wall first {p4_first:.3f} s "
+        f"warm {p4_warm:.3f} s, {1e3 * p4_warm / p4.n_cg_total:.4f} ms a CG iteration; profiled "
+        f"run: device busy {p4_busy:.4f} s, idle share {p4_idle:.3f}, {p4_kernels} kernels "
+        f"({p4_kernels / p4.n_cg_total:.1f} a CG iteration) | {card}")
+    say("phase time", f"tsx P4 full schedule {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 28: the P2 and P4 routes cut at the JAX fixtures, twice each
+    t_phase = time.perf_counter()
+    hi_launches.update(high_order_route_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType,
+                                              device, card))
+    say("phase time", f"high-order routes {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 29: the high-order routes past the first plastic step, once each
+    t_phase = time.perf_counter()
+    hi_launches.update(high_order_plastic_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType,
+                                                device, card))
+    say("phase time", f"high-order plastic routes {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 30: the 228,112-DOF high-order meshes, P4 refine 2 and P2
+    # refine 3 (the P1 refine-4 lattice), full schedule, twice each
+    t_phase = time.perf_counter()
+    big = {}
+    for et, refine in (("P4", 2), ("P2", 3)):
+        tag = f"tsx {et} refine {refine}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg_big = TsxTunnelConfig.fast(etype=ElementType[et], solver="ell", refine_levels=refine)
+        rb, rb_res, rb_setup, rb_first, rb_warm, l_big, ex_big, run_big, _ = df32_twice(
+            torch, spmv, tsx, cfg_big, device)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        hi_launches[f"tsx_{et}_refine{refine}_pmg"] = l_big
+        check(rb.u.shape == (114056, 2) and bool(np.isfinite(rb.u).all()
+                                                 and np.isfinite(rb.ep).all()),
+              f"{tag}: bad field {rb.u.shape}")
+        check(rb.n_steps == 17, f"{tag}: {rb.n_steps} steps")
+        # no JAX run at this size: a plausibility check, not parity
+        big_rel = abs(float(rb.u[40, 0]) - p4_u40) / abs(p4_u40)
+        check(big_rel <= 1e-2, f"{tag}: u40 {float(rb.u[40, 0])!r} is {big_rel:.3e} from P4's")
+        check_pmg_launches(tag, l_big, rb.n_cg_total, True)
+        say(tag, f"{2 * rb.u.shape[0]} DOFs, {int(ex_big['reference_mesh'].free.sum())} unknowns, "
+            f"hierarchy rows {[lev.free.shape[0] for lev in ex_big['hierarchy'].levels]}: setup "
+            f"{rb_setup:.2f} s; steps / Newton / CG / plastic "
+            f"{(rb.n_steps, rb.n_newton_total, rb.n_cg_total, rb.n_plastic)}, u40 "
+            f"{float(rb.u[40, 0]):.9e} (rel {big_rel:.3e} to P4 L0's), u sha256 "
+            f"{u_digest(rb.u)}, launches {l_big}, repeat bit-identical, wall first "
+            f"{rb_first:.3f} s warm {rb_warm:.3f} s ({1e3 * rb_warm / rb.n_cg_total:.4f} ms a CG "
+            f"iteration), peak device memory of setup and runs {peak:.3f} GiB | {card}")
+        big[et] = ex_big
+        del run_big
+    say("phase time", f"228,112-DOF runs {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 31: the path's kernels at the high-order shapes, each against its
+    # plain version: K1 on G and S and K3's CSR kernel on their f32 heads
+    # (P2 and P4 on the tsx mesh, P4 refine 2), K3's product on the assembled
+    # P2 / P4 elastic K, K3's transfers and K4 on the p-multigrid levels
+    t_phase = time.perf_counter()
+    ex_p2 = {}
+    tsx.build_df32(TsxTunnelConfig.fast(etype=ElementType.P2, solver="ell"), device=device,
+                   extras=ex_p2)
+    ho_cases = {}
+    for tag, ex in (("P2_L0", ex_p2), ("P4_L0", ex_p4), ("P4_R2", big["P4"])):
+        G, S = ex["residual_op"]
+        G32, S32 = adf.f32_heads(G, S)
+        ho_cases.update({f"G_{tag}": G, f"S_{tag}": S, f"G32_{tag}": G32, f"S32_{tag}": S32})
+    ho_csr, ho_csr_err = csr_phase(torch, spmv, ho_cases, device, card)
+    shear_t, bulk_t = lame_moduli(TsxTunnelConfig().young, TsxTunnelConfig().poisson)
+    k3_ho_cases = {}
+    for et in ("P2", "P4"):
+        ex_a = {}
+        _, mesh_a = tsx.build_df32(TsxTunnelConfig.fast(
+            etype=ElementType[et], solver="cg", assembled_cg=True), device=device, extras=ex_a)
+        K_a = spmv.build_elastic_csr(mesh_a.coords, mesh_a.elems, volume_element(ElementType[et]),
+                                     shear_t, bulk_t, free=mesh_a.free)
+        B_a = ex_a["elastic_op"]
+        say("K3", f"{et} assembled elastic K: {B_a.n_nodes} nodes, {B_a.block_cols.numel()} "
+            f"blocks, width {B_a.width}, blocks a node {blocks_histogram(torch, B_a)} | {card}")
+        k3_ho_cases[f"K_{et}_assembled"] = (B_a, spmv.csr_to_device(K_a, device, np.float32),
+                                            None, False)
+    for tag, ex in (("P4pmg", ex_p4), ("P4R2pmg", big["P4"])):
+        k3_ho_cases.update({k: v for k, v in k3_cases(
+            spmv, ex["hierarchy"], ex["host_levels"], device, tag).items()
+            if not k.startswith("K_")})
+    k3_ho = k3_phase(torch, spmv, k3_ho_cases, device, card)
+    k3_shapes.update(k3_ho)
+    lv_p4, lv_r2 = ex_p4["hierarchy"].levels, big["P4"]["hierarchy"].levels
+    k4_ho, k4_ho_err = k4_phase(torch, spmv, {
+        **{f"P4pmg_level{i}": (spmv.csr_to_device(ex_p4["host_levels"][i]["K"], device,
+                                                  np.float32), lv_p4[i])
+           for i in range(1, len(lv_p4))},
+        f"P4R2pmg_level{len(lv_r2) - 1}": (spmv.csr_to_device(
+            big["P4"]["host_levels"][-1]["K"], device, np.float32), lv_r2[-1])}, device, card)
+    k4_shapes.update(k4_ho)
+    k4_err = max(k4_err, k4_ho_err)
+    del ex_p2, ex_p4, big, run_p4
+    say("phase time", f"high-order kernels {time.perf_counter() - t_phase:.1f} s | {card}")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -1727,9 +2094,12 @@ def main() -> int:
                                     scale_L4=l4_launches, scale_ELL_L1=e1_launches,
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
-                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches),
+                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
+                                    **hi_launches),
         "max_abs_err": max(k1_err, max(v["max_abs_err"] for k, v in csr_shapes.items()
-                                       if k.startswith("footing_"))),
+                                       if k.startswith("footing_")),
+                           max(v["max_abs_err"] for k, v in ho_csr.items()
+                               if not k[1:].startswith("32"))),
         # one residual evaluation of the main path: G u then S s, level 0
         "ms": sum(k1_shapes[k]["ms"] for k in l0),
         "plain_ms": sum(k1_shapes[k]["plain_ms"] for k in l0),
@@ -1737,7 +2107,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": sum(k1_shapes[k]["library_ms"] for k in l0),
         "shapes": {**k1_shapes, **{k: v for k, v in csr_shapes.items()
-                                   if k.startswith("footing_")}},
+                                   if k.startswith("footing_")},
+                   **{k: v for k, v in ho_csr.items() if not k[1:].startswith("32")}},
     }, {
         "name": "dp_return_map",
         "route": "cuda",
@@ -1763,7 +2134,8 @@ def main() -> int:
         "launches_by_path": by_path("node_block_spmv", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
-                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches),
+                                    footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
+                                    **hi_launches),
         # bitwise equal to its plain version (and to the earlier design)
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
         # the CG operator of the level-5 solve; the bound is the node-block
@@ -1783,7 +2155,8 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/node_transfer.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
         "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
-                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches),
+                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
+                                    **hi_launches),
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
                            if not k.startswith("K_")),
         # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
@@ -1799,7 +2172,8 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
         "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
-                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches),
+                                    scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
+                                    **hi_launches),
         "max_abs_err": k4_err,
         # one smoother sweep on the fine level of the level-4 solve; the
         # bound is the node-block layout's bytes, the CSR entries' beside it
@@ -1818,15 +2192,19 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
-        # the Galerkin value maps of the footing's tangent multigrid
-        "launches_by_path": by_path("csr_spmv_f32", **fs_launches),
-        "max_abs_err": max(v["max_abs_err"] for k, v in csr_shapes.items()
-                           if k.startswith("Mhat_")),
+        # the Galerkin value maps of the footing's tangent multigrid; the
+        # f32 heads of G and S on the tsx's p-multigrid route
+        "launches_by_path": by_path("csr_spmv_f32", **fs_launches, **hi_launches),
+        "max_abs_err": max(max(v["max_abs_err"] for k, v in csr_shapes.items()
+                               if k.startswith("Mhat_")),
+                           max(v["max_abs_err"] for k, v in ho_csr.items()
+                               if k[1:].startswith("32"))),
         # the level-5 solve's map of its fine values onto level 4's (the
         # largest; one launch a Newton iteration)
         **{key: csr_shapes[mhat_top5][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shapes": {k: v for k, v in csr_shapes.items() if k.startswith("Mhat_")},
+        "shapes": {**{k: v for k, v in csr_shapes.items() if k.startswith("Mhat_")},
+                   **{k: v for k, v in ho_csr.items() if k[1:].startswith("32")}},
     }, {
         "name": "block_jacobi_sweep_bf16",
         "route": "cuda",

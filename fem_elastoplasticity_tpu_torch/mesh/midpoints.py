@@ -1,8 +1,8 @@
 """Edge-midpoint insertion on unstructured triangle meshes (host-side).
 
 Port of `fem_elastoplasticity_tpu/mesh/midpoints.py`: the P2 midpoint
-numbering that uniform refinement is built on, and `promote` for P1.
-Promotion to P2/P4 elements arrives with the high-order slice of the port.
+numbering that uniform refinement is built on, the P4 node insertion, and
+`promote` to P1, P2 and P4 triangles.
 
 Numbering contract (P2): scanning elements in order, edges in local order
 (V2,V3), (V3,V1), (V1,V2); each previously-unseen undirected edge gets the
@@ -74,12 +74,90 @@ def insert_midpoints_p2(coords: np.ndarray, elems: np.ndarray):
     return coords_ext, elems_ext.astype(np.int32)
 
 
+def insert_midpoints_p4(coords: np.ndarray, elems: np.ndarray):
+    """P1 -> P4: 3 interior nodes per element + 3 nodes per edge.
+
+    Args:
+      coords: (n_n, 2) vertex coordinates.
+      elems:  (n_e, 3) triangle connectivity (consistently oriented).
+
+    Returns:
+      (coords_ext, elems_ext (n_e, 15) int32) with the local order
+      [V1, V2, V3, m12, m23, m31, q12 near V1, q12 near V2, q23 near V2,
+      q23 near V3, q31 near V3, q31 near V1, 3 interior nodes].
+    """
+    n_n = coords.shape[0]
+    n_e = elems.shape[0]
+    v0, v1, v2 = elems[:, 0], elems[:, 1], elems[:, 2]
+
+    # scan order per element: edges (V1,V2), (V2,V3), (V3,V1)
+    directed = np.stack(
+        [np.stack([v0, v1], axis=1), np.stack([v1, v2], axis=1), np.stack([v2, v0], axis=1)],
+        axis=1,
+    )  # (n_e, 3, 2)
+    flat = directed.reshape(-1, 2)
+    first_pos, edge_id, is_owner = _edge_scan(flat)
+    owns = is_owner.reshape(n_e, 3)
+
+    # new nodes per element, in order: 3 interior, then 3 for each edge it
+    # owns (V1V2, V2V3, V3V1)
+    per_elem = 3 + 3 * owns.sum(axis=1)
+    elem_base = n_n + np.concatenate([[0], np.cumsum(per_elem)[:-1]])
+    interior = elem_base[:, None] + np.arange(3)[None, :]  # (n_e, 3)
+
+    # base of each owned edge's 3-node group within its element
+    own_rank = np.cumsum(owns, axis=1) - owns
+    edge_group_base = elem_base[:, None] + 3 + 3 * own_rank
+    edge_base = np.zeros(len(first_pos), dtype=np.int64)
+    edge_base[edge_id.reshape(n_e, 3)[owns]] = edge_group_base[owns]
+
+    eid = edge_id.reshape(n_e, 3)
+    mid = edge_base[eid]  # the midpoint node of each slot
+    owners = flat[first_pos]  # owner orientation (a, b) of each edge
+    # the quarter node near the slot's first vertex: base+1 where that is
+    # the owner's a, base+2 where it is the owner's b
+    slot_a = directed[:, :, 0]
+    near_first = np.where(owners[eid][:, :, 0] == slot_a, mid + 1, mid + 2)
+    near_second = np.where(owners[eid][:, :, 0] == slot_a, mid + 2, mid + 1)
+
+    elems_ext = np.concatenate(
+        [
+            elems,
+            mid,
+            np.stack(
+                [near_first[:, 0], near_second[:, 0], near_first[:, 1],
+                 near_second[:, 1], near_first[:, 2], near_second[:, 2]],
+                axis=1,
+            ),
+            interior,
+        ],
+        axis=1,
+    ).astype(np.int32)
+
+    n_new = int(per_elem.sum())
+    new_coords = np.zeros((n_new, 2))
+    ca, cb, cc = coords[v0], coords[v1], coords[v2]
+    new_coords[interior[:, 0] - n_n] = ca / 2 + cb / 4 + cc / 4
+    new_coords[interior[:, 1] - n_n] = ca / 4 + cb / 2 + cc / 4
+    new_coords[interior[:, 2] - n_n] = ca / 4 + cb / 4 + cc / 2
+    pa = coords[owners[:, 0]]
+    pb = coords[owners[:, 1]]
+    new_coords[edge_base - n_n] = (pa + pb) / 2
+    new_coords[edge_base + 1 - n_n] = 3 * pa / 4 + pb / 4
+    new_coords[edge_base + 2 - n_n] = pa / 4 + 3 * pb / 4
+    return np.concatenate([coords, new_coords], axis=0), elems_ext
+
+
 def promote(etype: ElementType, coords: np.ndarray, elems: np.ndarray):
-    """Promote a P1 triangle mesh to `etype` (P1 pass-through only)."""
+    """Promote a P1 triangle mesh to `etype` (P1 pass-through, P2 or P4)."""
     if elems.ndim != 2 or elems.shape[1] != 3:
         raise ValueError(
             f"promote expects P1 triangle connectivity (n_e, 3); got {elems.shape}"
         )
     if etype == ElementType.P1:
         return coords, elems.astype(np.int32)
-    raise NotImplementedError(f"promotion to {etype} is not ported yet")
+    if etype == ElementType.P2:
+        return insert_midpoints_p2(coords, elems)
+    if etype == ElementType.P4:
+        return insert_midpoints_p4(coords, elems)
+    raise NotImplementedError(f"promotion to {etype}")

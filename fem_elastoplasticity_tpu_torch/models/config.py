@@ -4,18 +4,25 @@ Port of `fem_elastoplasticity_tpu/models/config.py` (`ElasticityConfig` at
 :16, `FootingConfig` at :39, `TsxTunnelConfig` at :188) with the same field
 names and defaults, so a configuration reads the same in both packages.
 The elasticity problem runs P1, P2, Q1 and Q2 elements, dense or by
-matrix-free CG.  The plastic problems run P1
-elements: with the dense solver the tsx in the "native" f64 and f32 and the
-"df32" precisions and the footing in native f64 and f32 and in "df32",
-with dense or block-Jacobi CG tangent solves (`FootingConfig`); with
-`solver="ell"` (multigrid-preconditioned CG on assembled operators,
-`TsxTunnelConfig.fast_scale`) the tsx in df32 on refined meshes, with the
-hierarchy in CSR (`spmv_fmt="slot"`) or ELL (`"ell"`), the residual
-operators in CSR or ELL (`residual_fmt`), and the plastic tangent
-correction scattered into the operator's values once a Newton iteration
-(`corr_mode="scatter"`) or gathered in every CG product (`"gather"`).  A
-field whose value selects something the port does not implement raises
-NotImplementedError when the config is built; no field is ignored.
+matrix-free CG.  The footing runs P1 elements: dense in native f64 and
+f32 and in "df32", and with block-Jacobi or tangent-multigrid CG tangent
+solves (`FootingConfig`).  The tsx runs P1, P2 and P4 triangles: dense in
+native f64 and f32 and in df32; with `solver="cg"` (block-Jacobi PCG
+tangent solves) in native precision and in df32, matrix-free or, with
+`assembled_cg`, on the assembled elastic operator plus the gathered
+plastic correction; and with `solver="ell"` (multigrid-preconditioned CG,
+`TsxTunnelConfig.fast_scale`) in df32, at P1 on refined meshes with the
+hierarchy in CSR (`spmv_fmt="slot"`) or ELL (`"ell"`) and the plastic
+tangent correction scattered into the operator's values once a Newton
+iteration (`corr_mode="scatter"`) or gathered in every CG product
+(`"gather"`), and at P2/P4 as p-multigrid: the P1 hierarchy of the same
+node lattice preconditions the high-order tangent, which is applied on the
+f32 heads of the residual operators (`gs_tangent`) or matrix-free.  The
+residual operators are CSR (`residual_fmt` None, "slot" or "rslot": the
+JAX package's slot layouts are TPU tile geometry, and the card takes the
+CSR) or ELL.  A field whose value selects something the port does not
+implement raises NotImplementedError when the config is built; no field is
+ignored.
 """
 from __future__ import annotations
 
@@ -55,24 +62,23 @@ class ElasticityConfig:
 
 # fields of paths that later slices port: only their defaults are accepted
 _NOT_PORTED = dict(
-    gs_tangent=None,
     cg_structure="while",
     cg_deflate=0,
     mg_cycle="v",
     support_pressure=0.0,
 )
-# fields that only the multigrid-CG path (solver="ell") reads: with the
-# dense solver only their defaults are accepted
-_ELL_ONLY = dict(
-    spmv_fmt="slot",
-    corr_mode="gather",
-    predictor_ir_iters=4,
-    cg_tol=None,
-    cg_maxiter=2000,
-    cg_eta0=None,
-    cg_cap_relax=None,
-    mg_nu=2,
-)
+# fields that only the multigrid-CG path (solver="ell") reads
+_ELL_ONLY = dict(spmv_fmt="slot", corr_mode="gather", mg_nu=2)
+# fields that only the iterative tangent solves (solver="cg" or "ell") read
+_ITERATIVE_ONLY = dict(predictor_ir_iters=4, cg_tol=None, cg_maxiter=2000, cg_eta0=None,
+                       cg_cap_relax=None)
+# fields that the native CG path never passes on (JAX `models/tsx_tunnel.py
+# solve`): its predictor is one PCG solve, its stepper takes no forcing
+_DF32_ONLY = dict(predictor_ir_iters=4, cg_eta0=None, cg_cap_relax=None)
+# the P1 hierarchy levels that a high-order element's node lattice adds:
+# the P2 / P4 lattice of a mesh is its P1 lattice refined once / twice
+P_EXTRA = {ElementType.P1: 0, ElementType.P2: 1, ElementType.P4: 2}
+RESIDUAL_FMTS = (None, "slot", "rslot", "ell")
 
 
 @dataclass(frozen=True)
@@ -129,16 +135,29 @@ class TsxTunnelConfig:
         for name, default in _NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(f"TsxTunnelConfig.{name}={getattr(self, name)!r}")
-        if self.etype != ElementType.P1:
-            raise NotImplementedError(f"TsxTunnelConfig.etype={self.etype}")
+        if self.etype not in P_EXTRA:
+            raise NotImplementedError(f"TsxTunnelConfig.etype={self.etype}: the tsx mesh "
+                                      "promotes to P1, P2 or P4 triangles")
         if self.spmv_fmt not in ("slot", "ell"):
             raise NotImplementedError(f"TsxTunnelConfig.spmv_fmt={self.spmv_fmt!r}")
-        if self.residual_fmt not in (None, "ell"):
+        if self.residual_fmt not in RESIDUAL_FMTS:
             raise NotImplementedError(f"TsxTunnelConfig.residual_fmt={self.residual_fmt!r}")
+        if self.gs_tangent not in (None, True, False):
+            raise ValueError(f"gs_tangent {self.gs_tangent!r} not in (None, True, False)")
         if not 0.0 <= self.ell_overflow_frac < 1.0:
             raise ValueError(f"ell_overflow_frac {self.ell_overflow_frac!r} not in [0, 1)")
+        if self.solver not in ("dense", "cg", "ell"):
+            # "mg", the matrix-free multigrid (`build_hierarchy`, `make_vcycle`)
+            raise NotImplementedError(f"TsxTunnelConfig.solver={self.solver!r}")
+        if self.solver != "ell":
+            self._refuse_defaults(_ELL_ONLY, "solver='ell'")
+        if self.solver == "dense":
+            self._refuse_defaults(_ITERATIVE_ONLY, "an iterative solver")
+        elif self.precision == "native":
+            self._refuse_defaults(_DF32_ONLY, "precision='df32'")
         if self.solver == "ell":
-            # the ported assembled path: a refined mesh, df32 state
+            # the ported assembled path: df32 state, a hierarchy of at least
+            # two levels (refinements plus the high-order lattice)
             if self.corr_mode not in ("scatter", "gather"):
                 raise ValueError(f"corr_mode {self.corr_mode!r} not in ('scatter', 'gather')")
             if self.spmv_fmt == "ell" and self.corr_mode == "scatter":
@@ -148,32 +167,61 @@ class TsxTunnelConfig:
                     "spmv_fmt='ell' needs corr_mode='gather': the scatter refresh "
                     "writes into a CSR value array"
                 )
-            if self.refine_levels < 1:
-                raise NotImplementedError("solver='ell' needs refine_levels >= 1")
+            if self.etype != ElementType.P1 and self.corr_mode == "scatter":
+                # the JAX package refreshes only the P1 fine operator
+                # (`models/tsx_tunnel.py:594-597`); the high-order tangent is
+                # never assembled
+                raise ValueError("corr_mode='scatter' needs P1: at P2/P4 the fine hierarchy "
+                                 "operator only preconditions")
+            if self.refine_levels + P_EXTRA[self.etype] < 1:
+                raise NotImplementedError("solver='ell' needs refine_levels >= 1 at P1")
             if self.precision != "df32":
                 raise NotImplementedError("solver='ell' with precision='native'")
             if self.assembled_cg:
                 raise NotImplementedError("assembled_cg=True with solver='ell'")
-        elif self.solver == "dense":
-            for name, default in _ELL_ONLY.items():
-                if getattr(self, name) != default:
-                    raise NotImplementedError(
-                        f"TsxTunnelConfig.{name}={getattr(self, name)!r} with solver='dense'"
-                    )
-            if self.residual_fmt is not None and not self.assembled_cg:
-                # the dense path builds residual operators only for assembled_cg
-                raise NotImplementedError("residual_fmt='ell' with solver='dense' needs "
-                                          "assembled_cg=True")
-        else:
-            raise NotImplementedError(f"TsxTunnelConfig.solver={self.solver!r}")
+        if self.residual_fmt is not None and self.precision == "df32" and not (
+                self.solver == "ell" or self.assembled_cg):
+            # only these build residual operators (JAX `models/tsx_tunnel.py:496-498`)
+            raise NotImplementedError(f"residual_fmt={self.residual_fmt!r} needs "
+                                      "solver='ell' or assembled_cg=True")
+        if self.residual_fmt is not None and self.precision == "native":
+            # the JAX package's native path never reads residual_fmt
+            raise NotImplementedError("residual_fmt with precision='native'")
+        if self.residual_fmt == "ell" and self.etype != ElementType.P1:
+            # the high-order predictor and tangent run on the CSR heads
+            raise NotImplementedError("residual_fmt='ell' at P2/P4")
+        if self.gs_tangent:
+            # the tangent S (d (G v)) needs the CSR residual operators and a
+            # tangent that no assembled elastic operator takes
+            # (`solve/newton.py:666-751`)
+            if self.solver != "ell" or self.etype == ElementType.P1:
+                raise NotImplementedError("gs_tangent=True needs solver='ell' at P2 or P4")
         if self.dense_mode not in ("f64", "mixed"):
             raise ValueError(f"dense_mode {self.dense_mode!r}")
-        if self.precision == "df32" and self.dense_mode != "f64":
-            # the JAX package's df32 path never reads dense_mode
-            raise NotImplementedError("dense_mode='mixed' with precision='df32'")
+        if self.dense_mode != "f64" and (self.solver != "dense" or self.precision != "native"):
+            # only the native dense factorizations read dense_mode
+            raise NotImplementedError("dense_mode='mixed' needs solver='dense' and "
+                                      "precision='native'")
         if self.precision == "native" and self.assembled_cg:
             # the JAX package's native path never reads assembled_cg
             raise NotImplementedError("assembled_cg=True with precision='native'")
+
+    def _refuse_defaults(self, fields: dict, needs: str) -> None:
+        for name, default in fields.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TsxTunnelConfig.{name}={getattr(self, name)!r} needs {needs}")
+
+    @property
+    def gs_tangent_on(self) -> bool:
+        """Whether the tangent CG operator is S (d (G v)) on the f32 heads
+        of the residual operators: gs_tangent, or with None the JAX
+        package's auto rule, on at P2/P4 where the CSR residual operators
+        carry a tangent that no assembled elastic operator takes
+        (`models/tsx_tunnel.py:893-903`)."""
+        if self.gs_tangent is not None:
+            return self.gs_tangent
+        return self.solver == "ell" and self.etype != ElementType.P1
 
     @classmethod
     def fast(cls, **kw):

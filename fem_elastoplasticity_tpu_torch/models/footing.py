@@ -47,7 +47,7 @@ from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import volume_element
 from ..solve import multigrid as mg
-from ..solve.cg import block_jacobi_preconditioner, solve_cg
+from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper, carry_of
 from ..utils.precision import dtype_policy, resolve_device
 from .config import FootingConfig
@@ -182,17 +182,6 @@ def _monitor_and_hook(cfg: FootingConfig, mesh: Mesh, geom: asm.Geometry, tdtype
     return monitor, accept_hook
 
 
-def _block_jacobi(geom: asm.Geometry, D: torch.Tensor, free_mask: torch.Tensor):
-    """The block-Jacobi preconditioner of the elastic stiffness."""
-    return block_jacobi_preconditioner(asm.node_block_diagonal(geom, D), free_mask)
-
-
-def _cg_tol(cfg: FootingConfig, dtype: torch.dtype) -> float:
-    if cfg.cg_tol is not None:
-        return cfg.cg_tol
-    return 2e-7 if dtype == torch.float32 else 1e-14
-
-
 def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
     """Run the footing benchmark: elastic predictor with the inhomogeneous
     Dirichlet load, then the adaptive load-stepped Newton.
@@ -223,7 +212,7 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
     ud = -cfg.d_zeta * dirichlet
     D = elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
     f = -asm.tangent_matvec(geom, D, ud)
-    cg_tol = _cg_tol(cfg, dtype)
+    cg_tol = plastic_cg_tol(cfg.cg_tol, dtype)
     plan = L = None
     if cfg.solver == "dense":
         plan = asm.dense_free_plan(geom, fmap, n_free)
@@ -237,7 +226,7 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
         free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
         U_it0 = ud + solve_cg(
             lambda v: asm.tangent_matvec(geom, D, v), f, free_mask,
-            precond=_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
+            precond=stiffness_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
         ).x
 
     stepper = build_load_stepper(
@@ -359,7 +348,7 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
             extras["residual_op"] = residual_op
     dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=torch.float64, device=device)
     monitor, accept_hook = _monitor_and_hook(cfg, mesh, geom32, torch.float32)
-    cg_tol = _cg_tol(cfg, torch.float32)
+    cg_tol = plastic_cg_tol(cfg.cg_tol, torch.float32)
     if residual_op is not None:
         apply_fn = lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk)  # noqa: E731
     else:
@@ -384,7 +373,7 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
                 pre = mg.make_vcycle_ell(hier)
                 K_op = lambda v: spmv.sp_matvec(hier.levels[-1].op, v)  # noqa: E731
             else:
-                pre = _block_jacobi(geom32, D, free_mask)
+                pre = stiffness_block_jacobi(geom32, D, free_mask)
                 if elastic_op is not None:
                     K_op = lambda v: spmv.sp_matvec(elastic_op, v)  # noqa: E731
                 else:

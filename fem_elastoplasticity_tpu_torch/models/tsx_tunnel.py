@@ -1,23 +1,32 @@
 """TSX tunnel excavation: Drucker-Prager elastoplasticity on the
-experiment's unstructured triangle mesh (476 nodes, 887 P1 triangles).
+experiment's unstructured triangle mesh (476 nodes, 887 P1 triangles),
+with P1, P2 or P4 elements.
 
 Port of `fem_elastoplasticity_tpu/models/tsx_tunnel.py`: `solve` runs the
 native presets, f64 (parity) and f32 (`TsxTunnelConfig.fast_f32`, the
-return map in kernel K2), or, for `precision="df32"`, `build_df32`: the
-bench preset on the dense solver, and on refined meshes the scale preset
-(`TsxTunnelConfig.fast_scale`, `solver="ell"`), whose tangent solves are CG
-preconditioned by a multigrid V-cycle on assembled operators in node
-layouts (kernels K3 and K4, K5 on the levels of 500,000 rows or more, the
-residual through K1; K6 for every operator with `spmv_fmt="ell"` and
-`residual_fmt="ell"`).
+return map in kernel K2), on the dense solver or by block-Jacobi PCG
+(`solver="cg"`), or, for `precision="df32"`, `build_df32`: the bench
+preset on the dense solver; block-Jacobi PCG on the matrix-free tangent or,
+with `assembled_cg`, on the assembled elastic operator (kernel K3's
+product) plus the gathered plastic correction, the residual through K1; and
+multigrid-preconditioned CG (`solver="ell"`): at P1 on refined meshes the
+scale preset (`TsxTunnelConfig.fast_scale`) on assembled operators in node
+layouts (K3 and K4, K5 on the levels of 500,000 rows or more, the residual
+through K1; K6 for every operator with `spmv_fmt="ell"` and
+`residual_fmt="ell"`), and at P2/P4 p-multigrid: the P1 hierarchy of the
+high-order node lattice preconditions the high-order tangent, applied as
+S (d (G v)) on the f32 heads of the residual operators (`gs_tangent`, K3's
+CSR kernel) or matrix-free.
 Anchors: 17 accepted load steps, 28
 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
 reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
-level 1 reaches 17 steps and u[40, 0] = -2.166787295662e-03.
+level 1 reaches 17 steps and u[40, 0] = -2.166787295662e-03; P4 (the
+reference's own configuration, `tsx-tunnel/sandbox.py:4`) 17 steps, 40
+Newton iterations, 79 plastic points, u[40, 0] = -2.267020043e-03.
 
-The dense path does not permute the mesh.  The scale path computes on a
-locality ordering of nodes and elements and hands its results back in the
-reference order.
+The dense and matrix-free paths do not permute the mesh.  The assembled
+paths compute on a locality ordering of nodes and elements and hand their
+results back in the reference order.
 """
 from __future__ import annotations
 
@@ -36,10 +45,10 @@ from ..ops import spmv
 from ..ops.elements import ElementType, volume_element
 from ..ops.spmv import sp_matvec
 from ..solve import multigrid as mgm
-from ..solve.cg import solve_cg
+from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
 from ..utils.precision import dtype_policy, resolve_device
-from .config import TsxTunnelConfig
+from .config import P_EXTRA, TsxTunnelConfig
 from .materials import drucker_prager_fit, elastic_tangent_lanes, lame_moduli
 
 _DATA = pathlib.Path(__file__).parent.parent / "data" / "tsx_tunnel_mesh.npz"
@@ -105,7 +114,7 @@ class _Problem(NamedTuple):
     mesh: Mesh
     geom: asm.Geometry  # in the state dtype
     free_idx: torch.Tensor
-    plan: Optional[asm.DensePlan]  # None on the assembled (solver="ell") path
+    plan: Optional[asm.DensePlan]  # the dense solver's only
     settings: NewtonSettings
     consts: tuple  # (shear, bulk, eta, c)
     s0: torch.Tensor  # (4,) in the state dtype
@@ -119,8 +128,8 @@ def _problem(cfg: TsxTunnelConfig, device: torch.device,
     The geometry is computed from coordinates rounded to `dtype`, as the
     JAX package's native path does (`models/tsx_tunnel.py:160`); s0 and e0
     are rounded the same way.  `mesh`: a permuted mesh to set up instead of
-    `tsx_mesh` (the assembled path, which needs no dense assembly plan)."""
-    dense = mesh is None
+    `tsx_mesh` (the assembled paths).  The dense assembly plan is built for
+    the dense solver only."""
     if mesh is None:
         mesh = tsx_mesh(cfg.etype, cfg.refine_levels)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
@@ -142,7 +151,8 @@ def _problem(cfg: TsxTunnelConfig, device: torch.device,
     )
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     return _Problem(
-        mesh, geom, free_idx, asm.dense_free_plan(geom, fmap, n_free) if dense else None,
+        mesh, geom, free_idx,
+        asm.dense_free_plan(geom, fmap, n_free) if cfg.solver == "dense" else None,
         settings, (shear, bulk, eta, c), as_t(s0), as_t(e0),
     )
 
@@ -156,6 +166,37 @@ def _scatter_free(free_idx: torch.Tensor, x_free: torch.Tensor, n_dofs: int):
     out = x_free.new_zeros(n_dofs)
     out[free_idx] = x_free
     return out
+
+
+def _permuted(cfg: TsxTunnelConfig, mesh_ref: Mesh, order: np.ndarray):
+    """`mesh_ref` on the node order `order` (old id at each new position),
+    its elements sorted by their smallest node: consecutive integration
+    points then reference nearby nodes, which keeps the rows of G and S
+    local.  Returns (mesh, new_of_old, esort)."""
+    coords2, elems2, new_of_old = spmv.permute_mesh(
+        np.asarray(mesh_ref.coords, np.float64), np.asarray(mesh_ref.elems), order
+    )
+    esort = np.argsort(elems2.min(axis=1), kind="stable")
+    elems2 = elems2[esort]
+    mesh = Mesh(coords2, elems2, cfg.etype, dirichlet=np.zeros_like(coords2),
+                free=_free_of(coords2))
+    return mesh, new_of_old, esort
+
+
+def lattice_order(mesh: Mesh, fine_coords: np.ndarray) -> np.ndarray:
+    """The node order that puts a high-order mesh on its P1 lattice: the
+    mesh node at each position of `fine_coords` (the hierarchy's fine
+    level), matched by coordinates (JAX `models/tsx_tunnel.py:417-430`).
+    Raises unless the match is a bijection within 1e-9 of the scale."""
+    from scipy.spatial import cKDTree
+
+    fine_c = np.asarray(fine_coords, np.float64)
+    if fine_c.shape[0] != mesh.n_nodes:
+        raise ValueError(f"the lattice has {fine_c.shape[0]} nodes, the mesh {mesh.n_nodes}")
+    dist, order = cKDTree(np.asarray(mesh.coords, np.float64)).query(fine_c)
+    if dist.max() >= 1e-9 * np.abs(fine_c).max() or np.unique(order).size != mesh.n_nodes:
+        raise ValueError("the mesh nodes do not match the lattice one to one")
+    return order
 
 
 def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
@@ -179,16 +220,27 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     # initial-stress force F0 = B^T (w * s0[:3])  (T:1737)
     f0 = asm.internal_force(geom, p.s0[:3, None].expand(3, geom.n_int))
     D = elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
-    K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), p.plan)
-    L = torch.linalg.cholesky(K_free)
-    u_elast = _scatter_free(
-        p.free_idx, torch.cholesky_solve(-f0[p.free_idx, None], L)[:, 0], n_dofs
-    )
+    L = None
+    cg_tol = plastic_cg_tol(cfg.cg_tol, dtype)
+    if cfg.solver == "dense":
+        K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), p.plan)
+        L = torch.linalg.cholesky(K_free)
+        u_elast = _scatter_free(
+            p.free_idx, torch.cholesky_solve(-f0[p.free_idx, None], L)[:, 0], n_dofs
+        )
+    else:
+        # matrix-free block-Jacobi PCG predictor (JAX `:265-285`)
+        free_mask = torch.as_tensor(p.mesh.free.reshape(-1), device=device)
+        u_elast = solve_cg(
+            lambda v: asm.tangent_matvec(geom, D, v), -f0, free_mask,
+            precond=stiffness_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
+        ).x
     stepper = build_load_stepper(
         geom, p.free_idx, p.plan, shear, bulk, eta, c, p.settings,
         e0_dir=p.e0, monitor=_monitor(cfg.monitor_node), dense_mode=cfg.dense_mode,
-        elastic_factor=("cho", L) if dtype == torch.float32 else None,
+        elastic_factor=("cho", L) if dtype == torch.float32 and L is not None else None,
         accumulate_ep=not cfg.bug_compatible_ep_reset,
+        solver=cfg.solver, cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter,
     )
     res = stepper(cfg.d_zeta * u_elast, 0.0, cfg.d_zeta)
     return _result(res, p.mesh)
@@ -196,27 +248,29 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
 
 def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
     """`build_df32` for `solver="ell"`: the multigrid hierarchy of assembled
-    elastic operators, built on the host with a locality node ordering, and
-    the whole problem permuted onto that ordering (coordinates, elements,
-    free mask, monitor node), so that the V-cycle never permutes."""
+    elastic P1 operators, built on the host with a locality node ordering,
+    and the whole problem permuted onto that ordering (coordinates,
+    elements, free mask, monitor node), so that the V-cycle never permutes.
+
+    At P2/P4 (p-multigrid, JAX `models/tsx_tunnel.py:382-453`) the
+    hierarchy has `P_EXTRA` more levels: the high-order node lattice of a
+    straight-edged mesh is its P1 lattice refined once (P2) or twice (P4),
+    so the P1 operator on the same nodes preconditions the high-order
+    tangent; the nodes are matched by coordinates (`lattice_order`).  The
+    fine P1 operator is then the preconditioner's only: the tangent, the
+    criterion and the predictor's operator stay high-order."""
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     with np.load(_DATA) as raw:
         base_coords, base_elems = raw["coords"].astype(np.float64), raw["elems"]
+    p1 = cfg.etype == ElementType.P1
     hier, perms, coarse = mgm.build_hierarchy_ell(
-        base_coords, base_elems, cfg.refine_levels, _free_of, shear, bulk,
-        volume_element(cfg.etype), device=device, fmt=cfg.spmv_fmt,
+        base_coords, base_elems, cfg.refine_levels + P_EXTRA[cfg.etype], _free_of, shear, bulk,
+        volume_element(ElementType.P1), device=device, fmt=cfg.spmv_fmt,
     )
     mesh_ref = tsx_mesh(cfg.etype, cfg.refine_levels)
-    order = np.argsort(np.asarray(perms[-1]), kind="stable")
-    coords2, elems2, new_of_old = spmv.permute_mesh(
-        np.asarray(mesh_ref.coords, np.float64), np.asarray(mesh_ref.elems), order
-    )
-    # node-locality element sort: consecutive integration points then
-    # reference nearby nodes, which keeps the rows of G and S local
-    esort = np.argsort(elems2.min(axis=1), kind="stable")
-    elems2 = elems2[esort]
-    mesh = Mesh(coords2, elems2, cfg.etype, dirichlet=np.zeros_like(coords2),
-                free=_free_of(coords2))
+    order = (np.argsort(np.asarray(perms[-1]), kind="stable") if p1
+             else lattice_order(mesh_ref, coarse["fine_coords"]))
+    mesh, new_of_old, esort = _permuted(cfg, mesh_ref, order)
     monitor_node = int(new_of_old[cfg.monitor_node])
 
     p = _problem(cfg, device, mesh=mesh)
@@ -240,7 +294,8 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     # 1024 leaves more than twice that (14,192 slots of the 908,288 points
     # of level 5)
     plastic_cap = min(n_int, max(1024, n_int // 64))
-    residual_op = spmv.residual_operators(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+    residual_op = spmv.residual_operators(geom, device, _residual_fmt(cfg),
+                                          cfg.ell_overflow_frac)
     if extras is not None:
         extras["residual_op"] = residual_op
     fine = hier.levels[-1]
@@ -252,22 +307,29 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         dest = spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"])
         corr_dest = spmv.node_block_dest(dest, coarse["fine_K"], device)
     free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
-    cg_tol = cfg.cg_tol if cfg.cg_tol is not None else 2e-7
+    cg_tol = plastic_cg_tol(cfg.cg_tol, torch.float32)
     pre = mgm.make_vcycle_ell(hier, nu=cfg.mg_nu, cycle=cfg.mg_cycle)
+    if p1:
+        # the assembled fine operator: CG's, the criterion's, the predictor's
+        elastic_op = fine.op
+        K_op = lambda v: sp_matvec(fine.op, v)  # noqa: E731
+    else:
+        # the high-order elastic operator on the f32 heads of G and S
+        elastic_op = None
+        G32, S32 = adf.f32_heads(*residual_op)
+        K_op = lambda v: adf.elastic_apply_gs32(G32, S32, v, shear, bulk)  # noqa: E731
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
             s0_field = p.s0[:3, None].expand(3, n_int)
             f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
-            # elastic predictor K u = -F0: CG on the assembled fine operator
+            # elastic predictor K u = -F0: CG preconditioned by the V-cycle
             # as the f32 inner solve, refined against the f64 residual
             u_elast = adf.refine_elastic_solve_with(
                 lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk),
-                lambda r32: solve_cg(
-                    lambda v: sp_matvec(fine.op, v), r32, free_mask, precond=pre,
-                    tol=cg_tol, maxiter=cfg.cg_maxiter,
-                ).x,
+                lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
+                                     maxiter=cfg.cg_maxiter).x,
                 zero_u, -f0, iters=cfg.predictor_ir_iters,
             )
         else:
@@ -278,8 +340,93 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
             precision="df32",
             accumulate_ep=not cfg.bug_compatible_ep_reset,
             residual_op=residual_op,
-            solver="mg", mg_preconditioner=pre, elastic_op=fine.op,
-            plastic_cap=plastic_cap, corr_dest=corr_dest,
+            solver="mg", mg_preconditioner=pre, elastic_op=elastic_op,
+            plastic_cap=plastic_cap if p1 else None, corr_dest=corr_dest,
+            cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
+            cg_cap_relax=cfg.cg_cap_relax,
+            gs_tangent=(G32, S32) if cfg.gs_tangent_on else None,
+        )
+        return stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta, resume=resume)
+
+    return run, mesh
+
+
+def _residual_fmt(cfg: TsxTunnelConfig) -> Optional[str]:
+    """`spmv.residual_operators`' format: the JAX package's slot layouts
+    ("slot", "rslot") are the port's CSR."""
+    return "ell" if cfg.residual_fmt == "ell" else None
+
+
+def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
+    """`build_df32` for `solver="cg"` (JAX `models/tsx_tunnel.py:454-481`,
+    `:796-822`): block-Jacobi PCG tangent solves, the preconditioner rebuilt
+    from the tangent every Newton iteration.  Matrix-free by default; with
+    `assembled_cg`, for any element type, the problem moves onto an RCM
+    node order with sorted elements, the elastic stiffness is assembled once
+    on the host into f32 node blocks (K3's product: CG's operator, the
+    criterion's, the predictor's), the tangent adds the gathered correction
+    of the plastic slot set, and the residual runs on G and S (K1)."""
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    mesh = mesh_ref = tsx_mesh(cfg.etype, cfg.refine_levels)
+    monitor_node = cfg.monitor_node
+    elastic_op = residual_op = None
+    if cfg.assembled_cg:
+        order = spmv.rcm_node_order(np.asarray(mesh_ref.elems), mesh_ref.n_nodes)
+        mesh, new_of_old, esort = _permuted(cfg, mesh_ref, order)
+        monitor_node = int(new_of_old[cfg.monitor_node])
+        K_csr = spmv.build_elastic_csr(mesh.coords, mesh.elems, volume_element(cfg.etype),
+                                       shear, bulk, free=mesh.free)
+        elastic_op = spmv.node_blocks(spmv.csr_to_device(K_csr, device, np.float32))
+    p = _problem(cfg, device, mesh=mesh)
+    shear, bulk, eta, c = p.consts
+    geom = p.geom
+    geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
+    n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
+    if cfg.assembled_cg:
+        residual_op = spmv.residual_operators(geom, device, _residual_fmt(cfg),
+                                              cfg.ell_overflow_frac)
+        if extras is not None:
+            extras.update(ell_new_of_old=new_of_old, reference_mesh=mesh_ref,
+                          elem_sort=(esort, int(geom.n_q), int(geom.n_real)),
+                          monitor_node=monitor_node, elastic_op=elastic_op,
+                          residual_op=residual_op)
+    free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
+    cg_tol = plastic_cg_tol(cfg.cg_tol, torch.float32)
+    if residual_op is not None:
+        apply_fn = lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk)  # noqa: E731
+    else:
+        apply_fn = lambda u: adf.elastic_apply(geom, u, shear, bulk)  # noqa: E731
+
+    def run(resume: Optional[dict] = None) -> LoadSteppingResult:
+        zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
+        if resume is None:
+            s0_field = p.s0[:3, None].expand(3, n_int)
+            if residual_op is not None:
+                f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
+            else:
+                f0 = asm.internal_force(geom, s0_field)
+            D = elastic_tangent_lanes(shear, bulk, n_int, torch.float32, device)
+            pre = stiffness_block_jacobi(geom32, D, free_mask)
+            if elastic_op is not None:
+                K_op = lambda v: sp_matvec(elastic_op, v)  # noqa: E731
+            else:
+                K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
+            u_elast = adf.refine_elastic_solve_with(
+                apply_fn,
+                lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
+                                     maxiter=cfg.cg_maxiter).x,
+                zero_u, -f0, iters=cfg.predictor_ir_iters,
+            )
+        else:
+            u_elast = zero_u  # unused: the carry supplies the state
+        stepper = build_load_stepper(
+            geom, p.free_idx, None, shear, bulk, eta, c, p.settings,
+            e0_dir=p.e0, monitor=_monitor(monitor_node),
+            precision="df32",
+            accumulate_ep=not cfg.bug_compatible_ep_reset,
+            residual_op=residual_op,
+            solver="cg", elastic_op=elastic_op,
+            plastic_cap=min(n_int, max(1024, n_int // 64)),
             cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
             cg_cap_relax=cfg.cg_cap_relax,
         )
@@ -299,32 +446,40 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     force, the f32 elastic K_free with its Cholesky factor and its
     Jacobi-scaled explicit inverse Ki, the elastic predictor (skipped on
     resume) and the load stepping.  `run(resume)` continues from a carry
-    (`solve.newton.carry_of`, `utils.convert.carry_from_jax`).
+    (`solve.newton.carry_of`, `utils.convert.carry_from_jax`) on the
+    solver's node order.
 
-    `solver="ell"` (`TsxTunnelConfig.fast_scale`): the setup also builds the
+    `solver="cg"` (`_build_df32_cg`): block-Jacobi PCG tangent solves,
+    matrix-free or, with `assembled_cg`, on the elastic node blocks (K3)
+    and the gathered plastic correction, on an RCM node order.
+    `solver="ell"` (`_build_df32_ell`; `TsxTunnelConfig.fast_scale` at P1,
+    p-multigrid at P2/P4): the setup also builds the
     multigrid hierarchy (in `cfg.spmv_fmt`, its levels of 500,000 rows or
     more packed to bf16 on the slot format) and, with corr_mode="scatter",
     the tangent refresh's table, and permutes the problem onto the
-    hierarchy's fine ordering, so
-    `mesh` and the run's result are in that ordering.  `extras`, if given,
-    receives what `_df32_result` needs to restore the reference order:
-    `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them the
-    permuted `monitor_node`, the device `hierarchy`, the host data of its
-    levels `host_levels` (`multigrid.build_hierarchy_ell`'s
-    `coarse["levels"]`) and the residual operators `residual_op` (G, S).
+    hierarchy's fine ordering.  On both assembled routes
+    `mesh` and the run's result are in the permuted ordering.  `extras`, if
+    given, receives what `_df32_result` needs to restore the reference
+    order: `ell_new_of_old`, `elem_sort`, `reference_mesh`, and beside them
+    the permuted `monitor_node` and the residual operators `residual_op`
+    (G, S); on the "ell" route the device `hierarchy` and the host data of
+    its levels `host_levels` (`multigrid.build_hierarchy_ell`'s
+    `coarse["levels"]`), on the assembled "cg" route the `elastic_op`.
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
     device = resolve_device(device)
     if cfg.solver == "ell":
         return _build_df32_ell(cfg, device, extras)
+    if cfg.solver == "cg":
+        return _build_df32_cg(cfg, device, extras)
     p = _problem(cfg, device)
     shear, bulk, eta, c = p.consts
     geom = p.geom
     geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
     n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
     residual_op = (
-        spmv.residual_operators(geom, device, cfg.residual_fmt, cfg.ell_overflow_frac)
+        spmv.residual_operators(geom, device, _residual_fmt(cfg), cfg.ell_overflow_frac)
         if cfg.assembled_cg else None
     )
 
@@ -387,9 +542,10 @@ def _solve_df32(cfg: TsxTunnelConfig, device=None) -> TsxResult:
 
 
 def _df32_result(res: LoadSteppingResult, mesh: Mesh, extras: Optional[dict] = None) -> TsxResult:
-    """Host conversion of a df32 LoadSteppingResult.  The dense path has no
-    permutation.  With the `extras` of an assembled (`solver="ell"`) build,
-    the reference node order and the element-major integration-point order
+    """Host conversion of a df32 LoadSteppingResult.  The dense and
+    matrix-free paths have no permutation.  With the `extras` of an
+    assembled build (`solver="ell"`, or "cg" with `assembled_cg`), the
+    reference node order and the element-major integration-point order
     are restored, and the mesh is the reference mesh."""
     out = _result(res, mesh)
     if not extras or "ell_new_of_old" not in extras:

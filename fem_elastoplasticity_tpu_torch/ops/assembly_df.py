@@ -4,7 +4,9 @@ Counterpart of `fem_elastoplasticity_tpu/ops/assembly_df.py`.  The JAX
 package evaluates the Newton residual in double-float (two-f32) arithmetic
 because a TPU has no f64; the port evaluates the same quantities in f64.
 What remains to port is the f64 <-> f32-pair split at the API edge, the f64
-elastic application K_el u, the dense solver's f32 elastic factors, and the
+elastic application K_el u (matrix-free or on the residual operators), its
+f32 counterpart on the f32 heads of the residual operators (the high-order
+predictor's CG operator), the dense solver's f32 elastic factors, and the
 elastic predictor's iterative refinement: an f32 inner solve against an
 f64 residual.
 """
@@ -48,6 +50,21 @@ def elastic_apply_csr(G, S, u: torch.Tensor, shear: float, bulk: float):
     (`elastic_apply_slot_df`).  G, S: the residual operators (`ops.spmv`)."""
     e = sp_matvec(G, u).reshape(3, -1)
     return sp_matvec(S, elastic_stress(e, shear, bulk).reshape(-1))
+
+
+def f32_heads(G, S) -> tuple:
+    """The f32 heads of the f64 CSR residual operators (`ops.spmv.CsrMatrix`):
+    the same structure, values rounded to nearest, as the JAX package's
+    `vals_hi` streams are."""
+    return tuple(A._replace(values=A.values.to(torch.float32)) for A in (G, S))
+
+
+def elastic_apply_gs32(G32, S32, v: torch.Tensor, shear: float, bulk: float):
+    """f32 K_el v = S32 (D_el (G32 v)) on the f32 heads of the residual
+    operators (`f32_heads`), through K3's CSR kernel: the high-order
+    predictor's CG operator (`assembly_df.elastic_apply_gs32`)."""
+    e = sp_matvec(G32, v.to(torch.float32)).reshape(3, -1)
+    return sp_matvec(S32, elastic_stress(e, shear, bulk).reshape(-1))
 
 
 def dense_elastic_factors(geom32: asm.Geometry, D32: torch.Tensor, plan: asm.DensePlan):

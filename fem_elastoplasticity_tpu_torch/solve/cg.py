@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops.assembly import Geometry, node_block_diagonal
+
 
 class CGResult(NamedTuple):
     x: torch.Tensor
@@ -59,6 +61,21 @@ def block_jacobi_preconditioner(blocks: torch.Tensor, free: torch.Tensor):
         return torch.einsum("nij,nj->ni", inv, r.reshape(-1, 2)).reshape(-1)
 
     return apply
+
+
+def stiffness_block_jacobi(geom: Geometry, d: torch.Tensor, free: torch.Tensor):
+    """`block_jacobi_preconditioner` of the stiffness of the material
+    tangent d (3, 3, n_int): its nodal 2x2 diagonal blocks."""
+    return block_jacobi_preconditioner(node_block_diagonal(geom, d), free)
+
+
+def plastic_cg_tol(cg_tol: Optional[float], dtype: torch.dtype) -> float:
+    """The plastic problems' CG tolerance: cg_tol, or 1e-14 in f64 and 2e-7
+    in f32 (the preconditioned-residual floor; tighter stalls and trips the
+    breakdown guard), JAX `models/tsx_tunnel.py:156-159`."""
+    if cg_tol is not None:
+        return cg_tol
+    return 2e-7 if dtype == torch.float32 else 1e-14
 
 
 def solve_cg(

@@ -3,15 +3,17 @@
 Port of `fem_elastoplasticity_tpu/solve/newton.py` for `solver="dense"`;
 `solver="cg"` (inexact Newton: CG tangent solves preconditioned by the
 tangent's 2x2 nodal diagonal blocks, rebuilt every Newton iteration, on the
-matrix-free tangent or on the assembled elastic operator refreshed from
-every integration point, or, with `tangent_mg`, preconditioned by a
-multigrid V-cycle whose every level is refreshed from the tangent); and,
-with the assembled elastic operator and a multigrid preconditioner,
-`solver="mg"` (CG on the elastic operator with the plastic correction,
-refreshed into its values or gathered).  The CG solves can recycle a
-deflation basis (`cg_deflate`), carried across Newton iterations and load
-steps and through the resume carry; `newton_damping` backtracks a Newton
-step on the residual norm.
+matrix-free tangent, on the assembled elastic operator refreshed from
+every integration point or with the gathered plastic correction, or, with
+`tangent_mg`, preconditioned by a multigrid V-cycle whose every level is
+refreshed from the tangent); and, with a multigrid preconditioner,
+`solver="mg"` (CG on the assembled elastic operator with the plastic
+correction, refreshed into its values or gathered, or, where no elastic
+operator is given (p-multigrid), on the high-order tangent: matrix-free or
+`gs_tangent`, S (d (G v)) on the f32 heads of the residual operators).
+The CG solves can recycle a deflation basis (`cg_deflate`), carried across
+Newton iterations and load steps and through the resume carry;
+`newton_damping` backtracks a Newton step on the residual norm.
 The JAX package runs the whole schedule as one jitted `while_loop`; here the
 controller is Python, and each Newton iteration reads its criterion (and
 the plastic count) back to the host.  The controller semantics are kept
@@ -48,7 +50,7 @@ import torch
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_fused, unpack_tangent
-from ..ops.spmv import NodeBlockMatrix, sp_matvec
+from ..ops.spmv import CsrMatrix, NodeBlockMatrix, sp_matvec
 from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg
 
 
@@ -185,6 +187,7 @@ def build_load_stepper(
     tangent_mg: Optional[Callable] = None,
     cg_deflate: int = 0,
     newton_damping: int = 0,
+    gs_tangent: Optional[tuple] = None,
 ):
     """Build the load-stepping solver (dense or CG tangent solves).
 
@@ -221,9 +224,13 @@ def build_load_stepper(
       solver:   "dense"; "cg": the tangent solve is CG preconditioned by
                 the block-Jacobi inverse of the tangent's nodal 2x2 blocks
                 (`ops.assembly.node_block_diagonal`), on the matrix-free
-                tangent (`elastic_op` None) or on `elastic_op` refreshed
-                through `corr_dest`; or "mg": CG on the
-                assembled operator, preconditioned by `mg_preconditioner`.
+                tangent (`elastic_op` None), on `elastic_op` refreshed
+                through `corr_dest`, or on `elastic_op` plus the gathered
+                correction of `plastic_cap` slots; or "mg": CG preconditioned
+                by `mg_preconditioner`, on `elastic_op` with the plastic
+                correction or, without `elastic_op` (p-multigrid: the
+                preconditioner's fine operator is not the tangent's), on the
+                matrix-free tangent or the `gs_tangent` one.
                 `plan` is read by the dense solver only and may be None
                 otherwise.
       mg_preconditioner: r -> z, `solve.multigrid.make_vcycle_ell`.
@@ -273,6 +280,12 @@ def build_load_stepper(
                 halved up to this many times while the free-DOF residual
                 2-norm does not fall below the current one.  The criterion
                 still measures the undamped dU.  0: the undamped iteration.
+      gs_tangent: (G32, S32), the f32 heads of the CSR `residual_op`
+                (`ops.assembly_df.f32_heads`), with an iterative solver and
+                no `elastic_op`: the tangent CG operator is S32 (d (G32 v))
+                through K3's CSR kernel; the residual and the criterion keep
+                G and S in f64 (JAX `solve/newton.py:740-761`, where an
+                elastic operator would take the tangent first).
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -289,19 +302,21 @@ def build_load_stepper(
         raise NotImplementedError("tangent_mg needs solver='cg' without elastic_op")
     if cg_deflate and solver == "dense":
         raise NotImplementedError("cg_deflate needs an iterative solver")
-    if solver == "cg" and elastic_op is not None and corr_dest is None:
+    if elastic_op is not None and plastic_cap is None and not (
+            solver == "cg" and corr_dest is not None):
         raise NotImplementedError(
-            "solver='cg' is ported matrix-free or on elastic_op refreshed through corr_dest"
+            "an iterative solve on elastic_op needs corr_dest (solver='cg': the full "
+            "refresh) or plastic_cap (the plastic slot set)"
         )
     if corr_dest is not None and not isinstance(elastic_op, NodeBlockMatrix):
         raise NotImplementedError("the tangent refresh writes the values of f32 node blocks")
-    if solver == "mg" and (
-        mg_preconditioner is None or elastic_op is None or plastic_cap is None
-    ):
-        raise NotImplementedError(
-            "solver='mg' is ported with mg_preconditioner, elastic_op and plastic_cap "
-            "(the assembled-operator path)"
-        )
+    if solver == "mg" and mg_preconditioner is None:
+        raise NotImplementedError("solver='mg' needs mg_preconditioner")
+    if gs_tangent is not None and (
+            elastic_op is not None or solver == "dense" or residual_op is None
+            or not all(isinstance(A, CsrMatrix) for A in (*residual_op, *gs_tangent))):
+        raise ValueError("gs_tangent needs an iterative solver without elastic_op and CSR "
+                         "residual operators")
     sdtype = geom.B.dtype
     geom_t = geom.to(torch.float32) if df_mode else geom
     tdtype = geom_t.B.dtype
@@ -433,15 +448,20 @@ def build_load_stepper(
         return elastic_op._replace(block_values=vals.reshape(-1, 4))
 
     def tangent_operator(d, ind_p):
-        """v -> K_tangent v.  solver="cg": the matrix-free tangent, or the
-        elastic operator refreshed with every element's tangent deviation.
-        solver="mg": the elastic operator and the plastic
-        slot set's correction blocks, scattered into a copy of its values
-        with `corr_dest`, else added in every product (the gathered
-        correction)."""
-        if solver == "cg":
-            if elastic_op is None:
-                return lambda v: asm.tangent_matvec(geom_t, d, v)
+        """v -> K_tangent v.  Without elastic_op: the matrix-free tangent,
+        or with gs_tangent S32 (d (G32 v)).  solver="cg" with corr_dest:
+        the elastic operator refreshed with every element's tangent
+        deviation.  Otherwise the elastic operator and the plastic slot
+        set's correction blocks, scattered into a copy of its values with
+        `corr_dest` (solver="mg"), else added in every product (the
+        gathered correction)."""
+        if elastic_op is None:
+            if gs_tangent is not None:
+                G32, S32 = gs_tangent
+                return lambda v: sp_matvec(S32, asm.apply_tangent(
+                    d, sp_matvec(G32, v).reshape(3, n_int)).reshape(-1))
+            return lambda v: asm.tangent_matvec(geom_t, d, v)
+        if solver == "cg" and corr_dest is not None:
             # element_stiffness is (2n_p, 2n_p, n_e): transpose to corr_dest's
             # (n_e, row, col)
             corr = asm.element_stiffness(geom_t, d - d_el).permute(2, 0, 1)

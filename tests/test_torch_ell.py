@@ -350,7 +350,9 @@ def test_scale_preset_takes_the_ell_format_only_with_the_gather_correction():
         TsxTunnelConfig.fast_scale(1, spmv_fmt="ell")
     with pytest.raises(ValueError):
         TsxTunnelConfig.fast_scale(1, spmv_fmt="ell", corr_mode="full")
+    # the JAX package's slot layouts name the port's CSR residual route
+    assert TsxTunnelConfig.fast_scale(1, residual_fmt="rslot").residual_fmt == "rslot"
     with pytest.raises(NotImplementedError):
-        TsxTunnelConfig.fast_scale(1, residual_fmt="rslot")
+        TsxTunnelConfig.fast_scale(1, residual_fmt="windowed")
     # the dense bench preset takes the ELL residual with its assembled G/S
     assert TsxTunnelConfig.fast(assembled_cg=True, residual_fmt="ell").residual_fmt == "ell"

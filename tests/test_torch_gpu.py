@@ -626,3 +626,54 @@ def test_tangent_multigrid_solve_on_the_card(cuda_tangent):
     ref = mgm.refresh_hierarchy(th, hier, d_el, shear, bulk)
     assert torch.equal(ref.levels[-1].sweep_op.block_values, before)
     assert torch.equal(hier.levels[-1].sweep_op.block_values, before)
+
+
+@pytest.fixture(scope="module")
+def cuda_high_order():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for load in (spmv.load_kernel, spmv.load_kernel_f32, spmv.load_sweep_kernel,
+                 spmv.load_transfer_kernel):
+        load()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("et", ["P2", "P4"])
+def test_k1_and_k3_csr_match_plain_on_high_order_g_s(cuda_high_order, et):
+    """K1 on the P2 / P4 residual operators (G ~12 / 30 entries a row, S
+    with long vertex rows) and K3's CSR kernel on their f32 heads, against
+    the plain versions: 1e-13 normwise (f64), 2e-6 of max |plain| (f32)."""
+    from fem_elastoplasticity_tpu_torch.ops import assembly_df as adf
+
+    mesh = tsx.tsx_mesh(ElementType[et])
+    geom = asm.compute_geometry(torch.as_tensor(mesh.coords, device=cuda_high_order),
+                                mesh.elems, volume_element(ElementType[et]))
+    G, S = spmv.residual_operators(geom, cuda_high_order)
+    gen = torch.Generator(device=cuda_high_order).manual_seed(7)
+    for A, A32 in zip((G, S), adf.f32_heads(G, S)):
+        x = torch.randn(A.shape[1], generator=gen, dtype=torch.float64, device=cuda_high_order)
+        y, y_plain = spmv.csr_spmv_f64_cuda(A, x), spmv.csr_matvec_plain(A, x)
+        assert float(torch.linalg.norm(y - y_plain) / torch.linalg.norm(y_plain)) <= 1e-13
+        x32 = x.float()
+        y32, y32_plain = spmv.csr_spmv_f32_cuda(A32, x32), spmv.csr_matvec_plain(A32, x32)
+        assert float((y32 - y32_plain).abs().max()) <= 2e-6 * float(y32_plain.abs().max())
+        assert torch.equal(y32, spmv.csr_spmv_f32_cuda(A32, x32))
+
+
+def test_p2_routes_on_the_card(cuda_high_order):
+    """P2 cut at zeta 2/17: the p-multigrid route launches K1, K3's CSR
+    kernel (two a CG iteration with gs_tangent), K3's transfers and K4 and
+    no plain version, and meets the assembled and matrix-free routes."""
+    kw = dict(etype=ElementType.P2, zeta_max=2 / 17)
+    spmv.LAUNCHES.clear()
+    r = tsx.solve(TsxTunnelConfig.fast(solver="ell", **kw), device=cuda_high_order)
+    launches = dict(spmv.LAUNCHES)
+    assert not any(k.endswith("_plain") for k in launches), launches
+    for name in ("csr_spmv_f64", "csr_spmv_f32", "node_transfer", "block_jacobi_sweep"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    assert launches["csr_spmv_f32"] >= 2 * r.n_cg_total
+    for other in (TsxTunnelConfig.fast(solver="cg", **kw),
+                  TsxTunnelConfig.fast(solver="cg", assembled_cg=True, **kw)):
+        o = tsx.solve(other, device=cuda_high_order)
+        assert o.n_steps == r.n_steps == 2
+        assert float(np.abs(o.u - r.u).max() / np.abs(r.u).max()) < 1e-9

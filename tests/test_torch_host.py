@@ -85,9 +85,11 @@ def test_config_defaults_match_jax():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(solver="cg"),
+        # solver="cg" and P2/P4 are ported (tests/test_torch_high_order.py);
+        # the matrix-free multigrid and the quadrilaterals are not
+        dict(solver="mg"),
         dict(support_pressure=1.0),
-        dict(etype=pel.ElementType.P2),
+        dict(etype=pel.ElementType.Q1),
         dict(dtype="bfloat16"),
         dict(assembled_cg=True),
         dict(cg_deflate=4),
@@ -137,7 +139,7 @@ def test_config_refuses_unported_presets():
         dict(cg_deflate=4),
         dict(spmv_fmt="rslot"),
         dict(solver="mg"),
-        dict(etype=pel.ElementType.P2),
+        dict(etype=pel.ElementType.Q2),
         dict(precision="native"),
         dict(cg_structure="scan"),
     ],

@@ -85,6 +85,29 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
 * elasticity_cg.npz — the square-with-hole energies of
   `ElasticityConfig(level=L, solver="cg")` (P1, matrix-free block-Jacobi
   PCG in f64) at levels 3 and 5 (energy_l3, energy_l5).
+* tsx_p2_*_z2.npz, tsx_p4_*_z1.npz — the tsx with P2 elements cut at zeta
+  2/17 and with P4 elements (the reference's own configuration) cut
+  at 1/17, each on five routes, every one its own JAX run:
+  `native` = `TsxTunnelConfig(etype, solver="cg")` (native f64
+  block-Jacobi PCG), `cg` = `fast(etype, solver="cg")` (df32, matrix-free),
+  `acg` = `fast(etype, solver="cg", assembled_cg=True)`, `pmg_gs` /
+  `pmg_mf` = `fast(etype, solver="ell")` with gs_tangent True / False
+  (p-multigrid, the Pallas kernels in interpret mode): u and ep in the
+  reference order, zeta_hist, displ_hist, the step, Newton, CG and plastic
+  counts, for the df32 routes newton_trips (Newton iterations a load
+  trip; where a trip takes more than one, also cg_trips, CG iterations a
+  load trip), and `config`, the run's configuration as JSON (etype, steps: the
+  load steps of the cut, zeta_max = steps / 17, and the route's keywords),
+  from which the port's tests and `chip_smoke.py` build theirs.  These cuts
+  are elastic (every trip one Newton iteration);
+* tsx_p2_*_z17.npz, tsx_p4_{native,cg,acg}_z12.npz — the same fields for
+  runs that go plastic (plastic flow starts at load step 11): P2 on the
+  five routes at the full schedule, P4 on the three block-Jacobi routes cut
+  at zeta 12/17 (two plastic steps; the p-multigrid routes in interpret
+  mode cost too much at P4);
+* tsx_p4_pmg_carry1.npz — the load-stepping carry of the P4 `pmg_gs` run
+  after its one load trip (`save_checkpoint`), on the route's permuted node
+  order.
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
@@ -100,6 +123,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import json
 import pathlib
 import sys
 
@@ -204,6 +228,30 @@ def main(names) -> None:
                                            (OUT / f"{ckpt}.npz", 2)))
             np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "pressure_hist"), **rec,
                                 n_cg_total=r.n_cg_total)
+    from fem_elastoplasticity_tpu.ops.elements import ElementType
+
+    for name, (et, steps, route) in HIGH_ORDER.items():
+        if name in names or (name == "tsx_p4_pmg_gs_z1" and "tsx_p4_pmg_carry1" in names):
+            kw = HIGH_ORDER_ROUTES[route]
+            cfg = TsxTunnelConfig(etype=ElementType[et], zeta_max=steps / 17, **kw)
+            extra = {"config": json.dumps(dict(etype=et, steps=steps, route=route, **kw))}
+            if cfg.precision == "df32":
+                run, args, mesh = tsx.build_df32(cfg, extras=(extras := {}))
+                res = run(args)
+                r = tsx._df32_result(res, extras, cfg, mesh)
+                if r.n_newton_total == r.n_steps:
+                    # every trip accepted a step after one Newton iteration
+                    extra["newton_trips"] = np.ones(r.n_steps, np.int64)
+                else:
+                    rec = _trip_record(tsx, cfg, r, step0=0)
+                    extra.update(newton_trips=rec["newton_trips"], cg_trips=rec["cg_trips"])
+                if name == "tsx_p4_pmg_gs_z1" and "tsx_p4_pmg_carry1" in names:
+                    save_checkpoint(OUT / "tsx_p4_pmg_carry1.npz", carry_of(res))
+            else:
+                r = tsx.solve(cfg)
+            if name in names:
+                np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "displ_hist"), **extra,
+                                    n_cg_total=r.n_cg_total)
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -271,19 +319,21 @@ def _footing_reference_order(footing, cfg, fields) -> dict:
     return dict(u=fields["u"][new_of_old], ep=ep)
 
 
-def _trip_record(footing, cfg, r, n_trips=None, checkpoint=None) -> dict:
+def _trip_record(footing, cfg, r, n_trips=None, checkpoint=None, step0=1) -> dict:
     """Every load trip of a df32 footing run: the run again, one trip a
     dispatch through the stepper's resume carry, its totals held to the
     single run's `r`.  Per trip: Newton and CG iterations, zeta and d_zeta
     after it, and whether it accepted a step.  `n_trips`: the run `r` was
     cut at that many trips (cfg.max_trips); `checkpoint`: (path, trips),
-    write the carry after that many trips with `save_checkpoint`."""
+    write the carry after that many trips with `save_checkpoint`.  `footing`
+    may be the tsx module, whose step count starts at `step0` = 0 (the
+    footing's at 1)."""
     import numpy as np
 
     from fem_elastoplasticity_tpu.solve.chunked import carry_of, save_checkpoint
 
     run, args, _ = footing.build_df32(dataclasses.replace(cfg, max_trips=1))
-    res, total, cg, steps = run(args), 0, 0, 1
+    res, total, cg, steps = run(args), 0, 0, step0
     rec = {k: [] for k in ("newton_trips", "cg_trips", "zeta_trips", "d_zeta_trips",
                            "accepted_trips")}
     while True:
@@ -302,7 +352,7 @@ def _trip_record(footing, cfg, r, n_trips=None, checkpoint=None) -> dict:
         if zeta >= cfg.zeta_max - 1e-12 or d_zeta < cfg.d_zeta * cfg.d_zeta_min_ratio:
             break
         res = run(args, carry_of(res))
-    if (total, int(res.n_steps) - 1, int(res.n_cg_total)) != (
+    if (total, int(res.n_steps) - step0, int(res.n_cg_total)) != (
             r.n_newton_total, r.n_steps, r.n_cg_total):
         raise RuntimeError(f"{cfg}: the one-trip dispatches left the single run's schedule")
     return {k: np.asarray(v, np.float64 if "zeta" in k else np.int64) for k, v in rec.items()}
@@ -354,12 +404,27 @@ FOOTING_SCALE = {
     "footing_scale_l2_damped_t3": (
         lambda F: F.fast_scale(2, max_trips=3, newton_damping=3), 3, None),
 }
+# the P2 / P4 route fixtures: route -> TsxTunnelConfig keywords (each
+# fixture stores its own as `config`; nothing else holds this table)
+HIGH_ORDER_ROUTES = {
+    "native": dict(solver="cg"),
+    "cg": dict(solver="cg", precision="df32", dtype="float32"),
+    "acg": dict(solver="cg", assembled_cg=True, precision="df32", dtype="float32"),
+    "pmg_gs": dict(solver="ell", gs_tangent=True, precision="df32", dtype="float32"),
+    "pmg_mf": dict(solver="ell", gs_tangent=False, precision="df32", dtype="float32"),
+}
+# element type, load steps of the cut (zeta_max = steps / 17), routes
+HIGH_ORDER_CUTS = (("P2", 2, tuple(HIGH_ORDER_ROUTES)), ("P4", 1, tuple(HIGH_ORDER_ROUTES)),
+                   ("P2", 17, tuple(HIGH_ORDER_ROUTES)), ("P4", 12, ("native", "cg", "acg")))
+HIGH_ORDER = {f"tsx_{et.lower()}_{route}_z{steps}": (et, steps, route)
+              for et, steps, routes in HIGH_ORDER_CUTS for route in routes}
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
-    *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg",
+    *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg", *HIGH_ORDER,
+    "tsx_p4_pmg_carry1",
 )
 
 if __name__ == "__main__":

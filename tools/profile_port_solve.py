@@ -34,6 +34,14 @@ iteration.  Last it times, without the profiler, the assembled preset at
 level 4 (25,921 nodes, 51,342 unknowns) for its first two load trips
 (`max_trips=2`): setup, wall, counts and launches.
 
+`--high-order` profiles the tsx's high-order production route,
+p-multigrid with the tangent on the f32 heads of G and S
+(`TsxTunnelConfig.fast(etype, solver="ell")`: kernels K1, K3's CSR kernel
+and transfers, K4) at its full schedule: P4 on the tsx mesh (14,452
+DOFs), P4 refine 2 and P2 refine 3 (228,112 DOFs each), with the same
+measurements as `--scale` and, for every scale configuration, the peak
+device memory of its setup and first run above what was held before.
+
 `--footing-scale L [L ...]` runs the footing's tangent-multigrid preset
 `FootingConfig.fast_scale(L)` (kernels K1, K3 with its CSR kernel on the
 Galerkin maps, K4): at levels 2-4 its first three load trips
@@ -46,7 +54,7 @@ events in hand): device idle share, top kernels, kernels and host syncs
 per CG iteration.
 
     python tools/profile_port_solve.py [OUT] [--scale L ...] [--ell L ...] [--no-dense]
-                                       [--footing] [--footing-scale L ...]
+                                       [--footing] [--footing-scale L ...] [--high-order]
 """
 from __future__ import annotations
 
@@ -236,6 +244,7 @@ def main() -> int:
     ap.add_argument("--no-dense", action="store_true")
     ap.add_argument("--footing", action="store_true")
     ap.add_argument("--footing-scale", type=int, nargs="*", default=[], metavar="L")
+    ap.add_argument("--high-order", action="store_true")
     opts = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -248,6 +257,7 @@ def main() -> int:
     from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
     from fem_elastoplasticity_tpu_torch.models.config import FootingConfig, TsxTunnelConfig
     from fem_elastoplasticity_tpu_torch.ops import spmv
+    from fem_elastoplasticity_tpu_torch.ops.elements import ElementType
     from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device("cuda")
@@ -270,12 +280,23 @@ def main() -> int:
     scale = [(f"scale_L{L}", TsxTunnelConfig.fast_scale(L)) for L in opts.scale] + [
         (f"ell_L{L}", TsxTunnelConfig.fast_scale(L, spmv_fmt="ell", corr_mode="gather",
                                                  residual_fmt="ell")) for L in opts.ell]
+    if opts.high_order:
+        scale += [(f"{et}_refine{L}_pmg", TsxTunnelConfig.fast(
+            etype=ElementType[et], solver="ell", refine_levels=L))
+            for et, L in (("P4", 0), ("P4", 2), ("P2", 3))]
+    peak_gib = {}
     for tag, cfg in scale:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         run, _ = tsx.build_df32(cfg, device=device)
         torch.cuda.synchronize()
         setup_s[tag] = time.perf_counter() - t0
         runs[tag] = run
+        run()  # the peak of setup and a run
+        torch.cuda.synchronize()
+        peak_gib[tag] = (torch.cuda.max_memory_allocated() - held) / 2**30
     for tag, run in runs.items():
         t0 = time.perf_counter()
         run()
@@ -297,6 +318,7 @@ def main() -> int:
             n_cg = int(res.n_cg_total)
             summary[tag].update(
                 setup_s=setup_s[tag],
+                peak_memory_gib=peak_gib[tag],
                 counts=dict(steps=int(res.n_steps), newton=int(res.n_newton_total), cg=n_cg,
                             plastic=int(res.n_plastic)),
                 kernel_launches_by_name=dict(spmv.LAUNCHES),

@@ -3,7 +3,9 @@
 
 Runs, on the card, the scale solves whose digests `chip_smoke.py` prints
 (phases 14, 17 and 21): `solve(TsxTunnelConfig.fast_scale(1))`, and
-`build_df32(fast_scale(L))`'s `run()` once for L = 4 and 5.  For each it prints the steps / Newton / CG /
+`build_df32(fast_scale(L))`'s `run()` once for L = 4 and 5; and the
+footing's tangent-multigrid preset `FootingConfig.fast_scale(L,
+max_trips=3)` at L = 2 and 4 (phases 23 and 25).  For each it prints the steps / Newton / CG /
 plastic counts, u[40,0], the sha256 of u's f64 bytes (as `chip_smoke.py`
 prints it), the launches of each hand-written kernel, and device memory
 (`torch.cuda.max_memory_allocated` after a reset, above what the process
@@ -27,6 +29,7 @@ import sys
 import time
 
 LEVELS = (1, 4, 5)  # the refine levels of chip_smoke.py's scale solves
+FOOTING_LEVELS = (2, 4)  # the footing scale levels, three load trips each
 
 
 def main() -> int:
@@ -79,6 +82,25 @@ def main() -> int:
         del r, u
         if level != 1:
             del run, mesh, extras
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+
+    for level in FOOTING_LEVELS:
+        t0 = time.perf_counter()
+        run, _ = footing.build_df32(FootingConfig.fast_scale(level, max_trips=3), device=device)
+        spmv.LAUNCHES.clear()
+        r = run()
+        torch.cuda.synchronize()
+        u = np.ascontiguousarray(r.u, dtype=np.float64)
+        rec = dict(
+            counts=[r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic],
+            u_sha256=hashlib.sha256(u.tobytes()).hexdigest(),
+            launches={k: v for k, v in spmv.LAUNCHES.items() if v},
+            wall_s=time.perf_counter() - t0,
+        )
+        out[f"footing_L{level}"] = rec
+        print(f"[footing L{level}] {rec}", flush=True)
+        del run, r, u
     print(json.dumps(out), flush=True)
     return 0
 
