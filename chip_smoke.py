@@ -6,12 +6,12 @@ them against the repository's anchors:
 
   1. device   — a CUDA card is required; prints its name and power limit
                 as `nvidia-smi --query-gpu=name,power.limit` gives them;
-  2. build    — builds kernels K1 (ops/csrc/csr_spmv_f64.cu), K2
-                (ops/csrc/dp_return_map.cu), K3 (its product on node blocks
-                in ops/csrc/block_jacobi_sweep.cu, its transfers in
-                ops/csrc/node_transfer.cu, and its CSR kernel
-                ops/csrc/csr_spmv_f32.cu, the footing scale path's Galerkin
-                value maps), K4 and K5
+  2. build    — builds kernels K1 and K3's CSR kernel (one template,
+                ops/csrc/csr_spmv.cu: the residual, the footing scale
+                path's Galerkin value maps, the high-order f32 heads of G
+                and S), K2 (ops/csrc/dp_return_map.cu), K3's product on
+                node blocks (ops/csrc/block_jacobi_sweep.cu) and its
+                transfers (ops/csrc/node_transfer.cu), K4 and K5
                 (ops/csrc/block_jacobi_sweep.cu), K6 (ops/csrc/ell_spmv.cu)
                 and K7 (ops/csrc/cholesky_blocked.cu) with nvcc, one process
                 a source, all at once;
@@ -20,6 +20,10 @@ them against the repository's anchors:
                 and 4, seeded inputs, normwise relative difference <= 1e-13;
                 CUDA-event times of both, the bytes bound, and cuSPARSE's
                 time for the same product (`torch.sparse_csr_tensor @ x`);
+                the operator's row blocks (`ops.spmv.row_blocks`) printed,
+                and every f32 operator (K3's CSR kernel, later phases) also
+                bitwise equal to the row-serial loop
+                `spmv.csr_matvec_row_serial`;
   4. K2       — the kernel against its plain version at 896 points (the
                 main path's) and 227,072 (tsx refine 4), f32 and f64, with
                 and without the plastic-strain update, both apex modes:
@@ -401,7 +405,9 @@ def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
     """cases: {tag: CsrMatrix} -> (per-case records, max abs error).  f64
     values run K1 (normwise relative difference to the plain version <=
     K1_TOL), f32 values K3's CSR kernel (max abs difference over max |plain|
-    <= K3_TOL); each also bitwise repeatable, and beside cuSPARSE."""
+    <= K3_TOL, and bitwise the row-serial loop `csr_matvec_row_serial`:
+    each row summed in CSR order); each also bitwise repeatable, and beside
+    cuSPARSE.  The records carry the operator's row blocks."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes, max_err = {}, 0.0
     for tag, A in cases.items():
@@ -419,6 +425,9 @@ def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
         tol = K1_TOL if f64 else K3_TOL
         check(rel <= tol, f"{name} {tag}: relative difference {rel:.3e}")
         check(torch.equal(y, kernel(A, x)), f"{name} {tag}: not bitwise repeatable")
+        if not f64:
+            check(torch.equal(y, spmv.csr_matvec_row_serial(A, x)),
+                  f"{name} {tag}: not bitwise the row-serial sum")
         # the yardstick: one PyTorch call (cuSPARSE) for the same product
         A_lib = torch.sparse_csr_tensor(
             A.indptr, A.indices, A.values, A.shape, check_invariants=False)
@@ -437,14 +446,18 @@ def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
         n_bytes = (vsize + 4) * nnz + 4 * (A.shape[0] + 1) + vsize * (A.shape[1] + A.shape[0])
         b_ms, b_by = bound_ms(n_bytes, 2 * nnz, "float64" if f64 else "float32")
         max_err = max(max_err, err)
+        n_blocks = int(A.row_blocks.shape[0]) - 1
         shapes[tag] = dict(
-            rows=A.shape[0], cols=A.shape[1], nnz=nnz,
+            rows=A.shape[0], cols=A.shape[1], nnz=nnz, row_blocks=n_blocks,
             rel=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
             library_eager_ms=lib_eager_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
         )
-        say(name, f"{tag} {A.shape[0]}x{A.shape[1]} nnz {nnz}: "
-            f"rel {rel:.3e} max_abs {err:.3e} | device: kernel {ms:.5f} ms plain "
+        say(name, f"{tag} {A.shape[0]}x{A.shape[1]} nnz {nnz}, {n_blocks} row blocks (E "
+            f"{spmv.ROW_BLOCK_ENTRIES}, T {spmv.ROW_BLOCK_ROWS}"
+            f"{', streamed' if spmv.csr_streams(A) else ''}): "
+            f"rel {rel:.3e} max_abs {err:.3e}{'' if f64 else ', bitwise row-serial'} | "
+            f"device: kernel {ms:.5f} ms plain "
             f"{plain_ms:.5f} ms cuSPARSE {lib_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}) | "
             f"eager: kernel {eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
             f"cuSPARSE {lib_eager_ms:.5f} ms | {card}")
@@ -1370,17 +1383,16 @@ def main() -> int:
         load()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         futs = {name: pool.submit(build, load) for name, load in (
-            ("csr_spmv_f64", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
-            ("csr_spmv_f32", spmv.load_kernel_f32),
+            ("csr_spmv", spmv.load_kernel), ("dp_return_map", rm.load_kernel),
             ("block_jacobi_sweep", spmv.load_sweep_kernel),
             ("node_transfer", spmv.load_transfer_kernel),
             ("ell_spmv", spmv.load_ell_kernel), ("cholesky_blocked", chol.load_kernel))}
         build_s = {name: f.result() for name, f in futs.items()}
-    say("build", f"csr_spmv_f64 {build_s['csr_spmv_f64']:.2f} s, dp_return_map (-fmad=false) "
-        f"{build_s['dp_return_map']:.2f} s, csr_spmv_f32 (-fmad=false) "
-        f"{build_s['csr_spmv_f32']:.2f} s, block_jacobi_sweep with its bf16 instance and the "
+    say("build", f"csr_spmv f64 and f32 (-fmad=false) {build_s['csr_spmv']:.2f} s, "
+        f"dp_return_map (-fmad=false) {build_s['dp_return_map']:.2f} s, "
+        f"block_jacobi_sweep with its bf16 instance and the "
         f"node-block product (-fmad=false) {build_s['block_jacobi_sweep']:.2f} s, "
         f"node_transfer (-fmad=false) {build_s['node_transfer']:.2f} s, ell_spmv f32 and f64 "
         f"(-fmad=false) {build_s['ell_spmv']:.2f} s, cholesky_blocked "
@@ -2088,7 +2100,7 @@ def main() -> int:
     kernels = [{
         "name": "csr_spmv_f64",
         "route": "cuda",
-        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f64.cu",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1370",
         "launches_by_path": by_path("csr_spmv_f64", bench=launches, scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_ELL_L1=e1_launches,
@@ -2190,7 +2202,7 @@ def main() -> int:
     }, {
         "name": "csr_spmv_f32",
         "route": "cuda",
-        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv_f32.cu",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
         # the Galerkin value maps of the footing's tangent multigrid; the
         # f32 heads of G and S on the tsx's p-multigrid route

@@ -25,10 +25,13 @@ carried over: the card takes the CSR as it is.
 Device half:
 
 * `csr_matvec` replaces `sp_matvec_df` / `slot_matvec_df` (`spmv.py:975`,
-  `:1370`) for f64 values, kernel K1 `csrc/csr_spmv_f64.cu`; for f32
-  values it runs `csrc/csr_spmv_f32.cu`, K3's CSR kernel (a thread a CSR
-  row), which applies the footing tangent multigrid's Galerkin value maps
-  (`solve.multigrid.refresh_hierarchy`; rectangular) and no operator;
+  `:1370`) for f64 values, kernel K1, and `slot_matvec` for f32 values,
+  K3's CSR kernel: one template in `csrc/csr_spmv.cu`, over the row blocks
+  `row_blocks` cuts once per structure (entries staged coalesced, each row
+  summed in CSR order).  K1 computes the residual's G u and S s; K3's CSR
+  kernel applies the footing tangent multigrid's Galerkin value maps
+  (`solve.multigrid.refresh_hierarchy`) and the high-order f32 heads of G
+  and S (rectangular);
 * `node_block_matvec` replaces `slot_matvec` (`spmv.py:1431`) on a square
   operator, K3's product (the CG operator, the criterion, the predictor):
   the f32 `NodeBlockMatrix` the sweep reads, through the sweep kernel's
@@ -80,8 +83,7 @@ import torch
 from .elements import ReferenceElement
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
-KERNEL_SOURCE = _CSRC / "csr_spmv_f64.cu"
-KERNEL_SOURCE_F32 = _CSRC / "csr_spmv_f32.cu"
+KERNEL_SOURCE = _CSRC / "csr_spmv.cu"
 SWEEP_SOURCE = _CSRC / "block_jacobi_sweep.cu"
 TRANSFER_SOURCE = _CSRC / "node_transfer.cu"
 ELL_SOURCE = _CSRC / "ell_spmv.cu"
@@ -93,30 +95,76 @@ class CsrMatrix(NamedTuple):
 
     The values are a field of their own so that the same structure can
     carry a new value array (`_replace(values=...)`): the refreshed tangent
-    of every Newton iteration lives on the elastic operator's pattern."""
+    of every Newton iteration lives on the elastic operator's pattern.
+    `row_blocks` is the CSR kernel's table of the structure (`row_blocks`),
+    built by `csr_to_device`; it travels with `_replace(values=...)`."""
 
     indptr: torch.Tensor  # (n_rows + 1,) int32
     indices: torch.Tensor  # (nnz,) int32
     values: torch.Tensor  # (nnz,) float64 or float32
     shape: Tuple[int, int]
+    row_blocks: Optional[torch.Tensor] = None  # (n_blocks + 1, 2) int32 (row, entry)
 
     @property
     def n_rows(self) -> int:
         return self.shape[0]
 
 
+# the CSR kernel's row blocks: threads a block (and rows a block at most),
+# entries a block holds (and stages in shared memory at a time), and the
+# fewest blocks a smaller operator is cut into (two for each of the H100's
+# 132 SMs); tuned on the P1, P4 and footing operators (PERF.md)
+ROW_BLOCK_ROWS = 256
+ROW_BLOCK_ENTRIES = 1024
+ROW_BLOCK_MIN_BLOCKS = 264
+# a matrix whose entries (value and index) take more than half the H100's
+# 50 MB L2 is read with the evict-first hint, so that x stays in L2; a
+# smaller one stays cached between products
+STREAM_ENTRY_BYTES = 25 * 2**20
+
+
+def row_blocks(indptr: np.ndarray) -> np.ndarray:
+    """The CSR kernel's row blocks of a structure: (n_blocks + 1, 2) int32,
+    block b's first row and first entry, and last (n_rows, nnz).  Each
+    block is a run of consecutive rows, at most `ROW_BLOCK_ROWS` of them
+    with at most `ROW_BLOCK_ENTRIES` entries together, or a single row with
+    more.  A smaller operator takes fewer entries a block, down to
+    `ROW_BLOCK_ROWS`, so that it still spreads over `ROW_BLOCK_MIN_BLOCKS`
+    blocks.  Greedy, in row order, one search a block.  The blocking
+    changes no row's sum."""
+    indptr = np.asarray(indptr, np.int64)
+    n = indptr.shape[0] - 1
+    cap = min(ROW_BLOCK_ENTRIES, max(ROW_BLOCK_ROWS, -(-int(indptr[-1]) // ROW_BLOCK_MIN_BLOCKS)))
+    starts = [0]
+    r = 0
+    while r < n:
+        end = int(np.searchsorted(indptr, indptr[r] + cap, side="right")) - 1
+        r = min(max(end, r + 1), r + ROW_BLOCK_ROWS)
+        starts.append(r)
+    return np.stack([starts, indptr[starts]], axis=1).astype(np.int32)
+
+
+def csr_streams(A: CsrMatrix) -> bool:
+    """Whether the CSR kernel reads A's entries with the evict-first hint:
+    when they take more than `STREAM_ENTRY_BYTES`."""
+    return A.values.numel() * (A.values.element_size() + 4) > STREAM_ENTRY_BYTES
+
+
 def csr_to_device(A: sp.csr_matrix, device, dtype=np.float64) -> CsrMatrix:
-    """Host scipy CSR -> `CsrMatrix` on `device`, values rounded to `dtype`.
-    Explicit zeros stay: the tangent refresh scatters into them."""
+    """Host scipy CSR -> `CsrMatrix` on `device`, values rounded to `dtype`,
+    with the CSR kernel's row blocks.  Explicit zeros stay: the tangent
+    refresh scatters into them."""
     A = sp.csr_matrix(A)
     A.sort_indices()
     # int32 structure: the level-5 G has 2.7 M rows and 11 M entries
-    assert max(A.nnz, *A.shape) < np.iinfo(np.int32).max, "CSR too large for int32 indices"
+    assert max(A.nnz + ROW_BLOCK_ENTRIES, *A.shape) < np.iinfo(np.int32).max, \
+        "CSR too large for int32 indices"
     return CsrMatrix(
         indptr=torch.as_tensor(A.indptr.astype(np.int32), device=device),
         indices=torch.as_tensor(A.indices.astype(np.int32), device=device),
         values=torch.as_tensor(A.data.astype(dtype), device=device),
         shape=(int(A.shape[0]), int(A.shape[1])),
+        row_blocks=torch.as_tensor(row_blocks(A.indptr), device=device),
     )
 
 
@@ -361,23 +409,37 @@ def csr_matvec_plain(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, rows, prod)
 
 
+def csr_matvec_row_serial(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch y = A x for f32 values in the CSR kernel's order: the
+    rows padded with zeros to the longest, then, column by column, one
+    product and one add as separate ops, so each row is summed serially
+    in CSR order with the product and the sum rounded apart.  A padded
+    product is 0 and leaves the sum as it is: the CSR kernel's y bit for
+    bit.  Reads the longest row's length from the card; not for a CUDA
+    graph."""
+    counts = (A.indptr[1:] - A.indptr[:-1]).long()
+    width = int(counts.max()) if A.n_rows else 0
+    slot = torch.arange(width, device=x.device)
+    k = A.indptr[:-1, None].long() + slot
+    present = slot < counts[:, None]
+    k = torch.where(present, k, 0)
+    v = torch.where(present, A.values[k], 0.0)
+    xg = x[A.indices.long()[k]]
+    y = torch.zeros(A.n_rows, dtype=x.dtype, device=x.device)
+    for j in range(width):
+        y = y + v[:, j] * xg[:, j]
+    return y
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from ..utils.cuda_build import build_library
 
-    lib = build_library(KERNEL_SOURCE, "csr_spmv_f64")
-    lib.csr_spmv_f64.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
-    lib.csr_spmv_f64.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library_f32() -> ctypes.CDLL:
-    from ..utils.cuda_build import build_library
-
-    lib = build_library(KERNEL_SOURCE_F32, "csr_spmv_f32", ("-fmad=false",))
-    lib.csr_spmv_f32.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
-    lib.csr_spmv_f32.restype = ctypes.c_int
+    lib = build_library(KERNEL_SOURCE, "csr_spmv", ("-fmad=false",))
+    for fn in (lib.csr_spmv_f64, lib.csr_spmv_f32):
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -417,14 +479,9 @@ def _library_ell() -> ctypes.CDLL:
 
 
 def load_kernel() -> None:
-    """Build (first use) and load K1; raises if the build fails."""
-    _library()
-
-
-def load_kernel_f32() -> None:
-    """Build (first use) and load K3's f32 CSR kernel;
+    """Build (first use) and load K1 and K3's CSR kernel (one source);
     raises if the build fails."""
-    _library_f32()
+    _library()
 
 
 def load_sweep_kernel() -> None:
@@ -467,13 +524,21 @@ def _check_csr(name: str, A: CsrMatrix, x: torch.Tensor, dtype: torch.dtype, ext
             raise ValueError(f"{name}: {nm} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def _csr_spmv_cuda(name: str, lib: ctypes.CDLL, dtype, A: CsrMatrix, x: torch.Tensor):
+def _csr_spmv_cuda(name: str, dtype, A: CsrMatrix, x: torch.Tensor):
     _check_csr(name, A, x, dtype)
+    rb = A.row_blocks
+    if rb is None:
+        raise ValueError(f"{name}: the matrix has no row blocks; make it with csr_to_device")
+    if (rb.device != x.device or rb.dtype != torch.int32 or not rb.is_contiguous()
+            or rb.dim() != 2 or rb.shape[0] < 1 or rb.shape[1] != 2):
+        raise ValueError(f"{name}: row_blocks must be a contiguous (n_blocks + 1, 2) int32 "
+                         f"tensor on {x.device}; got {rb.dtype} {tuple(rb.shape)} on {rb.device}")
     y = torch.empty(A.n_rows, dtype=dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = getattr(lib, name)(
-        A.n_rows, A.indptr.data_ptr(), A.indices.data_ptr(),
-        A.values.data_ptr(), x.data_ptr(), y.data_ptr(), stream,
+    err = getattr(_library(), name)(
+        rb.shape[0] - 1, rb.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
+        A.values.data_ptr(), x.data_ptr(), y.data_ptr(), ROW_BLOCK_ENTRIES, ROW_BLOCK_ROWS,
+        int(csr_streams(A)), stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -485,7 +550,7 @@ def csr_spmv_f64_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K1 on x's device and PyTorch's current stream; no sync."""
     if not x.is_cuda:
         raise ValueError(f"csr_spmv_f64 needs a CUDA tensor; got one on {x.device}")
-    return _csr_spmv_cuda("csr_spmv_f64", _library(), torch.float64, A, x)
+    return _csr_spmv_cuda("csr_spmv_f64", torch.float64, A, x)
 
 
 def csr_spmv_f32_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -493,7 +558,7 @@ def csr_spmv_f32_cuda(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     PyTorch's current stream; no sync.  A may be rectangular."""
     if not x.is_cuda:
         raise ValueError(f"csr_spmv_f32 needs a CUDA tensor; got one on {x.device}")
-    return _csr_spmv_cuda("csr_spmv_f32", _library_f32(), torch.float32, A, x)
+    return _csr_spmv_cuda("csr_spmv_f32", torch.float32, A, x)
 
 
 def csr_matvec(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,26 @@ def test_k1_matches_plain_on_tsx_operators(cuda, level):
         assert torch.equal(y, spmv.csr_matvec(A, x))  # fixed order, no atomics
 
 
+def long_row_matrix():
+    """(scipy CSR, x) with empty rows (first, inside, last), short rows and
+    one row of 5 E entries (E = `spmv.ROW_BLOCK_ENTRIES`, walked in chunks
+    of E), values and x small integers times powers of two: every partial
+    sum is exact in f32 and f64, so any order gives the same y and the
+    comparison checks that every entry is summed once."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(11)
+    n_cols = 12_000
+    deg = np.concatenate([[0, 3, 0, 5 * spmv.ROW_BLOCK_ENTRIES, 7, 0],
+                          rng.integers(0, 40, 3000), [0, 0]])
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = np.concatenate([np.sort(rng.choice(n_cols, d, replace=False)) for d in deg])
+    # products are multiples of 2^-3 of at most 16, partial sums below 2^18: exact in f32
+    values = rng.integers(-4, 5, indptr[-1]) * 2.0 ** rng.integers(-2, 1, indptr[-1])
+    x = rng.integers(-4, 5, n_cols) * 2.0 ** rng.integers(-1, 1, n_cols)
+    return sp.csr_matrix((values, indices, indptr), shape=(deg.shape[0], n_cols)), x
+
+
 def test_k1_empty_rows_and_wrong_inputs(cuda):
     import scipy.sparse as sp
 
@@ -58,10 +78,19 @@ def test_k1_empty_rows_and_wrong_inputs(cuda):
     At = spmv.csr_to_device(A, cuda)
     x = torch.tensor([1.5, -2.0], dtype=torch.float64, device=cuda)
     np.testing.assert_array_equal(spmv.csr_spmv_f64_cuda(At, x).cpu().numpy(), A @ x.cpu().numpy())
+    L, xl = long_row_matrix()
+    Lt = spmv.csr_to_device(L, cuda)
+    assert Lt.row_blocks.shape[0] > 2
+    y = spmv.csr_spmv_f64_cuda(Lt, torch.as_tensor(xl, device=cuda))
+    np.testing.assert_array_equal(y.cpu().numpy(), L @ xl)
     with pytest.raises(ValueError):
         spmv.csr_spmv_f64_cuda(At, x.float())
     with pytest.raises(ValueError):
         spmv.csr_spmv_f64_cuda(At, torch.zeros(3, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):  # no row blocks: not made by csr_to_device
+        spmv.csr_spmv_f64_cuda(At._replace(row_blocks=None), x)
+    with pytest.raises(ValueError):  # row blocks off the card
+        spmv.csr_spmv_f64_cuda(At._replace(row_blocks=At.row_blocks.cpu()), x)
 
 
 def test_bench_solve_runs_through_k1(cuda):
@@ -148,7 +177,6 @@ def cuda_scale():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     spmv.load_kernel()
-    spmv.load_kernel_f32()
     spmv.load_sweep_kernel()
     spmv.load_transfer_kernel()
     spmv.load_ell_kernel()
@@ -197,6 +225,13 @@ def test_k3_refuses_wrong_inputs(cuda_scale):
         spmv.csr_spmv_f32_cuda(A, x.cpu())
     with pytest.raises(ValueError):  # f64 values through the f32 kernel
         spmv.csr_spmv_f32_cuda(A._replace(values=A.values.double()), x)
+    with pytest.raises(ValueError):  # no row blocks: not made by csr_to_device
+        spmv.csr_spmv_f32_cuda(A._replace(row_blocks=None), x)
+    # empty rows and a row longer than E, every partial sum exact
+    L, xl = long_row_matrix()
+    Lt = spmv.csr_to_device(L, device, np.float32)
+    y = spmv.csr_spmv_f32_cuda(Lt, torch.as_tensor(xl, dtype=torch.float32, device=device))
+    np.testing.assert_array_equal(y.cpu().numpy(), (L @ xl).astype(np.float32))
 
 
 @pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
@@ -576,7 +611,7 @@ def cuda_tangent():
     tangent tables, host levels), its kernels built."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for load in (spmv.load_kernel, spmv.load_kernel_f32, spmv.load_sweep_kernel,
+    for load in (spmv.load_kernel, spmv.load_sweep_kernel,
                  spmv.load_transfer_kernel):
         load()
     device = torch.device("cuda")
@@ -632,7 +667,7 @@ def test_tangent_multigrid_solve_on_the_card(cuda_tangent):
 def cuda_high_order():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for load in (spmv.load_kernel, spmv.load_kernel_f32, spmv.load_sweep_kernel,
+    for load in (spmv.load_kernel, spmv.load_sweep_kernel,
                  spmv.load_transfer_kernel):
         load()
     return torch.device("cuda")
@@ -658,6 +693,24 @@ def test_k1_and_k3_csr_match_plain_on_high_order_g_s(cuda_high_order, et):
         y32, y32_plain = spmv.csr_spmv_f32_cuda(A32, x32), spmv.csr_matvec_plain(A32, x32)
         assert float((y32 - y32_plain).abs().max()) <= 2e-6 * float(y32_plain.abs().max())
         assert torch.equal(y32, spmv.csr_spmv_f32_cuda(A32, x32))
+
+
+def test_k3_csr_is_row_serial_on_p4_s32(cuda_high_order):
+    """K3's CSR kernel on the f32 head of P4's S (rows of 44 entries on
+    average, up to 192 at vertices, cut into row blocks) is bit for bit a
+    row-serial PyTorch loop over the padded rows, product and add as
+    separate ops: the kernel keeps each row's CSR sum order."""
+    from fem_elastoplasticity_tpu_torch.ops import assembly_df as adf
+
+    mesh = tsx.tsx_mesh(ElementType.P4)
+    geom = asm.compute_geometry(torch.as_tensor(mesh.coords, device=cuda_high_order),
+                                mesh.elems, volume_element(ElementType.P4))
+    _, S32 = adf.f32_heads(*spmv.residual_operators(geom, cuda_high_order))
+    assert S32.row_blocks.shape[0] - 1 > 1
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.standard_normal(S32.shape[1]).astype(np.float32),
+                        device=cuda_high_order)
+    assert torch.equal(spmv.csr_spmv_f32_cuda(S32, x), spmv.csr_matvec_row_serial(S32, x))
 
 
 def test_p2_routes_on_the_card(cuda_high_order):

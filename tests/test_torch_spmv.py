@@ -143,6 +143,94 @@ def test_kernel_wrapper_refuses_cpu_tensors(operators):
 
 
 # ---------------------------------------------------------------------------
+# the CSR kernel's row blocks (K1, K3's CSR kernel): the host table, and a
+# NumPy model of the kernel's two phases that pins each row's sum order
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def row_block_cases():
+    """{name: f64 CsrMatrix on the CPU}: the port's G and S of the tsx mesh
+    at P1 and P4, and a synthetic matrix with empty rows (first, inside,
+    last) and one row of 5 E entries."""
+    from fem_elastoplasticity_tpu_torch.models.tsx_tunnel import tsx_mesh as ptsx_mesh
+
+    cases = {}
+    for et in ("P1", "P4"):
+        mesh = ptsx_mesh(pel.ElementType[et])
+        geom = pasm.compute_geometry(torch.as_tensor(mesh.coords), mesh.elems,
+                                     pel.volume_element(pel.ElementType[et]))
+        cases[f"G_{et}"], cases[f"S_{et}"] = pspmv.residual_operators(geom, "cpu")
+    rng = np.random.default_rng(17)
+    n_cols = 8000
+    deg = np.concatenate([[0, 2, 0, 0, 5 * pspmv.ROW_BLOCK_ENTRIES, 9, 0],
+                          rng.integers(0, 30, 1500), [0, 0, 0]])
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = np.concatenate([np.sort(rng.choice(n_cols, d, replace=False)) for d in deg])
+    M = sp.csr_matrix((rng.standard_normal(indptr[-1]), indices, indptr),
+                      shape=(deg.shape[0], n_cols))
+    cases["synthetic"] = pspmv.csr_to_device(M, "cpu")
+    return cases
+
+
+def two_phase_f32(A, x: np.ndarray) -> np.ndarray:
+    """NumPy model of the CSR kernel's f32 instance (`ops/csrc/csr_spmv.cu`)
+    on A's row blocks: each block's entries in chunks of E; phase 1 stages
+    the chunk's products v x, rounded to f32; phase 2 adds, for every row of
+    the block at once, that row's next staged product to the row's own f32
+    accumulator, in CSR order, carried across chunks."""
+    indptr, idx, vals = A.indptr.numpy(), A.indices.numpy(), A.values.numpy()
+    y = np.zeros(A.n_rows, np.float32)
+    cap = pspmv.ROW_BLOCK_ENTRIES
+    for (r0, k0), (r1, k1) in zip(A.row_blocks.numpy()[:-1], A.row_blocks.numpy()[1:]):
+        acc = np.zeros(r1 - r0, np.float32)
+        kb, ke = indptr[r0:r1], indptr[r0 + 1:r1 + 1]
+        for c0 in range(k0, k1, cap):
+            c1 = min(c0 + cap, k1)
+            stage = vals[c0:c1] * x[idx[c0:c1]]
+            a, b = np.maximum(kb, c0), np.minimum(ke, c1)
+            for j in range(int((b - a).max(initial=0))):
+                live = a + j < b
+                acc[live] += stage[a[live] + j - c0]
+        y[r0:r1] = acc
+    return y
+
+
+@pytest.mark.parametrize("name", ["G_P1", "S_P1", "G_P4", "S_P4", "synthetic"])
+def test_row_blocks_cut_every_row_once(row_block_cases, name):
+    """Every row lies in exactly one block, the blocks in row order, each
+    block with at most T rows and at most E entries unless it is a single
+    longer row; the entry offsets are the rows' CSR offsets, and a new value
+    array on the same structure keeps the table."""
+    A = row_block_cases[name]
+    rb = A.row_blocks.numpy()
+    indptr = A.indptr.numpy()
+    assert A.row_blocks.dtype == torch.int32 and rb.ndim == 2 and rb.shape[1] == 2
+    rows, first = rb[:, 0], rb[:, 1]
+    assert rows[0] == 0 and rows[-1] == A.n_rows and (np.diff(rows) > 0).all()
+    np.testing.assert_array_equal(first, indptr[rows])
+    n_rows, n_entries = np.diff(rows), np.diff(first)
+    assert (n_rows <= pspmv.ROW_BLOCK_ROWS).all()
+    assert ((n_entries <= pspmv.ROW_BLOCK_ENTRIES) | (n_rows == 1)).all()
+    if name == "synthetic":
+        assert (n_entries > pspmv.ROW_BLOCK_ENTRIES).sum() == 1
+    A32 = A._replace(values=A.values.to(torch.float32))
+    assert A32.row_blocks is A.row_blocks
+
+
+@pytest.mark.parametrize("name", ["G_P1", "S_P1", "G_P4", "S_P4", "synthetic"])
+def test_two_phase_model_is_the_plain_f32_sum(row_block_cases, name):
+    """The two phases on the row blocks give the plain version's f32 y bit
+    for bit (`index_add_` on the CPU adds each row's products in CSR
+    order): the sum order that the CSR kernel keeps."""
+    A = row_block_cases[name]
+    A32 = A._replace(values=A.values.to(torch.float32))
+    x = np.random.default_rng(19).standard_normal(A.shape[1]).astype(np.float32)
+    want = pspmv.csr_matvec_plain(A32, torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(two_phase_f32(A32, x), want)
+    np.testing.assert_array_equal(
+        pspmv.csr_matvec_row_serial(A32, torch.as_tensor(x)).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
 # K3 (f32 CSR SpMV) and K4 (fused block-Jacobi sweep): plain versions
 # against the JAX package's slot kernels in interpret mode
 # ---------------------------------------------------------------------------
