@@ -26,10 +26,18 @@ them against the repository's anchors:
                 `spmv.csr_matvec_row_serial`;
   4. K2       — the kernel against its plain version at 896 points (the
                 main path's) and 227,072 (tsx refine 4), f32 and f64, with
-                and without the plastic-strain update, both apex modes:
-                identical branch masks, max abs difference over max |plain|
-                <= 1e-6 (f32) / 1e-13 (f64), two launches bit-identical;
-                CUDA-event times beside the bytes bound;
+                and without the plastic-strain update, both apex modes: one
+                launch's s, D (3, 3, n), ind_p and ep bitwise the plain
+                version's with `unpack_tangent` and `lam > 0` (initial
+                strain zeta * e0_dir), identical branch masks, max abs
+                difference over max |plain| <= 1e-6 (f32) / 1e-13 (f64),
+                two launches bit-identical; CUDA-event times beside the
+                bytes bound (89 bytes a point in f32, 177 in f64: D's six
+                unique values), at 896 points one PyTorch elementwise
+                kernel on 896 values (the launch floor), at 227,072 also
+                with L2 flushed before each launch; the Newton loop's entry
+                `dp_return_map_newton`, run once under torch.profiler,
+                launches one kernel on the card, K2;
   5. K7       — `cholesky_factor` and `cholesky_solve` (its own entry
                 points; no solve calls it) on the seeded SPD matrices of
                 `tests/test_cholesky_pallas.py` at n = 128, 200, 908 and
@@ -40,7 +48,9 @@ them against the repository's anchors:
                 kernel's factor, within 5e-6 (SPD) or 1e-4 (FEM) of the f64
                 solve, two launches bit-identical; the kernels each
                 factorization launched, as the library reports them, must
-                be one (a cooperative launch); times beside the bound, the
+                be one (a cooperative launch); times beside the bound (the
+                solve's: the entries of L below its diagonal blocks and the
+                lower triangles of the inverses, within n, read once), the
                 plain version and cuSOLVER (`cholesky_ex`, `cholesky_solve`);
   6. f64      — `solve(TsxTunnelConfig())`: 17 steps, 28 Newton iterations,
                 u[40,0] within 1e-9 relative of the f64 anchor;
@@ -48,15 +58,19 @@ them against the repository's anchors:
                 K1 launched (and the plain version not) during the solve,
                 and two runs with identical counts and bit-identical u;
   8. tsx f32  — `solve(TsxTunnelConfig.fast_f32())`: 17 steps, u[40,0]
-                within 1e-5 relative of -1.979450e-03, K2 launched and the
-                plain version not, two runs with equal counts and
-                bit-identical u;
+                within 1e-5 relative of -1.979450e-03, K2 launched once a
+                return map of the Newton loop (its calls of
+                `dp_return_map_newton` counted) and the plain version not,
+                two runs
+                with equal counts and bit-identical u, its u sha256
+                printed;
   9. footing f64 — `footing.solve(FootingConfig())`: 16 steps, zeta ending
                 at 1.032 (1e-12), the reference's 16 pressures within 1e-4;
  10. footing f32 — `footing.solve(FootingConfig.fast_f32())`: zeta reaches
                 1, the limit pressure within 5e-4 of the f64 run's, K2
-                launched and the plain version not, two runs with equal
-                counts and bit-identical u;
+                launched once a return map of the Newton loop and the plain
+                version not, two runs with equal
+                counts and bit-identical u, its u sha256 printed;
  11. footing df32 — `footing.solve(FootingConfig.fast())`: 16 steps, zeta
                 within 1e-6, u within 1e-9, pressures within 1e-5 of the f64
                 run's, two runs bit-identical, steps and plastic points as
@@ -289,6 +303,10 @@ L5_REPEAT_LIMIT_S = 120.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 K2_FLOPS_PER_POINT = 150
+# a point reads e3 and ep (7 values) and writes s, D's six unique values,
+# lam, ep (15) and a byte of mask; the kernel also stores D's three mirrored
+# values, which the function does not need
+K2_BYTES_PER_POINT = {"float32": 7 * 4 + 15 * 4 + 1, "float64": 7 * 8 + 15 * 8 + 1}
 # tests/test_footing.py: the reference's pressure curve, P1 level 1
 FOOTING_PRESSURES = (
     8.39724807, 13.20017031, 15.73188141, 16.14965303, 16.27589772,
@@ -464,7 +482,34 @@ def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
     return shapes, max_err
 
 
+def cold_ms(torch, fn, reps: int = 30, flush_bytes: int = 2**29):
+    """Mean milliseconds of `fn` with L2 flushed before each launch (a sum
+    over a 512 MB tensor, ten times the 50 MB L2, queued first: its ~160 us
+    on the card outlast the host's enqueue of the events and the launch, so
+    the launch waits on the card, not on the host), CUDA events around
+    each."""
+    flush = torch.ones(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
 def k2_phase(torch, rm, device, card):
+    """K2 against its plain version: s, D, ind_p, lam and ep of one launch
+    bitwise the plain version (initial strain zeta * e0_dir), `unpack_tangent`
+    and `lam > 0`, at the Newton path's 896 points and at 227,072, f32 and
+    f64, every mode; times beside the bound, at 896 the launch floor (one
+    PyTorch elementwise kernel on 896 values) and at 227,072 the time with L2
+    flushed before each launch.  Then the Newton loop's entry, once under
+    torch.profiler at 896 f32 points: one kernel on the card, K2's."""
     import numpy as np
 
     from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
@@ -473,61 +518,129 @@ def k2_phase(torch, rm, device, card):
     cfg = TsxTunnelConfig()
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
+    zeta = float(np.float32(7 / 17))
     shapes, max_err, bitwise = {}, 0.0, True
     for n in (896, 887 * 4**4):  # the main path's points; tsx refine 4
         rng = np.random.default_rng(SEED + n)
         e3_np = rng.normal(0, 2e-3, (3, n))
         ep_np = rng.normal(0, 2e-4, (4, n))
         e0_np = rng.normal(0, 1e-3, 4)
+        floor_ms = None
+        if n == 896:  # the card's launch floor in this harness
+            xf = torch.ones(n, dtype=torch.float32, device=device)
+            yf = torch.empty_like(xf)
+            floor_ms = cuda_ms(torch, lambda: torch.neg(xf, out=yf), reps=100)[0]
         for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
             e3 = torch.as_tensor(e3_np, dtype=dt, device=device)
             ep = torch.as_tensor(ep_np, dtype=dt, device=device)
-            e0 = torch.as_tensor(e0_np, dtype=dt, device=device)
-            params = rm.make_params(eta, c, e0, dt, device)
+            e0_dir = torch.as_tensor(e0_np, dtype=dt, device=device)
             for apply in (False, True):
                 for apex in (False, True):
                     if apex and not apply:
                         continue  # the apex mode only changes the plastic-strain update
-                    args = (e3, ep, params, shear, bulk, apply, apex)
+                    args = (e3, ep, shear, bulk, eta, c, e0_dir, zeta, apply, apex)
+
+                    def plain():
+                        s, ds6, lam, ep_ = rm.dp_return_map_plain(
+                            e3, ep, shear, bulk, eta, c, e0_dir, zeta, apply, apex)
+                        return s, rm.unpack_tangent(ds6), lam > 0.0, lam, ep_
+
                     got = rm.dp_return_map_cuda(*args)
-                    exp = rm.dp_return_map_plain(*args)
+                    exp = plain()
                     again = rm.dp_return_map_cuda(*args)
                     torch.cuda.synchronize()
                     tag = f"n{n}_{dt_name}_{'ep' if apply else 'noep'}{'_trial' if apex else ''}"
-                    lam_k, lam_p = got[2], exp[2]
-                    apex_k = (lam_k > 0) & (got[1] == 0).all(dim=0)
-                    apex_p = (lam_p > 0) & (exp[1] == 0).all(dim=0)
-                    n_plastic, n_apex = int((lam_p > 0).sum()), int(apex_p.sum())
+                    ind_k, ind_p = got[2], exp[2]
+                    apex_k = ind_k & (got[1] == 0).all(dim=0).all(dim=0)
+                    apex_p = ind_p & (exp[1] == 0).all(dim=0).all(dim=0)
+                    n_plastic, n_apex = int(ind_p.sum()), int(apex_p.sum())
                     check(0 < n_apex < n_plastic < n, f"K2 {tag}: branches not all hit "
                           f"({n_plastic} plastic, {n_apex} apex of {n})")
-                    check(torch.equal(lam_k > 0, lam_p > 0) and torch.equal(apex_k, apex_p),
+                    check(torch.equal(ind_k, ind_p) and torch.equal(apex_k, apex_p),
                           f"K2 {tag}: branch masks differ")
                     rels = []
                     for g, x in zip(got, exp):
+                        if x.dtype == torch.bool:
+                            continue
                         err = float((g - x).abs().max())
                         rels.append(err / float(x.abs().max()))
                         max_err = max(max_err, err)
                     check(max(rels) <= K2_TOL[dt_name], f"K2 {tag}: relative difference {max(rels):.3e}")
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"K2 {tag}: two launches differ")
-                    same = all(torch.equal(a, b) for a, b in zip(got, exp))
+                    same = all(g.dtype == x.dtype and torch.equal(g, x) for g, x in zip(got, exp))
+                    check(same, f"K2 {tag}: s, D, ind_p, lam, ep not bitwise the plain version's")
                     bitwise = bitwise and same
                     ms, eager_ms = cuda_ms(torch, lambda: rm.dp_return_map_cuda(*args), reps=100)
-                    plain_ms, plain_eager_ms = cuda_ms(
-                        torch, lambda: rm.dp_return_map_plain(*args), reps=100)
+                    plain_ms, plain_eager_ms = cuda_ms(torch, plain, reps=100)
                     size = 4 if dt == torch.float32 else 8
-                    b_ms, b_by = bound_ms(22 * size * n, K2_FLOPS_PER_POINT * n, dt_name)
+                    n_bytes = K2_BYTES_PER_POINT[dt_name] * n
+                    b_ms, b_by = bound_ms(n_bytes, K2_FLOPS_PER_POINT * n, dt_name)
+                    cold = (cold_ms(torch, lambda: rm.dp_return_map_cuda(*args))
+                            if n > 896 and not apply else None)
                     shapes[tag] = dict(
                         n=n, dtype=dt_name, apply_plastic_strain=apply, apex_ep_uses_trial=apex,
                         n_plastic=n_plastic, n_apex=n_apex, rel=max(rels), bitwise_equal=same,
-                        ms=ms, plain_ms=plain_ms, eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
-                        bytes=22 * size * n, bound_ms=b_ms, bound_by=b_by,
+                        ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                        plain_eager_ms=plain_eager_ms, launch_floor_ms=floor_ms, l2_flushed_ms=cold, bytes=n_bytes,
+                        value_bytes=size, bound_ms=b_ms, bound_by=b_by,
                     )
+                    extra = ""
+                    if floor_ms is not None:
+                        extra += f" | launch floor (torch.neg on {n} values) {floor_ms:.5f} ms"
+                    if cold is not None:
+                        extra += f" | L2 flushed {cold:.5f} ms"
                     say("K2", f"{tag}: {n_plastic} plastic / {n_apex} apex, rel {max(rels):.3e}, "
-                        f"bitwise {same} | device: kernel {ms:.5f} ms plain {plain_ms:.5f} ms "
-                        f"bound {b_ms:.5f} ms ({b_by}) | eager: kernel {eager_ms:.5f} ms "
-                        f"plain {plain_eager_ms:.5f} ms | {card}")
+                        f"bitwise {same} | device: kernel {ms:.5f} ms "
+                        f"plain {plain_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes)"
+                        f"{extra} | eager: kernel {eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
+                        f"| {card}")
+    kernels = newton_entry_kernels(torch, device, shear, bulk, eta, c, zeta)
+    check(len(kernels) == 1 and "dp_return_map" in kernels[0],
+          f"K2: one Newton return map ran {len(kernels)} kernels on the card ({kernels})")
+    say("K2", f"one Newton return map (`dp_return_map_newton`, 896 f32 points) under "
+        f"torch.profiler: {len(kernels)} kernel on the card ({kernels[0]}) | {card}")
     return shapes, max_err, bitwise
+
+
+def newton_entry_kernels(torch, device, shear, bulk, eta, c, zeta):
+    """The names of the kernels that one call of the Newton loop's return
+    map (`solve.newton.dp_return_map_newton`, 896 f32 points, initial strain
+    zeta * e0_dir, no plastic-strain update) runs on the card, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fem_elastoplasticity_tpu_torch.solve import newton
+
+    e3 = torch.full((3, 896), 1e-3, device=device)
+    ep = torch.zeros((4, 896), device=device)
+    e0_dir = torch.full((4,), 1e-4, device=device)
+    newton.dp_return_map_newton(e3, ep, shear, bulk, eta, c, e0_dir=e0_dir, zeta=zeta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        newton.dp_return_map_newton(e3, ep, shear, bulk, eta, c, e0_dir=e0_dir, zeta=zeta)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+class CountCalls:
+    """Counts the calls of `module.name` while the block runs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return fn(*args, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def host_transfers(host: dict):
@@ -967,8 +1080,11 @@ def k7_phase(torch, chol, cases, per_factor, card):
         sl_ms, sl_eager = cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)
         n_pad = L.shape[0]
         fb_ms, fb_by = bound_ms(8 * n * n, n ** 3 / 3, "float32")
-        sb_ms, sb_by = bound_ms(4 * (n * n + n_pad * chol.BLOCK + 2 * n),
-                                n * n + 2 * n_pad * chol.BLOCK, "float32")
+        # the solve reads, once, L below its diagonal blocks and the lower
+        # triangles of the blocks' inverses: n (n + 1) / 2 entries within n,
+        # a multiply-add each in each pass; b and x
+        entries = n * (n + 1) // 2
+        sb_ms, sb_by = bound_ms(4 * (entries + 2 * n), 4 * entries, "float32")
         shapes[tag] = dict(
             n=n, n_pad=n_pad, factor_kernel_launches=per_factor[tag],
             factor_gap=gap_L, inverse_gap=gap_inv, solve_gap_on_kernel_factor=gap_solve,
@@ -1370,6 +1486,7 @@ def main() -> int:
     from fem_elastoplasticity_tpu_torch.ops import return_map as rm
     from fem_elastoplasticity_tpu_torch.ops import spmv
     from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
+    from fem_elastoplasticity_tpu_torch.solve import newton
     from fem_elastoplasticity_tpu_torch.utils.precision import resolve_device
 
     device = resolve_device("cuda")
@@ -1452,13 +1569,16 @@ def main() -> int:
         f"plain {launches.get('csr_spmv_f64_plain', 0)}, "
         f"repeat bit-identical, wall first {wall_first:.4f} s warm {wall_warm:.4f} s | {card}")
 
-    # phase 8: tsx f32 through K2
+    # phase 8: tsx f32 through K2, one launch a return map of the Newton loop
     rm.LAUNCHES.clear()
-    t1, t_first = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device))
+    with CountCalls(newton, "dp_return_map_newton") as rm_tsx:
+        t1, t_first = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device))
     k2_tsx = dict(rm.LAUNCHES)
     t2, t_warm = timed(torch, lambda: tsx.solve(TsxTunnelConfig.fast_f32(), device=device))
     check(k2_tsx.get("dp_return_map", 0) > 0, f"tsx f32: K2 never launched ({k2_tsx})")
     check(k2_tsx.get("dp_return_map_plain", 0) == 0, f"tsx f32: plain return map ran ({k2_tsx})")
+    check(k2_tsx.get("dp_return_map", 0) == rm_tsx.calls,
+          f"tsx f32: {rm_tsx.calls} return maps, K2 launches {k2_tsx}")
     check(bool(np.isfinite(t1.u).all()) and t1.u.shape == (476, 2), "tsx f32: bad field")
     check(t1.n_steps == 17, f"tsx f32: {t1.n_steps} steps")
     u40_rel = abs(float(t1.u[40, 0]) - ANCHOR_U40_F32) / abs(ANCHOR_U40_F32)
@@ -1468,9 +1588,10 @@ def main() -> int:
     f32_vs_f64 = abs(float(t1.u[40, 0]) - ANCHOR_U40_F64) / abs(ANCHOR_U40_F64)
     say("tsx f32", f"{t1.n_steps} steps / {t1.n_newton_total} its / {t1.n_plastic} plastic, "
         f"u40 {t1.u[40, 0]:.9e} (rel {u40_rel:.3e} to -1.979450e-03, {f32_vs_f64:.3e} to the "
-        f"f64 anchor), K2 launches {k2_tsx.get('dp_return_map', 0)}, plain "
+        f"f64 anchor), K2 launches {k2_tsx.get('dp_return_map', 0)} for {rm_tsx.calls} return "
+        f"maps, plain "
         f"{k2_tsx.get('dp_return_map_plain', 0)}, repeat bit-identical, wall first "
-        f"{t_first:.4f} s warm {t_warm:.4f} s | {card}")
+        f"{t_first:.4f} s warm {t_warm:.4f} s, u sha256 {u_digest(t1.u)} | {card}")
 
     # phase 9: footing f64, the parity anchor of the f32 and df32 runs
     f1, f_first = timed(torch, lambda: footing.solve(FootingConfig(), device=device))
@@ -1485,14 +1606,17 @@ def main() -> int:
         f"zeta {float(f1.zeta_hist[16])!r}, pressures rel {p_rel:.3e} to the reference, limit pressure "
         f"{float(f1.pressure_hist[16])!r}, wall first {f_first:.4f} s warm {f_warm:.4f} s | {card}")
 
-    # phase 10: footing f32 through K2
+    # phase 10: footing f32 through K2, one launch a return map of the Newton loop
     rm.LAUNCHES.clear()
-    g1, g_first = timed(torch, lambda: footing.solve(FootingConfig.fast_f32(), device=device))
+    with CountCalls(newton, "dp_return_map_newton") as rm_foot:
+        g1, g_first = timed(torch, lambda: footing.solve(FootingConfig.fast_f32(), device=device))
     k2_foot = dict(rm.LAUNCHES)
     g2, g_warm = timed(torch, lambda: footing.solve(FootingConfig.fast_f32(), device=device))
     check(k2_foot.get("dp_return_map", 0) > 0, f"footing f32: K2 never launched ({k2_foot})")
     check(k2_foot.get("dp_return_map_plain", 0) == 0,
           f"footing f32: plain return map ran ({k2_foot})")
+    check(k2_foot.get("dp_return_map", 0) == rm_foot.calls,
+          f"footing f32: {rm_foot.calls} return maps, K2 launches {k2_foot}")
     check(bool(np.isfinite(g1.u).all()) and g1.u.shape == (441, 2), "footing f32: bad field")
     check(g1.zeta_hist[g1.n_steps] >= 1.0, f"footing f32: zeta ends at {float(g1.zeta_hist[g1.n_steps])!r}")
     p32, p64 = float(g1.pressure_hist[g1.n_steps]), float(f1.pressure_hist[16])
@@ -1502,9 +1626,9 @@ def main() -> int:
     check(np.array_equal(g1.u, g2.u), "footing f32: two runs differ in u")
     say("footing f32", f"{g1.n_steps} steps / {g1.n_newton_total} its / {g1.n_plastic} plastic, "
         f"zeta {float(g1.zeta_hist[g1.n_steps])!r}, limit pressure {p32!r} (rel {lim_rel:.3e} to f64), "
-        f"K2 launches {k2_foot.get('dp_return_map', 0)}, plain "
+        f"K2 launches {k2_foot.get('dp_return_map', 0)} for {rm_foot.calls} return maps, plain "
         f"{k2_foot.get('dp_return_map_plain', 0)}, repeat bit-identical, "
-        f"wall first {g_first:.4f} s warm {g_warm:.4f} s | {card}")
+        f"wall first {g_first:.4f} s warm {g_warm:.4f} s, u sha256 {u_digest(g1.u)} | {card}")
 
     # phase 11: footing fast(), the dense df32 preset (cuSOLVER factors, the
     # matrix-free f64 residual: no hand-written kernel on this path)
@@ -2136,6 +2260,7 @@ def main() -> int:
         "bound_by": main_k2["bound_by"],
         # no single PyTorch call computes the return map
         "library_ms": None,
+        "launch_floor_ms": main_k2["launch_floor_ms"],
         "bitwise_equal_to_plain": k2_bitwise,
         "shapes": k2_shapes,
     }, {

@@ -16,9 +16,10 @@ Each has a `_plain` version that follows the TPU kernel's algorithm step
 for step in PyTorch (the column loop with the pivot's reciprocal square
 root, the forward-substitution inverse, the two block products), and a
 `_cuda` version that launches the hand-written kernels of
-`csrc/cholesky_blocked.cu` on PyTorch's current stream: the factor is one
-cooperative launch on a grid no larger than what is co-resident, the
-solve one block.  The entry points
+`csrc/cholesky_blocked.cu` on PyTorch's current stream: the factor and the
+solve are one cooperative launch each, on a grid no larger than what is
+co-resident (the solve's: a block for each diagonal step and each tile of
+L off the chain, each holding its tiles for both passes).  The entry points
 launch the kernels on a CUDA tensor and run the plain version on a CPU
 tensor; they never fall back from one to the other.
 
@@ -135,10 +136,12 @@ def _library() -> ctypes.CDLL:
     lib.cholesky_factor_f32.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.cholesky_factor_f32.restype = ctypes.c_int
-    lib.cholesky_solve_f32.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    lib.cholesky_solve_grid.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.cholesky_solve_grid.restype = ctypes.c_int
+    lib.cholesky_solve_f32.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p]
     lib.cholesky_solve_f32.restype = ctypes.c_int
-    lib.cholesky_solve_max_n_pad.argtypes = []
-    lib.cholesky_solve_max_n_pad.restype = ctypes.c_int
     return lib
 
 
@@ -170,6 +173,21 @@ def _factor_grid(device_index: int, n_pad: int) -> int:
         raise RuntimeError(f"cholesky_factor: no cooperative grid of 11 blocks fits on cuda:"
                            f"{device_index} ({capacity.value} co-resident): cudaError_t {err}")
     return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_grid(device_index: int, n_pad: int) -> Tuple[int, int]:
+    """(blocks, scratch floats) of the solve's cooperative launch on the
+    card: a block a diagonal step and a tile off the chain, at most what is
+    co-resident."""
+    blocks, capacity, scratch = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        err = _library().cholesky_solve_grid(n_pad, ctypes.byref(blocks), ctypes.byref(capacity),
+                                             ctypes.byref(scratch))
+    if err != 0:
+        raise RuntimeError(f"cholesky_solve: no cooperative grid fits on cuda:{device_index} "
+                           f"({capacity.value} co-resident): cudaError_t {err}")
+    return blocks.value, scratch.value
 
 
 def cholesky_factor_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,17 +229,20 @@ def cholesky_solve_cuda(
     if not L.is_cuda:
         raise ValueError(f"cholesky_solve_cuda needs a CUDA tensor; got one on {L.device}")
     n_pad = L.shape[0]
-    lib = _library()
-    if n_pad % BLOCK or not 0 < n <= n_pad or n_pad > lib.cholesky_solve_max_n_pad():
+    if n_pad % BLOCK or not 0 < n <= n_pad:
         raise ValueError(f"cholesky_solve: n {n} with n_pad {n_pad} is not supported")
     b = b.to(torch.float32).contiguous()
     for name, t, shape in (("L", L, (n_pad, n_pad)), ("inv_blocks", inv_blocks, (n_pad, BLOCK)),
                            ("b", b, (n,))):
         _check(f"cholesky_solve: {name}", t, L.device, shape)
+    blocks, scratch_floats = _solve_grid(L.device.index, n_pad)
     x = torch.empty(n, dtype=torch.float32, device=L.device)
+    # y, x and the partial products, cleared inside the launch
+    scratch = torch.empty(scratch_floats, dtype=torch.float32, device=L.device)
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    err = lib.cholesky_solve_f32(
-        n, n_pad, L.data_ptr(), inv_blocks.data_ptr(), b.data_ptr(), x.data_ptr(), stream
+    err = _library().cholesky_solve_f32(
+        n, n_pad, L.data_ptr(), inv_blocks.data_ptr(), b.data_ptr(), x.data_ptr(),
+        scratch.data_ptr(), blocks, stream,
     )
     if err != 0:
         raise RuntimeError(f"cholesky_solve launch failed: cudaError_t {err}")

@@ -43,13 +43,48 @@
 //   round of 16-byte loads.
 //
 // No sum uses atomics and every tile is computed the same way whichever
-// block takes it: two factorizations are bit-identical.  The solve is one
-// launch of one block that walks the 2 nb block steps of _solve_kernel:
-// y_k = (b_k - sum_{j<k} L_kj y_j) through Li, then
-// x_k = (y_k - sum_{j>k} L_jk^T x_j) through Li^T, with y and x in shared
-// memory and L and inv_blocks read from global memory.
+// block takes it: two factorizations are bit-identical.
+//
+// The solve (_solve_kernel: y_k = Li_k (b_k - sum_{j<k} L_kj y_j), then
+// x_k = Li_k^T (y_k - sum_{j>k} L_jk^T x_j)) reads n (n + 1) / 2 entries
+// once (L below its diagonal blocks, the inverses' lower triangles) for
+// about 2 n^2 flops: bytes bound it (0.49 us at n = 908, 2.39 us at 2000, as
+// chip_smoke.py counts them), but its 2 nb block steps form a chain.  The
+// design:
+//
+// * One persistent cooperative launch, tile-stationary.  Block (k mod grid)
+//   owns diagonal step k: the inverse Li_k and the two sub-diagonal tiles
+//   L_{k,k-1} (forward) and L_{k+1,k} (backward), the tiles on the chain.
+//   Every other lower tile L_jk (j >= k + 2) has a block of its own while
+//   the grid allows (nb + (nb - 1)(nb - 2)/2 blocks: 29 at n = 908, 121 at
+//   2000).  A block stages its first three 64 KB tiles into shared memory
+//   with cp.async once, and serves both passes from there (L_jk forward,
+//   L_jk^T backward), so L crosses device memory once; tiles past three,
+//   when nb is large, are read from global memory in each pass.
+// * Forward step k: the owner of step k subtracts each partial L_kj y_j,
+//   j < k - 1, in ascending j as it arrives, then forms L_{k,k-1} y_{k-1}
+//   itself as soon as y_{k-1} is in, subtracts it last and multiplies by
+//   Li_k.  The owner of tile (j, k) waits for y_k and writes L_jk y_k into
+//   a slot of its own.  Backward the same on L^T, the partials in
+//   descending j, so that again the one on the chain, L_{k+1,k}^T x_{k+1},
+//   comes last.  No atomics: each partial has one writer, each sum one
+//   order, so two launches are bit-identical.
+// * Synchronization: the scratch (y, x, the partials) is cleared to a NaN
+//   that no arithmetic result takes, then one grid barrier; a reader polls
+//   the values themselves past L1 until none is unset (a vector by the
+//   reading block's warp 0 alone, handed to its other warps through shared
+//   memory).  So a block waits only for what it reads, and a step on the
+//   chain costs one store-to-load trip through L2, with no fence and no
+//   flag.
+// * The products: a tile sits in registers, a warp 8 rows, a lane 4
+//   columns, loaded before its owner waits; rows reduce by warp shuffles,
+//   so no product needs shared memory.  The backward pass loads the tiles
+//   transposed; the staged tiles' float4 chunks are permuted by row
+//   (c4 ^ r / 4) so that row and column loads both miss no bank.  A vector
+//   crosses the warps through shared memory: two block barriers a step.
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -463,91 +498,308 @@ chol_factor_kernel(int n, int n_pad, const float* __restrict__ K, float* a, floa
 }
 
 // ---------------------------------------------------------------------------
-// the solve: one block, y and x in shared memory
+// the solve: one cooperative launch, L's tiles stationary across the grid
 // ---------------------------------------------------------------------------
-constexpr int kSolveThreads = 1024;
+constexpr int kSolveThreads = 512;                     // sixteen warps
+constexpr int kSolveWarps = kSolveThreads / 32;
+constexpr int kWarpRows = kB / kSolveWarps;            // a warp's rows of a tile: 8
+constexpr int kTile = kB * kB;                         // floats of a 128 x 128 tile
+constexpr int kStage = 3;                              // tiles a block stages: 192 KB
+constexpr size_t kSolveSmem = (kStage * kTile + 2 * kB) * sizeof(float);  // tiles, ring
+static_assert(kWarpRows == 8, "a lane holds an 8 x 4 piece of a tile");
+static_assert(kSolveSmem <= 232448, "the solve's shared memory fits a block");
+// the scratch's "not written yet": a NaN that no arithmetic result takes
+// (the card's NaN results are canonical, 0x7fffffff)
+constexpr unsigned kUnset = 0xffbadbadu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// A tile in registers: warp w holds rows 8 w .. 8 w + 7, lane l columns
+// 4 l .. 4 l + 3.
+struct RegTile {
+  float v[kWarpRows][4];
+};
+
+// where a tile lives: staged in shared memory (row stride 128, the float4
+// chunks of row r permuted by r / 4 so that row and column reads both miss
+// no bank) or in global memory (row stride ld)
+struct TileRef {
+  const float* p;
+  int ld;
+  bool swizzled;
+  __device__ const float4* chunk(int r, int c4) const {
+    return reinterpret_cast<const float4*>(p + (size_t)r * ld) +
+           (swizzled ? c4 ^ ((r >> 2) & 31) : c4);
+  }
+};
+
+// T into registers
+__device__ __forceinline__ void load_rows(RegTile& t, const TileRef& T) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(kFull, v, s);
-  return v;
+  for (int i = 0; i < kWarpRows; ++i) {
+    const float4 x = *T.chunk(kWarpRows * w + i, lane);
+    t.v[i][0] = x.x, t.v[i][1] = x.y, t.v[i][2] = x.z, t.v[i][3] = x.w;
+  }
 }
 
-__global__ void __launch_bounds__(kSolveThreads)
+// T^T into registers: lane l reads rows 4 l .. 4 l + 3, columns 8 w .. 8 w + 7
+__device__ __forceinline__ void load_cols(RegTile& t, const TileRef& T) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 a = *T.chunk(4 * lane + q, 2 * w);
+    const float4 b = *T.chunk(4 * lane + q, 2 * w + 1);
+    t.v[0][q] = a.x, t.v[1][q] = a.y, t.v[2][q] = a.z, t.v[3][q] = a.w;
+    t.v[4][q] = b.x, t.v[5][q] = b.y, t.v[6][q] = b.z, t.v[7][q] = b.w;
+  }
+}
+
+// sums[i] = sum_c t[8 w + i][c] v[c] in every lane of warp w; v4 holds this
+// lane's v[4 lane .. 4 lane + 3].  The lanes' partial sums reduce by a
+// butterfly, so every lane ends with the same bits.
+__device__ __forceinline__ void row_sums(const RegTile& t, float4 v4, float* sums) {
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i)
+    sums[i] = t.v[i][0] * v4.x + t.v[i][1] * v4.y + t.v[i][2] * v4.z + t.v[i][3] * v4.w;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i) sums[i] += __shfl_xor_sync(kFull, sums[i], off);
+}
+
+// lane i of warp w writes row 8 w + i
+__device__ __forceinline__ void store_rows(const float* sums, float* out) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i)
+    if (lane == i) out[kWarpRows * w + i] = sums[i];
+}
+
+__device__ __forceinline__ bool is_set(float v) { return __float_as_uint(v) != kUnset; }
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// four floats another block writes once into the cleared scratch: read past
+// L1 until all four are set.  The value is its own flag: no fence, no
+// second read.  Every wait ends: the cooperative launch makes the whole grid
+// co-resident, and each value is written by a block that waits only for
+// earlier steps.  A wait of seconds therefore means a fault in the schedule,
+// and the kernel traps.  The trap ends the launch with an error that the
+// caller's next CUDA call reports, and leaves the process's CUDA context
+// unusable; a hang instead would hold the card, and every process queued on
+// it, until the machine is reset.  No input reaches the trap (no arithmetic
+// result is the unset NaN), so no test does.
+__device__ __forceinline__ float4 await4(const float* p) {
+  constexpr unsigned long long kWaitLimitNs = 2000000000ull;
+  unsigned long long t0 = 0;
+  float4 v;
+  for (;;) {
+    asm volatile("ld.volatile.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p)
+                 : "memory");
+    if (is_set(v.x) && is_set(v.y) && is_set(v.z) && is_set(v.w)) return v;
+    const unsigned long long t = global_ns();
+    if (t0 == 0) {
+      t0 = t;
+    } else if (t - t0 > kWaitLimitNs) {
+      __trap();
+    }
+    __nanosleep(32);
+  }
+}
+
+// A block's two 128-float buffers that carry a vector across its warps, used
+// in turns: one block barrier a hand-over, so a buffer is written again only
+// after every warp has read it.
+struct Ring {
+  float* buf;
+  int turn;
+  __device__ float* next() { return buf + (turn++ & 1) * kB; }
+};
+
+// a vector another block writes, v[4 lane .. 4 lane + 3] in every warp:
+// warp 0 alone polls it (one block's requests on the line, not sixteen
+// warps') and hands it over through the ring
+__device__ __forceinline__ float4 share4(const float* v, Ring& ring) {
+  float4* dst = reinterpret_cast<float4*>(ring.next());
+  if (threadIdx.x < 32) dst[threadIdx.x] = await4(v + 4 * threadIdx.x);
+  __syncthreads();
+  return dst[threadIdx.x & 31];
+}
+
+// acc[i] -= part[8 w + i], every lane of warp w
+__device__ __forceinline__ void subtract_part(float* acc, const float* part) {
+  const int w = threadIdx.x >> 5;
+  const float4 a = await4(part + kWarpRows * w);
+  const float4 b = await4(part + kWarpRows * w + 4);
+  acc[0] -= a.x, acc[1] -= a.y, acc[2] -= a.z, acc[3] -= a.w;
+  acc[4] -= b.x, acc[5] -= b.y, acc[6] -= b.z, acc[7] -= b.w;
+}
+
+// the solve's schedule: block (k mod grid) owns diagonal step k (Li_k, and
+// the sub-diagonal tiles L_{k,k-1}, L_{k+1,k} that sit on the chain); the
+// other tiles (j, k), j >= k + 2, are numbered down the columns (`slot`)
+// and dealt out after them
+struct SolvePlan {
+  int nb, grid, b;
+  __device__ int slot(int j, int k) const { return k * (nb - 2) - k * (k - 1) / 2 + j - k - 2; }
+  __device__ bool owns_step(int k) const { return k % grid == b; }
+  __device__ bool owns_slot(int t) const { return (nb + t) % grid == b; }
+};
+
+// the block's staged tiles, found by their address in global memory
+struct Staged {
+  const float* src[kStage];
+  const float* smem;
+  __device__ TileRef find(const float* p, int global_ld) const {
+#pragma unroll
+    for (int s = 0; s < kStage; ++s)
+      if (src[s] == p) return TileRef{smem + s * kTile, kB, true};
+    return TileRef{p, global_ld, false};
+  }
+};
+
+__global__ void __launch_bounds__(kSolveThreads, 1)
 chol_solve_kernel(int n, int n_pad, const float* __restrict__ L,
                   const float* __restrict__ inv, const float* __restrict__ b,
-                  float* __restrict__ x_out) {
-  extern __shared__ float sm[];
-  float* y = sm;               // (n_pad,)
-  float* x = y + n_pad;        // (n_pad,)
-  float* acc = x + n_pad;      // (128,)
-  float* part = acc + kB;      // (8, 128) partial column sums
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int c = t & (kB - 1), g = t >> 7;
-  const int warps = kSolveThreads / 32, groups = kSolveThreads / kB;
-  const int nb = n_pad / kB;
+                  float* __restrict__ x_out, float* scratch) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  Ring ring{sm + kStage * kTile, 0};  // (2, 128)
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int nb = n_pad / kB, slots = (nb - 1) * (nb - 2) / 2;
+  const SolvePlan P{nb, static_cast<int>(gridDim.x), static_cast<int>(blockIdx.x)};
+  // the scratch, cleared to kUnset below: y and x (n_pad each), then a 128
+  // slot a tile off the chain for L_jk y_k and one for L_jk^T x_j
+  float* y = scratch;
+  float* x = y + n_pad;
+  float* part = x + n_pad;
+  float* qpart = part + (size_t)slots * kB;
+  auto Ltile = [&](int j, int k) { return L + (size_t)j * kB * n_pad + (size_t)k * kB; };
+  auto Itile = [&](int k) { return inv + (size_t)k * kTile; };
 
-  // forward: acc = b_k - L[k rows, :off] y[:off]; y_k = Li acc
+  // stage the block's first tiles, in the order it uses them, with cp.async
+  // (swizzled: chunk c4 of row r at c4 ^ (r / 4 mod 32)); clear the scratch
+  // meanwhile
+  Staged st;
+  st.smem = sm;
+  {
+    int m = 0, lds[kStage];
+    auto stage = [&](const float* p, int ld) {
+      if (m < kStage) st.src[m] = p, lds[m++] = ld;
+    };
+    for (int k = P.b; k < nb && m < kStage; k += P.grid) {
+      stage(Itile(k), kB);
+      if (k > 0) stage(Ltile(k, k - 1), n_pad);
+      if (k + 1 < nb) stage(Ltile(k + 1, k), n_pad);
+    }
+    for (int k = 0; k < nb && m < kStage; ++k)
+      for (int j = k + 2; j < nb && m < kStage; ++j)
+        if (P.owns_slot(P.slot(j, k))) stage(Ltile(j, k), n_pad);
+    for (int s = 0; s < kStage; ++s) {
+      if (s >= m) {
+        st.src[s] = nullptr;
+        continue;
+      }
+      for (int idx = tid; idx < kTile / 4; idx += kSolveThreads) {
+        const int r = idx / (kB / 4), c4 = idx % (kB / 4);
+        __pipeline_memcpy_async(sm + s * kTile + r * kB + 4 * (c4 ^ ((r >> 2) & 31)),
+                                st.src[s] + (size_t)r * lds[s] + 4 * c4, 16);
+      }
+    }
+    __pipeline_commit();
+  }
+  const float unset = __uint_as_float(kUnset);
+  for (size_t i = (size_t)P.b * kSolveThreads + tid; i < 2 * (size_t)n_pad + 2 * (size_t)slots * kB;
+       i += (size_t)P.grid * kSolveThreads)
+    scratch[i] = unset;
+  __pipeline_wait_prior(0);
+  grid.sync();  // the scratch clear everywhere; the staged tiles in (this block's barrier)
+
+  RegTile A, B;
+  float acc[kWarpRows], sums[kWarpRows];
+  // acc (rows 8 w + i in every lane of warp w) through a diagonal inverse:
+  // out[8 w + i] = sum_c T[8 w + i][c] acc[c]
+  auto through = [&](const RegTile& T, float* out) {
+    float* rhs = ring.next();
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i)
+      if (lane == i) rhs[kWarpRows * w + i] = acc[i];
+    __syncthreads();
+    row_sums(T, reinterpret_cast<const float4*>(rhs)[lane], sums);
+    store_rows(sums, out);
+  };
+
+  // forward: y_k = Li_k (b_k - sum_{j<k} L_kj y_j), the partials in
+  // ascending j, the one on the chain (j = k - 1) last
   for (int k = 0; k < nb; ++k) {
     const int off = k * kB;
-    for (int r = warp; r < kB; r += warps) {
-      const float* lrow = L + (size_t)(off + r) * n_pad;
-      float s = 0.0f;
-      for (int q = lane; q < off; q += 32) s += lrow[q] * y[q];
-      s = warp_sum(s);
-      if (lane == 0) acc[r] = (off + r < n ? b[off + r] : 0.0f) - s;
+    if (P.owns_step(k)) {
+      load_rows(A, st.find(Itile(k), kB));
+      if (k > 0) load_rows(B, st.find(Ltile(k, k - 1), n_pad));
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) {
+        const int r = off + kWarpRows * w + i;
+        acc[i] = r < n ? b[r] : 0.0f;
+      }
+      for (int j = 0; j + 1 < k; ++j) subtract_part(acc, part + (size_t)P.slot(k, j) * kB);
+      if (k > 0) {
+        row_sums(B, share4(y + off - kB, ring), sums);
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i) acc[i] -= sums[i];
+      }
+      through(A, y + off);
     }
-    __syncthreads();
-    for (int r = warp; r < kB; r += warps) {
-      const float* irow = inv + (size_t)(off + r) * kB;
-      float s = 0.0f;
-      for (int q = lane; q < kB; q += 32) s += irow[q] * acc[q];
-      s = warp_sum(s);
-      if (lane == 0) y[off + r] = s;
+    for (int j = k + 2; j < nb; ++j) {
+      const int t = P.slot(j, k);
+      if (!P.owns_slot(t)) continue;
+      load_rows(B, st.find(Ltile(j, k), n_pad));
+      row_sums(B, share4(y + off, ring), sums);
+      store_rows(sums, part + (size_t)t * kB);
     }
-    __syncthreads();
   }
 
-  // backward: acc = y_k - L[off + 128:, k cols]^T x[off + 128:]; x_k = Li^T acc
+  // backward: x_k = Li_k^T (y_k - sum_{j>k} L_jk^T x_j), the partials in
+  // descending j, the one on the chain (j = k + 1) last
   for (int k = nb - 1; k >= 0; --k) {
     const int off = k * kB;
-    float s = 0.0f;
-    for (int q = off + kB + g; q < n_pad; q += groups) {
-      s += L[(size_t)q * n_pad + off + c] * x[q];
+    if (P.owns_step(k)) {
+      load_cols(A, st.find(Itile(k), kB));
+      if (k + 1 < nb) load_cols(B, st.find(Ltile(k + 1, k), n_pad));
+      const float4 ya = await4(y + off + kWarpRows * w);  // this block's own y_k
+      const float4 yb = await4(y + off + kWarpRows * w + 4);
+      acc[0] = ya.x, acc[1] = ya.y, acc[2] = ya.z, acc[3] = ya.w;
+      acc[4] = yb.x, acc[5] = yb.y, acc[6] = yb.z, acc[7] = yb.w;
+      for (int j = nb - 1; j >= k + 2; --j) subtract_part(acc, qpart + (size_t)P.slot(j, k) * kB);
+      if (k + 1 < nb) {
+        row_sums(B, share4(x + off + kB, ring), sums);
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i) acc[i] -= sums[i];
+      }
+      through(A, x + off);
+      if (lane < kWarpRows && off + kWarpRows * w + lane < n) {
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i)
+          if (lane == i) x_out[off + kWarpRows * w + i] = sums[i];
+      }
     }
-    part[g * kB + c] = s;
-    __syncthreads();
-    if (t < kB) {
-      float tot = 0.0f;
-      for (int h = 0; h < groups; ++h) tot += part[h * kB + t];
-      acc[t] = y[off + t] - tot;
+    // the tiles of block row k feed the steps left of it
+    for (int c = 0; c + 2 <= k; ++c) {
+      const int t = P.slot(k, c);
+      if (!P.owns_slot(t)) continue;
+      load_cols(B, st.find(Ltile(k, c), n_pad));
+      row_sums(B, share4(x + off, ring), sums);
+      store_rows(sums, qpart + (size_t)t * kB);
     }
-    __syncthreads();
-    s = 0.0f;
-    for (int r = g; r < kB; r += groups) s += inv[(size_t)(off + r) * kB + c] * acc[r];
-    part[g * kB + c] = s;
-    __syncthreads();
-    if (t < kB) {
-      float tot = 0.0f;
-      for (int h = 0; h < groups; ++h) tot += part[h * kB + t];
-      x[off + t] = tot;
-    }
-    __syncthreads();
   }
-  for (int q = t; q < n; q += kSolveThreads) x_out[q] = x[q];
-}
-
-size_t solve_smem(int n_pad) {
-  return (2 * (size_t)n_pad + kB + (kSolveThreads / kB) * kB) * sizeof(float);
 }
 
 }  // namespace
-
-// The largest n_pad the solve's shared memory takes (232,448 bytes a block).
-extern "C" int cholesky_solve_max_n_pad() {
-  return static_cast<int>((232448 / sizeof(float) - kB - (kSolveThreads / kB) * kB) / 2 / kB * kB);
-}
 
 // The factorization's grid: one block per tile of the first panel's trailing
 // update (plus block 0), at least eleven, at most what is co-resident.  Writes the grid to *blocks and the co-resident capacity to
@@ -606,19 +858,53 @@ extern "C" int cholesky_factor_f32(int n, int n_pad, const float* K, float* a, f
   return 0;
 }
 
-// Solve L L^T x = b for x (n,) from the factor's L and inv; b is (n,).
-extern "C" int cholesky_solve_f32(int n, int n_pad, const float* L,
-                                  const float* inv, const float* b, float* x,
-                                  void* stream) {
-  if (n <= 0 || n > n_pad || n_pad % kB || n_pad > cholesky_solve_max_n_pad()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = solve_smem(n_pad);
+// The solve's grid: a block for each diagonal step and each tile off the
+// chain, nb + (nb - 1)(nb - 2) / 2, at most what is co-resident.  Writes the
+// grid to *blocks, the co-resident capacity to *capacity and the floats of
+// scratch the solve needs to *scratch_floats; returns a cudaError_t.
+extern "C" int cholesky_solve_grid(int n_pad, int* blocks, int* capacity,
+                                   long long* scratch_floats) {
+  *blocks = 0;
+  *capacity = 0;
+  *scratch_floats = 0;
+  if (n_pad <= 0 || n_pad % kB) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kSolveSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  chol_solve_kernel<<<1, kSolveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      n, n_pad, L, inv, b, x);
-  return static_cast<int>(cudaGetLastError());
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_solve_kernel,
+                                                           kSolveThreads, kSolveSmem)) !=
+          cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  *capacity = per_sm * sms;
+  if (!coop || *capacity < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long nb = n_pad / kB, slots = (nb - 1) * (nb - 2) / 2;
+  const long long want = nb + slots;
+  *blocks = static_cast<int>(want < *capacity ? want : *capacity);
+  // y, x and two partial products a tile off the chain
+  *scratch_floats = 2 * (long long)n_pad + 2 * slots * kB;
+  return 0;
+}
+
+// Solve L L^T x = b for x (n,) from the factor's L and inv; b is (n,).
+// `scratch` holds `cholesky_solve_grid`'s scratch_floats floats, uninitialised;
+// `blocks` is its grid.  Launches one cooperative kernel on `stream` and
+// returns the cudaError_t of the launch, or 0.
+extern "C" int cholesky_solve_f32(int n, int n_pad, const float* L, const float* inv,
+                                  const float* b, float* x, float* scratch, int blocks,
+                                  void* stream) {
+  if (n <= 0 || n > n_pad || n_pad % kB || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* args[] = {&n, &n_pad, &L, &inv, &b, &x, &scratch};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(chol_solve_kernel), dim3(blocks), dim3(kSolveThreads), args,
+      kSolveSmem, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }

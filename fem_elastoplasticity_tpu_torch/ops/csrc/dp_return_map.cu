@@ -3,38 +3,45 @@
 // Replaces the Pallas kernel of the JAX package
 // (fem_elastoplasticity_tpu/ops/return_map_pallas.py: dp_return_map_pallas,
 // kernel _kernel).  Per integration point it computes the trial state, the
-// elastic / smooth-cone / apex branch, the returned stress s (4), the packed
-// consistent tangent ds6 = [d00, d11, d22, d01, d02, d12], the multiplier lam
-// and, with APPLY_EP, the updated plastic strain (4); without it, ep passes
-// through unchanged.
+// elastic / smooth-cone / apex branch, the returned stress s (4), the
+// consistent tangent, the multiplier lam and, with APPLY_EP, the updated
+// plastic strain (4); without it, ep passes through unchanged.  One launch
+// writes what the Newton loop reads: the tangent as the full symmetric
+// D (3, 3), each of its six unique values computed once and stored in one or
+// two places (the JAX package's unpack_tangent), and the plastic mask
+// ind_p = lam > 0 from the register that holds lam.
 //
 // What bounds it: memory.  A point reads 7 values (e3: 3, ep: 4) and writes
-// 15 (s: 4, ds6: 6, lam: 1, ep: 4), 88 bytes in f32 and 176 in f64, for
-// about 150 flops: far below the card's flop/byte balance.  The design
-// keeps the JAX kernel's component-major (SoA) layout, (k, n) contiguous,
-// so in every row neighbouring threads touch neighbouring addresses and each
-// warp's loads and stores coalesce into full lines.  One thread owns one
-// point, a grid-stride loop covers any n (no multiple of 128 needed), and
-// every intermediate stays in registers: each byte crosses the memory bus
-// once.  At the main path's 896 points the launch, not the bytes, sets the
-// time.
+// 15 (s: 4, D's six unique values, lam: 1, ep: 4) and a byte of mask, 89
+// bytes in f32 and 177 in f64, for about 150 flops: far below the card's
+// flop/byte balance.  The kernel stores D's three mirrored values too (18
+// values, 101 and 201 bytes), since the Newton loop reads the full D.
+// The design keeps the JAX kernel's component-major (SoA) layout, (k, n)
+// contiguous, so in every row neighbouring threads touch neighbouring
+// addresses and each warp's loads and stores coalesce into full lines.  One
+// thread owns one point, a grid-stride loop covers any n, and every
+// intermediate stays in registers: each byte crosses the memory bus once.
+// At the Newton path's 896 points the launch, not the bytes, sets the time.
+// Blocks of 128 threads spread such a grid over 7 SMs; 64, 128 and 256
+// threads time alike there and at 227,072 points (PERF.md, K2's row).
 //
 // Rounding: the expressions and their order follow _kernel line by line and
 // the plain PyTorch version (ops/return_map.py dp_return_map_plain), and the
 // file is built with -fmad=false, so no a*b+c is contracted into an FMA that
 // the plain version, which rounds after every operation, does not do.  The
-// material constants arrive as doubles computed in Python by the same
-// expressions as the plain version's and are rounded to the working type
-// here, as the Pallas kernel's weakly typed Python floats are.  eta, c and
-// the zeta-scaled initial strain e0 arrive through a device pointer, so the
-// caller's host loop needs no sync to pass them.
+// material constants, eta and c arrive as doubles computed in Python by the
+// same expressions as the plain version's and are rounded to the working
+// type here, as the Pallas kernel's weakly typed Python floats are.  The
+// initial strain is e0 = zeta e0_dir, one rounding as the caller's
+// `e0_dir * zeta` in the working type: e0_dir is a device pointer (or null,
+// e0 = 0) and zeta a host scalar, so the caller's host loop needs no sync.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// Host-computed material constants, rounded to T (ops/return_map.py
-// _material_constants gives them in this order).
+// Host-computed constants, rounded to T (ops/return_map.py
+// _kernel_constants gives them in this order).
 template <typename T>
 struct Consts {
   T two_g;        // 2 G
@@ -46,25 +53,33 @@ struct Consts {
   T e_diag;       // 4 G / 3 + K
   T e_off;        // -2 G / 3 + K
   T three_bulk;   // 3 K
+  T eta;          // the Drucker-Prager slope
+  T c;            // the Drucker-Prager cohesion term
 };
-constexpr int kNumConsts = 9;
+constexpr int kNumConsts = 11;
+
+// Output rows, each n long, of the one (18, n) block the wrapper allocates.
+constexpr int kRowS = 0, kRowD = 4, kRowLam = 13, kRowEp = 14;
+constexpr int kThreads = 128;  // the block size
 
 template <typename T, bool APPLY_EP, bool APEX_TRIAL>
-__global__ void __launch_bounds__(256)
-dp_return_map_kernel(long long n, const T* __restrict__ params,
+__global__ void __launch_bounds__(kThreads)
+dp_return_map_kernel(long long n, const T* __restrict__ e0_dir, T zeta,
                      const T* __restrict__ e3, const T* __restrict__ ep,
-                     T* __restrict__ s, T* __restrict__ ds,
-                     T* __restrict__ lam_out, T* __restrict__ ep_out,
-                     Consts<T> k) {
+                     T* __restrict__ out, bool* __restrict__ ind_out, Consts<T> k) {
   const T zero = T(0);
   const T one = T(1);
   const T three = T(3);
-  const T e0_0 = params[0];
-  const T e0_1 = params[1];
-  const T e0_2 = params[2];
-  const T e0_3 = params[3];
-  const T eta = params[4];
-  const T c = params[5];
+  const T e0_0 = e0_dir ? e0_dir[0] * zeta : zero;
+  const T e0_1 = e0_dir ? e0_dir[1] * zeta : zero;
+  const T e0_2 = e0_dir ? e0_dir[2] * zeta : zero;
+  const T e0_3 = e0_dir ? e0_dir[3] * zeta : zero;
+  const T eta = k.eta;
+  const T c = k.c;
+  T* s = out + kRowS * n;
+  T* d = out + kRowD * n;
+  T* lam_out = out + kRowLam * n;
+  T* ep_out = out + kRowEp * n;
 
   // scalar terms of the kernel, once per thread
   const T denom_a = k.bulk * eta * eta;
@@ -118,7 +133,9 @@ dp_return_map_kernel(long long n, const T* __restrict__ params,
 
     const T lam_s = crit1 / denom_s;
     const T lam_a = (eta * p_tr - c) / denom_a;
-    lam_out[i] = ind_s ? lam_s : (ind_a ? lam_a : zero);
+    const T lam = ind_s ? lam_s : (ind_a ? lam_a : zero);
+    lam_out[i] = lam;
+    ind_out[i] = lam > zero;  // the Newton loop's mask: lam > 0, not crit1 > 0
 
     const T inv_norm = norm_e > zero ? one / norm_e : zero;
     const T n0 = dev0 * inv_norm;
@@ -143,12 +160,22 @@ dp_return_map_kernel(long long n, const T* __restrict__ params,
     const T not_a = ind_a ? zero : one;
     const T two_thirds = T(2.0 / 3.0);
     const T minus_third = T(-1.0 / 3.0);
-    ds[i] = (k.e_diag - ca * (two_thirds - n0 * n0) - m0 * m0 * ms) * not_a;
-    ds[n + i] = (k.e_diag - ca * (two_thirds - n1 * n1) - m1 * m1 * ms) * not_a;
-    ds[2 * n + i] = (k.shear - ca * (T(0.5) - n2 * n2) - m2 * m2 * ms) * not_a;
-    ds[3 * n + i] = (k.e_off - ca * (minus_third - n0 * n1) - m0 * m1 * ms) * not_a;
-    ds[4 * n + i] = (ca * n0 * n2 - m0 * m2 * ms) * not_a;
-    ds[5 * n + i] = (ca * n1 * n2 - m1 * m2 * ms) * not_a;
+    const T d00 = (k.e_diag - ca * (two_thirds - n0 * n0) - m0 * m0 * ms) * not_a;
+    const T d11 = (k.e_diag - ca * (two_thirds - n1 * n1) - m1 * m1 * ms) * not_a;
+    const T d22 = (k.shear - ca * (T(0.5) - n2 * n2) - m2 * m2 * ms) * not_a;
+    const T d01 = (k.e_off - ca * (minus_third - n0 * n1) - m0 * m1 * ms) * not_a;
+    const T d02 = (ca * n0 * n2 - m0 * m2 * ms) * not_a;
+    const T d12 = (ca * n1 * n2 - m1 * m2 * ms) * not_a;
+    // D[a][b] at row 3 a + b
+    d[i] = d00;
+    d[n + i] = d01;
+    d[2 * n + i] = d02;
+    d[3 * n + i] = d01;
+    d[4 * n + i] = d11;
+    d[5 * n + i] = d12;
+    d[6 * n + i] = d02;
+    d[7 * n + i] = d12;
+    d[8 * n + i] = d22;
 
     if (APPLY_EP) {
       const T f0 = n0 / k.sqrt2 + eta_third;
@@ -172,38 +199,36 @@ dp_return_map_kernel(long long n, const T* __restrict__ params,
   }
 }
 
-constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 8192;
 
 template <typename T, bool APPLY_EP, bool APEX_TRIAL>
-int launch_t(long long n, const void* params, const void* e3, const void* ep,
-             void* s, void* ds, void* lam, void* ep_out, const Consts<T>& k,
-             cudaStream_t stream) {
+int launch_t(long long n, const void* e0_dir, T zeta, const void* e3,
+             const void* ep, void* out, void* ind, const Consts<T>& k, cudaStream_t stream) {
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   dp_return_map_kernel<T, APPLY_EP, APEX_TRIAL>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          n, static_cast<const T*>(params), static_cast<const T*>(e3),
-          static_cast<const T*>(ep), static_cast<T*>(s), static_cast<T*>(ds),
-          static_cast<T*>(lam), static_cast<T*>(ep_out), k);
+          n, static_cast<const T*>(e0_dir), zeta, static_cast<const T*>(e3),
+          static_cast<const T*>(ep), static_cast<T*>(out), static_cast<bool*>(ind), k);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(long long n, int apply_ep, int apex_trial, const double* consts,
-           const void* params, const void* e3, const void* ep, void* s,
-           void* ds, void* lam, void* ep_out, void* stream_ptr) {
+           const void* e0_dir, double zeta, const void* e3, const void* ep, void* out,
+           void* ind, void* stream_ptr) {
   if (n <= 0) return 0;
   Consts<T> k;
   T* fields = reinterpret_cast<T*>(&k);
   for (int j = 0; j < kNumConsts; ++j) fields[j] = static_cast<T>(consts[j]);
+  const T z = static_cast<T>(zeta);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (apply_ep) {
     if (apex_trial)
-      return launch_t<T, true, true>(n, params, e3, ep, s, ds, lam, ep_out, k, stream);
-    return launch_t<T, true, false>(n, params, e3, ep, s, ds, lam, ep_out, k, stream);
+      return launch_t<T, true, true>(n, e0_dir, z, e3, ep, out, ind, k, stream);
+    return launch_t<T, true, false>(n, e0_dir, z, e3, ep, out, ind, k, stream);
   }
-  return launch_t<T, false, false>(n, params, e3, ep, s, ds, lam, ep_out, k, stream);
+  return launch_t<T, false, false>(n, e0_dir, z, e3, ep, out, ind, k, stream);
 }
 
 static_assert(sizeof(Consts<float>) == kNumConsts * sizeof(float), "Consts layout");
@@ -211,24 +236,24 @@ static_assert(sizeof(Consts<double>) == kNumConsts * sizeof(double), "Consts lay
 
 }  // namespace
 
-// Launch K2 on `stream` (a cudaStream_t passed as a pointer).  `consts` is a
-// host array of kNumConsts doubles; `params` a device array of 8 values of
-// the working type, [e0_0..e0_3, eta, c, 0, 0].  Returns the cudaError_t of
-// the launch; 0 means the kernel was queued.
+// Launch K2 on `stream` (a cudaStream_t passed as a pointer).  `consts` is a host array of
+// kNumConsts doubles; `e0_dir` a device array of 4 values of the working
+// type, or null; `zeta` the scale of e0_dir.  `out` is one (18, n) array of
+// the working type: rows 0-3 s, 4-12 D (row 3 a + b holds D[a][b]), 13 lam,
+// 14-17 ep; `ind` (n,) bools, lam > 0.  Returns the cudaError_t of the
+// launch; 0 means the kernel was queued.
 extern "C" int dp_return_map_f32(long long n, int apply_ep, int apex_trial,
-                                 const double* consts, const void* params,
-                                 const void* e3, const void* ep, void* s,
-                                 void* ds, void* lam, void* ep_out,
+                                 const double* consts, const void* e0_dir, double zeta,
+                                 const void* e3, const void* ep, void* out, void* ind,
                                  void* stream) {
-  return launch<float>(n, apply_ep, apex_trial, consts, params, e3, ep, s, ds,
-                       lam, ep_out, stream);
+  return launch<float>(n, apply_ep, apex_trial, consts, e0_dir, zeta, e3, ep, out,
+                       ind, stream);
 }
 
 extern "C" int dp_return_map_f64(long long n, int apply_ep, int apex_trial,
-                                 const double* consts, const void* params,
-                                 const void* e3, const void* ep, void* s,
-                                 void* ds, void* lam, void* ep_out,
+                                 const double* consts, const void* e0_dir, double zeta,
+                                 const void* e3, const void* ep, void* out, void* ind,
                                  void* stream) {
-  return launch<double>(n, apply_ep, apex_trial, consts, params, e3, ep, s, ds,
-                        lam, ep_out, stream);
+  return launch<double>(n, apply_ep, apex_trial, consts, e0_dir, zeta, e3, ep, out,
+                        ind, stream);
 }

@@ -2,24 +2,29 @@
 
 Counterpart of `fem_elastoplasticity_tpu/ops/return_map_pallas.py`.  One
 pass per integration point computes the trial state, the elastic /
-smooth-cone / apex branch, the returned stress, the packed consistent
-tangent, the multiplier lam and, optionally, the updated plastic strain, on
-component-major lanes: e3 (3, n), ep (4, n) -> s (4, n), ds6 (6, n),
-lam (n,), ep (4, n).  It is the constitutive update of the native float32
-Newton path (`solve/newton.py`).
+smooth-cone / apex branch, the returned stress, the consistent tangent, the
+multiplier lam and, optionally, the updated plastic strain, on
+component-major lanes: e3 (3, n), ep (4, n) -> s (4, n), tangent, lam (n,),
+ep (4, n).  It is the constitutive update of the native float32 Newton path
+(`solve/newton.py`).
 
-* `dp_return_map_plain` is the plain PyTorch version.  It follows the
-  Pallas kernel's arithmetic line by line (`return_map_pallas.py:33-144`)
-  in the input's dtype: every Python float of that kernel becomes a
-  constant of the working dtype, as JAX's weak typing rounds it, and every
-  division is a true division by a tensor (PyTorch on CUDA would otherwise
-  multiply by a rounded reciprocal of a Python divisor).
-* `dp_return_map_fused` has the JAX wrapper's signature.  On a CUDA tensor
-  it launches the hand-written kernel `csrc/dp_return_map.cu`, built with
-  `-fmad=false` so that it rounds where the plain version rounds; on a CPU
-  tensor it runs the plain version.  It never falls back from one to the
-  other.
+* `dp_return_map_plain` is the plain PyTorch version, on the kernel's
+  inputs, with the packed tangent ds6 (6, n).  It follows the Pallas kernel's arithmetic line by
+  line (`return_map_pallas.py:33-144`) in the input's dtype: every Python
+  float of that kernel becomes a constant of the working dtype, as JAX's
+  weak typing rounds it, and every division is a true division by a tensor
+  (PyTorch on CUDA would otherwise multiply by a rounded reciprocal of a
+  Python divisor).
+* `dp_return_map_newton` is the Newton loop's entry: (s, D (3, 3, n),
+  ind_p = lam > 0, lam, ep) with the initial strain zeta * e0_dir.  On a
+  CUDA tensor it is one launch of the hand-written kernel
+  `csrc/dp_return_map.cu`, built with `-fmad=false` so that it rounds where
+  the plain version rounds; on a CPU tensor the plain version, then
+  `unpack_tangent` and `lam > 0`.  The two give the same bits.
+* `dp_return_map_fused` has the JAX wrapper's signature and returns ds6:
+  `dp_return_map_newton`, then `pack_tangent`.
 
+Neither entry falls back from the kernel to the plain version or back.
 `LAUNCHES` counts, per process, kernel launches ("dp_return_map") and
 calls routed to the plain version ("dp_return_map_plain").
 """
@@ -43,8 +48,9 @@ _DTYPES = (torch.float32, torch.float64)
 
 
 def _material_constants(shear: float, bulk: float) -> Tuple[float, ...]:
-    """The kernel's material constants, in f64 as the Pallas kernel's Python
-    arithmetic forms them; order of `Consts` in `csrc/dp_return_map.cu`."""
+    """The material constants, in f64 as the Pallas kernel's Python
+    arithmetic forms them; the order of `Consts` in `csrc/dp_return_map.cu`
+    (eta and c follow there)."""
     return (
         2.0 * shear,
         bulk,
@@ -66,41 +72,32 @@ def _constant_tensor(values: Tuple[float, ...], dtype: torch.dtype, device: torc
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _params_tail(eta: float, c: float, dtype: torch.dtype, device: torch.device):
-    """[0, 0, 0, 0, eta, c, 0, 0]: the kernel's params without e0."""
-    return torch.tensor([0.0] * 4 + [eta, c, 0.0, 0.0], dtype=dtype, device=device)
-
-
-def make_params(eta: float, c: float, e0: Optional[torch.Tensor], dtype, device) -> torch.Tensor:
-    """The kernel's runtime parameters, (8,) on `device`:
-    [e0_0..e0_3, eta, c, 0, 0] (`return_map_pallas.py:194-204`).  With a
-    device `e0` this is one concatenation on the device, no host sync;
-    with e0=None it is a cached tensor, which callers only read."""
-    tail = _params_tail(float(eta), float(c), dtype, device)
-    if e0 is None:
-        return tail
-    return torch.cat([e0.reshape(4).to(dtype), tail[4:]])
-
-
 def dp_return_map_plain(
     e3: torch.Tensor,
     ep_prev: torch.Tensor,
-    params: torch.Tensor,
     shear: float,
     bulk: float,
+    eta: float,
+    c: float,
+    e0_dir: Optional[torch.Tensor] = None,
+    zeta: float = 1.0,
     apply_plastic_strain: bool = False,
     apex_ep_uses_trial: bool = False,
 ):
     """Plain PyTorch K2 on the kernel's inputs: (s, ds6, lam, ep).
 
-    params: (8,) [e0_0..e0_3, eta, c, 0, 0] in e3's dtype (`make_params`).
+    eta and c are rounded to e3's dtype; the initial strain is
+    e0_dir * zeta in e0_dir's dtype (None: none).
     """
     dev, dt = e3.device, e3.dtype
-    consts = _constant_tensor(_material_constants(shear, bulk) + _LITERALS, dt, dev)
-    (two_g, bulk_t, shear_t, sqrt2, sg, ca_k, e_diag, e_off, three_bulk,
+    consts = _constant_tensor(_material_constants(shear, bulk) + (float(eta), float(c))
+                              + _LITERALS, dt, dev)
+    (two_g, bulk_t, shear_t, sqrt2, sg, ca_k, e_diag, e_off, three_bulk, eta, c,
      zero, one, two, three, half, two_thirds, minus_third) = consts.unbind()
-    e0_0, e0_1, e0_2, e0_3, eta, c = params[:6].unbind()
+    if e0_dir is None:
+        e0_0 = e0_1 = e0_2 = e0_3 = zero
+    else:
+        e0_0, e0_1, e0_2, e0_3 = (e0_dir * zeta).reshape(4).to(dt).unbind()
 
     e4_0 = e3[0] + e0_0
     e4_1 = e3[1] + e0_1
@@ -202,13 +199,19 @@ def unpack_tangent(ds6: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def pack_tangent(D: torch.Tensor) -> torch.Tensor:
+    """(3, 3, n) -> (6, n) unique entries, `unpack_tangent`'s inverse."""
+    return torch.stack([D[0, 0], D[1, 1], D[2, 2], D[0, 1], D[0, 2], D[1, 2]])
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from ..utils.cuda_build import build_library
 
     lib = build_library(KERNEL_SOURCE, "dp_return_map", KERNEL_FLAGS)
     for fn in (lib.dp_return_map_f32, lib.dp_return_map_f64):
-        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+        fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_double] + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
     return lib
 
@@ -218,24 +221,42 @@ def load_kernel() -> None:
     _library()
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_constants(shear: float, bulk: float, eta: float, c: float):
+    """The kernel's `Consts` as a ctypes array of doubles, built once per
+    material: `_material_constants`, then eta and c."""
+    values = _material_constants(shear, bulk) + (eta, c)
+    return (ctypes.c_double * len(values))(*values)
+
+
 def dp_return_map_cuda(
     e3: torch.Tensor,
     ep_prev: torch.Tensor,
-    params: torch.Tensor,
     shear: float,
     bulk: float,
+    eta: float,
+    c: float,
+    e0_dir: Optional[torch.Tensor] = None,
+    zeta: float = 1.0,
     apply_plastic_strain: bool = False,
     apex_ep_uses_trial: bool = False,
 ):
     """Launch K2 on e3's device and PyTorch's current stream; no sync.
-    Same inputs and outputs as `dp_return_map_plain`."""
+
+    e3 (3, n), ep_prev (4, n) and e0_dir (4,) (or None: no initial strain)
+    contiguous, of one dtype, on one card; the initial strain is
+    zeta * e0_dir, rounded once.  Returns views of one allocation:
+    (s (4, n), D (3, 3, n), ind_p (n,) bool, lam (n,), ep (4, n))."""
     if not e3.is_cuda:
         raise ValueError(f"dp_return_map_cuda needs a CUDA tensor; got one on {e3.device}")
     dt = e3.dtype
     if dt not in _DTYPES:
         raise ValueError(f"dp_return_map: dtype {dt} is not float32 or float64")
     n = e3.shape[-1]
-    for name, t, shape in (("e3", e3, (3, n)), ("ep_prev", ep_prev, (4, n)), ("params", params, (8,))):
+    inputs = [("e3", e3, (3, n)), ("ep_prev", ep_prev, (4, n))]
+    if e0_dir is not None:
+        inputs.append(("e0_dir", e0_dir, (4,)))
+    for name, t, shape in inputs:
         if t.device != e3.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
                 f"dp_return_map: {name} must be a contiguous {dt} tensor on "
@@ -245,21 +266,58 @@ def dp_return_map_cuda(
             raise ValueError(f"dp_return_map: {name} has shape {tuple(t.shape)}, not {shape}")
     lib = _library()
     fn = lib.dp_return_map_f32 if dt == torch.float32 else lib.dp_return_map_f64
-    s = torch.empty((4, n), dtype=dt, device=e3.device)
-    ds6 = torch.empty((6, n), dtype=dt, device=e3.device)
-    lam = torch.empty((n,), dtype=dt, device=e3.device)
-    ep = torch.empty((4, n), dtype=dt, device=e3.device)
-    consts = (ctypes.c_double * 9)(*_material_constants(shear, bulk))
-    stream = torch.cuda.current_stream(e3.device).cuda_stream
-    err = fn(
-        n, int(apply_plastic_strain), int(apex_ep_uses_trial), consts,
-        params.data_ptr(), e3.data_ptr(), ep_prev.data_ptr(), s.data_ptr(),
-        ds6.data_ptr(), lam.data_ptr(), ep.data_ptr(), stream,
+    size = e3.element_size()
+    buf = torch.empty(18 * n * size + n, dtype=torch.uint8, device=e3.device)
+    vals = buf[:18 * n * size].view(dt)
+    ind_p = buf[18 * n * size:].view(torch.bool)
+    if n:
+        err = fn(
+            n, int(apply_plastic_strain), int(apex_ep_uses_trial),
+            _kernel_constants(shear, bulk, eta, c),
+            None if e0_dir is None else e0_dir.data_ptr(), zeta, e3.data_ptr(),
+            ep_prev.data_ptr(), vals.data_ptr(), ind_p.data_ptr(),
+            torch.cuda.current_stream(e3.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"dp_return_map launch failed: cudaError_t {err}")
+        LAUNCHES["dp_return_map"] += 1
+    s, D, lam, ep = vals.split((4 * n, 9 * n, n, 4 * n))
+    return s.view(4, n), D.view(3, 3, n), ind_p, lam, ep.view(4, n)
+
+
+def _plain_route(e3: torch.Tensor, name: str) -> None:
+    if e3.device.type != "cpu":
+        raise ValueError(f"{name}: no route for device {e3.device}")
+    LAUNCHES["dp_return_map_plain"] += 1
+
+
+def dp_return_map_newton(
+    e3: torch.Tensor,
+    ep_prev: torch.Tensor,
+    shear: float,
+    bulk: float,
+    eta: float,
+    c: float,
+    e0_dir: Optional[torch.Tensor] = None,
+    zeta: float = 1.0,
+    apply_plastic_strain: bool = False,
+    apex_ep_uses_trial: bool = False,
+):
+    """The Newton loop's return map: (s (4, n), D (3, 3, n), ind_p (n,)
+    bool = lam > 0, lam (n,), ep (4, n)), the initial strain zeta * e0_dir
+    (None: none).  One K2 launch on a CUDA tensor; on a CPU tensor the
+    plain version, `unpack_tangent` and `lam > 0`, with the same bits."""
+    if e3.is_cuda:
+        return dp_return_map_cuda(
+            e3.contiguous(), ep_prev.contiguous(), shear, bulk, eta, c, e0_dir, zeta,
+            apply_plastic_strain, apex_ep_uses_trial,
+        )
+    _plain_route(e3, "dp_return_map_newton")
+    s, ds6, lam, ep = dp_return_map_plain(
+        e3, ep_prev, shear, bulk, eta, c, e0_dir, zeta, apply_plastic_strain,
+        apex_ep_uses_trial,
     )
-    if err != 0:
-        raise RuntimeError(f"dp_return_map launch failed: cudaError_t {err}")
-    LAUNCHES["dp_return_map"] += 1
-    return s, ds6, lam, ep
+    return s, unpack_tangent(ds6), lam > 0.0, lam, ep
 
 
 def dp_return_map_fused(
@@ -276,19 +334,13 @@ def dp_return_map_fused(
     """Fused constitutive update (`return_map_pallas.py:160`).
 
     e3 (3, n) strain, ep_prev (4, n) plastic strain, e0 (4,) initial strain
-    (already zeta-scaled) or None; eta and c become runtime parameters in
-    e3's dtype.  Returns (s (4, n), ds6 (6, n), lam (n,), ep (4, n)).
-    K2 on a CUDA tensor, the plain version on a CPU tensor.
+    (already zeta-scaled) or None; eta and c are rounded to e3's dtype.
+    Returns (s (4, n), ds6 (6, n), lam (n,), ep (4, n)):
+    `dp_return_map_newton`, then `pack_tangent`.
     """
-    params = make_params(eta, c, e0, e3.dtype, e3.device)
-    if e3.is_cuda:
-        return dp_return_map_cuda(
-            e3.contiguous(), ep_prev.contiguous(), params, shear, bulk,
-            apply_plastic_strain, apex_ep_uses_trial,
-        )
-    if e3.device.type != "cpu":
-        raise ValueError(f"dp_return_map_fused: no route for device {e3.device}")
-    LAUNCHES["dp_return_map_plain"] += 1
-    return dp_return_map_plain(
-        e3, ep_prev, params, shear, bulk, apply_plastic_strain, apex_ep_uses_trial
+    if e0 is not None:
+        e0 = e0.reshape(4).to(e3.dtype).contiguous()
+    s, D, _, lam, ep = dp_return_map_newton(
+        e3, ep_prev, shear, bulk, eta, c, e0, 1.0, apply_plastic_strain, apex_ep_uses_trial,
     )
+    return s, pack_tangent(D), lam, ep

@@ -49,7 +49,7 @@ import torch
 
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
-from ..ops.return_map import dp_return_map_fused, unpack_tangent
+from ..ops.return_map import dp_return_map_newton
 from ..ops.spmv import CsrMatrix, NodeBlockMatrix, sp_matvec
 from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg
 
@@ -346,13 +346,13 @@ def build_load_stepper(
             e = sp_matvec(residual_op[0], u).reshape(3, n_int)
         else:
             e = asm.strains(geom, u)
-        e0 = None if e0_dir is None else e0_dir * zeta
         if native_f32:
-            s, ds6, lam, ep_ = dp_return_map_fused(
-                e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply,
-                apex_ep_uses_trial=apex_ep_uses_trial,
+            # one K2 launch writes s, the full tangent, the mask and ep
+            return dp_return_map_newton(
+                e, ep, shear, bulk, eta, c, e0_dir=e0_dir, zeta=zeta,
+                apply_plastic_strain=apply, apex_ep_uses_trial=apex_ep_uses_trial,
             )
-            return s, unpack_tangent(ds6).to(tdtype), lam > 0.0, lam, ep_
+        e0 = None if e0_dir is None else e0_dir * zeta
         s, ds, ind_p, lam, ep_ = dp_return_map_lanes(
             e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply,
             apex_ep_uses_trial=apex_ep_uses_trial,

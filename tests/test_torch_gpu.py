@@ -116,43 +116,53 @@ def cuda_k2():
 def test_k2_matches_plain(cuda_k2, dtype, apply, apex, n):
     """Seeded inputs of the JAX test's distributions, tsx material; n = 1000
     is no multiple of the block size.  Both are built to round alike
-    (-fmad=false), so the bound is the smoke run's: 1e-6 of max |plain| in
-    f32, 1e-13 in f64."""
+    (-fmad=false): s, D, ind_p, lam and ep of one launch are bitwise the
+    plain version with e0 = e0_dir * zeta, `unpack_tangent` and `lam > 0`
+    (so within the smoke run's bound too: 1e-6 of max |plain| in f32, 1e-13
+    in f64); `dp_return_map_fused` gives the plain ds6."""
     shear, bulk = lame_moduli(60000.0, 0.2)
     eta, c = drucker_prager_fit(18.7, 49 * np.pi / 180)
     rng = np.random.default_rng(n)
     e3 = torch.as_tensor(rng.normal(0, 2e-3, (3, n)), dtype=dtype, device=cuda_k2)
     ep = torch.as_tensor(rng.normal(0, 2e-4, (4, n)), dtype=dtype, device=cuda_k2)
-    e0 = torch.as_tensor(rng.normal(0, 1e-3, 4), dtype=dtype, device=cuda_k2)
-    params = rm.make_params(eta, c, e0, dtype, cuda_k2)
-    got = rm.dp_return_map_cuda(e3, ep, params, shear, bulk, apply, apex)
-    exp = rm.dp_return_map_plain(e3, ep, params, shear, bulk, apply, apex)
+    e0_dir = torch.as_tensor(rng.normal(0, 1e-3, 4), dtype=dtype, device=cuda_k2)
+    zeta = float(np.float32(7 / 17))
+    got = rm.dp_return_map_cuda(e3, ep, shear, bulk, eta, c, e0_dir, zeta, apply, apex)
+    ps, pds6, plam, pep = rm.dp_return_map_plain(e3, ep, shear, bulk, eta, c, e0_dir, zeta,
+                                                 apply, apex)
+    exp = (ps, rm.unpack_tangent(pds6), plam > 0.0, plam, pep)
     torch.cuda.synchronize()
     tol = 1e-6 if dtype == torch.float32 else 1e-13
     for g, x in zip(got, exp):
-        assert g.shape == x.shape and g.dtype == dtype
-        assert float((g - x).abs().max()) <= tol * float(x.abs().max())
-    assert torch.equal(got[2] > 0, exp[2] > 0)
-    plastic = exp[2] > 0
-    assert 0 < int(plastic.sum()) < n
-    again = rm.dp_return_map_cuda(e3, ep, params, shear, bulk, apply, apex)
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.equal(g, x)
+        if x.dtype != torch.bool:
+            assert float((g - x).abs().max()) <= tol * float(x.abs().max())
+    assert 0 < int(got[2].sum()) < n
+    fused = rm.dp_return_map_fused(e3, ep, shear, bulk, eta, c, e0_dir * zeta, apply, apex)
+    assert all(torch.equal(g, x) for g, x in zip(fused, (ps, pds6, plam, pep)))
+    again = rm.dp_return_map_cuda(e3, ep, shear, bulk, eta, c, e0_dir, zeta, apply, apex)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_k2_refuses_wrong_inputs(cuda_k2):
     e3 = torch.zeros((3, 8), device=cuda_k2)
     ep = torch.zeros((4, 8), device=cuda_k2)
-    params = rm.make_params(0.5, 1.0, None, torch.float32, cuda_k2)
+    args = (1.0, 1.0, 0.5, 1.0)
     with pytest.raises(ValueError):  # dtype mismatch
-        rm.dp_return_map_cuda(e3, ep.double(), params, 1.0, 1.0)
+        rm.dp_return_map_cuda(e3, ep.double(), *args)
     with pytest.raises(ValueError):  # shape
-        rm.dp_return_map_cuda(e3, ep[:3], params, 1.0, 1.0)
+        rm.dp_return_map_cuda(e3, ep[:3], *args)
     with pytest.raises(ValueError):  # contiguity
-        rm.dp_return_map_cuda(torch.zeros((8, 3), device=cuda_k2).T, ep, params, 1.0, 1.0)
+        rm.dp_return_map_cuda(torch.zeros((8, 3), device=cuda_k2).T, ep, *args)
     with pytest.raises(ValueError):  # device
-        rm.dp_return_map_cuda(e3, ep.cpu(), params, 1.0, 1.0)
+        rm.dp_return_map_cuda(e3, ep.cpu(), *args)
     with pytest.raises(ValueError):  # integer input
-        rm.dp_return_map_cuda(e3.int(), ep.int(), params.int(), 1.0, 1.0)
+        rm.dp_return_map_cuda(e3.int(), ep.int(), *args)
+    with pytest.raises(ValueError):  # e0_dir of another dtype
+        rm.dp_return_map_cuda(e3, ep, *args, torch.zeros(4, device=cuda_k2).double())
+    with pytest.raises(ValueError):  # e0_dir of another shape
+        rm.dp_return_map_cuda(e3, ep, *args, torch.zeros(3, device=cuda_k2))
 
 
 def test_f32_solves_run_through_k2(cuda_k2):
@@ -552,11 +562,11 @@ def cuda_k7():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [128, 908])
+@pytest.mark.parametrize("n", [128, 200, 908, 2000])
 def test_k7_matches_plain(cuda_k7, n):
     """The factor and its inverse blocks within 1e-5 of the plain version,
     the solve within 1e-5 of the plain solve on the same factor and within
-    5e-6 of the f64 solve; two launches bit-identical."""
+    5e-6 of the f64 solve; two launches bit-identical; one launch each."""
     rng = np.random.default_rng(n)
     A = rng.normal(size=(n, n))
     A = (A @ A.T + n * np.eye(n)).astype(np.float32)
@@ -578,6 +588,25 @@ def test_k7_matches_plain(cuda_k7, n):
     L2, inv2 = chol.cholesky_factor(K)
     assert torch.equal(L, L2) and torch.equal(inv, inv2)
     assert torch.equal(x, chol.cholesky_solve(L, inv, b, n))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 5, 17])
+def test_k7_solve_on_a_small_grid(cuda_k7, monkeypatch, blocks):
+    """Fewer blocks than steps and tiles (29 at n = 908): a block takes
+    several steps and tiles in order, stages three and reads the rest from
+    device memory.  Each partial is formed the same way wherever it runs,
+    so x is bitwise the full grid's."""
+    n = 908
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(n, n))
+    K = torch.as_tensor((A @ A.T + n * np.eye(n)).astype(np.float32), device=cuda_k7)
+    b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda_k7)
+    L, inv = chol.cholesky_factor(K)
+    x = chol.cholesky_solve(L, inv, b, n)
+    full, scratch = chol._solve_grid(cuda_k7.index or 0, L.shape[0])
+    assert full == 8 + 21
+    monkeypatch.setattr(chol, "_solve_grid", lambda device, n_pad: (blocks, scratch))
+    assert torch.equal(chol.cholesky_solve(L, inv, b, n), x)
 
 
 def test_k7_refuses_wrong_inputs(cuda_k7):

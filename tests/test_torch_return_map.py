@@ -3,7 +3,8 @@
 The same seeded numpy inputs go through the JAX package's Pallas kernel in
 interpret mode (as tests/test_pallas_return_map.py runs it), through its
 XLA lanes return map, and through the port's `dp_return_map_plain` /
-`dp_return_map_fused`.  The CUDA kernel itself is held to the plain
+`dp_return_map_fused`, and through the Newton loop's entry
+`dp_return_map_newton`.  The CUDA kernel itself is held to the plain
 version on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 import functools
@@ -19,7 +20,10 @@ from fem_elastoplasticity_tpu.models.materials import (
     lame_moduli,
 )
 from fem_elastoplasticity_tpu.ops.return_map_pallas import dp_return_map_pallas
+from fem_elastoplasticity_tpu_torch.models import tsx_tunnel as tsx
+from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
 from fem_elastoplasticity_tpu_torch.ops import return_map as rm
+from fem_elastoplasticity_tpu_torch.solve import newton
 
 torch.set_num_threads(1)
 
@@ -127,4 +131,59 @@ def test_unpack_tangent_and_cpu_route_counts():
     s0, _, lam0, _ = rm.dp_return_map_fused(e3, ep, G, K, ETA, C, e0=torch.zeros(4))
     assert torch.equal(s, s0) and torch.equal(lam, lam0)
     with pytest.raises(ValueError):
-        rm.dp_return_map_cuda(e3, ep, rm.make_params(ETA, C, None, e3.dtype, e3.device), G, K)
+        rm.dp_return_map_cuda(e3, ep, G, K, ETA, C)
+
+
+@pytest.mark.parametrize("apex", [False, True], ids=["apex_total", "apex_trial"])
+@pytest.mark.parametrize("apply", [False, True], ids=["no_ep", "ep"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_newton_entry_is_plain_unpacked(dtype, apply, apex):
+    """`dp_return_map_newton` on the CPU: bitwise the plain version with
+    e0 = e0_dir * zeta, then `unpack_tangent` and `lam > 0`; and, with
+    zeta = 1, the Pallas kernel (interpret mode) with its tangent unpacked,
+    at the bounds of `test_plain_matches_pallas_interpret`."""
+    tdt = getattr(torch, dtype)
+    e3, ep, e0 = (torch.as_tensor(a, dtype=tdt) for a in _sample(11))
+    zeta = float(np.float32(7 / 17))
+    rm.LAUNCHES.clear()
+    s, D, ind_p, lam, ep_new = rm.dp_return_map_newton(
+        e3, ep, G, K, ETA, C, e0_dir=e0, zeta=zeta,
+        apply_plastic_strain=apply, apex_ep_uses_trial=apex)
+    assert dict(rm.LAUNCHES) == {"dp_return_map_plain": 1}
+    ps, pds6, plam, pep = rm.dp_return_map_plain(e3, ep, G, K, ETA, C, e0, zeta, apply, apex)
+    assert D.shape == (3, 3, N) and ind_p.dtype == torch.bool
+    for got, want in ((s, ps), (D, rm.unpack_tangent(pds6)), (ind_p, plam > 0.0),
+                      (lam, plam), (ep_new, pep)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(rm.pack_tangent(D), pds6)
+
+    js, jds6, jlam, jep = _jax(jnp.float64 if dtype == "float64" else jnp.float32,
+                               apply, apex, 11)
+    s, D, ind_p, lam, ep_new = (t.numpy() for t in rm.dp_return_map_newton(
+        e3, ep, G, K, ETA, C, e0_dir=e0, zeta=1.0,
+        apply_plastic_strain=apply, apex_ep_uses_trial=apex))
+    np.testing.assert_array_equal(ind_p, jlam > 0)
+    jd = rm.unpack_tangent(torch.as_tensor(np.array(jds6))).numpy()
+    scale = lambda a: float(np.abs(a).max())  # noqa: E731
+    tol_s, tol_d, tol_l = (1e-12, 1e-9, 0.0) if dtype == "float64" else (2e-6, 2e-6, 2e-6)
+    assert np.abs(s - js).max() <= tol_s * scale(js)
+    assert np.abs(D - jd).max() <= tol_d * scale(jd)
+    assert np.abs(lam - jlam).max() <= max(tol_l * scale(jlam), 1e-15)
+    assert np.abs(ep_new - jep).max() <= max(tol_l * scale(jep), 1e-15)
+
+
+def test_f32_newton_route_takes_the_newton_entry(monkeypatch):
+    """The native f32 Newton loop calls `dp_return_map_newton` for every
+    return map, and on the CPU each call runs the plain version once."""
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("zeta"))
+        return rm.dp_return_map_newton(*args, **kw)
+
+    monkeypatch.setattr(newton, "dp_return_map_newton", counted)
+    rm.LAUNCHES.clear()
+    r = tsx.solve(TsxTunnelConfig.fast_f32(zeta_max=2 / 17), device="cpu")
+    assert r.n_steps == 2 and len(calls) > 2
+    assert dict(rm.LAUNCHES) == {"dp_return_map_plain": len(calls)}
+    assert all(isinstance(z, float) and z > 0 for z in calls)
