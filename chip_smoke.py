@@ -9,7 +9,8 @@ them against the repository's anchors:
   2. build    — builds kernels K1 and K3's CSR kernel (one template,
                 ops/csrc/csr_spmv.cu: the residual, the footing scale
                 path's Galerkin value maps, the high-order f32 heads of G
-                and S), K2 (ops/csrc/dp_return_map.cu), K3's product on
+                and S), K2 and its member-batched instance
+                (ops/csrc/dp_return_map.cu), K3's product on
                 node blocks (ops/csrc/block_jacobi_sweep.cu) and its
                 transfers (ops/csrc/node_transfer.cu), K4 and K5
                 (ops/csrc/block_jacobi_sweep.cu), K6 (ops/csrc/ell_spmv.cu)
@@ -36,8 +37,12 @@ them against the repository's anchors:
                 unique values), at 896 points one PyTorch elementwise
                 kernel on 896 values (the launch floor), at 227,072 also
                 with L2 flushed before each launch; the Newton loop's entry
-                `dp_return_map_newton`, run once under torch.profiler,
-                launches one kernel on the card, K2;
+                `dp_return_map_newton`, run under torch.profiler beside a
+                marker kernel, launches one kernel on the card, K2 (a
+                profile that lost the marker or the entry's kernels is
+                taken again, 3 tries; failing that, the kernels are
+                counted from the operators the entry dispatches and K2's
+                launch count);
   5. K7       — `cholesky_factor` and `cholesky_solve` (its own entry
                 points; no solve calls it) on the seeded SPD matrices of
                 `tests/test_cholesky_pallas.py` at n = 128, 200, 908 and
@@ -244,7 +249,27 @@ them against the repository's anchors:
                 K3's transfers on the P4 and P4-refine-2 p-multigrid levels
                 (`k3_phase`) and K4 on the P4 levels and the refine-2 fine
                 level (`k4_phase`), each against its plain version by the
-                earlier phases' rules.
+                earlier phases' rules;
+ 32. K2 batched — K2's member-batched instance over the 64 ensemble
+                members (`ensemble_grid`) at 896 and 3,584 points a member,
+                f32 and f64, both plastic-strain and apex modes: one
+                launch `torch.equal` to the batched plain version and to
+                64 single K2 launches, two launches bit-identical; times
+                beside the bytes bound (89 / 177 bytes a point), the 64
+                single launches and the launch floor;
+ 33. ensembles — the 64 members (the 8 x 8 cohesion x friction grid of
+                benchmarks/ensemble_bench.py, member 28 the reference
+                material) through `parallel.ensemble`: f32
+                (`fast_f32()`), f64 and df32 on the dense solver and df32
+                matrix-free CG at refine 1, full schedules, each twice
+                (bit-identical) and once profiled; every member's steps and
+                last zeta those of its single port solve, at least 8
+                (the weakest and the reference among them) also its Newton
+                and plastic counts with u within `ENSEMBLE_U_GATES`; the
+                f32 run's return maps all K2's batched instance (no single
+                launch, no plain version); walls, solves/s, the 64 single
+                solves' serial wall, device busy and idle share, kernels
+                and host reads a sweep, peak device memory.
 
 Every phase prints its lines with the card line beside its numbers, and
 the later phases their seconds.  Before
@@ -595,32 +620,97 @@ def k2_phase(torch, rm, device, card):
                         f"plain {plain_ms:.5f} ms bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes)"
                         f"{extra} | eager: kernel {eager_ms:.5f} ms plain {plain_eager_ms:.5f} ms "
                         f"| {card}")
-    kernels = newton_entry_kernels(torch, device, shear, bulk, eta, c, zeta)
+    kernels, how = newton_entry_kernels(torch, rm, device, shear, bulk, eta, c, zeta)
     check(len(kernels) == 1 and "dp_return_map" in kernels[0],
-          f"K2: one Newton return map ran {len(kernels)} kernels on the card ({kernels})")
-    say("K2", f"one Newton return map (`dp_return_map_newton`, 896 f32 points) under "
-        f"torch.profiler: {len(kernels)} kernel on the card ({kernels[0]}) | {card}")
+          f"K2: one Newton return map ran {len(kernels)} kernels on the card ({kernels}; {how})")
+    say("K2", f"one Newton return map (`dp_return_map_newton`, 896 f32 points), {how}: "
+        f"{len(kernels)} kernel on the card ({kernels[0]}) | {card}")
     return shapes, max_err, bitwise
 
 
-def newton_entry_kernels(torch, device, shear, bulk, eta, c, zeta):
-    """The names of the kernels that one call of the Newton loop's return
-    map (`solve.newton.dp_return_map_newton`, 896 f32 points, initial strain
-    zeta * e0_dir, no plastic-strain update) runs on the card, from
-    torch.profiler."""
+# torch.neg's kernel, launched after the profiled work has finished: the
+# profiled work's kernels are those that start before its last launch, and
+# a profile that lost it saw no device activity and says nothing of the work
+PROFILE_MARKER = "neg_kernel"
+
+
+def profiled_kernels(torch, fn, tries: int = 1):
+    """(kernel events of one run of fn() under torch.profiler, host wall s),
+    or (None, None) if none of `tries` profiles recorded both the marker
+    kernel launched after fn() and a kernel of fn(): the profiler can lose
+    a session's device activity, and such a profile is not read."""
     from torch.profiler import ProfilerActivity, profile
 
+    x = torch.ones(1024, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.neg(x)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        marks = [e.time_range.start for e in events if PROFILE_MARKER in e.name]
+        if marks:
+            work = [e for e in events if e.time_range.start < max(marks)]
+            if work:
+                return work, wall
+    return None, None
+
+
+def dispatched_kernels(torch, rm, fn):
+    """The kernels fn() launches on the card without the profiler: K2's
+    launches by its count, and every PyTorch operator fn() dispatches on a
+    CUDA tensor that is not an allocation or a view (each such operator
+    launches a kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    no_kernel = ("empty", "empty_strided", "empty_like")
+
+    class Log(TorchDispatchMode):
+        ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            cuda = any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in torch.utils._pytree.tree_leaves((args, kwargs, out)))
+            if cuda and not func.is_view and func.__name__.split(".")[0] not in no_kernel:
+                self.ops.append(func.__name__)
+            return out
+
+    before = rm.LAUNCHES["dp_return_map"]
+    with Log():
+        fn()
+        torch.cuda.synchronize()
+    return ["dp_return_map"] * (rm.LAUNCHES["dp_return_map"] - before) + Log.ops
+
+
+def newton_entry_kernels(torch, rm, device, shear, bulk, eta, c, zeta):
+    """(names of the kernels that one call of the Newton loop's return map
+    (`solve.newton.dp_return_map_newton`, 896 f32 points, initial strain
+    zeta * e0_dir, no plastic-strain update) runs on the card, how they
+    were counted): from torch.profiler, or, where no profile recorded its
+    marker and a kernel of the entry, from `dispatched_kernels`."""
     from fem_elastoplasticity_tpu_torch.solve import newton
 
     e3 = torch.full((3, 896), 1e-3, device=device)
     ep = torch.zeros((4, 896), device=device)
     e0_dir = torch.full((4,), 1e-4, device=device)
-    newton.dp_return_map_newton(e3, ep, shear, bulk, eta, c, e0_dir=e0_dir, zeta=zeta)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def entry():
         newton.dp_return_map_newton(e3, ep, shear, bulk, eta, c, e0_dir=e0_dir, zeta=zeta)
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+    entry()
+    torch.cuda.synchronize()
+    tries = 3
+    events, _ = profiled_kernels(torch, entry, tries)
+    if events is not None:
+        return [e.name for e in events], "under torch.profiler"
+    return (dispatched_kernels(torch, rm, entry),
+            f"counted from its dispatched operators and K2's launch count (no profile of "
+            f"{tries} recorded the marker kernel and a kernel of the entry)")
 
 
 class CountCalls:
@@ -1293,18 +1383,21 @@ def fixture_config(TsxTunnelConfig, ElementType, want):
 
 def idle_share(torch, fn):
     """(device busy s, idle share, kernels) of one run of fn() under
-    torch.profiler: the share of its host wall in which no kernel ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    torch.profiler: the share of its host wall in which no kernel ran;
+    (None, None, None) where the profile lost the device's activity
+    (`profiled_kernels`; one try: a profile of a long run costs tens of
+    seconds)."""
+    kernels, wall = profiled_kernels(torch, fn)
+    if kernels is None:
+        return None, None, None
     busy = 1e-6 * sum(e.device_time_total for e in kernels)
     return busy, 1.0 - busy / wall, len(kernels)
+
+
+def busy_line(busy, idle, n_kernels) -> str:
+    if busy is None:
+        return "device busy and idle share not measured (the profile lost the device's activity)"
+    return f"device busy {busy:.4f} s, idle share {idle:.3f}, {n_kernels} kernels"
 
 
 def df32_twice(torch, spmv, tsx, cfg, device):
@@ -1461,6 +1554,250 @@ def high_order_plastic_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, dev
         launches_by[name] = launches
         say("high order plastic", f"{tag}: {line}, wall {first:.3f} s | {card}")
     return launches_by
+
+
+# the ensemble's full width: the 8 x 8 (cohesion x friction) grid of
+# benchmarks/ensemble_bench.py:24-26, cohesion-major; member 28, the grid
+# point nearest the reference material (18.714, 48.57 deg), is swapped for
+# the reference (18.7, 49 deg)
+ENSEMBLE_REFERENCE = 28
+# members held to their single solves' counts and u: the weakest (14, 40
+# deg), the other corners, the reference and three inside the grid
+ENSEMBLE_HELD = (0, 7, 56, 63, ENSEMBLE_REFERENCE, 9, 18, 45)
+# u gates of a member against its single solve (tests/test_parallel.py):
+# absolute for f64 and the dense df32, relative for f32 (its floor) and the
+# df32 CG members
+ENSEMBLE_U_GATES = {"f32": ("rel", 1e-5), "f64": ("abs", 1e-12), "df32": ("abs", 1e-15),
+                    "df32_cg_L1": ("rel", 1e-14)}
+
+
+def ensemble_grid(np):
+    """(cohesions, friction angles, eta, c) of the 64 members."""
+    from fem_elastoplasticity_tpu_torch.models.materials import drucker_prager_fit
+    from fem_elastoplasticity_tpu_torch.parallel.ensemble import material_grid
+
+    coh, fr = np.linspace(14, 25, 8), np.deg2rad(np.linspace(40, 55, 8))
+    cc, ff = (a.ravel().copy() for a in np.meshgrid(coh, fr, indexing="ij"))
+    eta, c = material_grid(coh, fr)
+    cc[ENSEMBLE_REFERENCE], ff[ENSEMBLE_REFERENCE] = 18.7, 49.0 * np.pi / 180.0
+    eta[ENSEMBLE_REFERENCE], c[ENSEMBLE_REFERENCE] = drucker_prager_fit(18.7, 49.0 * np.pi / 180.0)
+    return cc, ff, eta, c
+
+
+def k2_batched_phase(torch, rm, device, card):
+    """Phase 32: K2's member-batched instance over the 64 members at the
+    parity mesh's 896 points and refine 1's 3,584, f32 and f64, both
+    plastic-strain modes and both apex modes: one launch's s, D, ind_p, lam
+    and ep `torch.equal` to the batched plain version and to 64 single K2
+    launches, two launches bit-identical; CUDA-event times beside the bytes
+    bound, the 64 single launches and the launch floor."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.models.materials import lame_moduli
+
+    shear, bulk = lame_moduli(60000.0, 0.2)
+    _, _, eta, c = ensemble_grid(np)
+    n_b = eta.size
+    xf = torch.ones(896, dtype=torch.float32, device=device)
+    yf = torch.empty_like(xf)
+    floor_ms = cuda_ms(torch, lambda: torch.neg(xf, out=yf), reps=100)[0]
+    shapes, max_err = {}, 0.0
+    for n in (896, 3584):
+        rng = np.random.default_rng(SEED + 7 * n)
+        e3_np = rng.normal(0, 2e-3, (n_b, 3, n))
+        ep_np = rng.normal(0, 2e-4, (n_b, 4, n))
+        e0_np = rng.normal(0, 1e-3, 4)
+        zetas = np.float32(rng.integers(1, 18, n_b) / 17).astype(np.float64)
+        params = torch.as_tensor(np.stack([eta, c, zetas], axis=1), device=device)
+        for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            e3 = torch.as_tensor(e3_np, dtype=dt, device=device)
+            ep = torch.as_tensor(ep_np, dtype=dt, device=device)
+            e0_dir = torch.as_tensor(e0_np, dtype=dt, device=device)
+            for apply in (False, True):
+                for apex in (False, True):
+                    args = (e3, ep, shear, bulk, params, e0_dir, apply, apex)
+
+                    def plain():
+                        s, ds6, lam, ep_ = rm.dp_return_map_plain_batched(*args)
+                        return s, rm.unpack_tangent(ds6), lam > 0.0, lam, ep_
+
+                    def singles():
+                        return [rm.dp_return_map_cuda(
+                            e3[b], ep[b], shear, bulk, float(eta[b]), float(c[b]), e0_dir,
+                            float(zetas[b]), apply, apex) for b in range(n_b)]
+
+                    got = rm.dp_return_map_batched_cuda(*args)
+                    again = rm.dp_return_map_batched_cuda(*args)
+                    exp = plain()
+                    one = singles()
+                    torch.cuda.synchronize()
+                    tag = (f"B{n_b}_n{n}_{dt_name}_{'ep' if apply else 'noep'}"
+                           f"{'_trial' if apex else ''}")
+                    ind = got[2]
+                    apex_pts = ind & (got[1] == 0).all(dim=1).all(dim=1)
+                    n_plastic, n_apex = int(ind.sum()), int(apex_pts.sum())
+                    check(0 < n_apex < n_plastic < n_b * n, f"K2 batched {tag}: branches not "
+                          f"all hit ({n_plastic} plastic, {n_apex} apex of {n_b * n})")
+                    err = max(float((g - x).abs().max()) for g, x in zip(got, exp)
+                              if x.dtype != torch.bool)
+                    max_err = max(max_err, err)
+                    check(all(torch.equal(g, x) for g, x in zip(got, exp)),
+                          f"K2 batched {tag}: not bitwise the batched plain version")
+                    check(all(torch.equal(g[b], o) for b in range(n_b)
+                              for g, o in zip(got, one[b])),
+                          f"K2 batched {tag}: not bitwise the {n_b} single launches")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"K2 batched {tag}: two launches differ")
+                    ms, eager_ms = cuda_ms(torch, lambda: rm.dp_return_map_batched_cuda(*args),
+                                           reps=100)
+                    plain_ms = cuda_ms(torch, plain, reps=10)[0]
+                    singles_ms, singles_eager_ms = cuda_ms(torch, singles, reps=10)
+                    n_bytes = K2_BYTES_PER_POINT[dt_name] * n_b * n
+                    b_ms, b_by = bound_ms(n_bytes, K2_FLOPS_PER_POINT * n_b * n, dt_name)
+                    shapes[tag] = dict(
+                        members=n_b, n=n, dtype=dt_name, apply_plastic_strain=apply,
+                        apex_ep_uses_trial=apex, n_plastic=n_plastic, n_apex=n_apex,
+                        bitwise_equal_to_plain=True, bitwise_equal_to_single_launches=True,
+                        ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                        singles_ms=singles_ms, singles_eager_ms=singles_eager_ms,
+                        launch_floor_ms=floor_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+                    )
+                    say("K2 batched", f"{tag}: {n_plastic} plastic / {n_apex} apex, bitwise the "
+                        f"plain version and {n_b} single launches | device: one launch {ms:.5f} "
+                        f"ms, {n_b} single launches {singles_ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                        f"bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes), launch floor "
+                        f"{floor_ms:.5f} ms | eager: one launch {eager_ms:.5f} ms, {n_b} single "
+                        f"launches {singles_eager_ms:.5f} ms | {card}")
+    return shapes, max_err
+
+
+def ensemble_runs(TsxTunnelConfig):
+    """(tag, config, df32) of the four ensembles phase 33 runs."""
+    return (
+        ("f32", TsxTunnelConfig.fast_f32(), False),
+        ("f64", TsxTunnelConfig(), False),
+        ("df32", TsxTunnelConfig.fast(), True),
+        ("df32_cg_L1", TsxTunnelConfig.fast(solver="cg", refine_levels=1), True),
+    )
+
+
+# the CG ensemble's single solves take ~7.5 s each on the card (about
+# 10,000 CG iterations a solve): the smoke compares these ten members
+# (ENSEMBLE_HELD and two more) and times their sequence;
+# tools/ensemble_phases.py --all-singles compares all 64.  Its profile
+# covers the first ENSEMBLE_CG_PROFILE_TRIPS load trips: the full schedule
+# is ~700,000 kernels, too many events for the profiler in the smoke's time
+ENSEMBLE_CG_SINGLES = ENSEMBLE_HELD + (27, 36)
+ENSEMBLE_CG_PROFILE_TRIPS = 4
+
+
+def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool = False):
+    """Phase 33: the four 64-member ensembles at full schedule, each run
+    twice and bit-identical, once more under torch.profiler (the CG
+    ensemble over its first ENSEMBLE_CG_PROFILE_TRIPS load trips); each
+    compared member's schedule against its single port solve (the same
+    steps and last zeta: every member, but ENSEMBLE_CG_SINGLES' on the CG
+    run unless `all_singles`), and at least 8, ENSEMBLE_HELD's weakest and
+    reference among them, also Newton- and plastic-equal with u within
+    ENSEMBLE_U_GATES; the f32 ensemble through K2's batched instance only.
+    Returns ({run: its numbers}, the f32 run's K2 launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.ops import return_map as rm
+    from fem_elastoplasticity_tpu_torch.parallel import ensemble as ens
+    from fem_elastoplasticity_tpu_torch.solve import newton
+
+    cc, ff, eta, c = ensemble_grid(np)
+    n_b = eta.size
+    out, k2_launches = {}, {}
+    for tag, cfg, df32 in ensemble_runs(TsxTunnelConfig):
+        t_phase = time.perf_counter()
+        entry = ens.solve_tsx_ensemble_df32 if df32 else ens.solve_tsx_ensemble
+        cg = cfg.solver == "cg"
+
+        def solve(cfg=cfg):
+            return entry(eta, c, cfg, device=device)
+
+        rm.LAUNCHES.clear()
+        newton.ENSEMBLE_STATS.clear()
+        e1, first = timed(torch, solve)
+        launches, stats = dict(rm.LAUNCHES), dict(newton.ENSEMBLE_STATS)
+        torch.cuda.reset_peak_memory_stats(device)
+        e2, warm = timed(torch, solve)
+        peak = torch.cuda.max_memory_allocated(device)
+        check(all(np.array_equal(getattr(e1, k), getattr(e2, k)) for k in e1._fields),
+              f"ensemble {tag}: two runs differ")
+        newton.ENSEMBLE_STATS.clear()
+        prof_cfg = dataclasses.replace(cfg, max_trips=ENSEMBLE_CG_PROFILE_TRIPS) if cg else cfg
+        busy, idle, n_kernels = idle_share(torch, lambda: solve(prof_cfg))
+        prof_stats = dict(newton.ENSEMBLE_STATS)
+        if tag == "f32":
+            k2_launches = launches
+            check(launches.get("dp_return_map_batched", 0) > 0 and set(launches) == {
+                "dp_return_map_batched"}, f"ensemble f32: K2 launches {launches}")
+        else:
+            check(not launches, f"ensemble {tag}: a K2 route ran ({launches})")
+        members = ENSEMBLE_CG_SINGLES if cg and not all_singles else tuple(range(n_b))
+        t0 = time.perf_counter()
+        singles = {k: tsx.solve(dataclasses.replace(cfg, cohesion=float(cc[k]),
+                                                    friction_angle=float(ff[k])), device=device)
+                   for k in members}
+        torch.cuda.synchronize()
+        serial = time.perf_counter() - t0
+        kind, gate = ENSEMBLE_U_GATES[tag]
+        same_end, held, moved = 0, [], []
+        for k, r in singles.items():
+            steps = int(e1.n_steps[k])
+            if steps == r.n_steps and e1.zeta_hist[k, steps - 1] == r.zeta_hist[steps - 1]:
+                same_end += 1
+            du = float(np.abs(e1.u[k] - r.u).max())
+            if kind == "rel":
+                du /= float(np.abs(r.u).max())
+            counts = (steps, int(e1.n_newton_total[k]), int(e1.n_plastic[k]))
+            if counts == (r.n_steps, r.n_newton_total, r.n_plastic) and du <= gate:
+                held.append(k)
+            else:
+                moved.append((k, counts, (r.n_steps, r.n_newton_total, r.n_plastic), du))
+        check(same_end == len(singles), f"ensemble {tag}: {len(singles) - same_end} members "
+              "end where their single solves do not")
+        check(len(held) >= 8 and {0, ENSEMBLE_REFERENCE} <= set(held),
+              f"ensemble {tag}: members off their single solves: {moved[:12]}")
+        sweeps = stats["sweeps"]
+        out[tag] = dict(
+            members=n_b, first_s=first, warm_s=warm, solves_per_s=n_b / warm,
+            singles=len(singles), serial_s=serial,
+            serial_64_s=serial * n_b / len(singles), busy_s=busy, idle_share=idle,
+            profiled_trips=ENSEMBLE_CG_PROFILE_TRIPS if cg else None, kernels=n_kernels,
+            sweeps=sweeps,
+            kernels_per_sweep=None if n_kernels is None else n_kernels / prof_stats["sweeps"],
+            host_reads_per_sweep=stats["host_reads"] / sweeps, peak_gib=peak / 2**30,
+            steps=[int(e1.n_steps.min()), int(e1.n_steps.max())],
+            newton=[int(e1.n_newton_total.min()), int(e1.n_newton_total.max())],
+            plastic=[int(e1.n_plastic.min()), int(e1.n_plastic.max())],
+            held=len(held), moved=[m[:3] for m in moved], k2_launches=launches,
+            reference_u40=float(e1.u[ENSEMBLE_REFERENCE, 40, 0]),
+            phase_s=time.perf_counter() - t_phase,
+        )
+        o = out[tag]
+        serial_line = (f"{n_b} single solves in sequence {serial:.3f} s" if len(singles) == n_b
+                       else f"{len(singles)} single solves in sequence {serial:.3f} s "
+                       f"({o['serial_64_s']:.1f} s for {n_b} at that rate)")
+        per_sweep = ("" if n_kernels is None
+                     else f": {o['kernels_per_sweep']:.1f} kernels a sweep")
+        prof_line = (f" (profiled over the first {ENSEMBLE_CG_PROFILE_TRIPS} load trips, "
+                     f"{prof_stats['sweeps']} sweeps)" if cg else "")
+        say("ensemble", f"{tag}: {n_b} members, steps {o['steps']}, Newton {o['newton']}, "
+            f"plastic {o['plastic']}; repeat bit-identical; the {len(singles)} compared end "
+            f"with their single solves' steps and last zeta; {len(held)} with equal steps / "
+            f"Newton / plastic and u within {gate:g} ({kind}), the others "
+            f"{o['moved']} | wall first {first:.4f} s warm {warm:.4f} s ({n_b / warm:.1f} "
+            f"solves/s), {serial_line} | {busy_line(busy, idle, n_kernels)}{prof_line}"
+            f"{per_sweep}; "
+            f"{sweeps} sweeps, {o['host_reads_per_sweep']:.2f} host reads a sweep | K2 "
+            f"{launches} | peak {peak / 2**30:.3f} GiB | phase {o['phase_s']:.1f} s | {card}")
+    return out, k2_launches
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -2119,8 +2456,9 @@ def main() -> int:
         f"{p4_res.newton_trips}, u40 {p4_u40:.12e} (rel {p4_rel:.3e} to {ANCHOR_U40_P4}), u sha256 "
         f"{u_digest(p4.u)}, launches {l_p4}, repeat bit-identical, wall first {p4_first:.3f} s "
         f"warm {p4_warm:.3f} s, {1e3 * p4_warm / p4.n_cg_total:.4f} ms a CG iteration; profiled "
-        f"run: device busy {p4_busy:.4f} s, idle share {p4_idle:.3f}, {p4_kernels} kernels "
-        f"({p4_kernels / p4.n_cg_total:.1f} a CG iteration) | {card}")
+        f"run: {busy_line(p4_busy, p4_idle, p4_kernels)}"
+        f"{'' if p4_kernels is None else f' ({p4_kernels / p4.n_cg_total:.1f} a CG iteration)'}"
+        f" | {card}")
     say("phase time", f"tsx P4 full schedule {time.perf_counter() - t_phase:.1f} s | {card}")
 
     # phase 28: the P2 and P4 routes cut at the JAX fixtures, twice each
@@ -2214,6 +2552,18 @@ def main() -> int:
     del ex_p2, ex_p4, big, run_p4
     say("phase time", f"high-order kernels {time.perf_counter() - t_phase:.1f} s | {card}")
 
+    # phase 32: K2's member-batched instance against its plain version and
+    # against 64 single launches
+    t_phase = time.perf_counter()
+    k2b_shapes, k2b_err = k2_batched_phase(torch, rm, device, card)
+    say("phase time", f"K2 batched {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 33: the four 64-member ensembles, each against its members'
+    # single solves
+    t_phase = time.perf_counter()
+    ens_runs, k2_ens = ensemble_phase(torch, tsx, TsxTunnelConfig, device, card)
+    say("phase time", f"ensembles {time.perf_counter() - t_phase:.1f} s | {card}")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -2263,6 +2613,26 @@ def main() -> int:
         "launch_floor_ms": main_k2["launch_floor_ms"],
         "bitwise_equal_to_plain": k2_bitwise,
         "shapes": k2_shapes,
+    }, {
+        "name": "dp_return_map_batched",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/dp_return_map.cu",
+        # K2's member-batched instance: the Pallas kernel under the JAX
+        # ensemble's vmap
+        "replaces": "fem_elastoplasticity_tpu/ops/return_map_pallas.py:160",
+        "launches": k2_ens.get("dp_return_map_batched", 0),
+        "launches_by_path": {"ensemble_f32": k2_ens.get("dp_return_map_batched", 0)},
+        "max_abs_err": k2b_err,
+        # one Newton sweep of the 64-member f32 ensemble: 64 x 896 points
+        **{key: k2b_shapes["B64_n896_float32_noep"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "singles_ms",
+                       "launch_floor_ms")},
+        # no single PyTorch call computes the return map
+        "library_ms": None,
+        "bitwise_equal_to_plain": True,
+        "bitwise_equal_to_single_launches": True,
+        "shapes": k2b_shapes,
+        "ensembles": ens_runs,
     }, {
         "name": "node_block_spmv",
         "route": "cuda",

@@ -34,11 +34,15 @@ def lame_moduli(young: float, poisson: float):
     return shear, bulk
 
 
-def drucker_prager_fit(cohesion: float, friction_angle: float):
-    """Plane-strain DP fit to Mohr-Coulomb: (eta, c)."""
+def drucker_prager_fit(cohesion, friction_angle):
+    """Plane-strain DP fit to Mohr-Coulomb: (eta, c), Python floats from
+    scalars, float64 arrays from arrays (a material ensemble's grid)."""
     t = np.tan(friction_angle)
     den = np.sqrt(9.0 + 12.0 * t * t)
-    return float(3.0 * t / den), float(3.0 * cohesion / den)
+    eta, c = 3.0 * t / den, 3.0 * cohesion / den
+    if np.ndim(eta) == 0 and np.ndim(c) == 0:
+        return float(eta), float(c)
+    return np.asarray(eta, np.float64), np.asarray(c, np.float64)
 
 
 def elastic_tangent_lanes(shear, bulk, n: int, dtype=torch.float64, device=None):
@@ -52,13 +56,21 @@ def elastic_tangent_lanes(shear, bulk, n: int, dtype=torch.float64, device=None)
     )
 
 
+def lanes(value, like: torch.Tensor) -> torch.Tensor:
+    """A Python float as a tensor shaped like `like`; a (B, 1) per-member
+    tensor broadcast to it."""
+    if torch.is_tensor(value):
+        return value.expand_as(like)
+    return torch.full_like(like, value)
+
+
 def dp_return_map_lanes(
     e3: torch.Tensor,
     ep_prev: torch.Tensor,
     shear: float,
     bulk: float,
-    eta: float,
-    c: float,
+    eta,
+    c,
     e0: Optional[torch.Tensor] = None,
     apply_plastic_strain: bool = False,
     apex_ep_uses_trial: bool = False,
@@ -68,27 +80,35 @@ def dp_return_map_lanes(
     e3 (3, n), ep_prev (4, n), e0 optional (4,) or (4, n).  Returns
     s (4, n), ds (3, 3, n), ind_p (n,), lam (n,), ep (4, n); ep equals
     ep_prev unless `apply_plastic_strain`.
+
+    Member-batched: e3 (B, 3, n), ep_prev (B, 4, n), eta and c (B, 1)
+    tensors of e3's dtype, e0 (B, 4, 1) or (B, 4, n); every result gains the
+    leading member axis.  The arithmetic is the same, in the same order, so
+    on the CPU member b's bits are those of a call with its eta and c as
+    Python floats.
     """
-    zero = torch.zeros_like(e3[0])
-    e4 = torch.stack([e3[0], e3[1], e3[2], zero])
+    row = lambda t, k: t[..., k, :]  # noqa: E731
+    zero = torch.zeros_like(row(e3, 0))
+    e4 = torch.stack([row(e3, 0), row(e3, 1), row(e3, 2), zero], dim=-2)
     if e0 is not None:
         e4 = e4 + (e0[:, None] if e0.ndim == 1 else e0)
 
     et = e4 - ep_prev
-    tr = et[0] + et[1] + et[3]
-    dev0 = et[0] - tr / 3.0
-    dev1 = et[1] - tr / 3.0
-    dev2 = et[2] / 2.0
-    dev3_ = et[3] - tr / 3.0
+    tr = row(et, 0) + row(et, 1) + row(et, 3)
+    dev0 = row(et, 0) - tr / 3.0
+    dev1 = row(et, 1) - tr / 3.0
+    dev2 = row(et, 2) / 2.0
+    dev3_ = row(et, 3) - tr / 3.0
 
     two_g = 2.0 * shear
     ktr = bulk * tr
     s_tr = torch.stack(
-        [two_g * dev0 + ktr, two_g * dev1 + ktr, two_g * dev2, two_g * dev3_ + ktr]
+        [two_g * dev0 + ktr, two_g * dev1 + ktr, two_g * dev2, two_g * dev3_ + ktr], dim=-2
     )
 
     norm_sq = torch.clamp(
-        et[0] * dev0 + et[1] * dev1 + et[2] * dev2 + et[3] * dev3_, min=0.0
+        row(et, 0) * dev0 + row(et, 1) * dev1 + row(et, 2) * dev2 + row(et, 3) * dev3_,
+        min=0.0,
     )
     norm_e = torch.sqrt(norm_sq)
     rho_tr = two_g * norm_e
@@ -121,18 +141,18 @@ def dp_return_map_lanes(
     m2 = sg * n2
     m3 = sg * n3 + ke
 
-    s_apex_d = torch.full_like(zero, c / eta)
+    s_apex_d = lanes(c / eta, zero)
     s_out = []
     for k, (mk, apex_k) in enumerate([(m0, s_apex_d), (m1, s_apex_d), (m2, zero), (m3, s_apex_d)]):
         s_out.append(
-            torch.where(ind_s, s_tr[k] - lam_s * mk, torch.where(ind_a, apex_k, s_tr[k]))
+            torch.where(ind_s, row(s_tr, k) - lam_s * mk, torch.where(ind_a, apex_k, row(s_tr, k)))
         )
-    s = torch.stack(s_out)
+    s = torch.stack(s_out, dim=-2)
 
     # consistent tangent: ds_el - coef*(Dev3 - nn^T) - mm^T/denom_s, entry-wise
     safe_rho = torch.where(rho_tr > 0.0, rho_tr, torch.ones_like(rho_tr))
     ca = torch.where(ind_s, 2.0 * SQRT2 * shear * shear * lam_s / safe_rho, zero)
-    ms = torch.where(ind_s, torch.full_like(zero, 1.0 / denom_s), zero)
+    ms = torch.where(ind_s, lanes(1.0 / denom_s, zero), zero)
     e_diag = 4.0 * shear / 3.0 + bulk
     e_off = -2.0 * shear / 3.0 + bulk
     d00 = e_diag - ca * (2.0 / 3.0 - n0 * n0) - m0 * m0 * ms
@@ -146,10 +166,11 @@ def dp_return_map_lanes(
     d01, d02, d12 = d01 * not_a, d02 * not_a, d12 * not_a
     ds = torch.stack(
         [
-            torch.stack([d00, d01, d02]),
-            torch.stack([d01, d11, d12]),
-            torch.stack([d02, d12, d22]),
-        ]
+            torch.stack([d00, d01, d02], dim=-2),
+            torch.stack([d01, d11, d12], dim=-2),
+            torch.stack([d02, d12, d22], dim=-2),
+        ],
+        dim=-3,
     )
 
     if apply_plastic_strain:
@@ -160,21 +181,23 @@ def dp_return_map_lanes(
                 n1 / SQRT2 + eta / 3.0,
                 2.0 * (n2 / SQRT2),
                 n3 / SQRT2 + eta / 3.0,
-            ]
+            ],
+            dim=-2,
         )
-        ep_smooth = ep_prev + lam_s[None, :] * flow
+        ep_smooth = ep_prev + lam_s.unsqueeze(-2) * flow
         apex_base = et if apex_ep_uses_trial else e4
         apex_shift = c / (3.0 * bulk * eta)
         ep_apex = torch.stack(
             [
-                apex_base[0] - apex_shift,
-                apex_base[1] - apex_shift,
-                apex_base[2],
-                apex_base[3] - apex_shift,
-            ]
+                row(apex_base, 0) - apex_shift,
+                row(apex_base, 1) - apex_shift,
+                row(apex_base, 2),
+                row(apex_base, 3) - apex_shift,
+            ],
+            dim=-2,
         )
         ep = torch.where(
-            ind_s[None, :], ep_smooth, torch.where(ind_a[None, :], ep_apex, ep_prev)
+            ind_s.unsqueeze(-2), ep_smooth, torch.where(ind_a.unsqueeze(-2), ep_apex, ep_prev)
         )
     else:
         ep = ep_prev

@@ -122,14 +122,15 @@ class _Problem(NamedTuple):
 
 
 def _problem(cfg: TsxTunnelConfig, device: torch.device,
-             dtype: torch.dtype = torch.float64, mesh: Optional[Mesh] = None) -> _Problem:
+             dtype: torch.dtype = torch.float64, mesh: Optional[Mesh] = None,
+             dense: Optional[bool] = None) -> _Problem:
     """Host setup shared by the presets: mesh, geometry, DOF maps.
 
     The geometry is computed from coordinates rounded to `dtype`, as the
     JAX package's native path does (`models/tsx_tunnel.py:160`); s0 and e0
     are rounded the same way.  `mesh`: a permuted mesh to set up instead of
-    `tsx_mesh` (the assembled paths).  The dense assembly plan is built for
-    the dense solver only."""
+    `tsx_mesh` (the assembled paths).  The dense assembly plan is built
+    where `dense` says (None: for the dense solver only)."""
     if mesh is None:
         mesh = tsx_mesh(cfg.etype, cfg.refine_levels)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
@@ -152,14 +153,15 @@ def _problem(cfg: TsxTunnelConfig, device: torch.device,
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     return _Problem(
         mesh, geom, free_idx,
-        asm.dense_free_plan(geom, fmap, n_free) if cfg.solver == "dense" else None,
+        (asm.dense_free_plan(geom, fmap, n_free)
+         if (cfg.solver == "dense" if dense is None else dense) else None),
         settings, (shear, bulk, eta, c), as_t(s0), as_t(e0),
     )
 
 
 def _monitor(node: int):
-    dof = 2 * node  # u_x of the tunnel-wall node
-    return lambda u, s: u[dof]
+    dof = 2 * node  # u_x of the tunnel-wall node; a (B,) row of a (B, n) batch
+    return lambda u, s: u[..., dof]
 
 
 def _scatter_free(free_idx: torch.Tensor, x_free: torch.Tensor, n_dofs: int):
@@ -217,17 +219,11 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     geom = p.geom
     n_dofs = 2 * geom.n_nodes
 
-    # initial-stress force F0 = B^T (w * s0[:3])  (T:1737)
-    f0 = asm.internal_force(geom, p.s0[:3, None].expand(3, geom.n_int))
-    D = elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
+    f0, D = _initial_force(p), elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
     L = None
     cg_tol = plastic_cg_tol(cfg.cg_tol, dtype)
     if cfg.solver == "dense":
-        K_free = asm.assemble_dense_free(asm.element_stiffness(geom, D), p.plan)
-        L = torch.linalg.cholesky(K_free)
-        u_elast = _scatter_free(
-            p.free_idx, torch.cholesky_solve(-f0[p.free_idx, None], L)[:, 0], n_dofs
-        )
+        u_elast, L = _dense_predictor(p, f0, D)
     else:
         # matrix-free block-Jacobi PCG predictor (JAX `:265-285`)
         free_mask = torch.as_tensor(p.mesh.free.reshape(-1), device=device)
@@ -244,6 +240,48 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     )
     res = stepper(cfg.d_zeta * u_elast, 0.0, cfg.d_zeta)
     return _result(res, p.mesh)
+
+
+def _initial_force(p: _Problem) -> torch.Tensor:
+    """The initial-stress force F0 = B^T (w * s0[:3]) (T:1737) on the
+    problem's geometry."""
+    return asm.internal_force(p.geom, p.s0[:3, None].expand(3, p.geom.n_int))
+
+
+def _dense_predictor(p: _Problem, f0: torch.Tensor, D: torch.Tensor):
+    """The native dense elastic predictor: (u_elast, L), L the Cholesky
+    factor of the elastic K_free (tangent D) and u_elast = K^-1 (-F0) on
+    the free DOFs."""
+    K_free = asm.assemble_dense_free(asm.element_stiffness(p.geom, D), p.plan)
+    L = torch.linalg.cholesky(K_free)
+    u_elast = _scatter_free(
+        p.free_idx, torch.cholesky_solve(-f0[p.free_idx, None], L)[:, 0], 2 * p.geom.n_nodes
+    )
+    return u_elast, L
+
+
+def _df32_cg_predictor(cfg: TsxTunnelConfig, p: _Problem, free_mask: torch.Tensor,
+                       f0: torch.Tensor, apply_fn, elastic_op=None) -> torch.Tensor:
+    """The df32 CG routes' elastic predictor K u = -F0: block-Jacobi PCG
+    on the f32 elastic operator (matrix-free, or `elastic_op`'s node
+    blocks) as the inner solve, refined against the f64 residual
+    `apply_fn` (JAX `models/tsx_tunnel.py:796-822`)."""
+    shear, bulk = p.consts[:2]
+    geom32 = p.geom.to(torch.float32)
+    D = elastic_tangent_lanes(shear, bulk, p.geom.n_int, torch.float32, free_mask.device)
+    pre = stiffness_block_jacobi(geom32, D, free_mask)
+    if elastic_op is not None:
+        K_op = lambda v: sp_matvec(elastic_op, v)  # noqa: E731
+    else:
+        K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
+    cg_tol = plastic_cg_tol(cfg.cg_tol, torch.float32)
+    return adf.refine_elastic_solve_with(
+        apply_fn,
+        lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
+                             maxiter=cfg.cg_maxiter).x,
+        torch.zeros(2 * p.geom.n_nodes, dtype=torch.float64, device=free_mask.device), -f0,
+        iters=cfg.predictor_ir_iters,
+    )
 
 
 def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
@@ -380,7 +418,6 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
     p = _problem(cfg, device, mesh=mesh)
     shear, bulk, eta, c = p.consts
     geom = p.geom
-    geom32 = geom.to(torch.float32)  # round-to-nearest heads, like gdf.hi
     n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
     if cfg.assembled_cg:
         residual_op = spmv.residual_operators(geom, device, _residual_fmt(cfg),
@@ -398,27 +435,15 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
         apply_fn = lambda u: adf.elastic_apply(geom, u, shear, bulk)  # noqa: E731
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
-        zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
-            s0_field = p.s0[:3, None].expand(3, n_int)
             if residual_op is not None:
-                f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
+                f0 = sp_matvec(residual_op[1], p.s0[:3, None].expand(3, n_int).reshape(-1))
             else:
-                f0 = asm.internal_force(geom, s0_field)
-            D = elastic_tangent_lanes(shear, bulk, n_int, torch.float32, device)
-            pre = stiffness_block_jacobi(geom32, D, free_mask)
-            if elastic_op is not None:
-                K_op = lambda v: sp_matvec(elastic_op, v)  # noqa: E731
-            else:
-                K_op = lambda v: asm.tangent_matvec(geom32, D, v)  # noqa: E731
-            u_elast = adf.refine_elastic_solve_with(
-                apply_fn,
-                lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
-                                     maxiter=cfg.cg_maxiter).x,
-                zero_u, -f0, iters=cfg.predictor_ir_iters,
-            )
+                f0 = _initial_force(p)
+            u_elast = _df32_cg_predictor(cfg, p, free_mask, f0, apply_fn, elastic_op)
         else:
-            u_elast = zero_u  # unused: the carry supplies the state
+            # unused: the carry supplies the state
+            u_elast = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         stepper = build_load_stepper(
             geom, p.free_idx, None, shear, bulk, eta, c, p.settings,
             e0_dir=p.e0, monitor=_monitor(monitor_node),

@@ -60,12 +60,19 @@ def _gather_fold(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """`_gather_sum` as a left fold over the table's columns, from zero:
     ((0 + a_0) + a_1) + ...  The JAX package's scatter-add applies a
     destination's updates one after another in this order, so the fold
-    reproduces its rounding; trailing padding adds exact zeros."""
-    ext = torch.cat([flat, flat.new_zeros(1)])
-    acc = flat.new_zeros(table.shape[0])
+    reproduces its rounding; trailing padding adds exact zeros.  A (B, N)
+    `flat` folds each member's row the same way."""
+    ext = torch.cat([flat, flat.new_zeros(*flat.shape[:-1], 1)], dim=-1)
+    acc = flat.new_zeros(*flat.shape[:-1], table.shape[0])
     for k in range(table.shape[1]):
-        acc = acc + ext[table[:, k]]
+        acc = acc + ext[..., table[:, k]]
     return acc
+
+
+def _gather_sum_members(flat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """`_gather_sum` of each row of a (B, N) `flat`."""
+    ext = torch.cat([flat, flat.new_zeros(flat.shape[0], 1)], dim=1)
+    return ext[:, table].sum(dim=-1)
 
 
 class Geometry(NamedTuple):
@@ -197,23 +204,38 @@ def compute_geometry(
 # ---------------------------------------------------------------------------
 # strain / force / stiffness contractions (lane-major)
 # ---------------------------------------------------------------------------
+# Each contraction also takes a leading member axis over the shared geometry
+# (a material ensemble: `parallel/ensemble.py`): u (B, 2*n_n), s3 and e
+# (B, 3, n_int), d (B, 3, 3, n_int).  Each member's row is contracted in the
+# single form's order.
 def dof_values(geom: Geometry, u: torch.Tensor) -> torch.Tensor:
-    """u (2*n_n,) -> per-integration-point DOF values (2*n_p, n_int)."""
-    ue = u[geom.edofs_t]  # (2*n_p, n_e)
+    """u (2*n_n,) -> per-integration-point DOF values (2*n_p, n_int);
+    u (B, 2*n_n) -> (B, 2*n_p, n_int)."""
+    ue = u[..., geom.edofs_t]  # (2*n_p, n_e)
     if geom.n_q == 1:
         return ue
-    return ue[:, :, None].expand(geom.n_p2, geom.n_elems, geom.n_q).reshape(geom.n_p2, -1)
+    lead = ue.shape[:-2]
+    return ue[..., None].expand(*lead, geom.n_p2, geom.n_elems, geom.n_q).reshape(
+        *lead, geom.n_p2, -1)
 
 
 def strains(geom: Geometry, u: torch.Tensor) -> torch.Tensor:
     """Total strain at integration points: (3, n_int), [e11, e22, 2e12]."""
     ui = dof_values(geom, u)
+    if u.dim() == 2:
+        return (geom.B * ui[:, None, :, :]).sum(dim=2)
     return (geom.B * ui[None, :, :]).sum(dim=1)
 
 
 def internal_force(geom: Geometry, s3: torch.Tensor) -> torch.Tensor:
     """F = B^T (weight * s) accumulated to (2*n_n,).  s3: (3, n_int)."""
     ws = geom.weight[None, :] * s3
+    if s3.dim() == 3:
+        n_b = s3.shape[0]
+        fk = (geom.B * ws[:, :, None, :]).sum(dim=1)  # (B, 2*n_p, n_int)
+        if geom.n_q > 1:
+            fk = fk.reshape(n_b, geom.n_p2, geom.n_elems, geom.n_q).sum(dim=-1)
+        return _gather_sum_members(fk.reshape(n_b, -1), geom.gmap)
     fk = (geom.B * ws[:, None, :]).sum(dim=0)  # (2*n_p, n_int)
     if geom.n_q > 1:
         fk = fk.reshape(geom.n_p2, geom.n_elems, geom.n_q).sum(dim=-1)
@@ -222,6 +244,8 @@ def internal_force(geom: Geometry, s3: torch.Tensor) -> torch.Tensor:
 
 def apply_tangent(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """s = D e per integration point: d (3, 3, n), e (3, n) -> (3, n)."""
+    if d.dim() == 4:
+        return (d * e[:, None, :, :]).sum(dim=2)
     return (d * e[None, :, :]).sum(dim=1)
 
 
@@ -233,9 +257,17 @@ def tangent_matvec(geom: Geometry, d: torch.Tensor, v: torch.Tensor) -> torch.Te
 def element_stiffness(geom: Geometry, d: torch.Tensor) -> torch.Tensor:
     """Per-element stiffness K_e = sum_q w_q B^T D B: (2*n_p, 2*n_p, n_e).
 
-    d: (3, 3, n_int) material tangent at integration points.
+    d: (3, 3, n_int) material tangent at integration points; (B, 3, 3,
+    n_int) gives (B, 2*n_p, 2*n_p, n_e).
     """
     wd = geom.weight[None, None, :] * d
+    if d.dim() == 4:
+        n_b = d.shape[0]
+        T = (geom.B[None, :, None, :, :] * wd[:, :, :, None, :]).sum(dim=1)
+        ke = (T[:, :, :, None, :] * geom.B[None, :, None, :, :]).sum(dim=1)
+        if geom.n_q > 1:
+            ke = ke.reshape(n_b, geom.n_p2, geom.n_p2, geom.n_elems, geom.n_q).sum(dim=-1)
+        return ke
     T = (geom.B[:, None, :, :] * wd[:, :, None, :]).sum(dim=0)
     ke = (T[:, :, None, :] * geom.B[:, None, :, :]).sum(dim=0)
     if geom.n_q > 1:
@@ -305,7 +337,14 @@ def assemble_dense_free(ke: torch.Tensor, plan: DensePlan) -> torch.Tensor:
 
     Each entry's contributions are added in ascending (row slot, column
     slot, element) order, the order of the JAX package's scatter-add, so
-    the f32 matrix equals the JAX package's bit for bit on the CPU."""
+    the f32 matrix equals the JAX package's bit for bit on the CPU.
+    (B, 2*n_p, 2*n_p, n_e) gives (B, n_free, n_free), each member's matrix
+    bitwise its single assembly."""
+    if ke.dim() == 4:
+        n_b = ke.shape[0]
+        K = ke.new_zeros(n_b, plan.n_free * plan.n_free)
+        K[:, plan.target] = _gather_fold(ke.reshape(n_b, -1), plan.table)
+        return K.reshape(n_b, plan.n_free, plan.n_free)
     K = ke.new_zeros(plan.n_free * plan.n_free)
     K[plan.target] = _gather_fold(ke.reshape(-1), plan.table)
     return K.reshape(plan.n_free, plan.n_free)
@@ -399,6 +438,17 @@ def node_block_diagonal(
         smap = node_slot_map(geom)
     n_p = geom.n_p2 // 2
     wd = geom.weight[None, None, :] * d
+    if d.dim() == 4:  # (B, 3, 3, n_int) -> (B, n_n, 2, 2)
+        n_b = d.shape[0]
+        T = (geom.B[None, :, None, :, :] * wd[:, :, :, None, :]).sum(dim=1)
+        T4 = T.reshape(n_b, 3, n_p, 2, -1)
+        B4 = geom.B.reshape(1, 3, n_p, 2, -1)
+        diag = (T4[:, :, :, :, None, :] * B4[:, :, :, None, :, :]).sum(dim=1)
+        if geom.n_q > 1:
+            diag = diag.reshape(n_b, n_p, 2, 2, geom.n_elems, geom.n_q).sum(dim=-1)
+        flat = diag.permute(0, 1, 4, 2, 3).reshape(n_b, -1, 4)
+        ext = torch.cat([flat, flat.new_zeros(n_b, 1, 4)], dim=1)
+        return ext[:, smap].sum(dim=2).reshape(n_b, -1, 2, 2)
     T = (geom.B[:, None, :, :] * wd[:, :, None, :]).sum(dim=0)  # (3, 2n_p, n)
     T4 = T.reshape(3, n_p, 2, -1)
     B4 = geom.B.reshape(3, n_p, 2, -1)
@@ -435,8 +485,16 @@ def plastic_slots(ind_p: torch.Tensor, p_max: int):
 
     Slot s holds the index of the (s+1)-th plastic point in ascending
     order; slots past the plastic count are invalid and point at 0.
-    Returns (idx (p_max,) int64, valid (p_max,) bool).
+    Returns (idx (p_max,) int64, valid (p_max,) bool); ind_p (B, n) gives
+    (B, p_max) each.
     """
+    if ind_p.dim() == 2:
+        cnt = torch.cumsum(ind_p.to(torch.int64), dim=1)
+        wanted = torch.arange(1, p_max + 1, dtype=torch.int64, device=ind_p.device)
+        idx = torch.searchsorted(cnt, wanted.expand(ind_p.shape[0], p_max).contiguous(),
+                                 side="left")
+        valid = torch.arange(p_max, device=ind_p.device)[None, :] < cnt[:, -1:]
+        return torch.where(valid, idx, torch.zeros_like(idx)), valid
     cnt = torch.cumsum(ind_p.to(torch.int64), dim=0)
     wanted = torch.arange(1, p_max + 1, dtype=torch.int64, device=ind_p.device)
     idx = torch.searchsorted(cnt, wanted, side="left")
@@ -452,8 +510,17 @@ def plastic_correction_gather(
 
     delta: (3, 3, n_int) tangent deviation from elastic (d - d_elastic).
     Returns (Bp (3, 2n_p, P), wdelta (3, 3, P), edp (2n_p, P)); invalid
-    slots get zero wdelta, which makes them inert.
+    slots get zero wdelta, which makes them inert.  delta (B, 3, 3, n_int)
+    with idx and valid (B, P) gives each with a leading member axis.
     """
+    if delta.dim() == 4:
+        n_b, P = idx.shape
+        Bp = geom.B[:, :, idx].permute(2, 0, 1, 3)  # (B, 3, 2n_p, P)
+        w = torch.where(valid, geom.weight[idx], torch.zeros((), dtype=geom.weight.dtype,
+                                                              device=idx.device))
+        wdelta = delta.gather(-1, idx[:, None, None, :].expand(n_b, 3, 3, P)) * w[:, None, None, :]
+        edp = geom.edofs_t[:, idx // geom.n_q].permute(1, 0, 2)  # (B, 2n_p, P)
+        return Bp, wdelta, edp
     Bp = geom.B[:, :, idx]
     w = torch.where(valid, geom.weight[idx], torch.zeros((), dtype=geom.weight.dtype,
                                                           device=idx.device))

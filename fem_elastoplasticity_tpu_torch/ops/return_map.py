@@ -24,9 +24,17 @@ ep (4, n).  It is the constitutive update of the native float32 Newton path
 * `dp_return_map_fused` has the JAX wrapper's signature and returns ds6:
   `dp_return_map_newton`, then `pack_tangent`.
 
+* `dp_return_map_newton_batched` is the ensemble's entry: B members, each
+  with its own eta, c and zeta (a (B, 3) float64 tensor), over shared
+  shear and bulk.  On a CUDA tensor one launch of the member-batched
+  instance (`dp_return_map_batched_cuda`, the same source), whose member b
+  is bitwise a single launch with that member's values; on a CPU tensor
+  `dp_return_map_plain_batched`, the plain version with a member axis.
+
 Neither entry falls back from the kernel to the plain version or back.
-`LAUNCHES` counts, per process, kernel launches ("dp_return_map") and
-calls routed to the plain version ("dp_return_map_plain").
+`LAUNCHES` counts, per process, kernel launches ("dp_return_map",
+"dp_return_map_batched") and calls routed to the plain versions
+("dp_return_map_plain", "dp_return_map_batched_plain").
 """
 from __future__ import annotations
 
@@ -91,23 +99,64 @@ def dp_return_map_plain(
     """
     dev, dt = e3.device, e3.dtype
     consts = _constant_tensor(_material_constants(shear, bulk) + (float(eta), float(c))
-                              + _LITERALS, dt, dev)
-    (two_g, bulk_t, shear_t, sqrt2, sg, ca_k, e_diag, e_off, three_bulk, eta, c,
-     zero, one, two, three, half, two_thirds, minus_third) = consts.unbind()
+                              + _LITERALS, dt, dev).unbind()
     if e0_dir is None:
-        e0_0 = e0_1 = e0_2 = e0_3 = zero
+        e0 = (consts[11],) * 4
     else:
-        e0_0, e0_1, e0_2, e0_3 = (e0_dir * zeta).reshape(4).to(dt).unbind()
+        e0 = (e0_dir * zeta).reshape(4).to(dt).unbind()
+    return _plain_core(e3, ep_prev, consts[:9], consts[9], consts[10], e0, consts[11:],
+                       apply_plastic_strain, apex_ep_uses_trial)
 
-    e4_0 = e3[0] + e0_0
-    e4_1 = e3[1] + e0_1
-    e4_2 = e3[2] + e0_2
+
+def dp_return_map_plain_batched(
+    e3: torch.Tensor,
+    ep_prev: torch.Tensor,
+    shear: float,
+    bulk: float,
+    params: torch.Tensor,
+    e0_dir: Optional[torch.Tensor] = None,
+    apply_plastic_strain: bool = False,
+    apex_ep_uses_trial: bool = False,
+):
+    """Plain PyTorch version of K2's member-batched instance.
+
+    e3 (B, 3, n) and ep_prev (B, 4, n); params (B, 3) float64 (eta, c,
+    zeta) of each member.  Returns (s (B, 4, n), ds6 (B, 6, n), lam (B, n),
+    ep (B, 4, n)): member b's bits are `dp_return_map_plain` with that
+    member's eta, c and zeta, which are rounded to e3's dtype as the single
+    version rounds its Python floats."""
+    dev, dt = e3.device, e3.dtype
+    consts = _constant_tensor(_material_constants(shear, bulk) + _LITERALS, dt, dev).unbind()
+    p = params.to(device=dev, dtype=torch.float64).to(dt)
+    eta, c, zeta = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+    if e0_dir is None:
+        e0 = (consts[9],) * 4
+    else:
+        e0 = (e0_dir.reshape(1, 4) * zeta.to(e0_dir.dtype)).to(dt).split(1, dim=1)
+    return _plain_core(e3, ep_prev, consts[:9], eta, c, e0, consts[9:],
+                       apply_plastic_strain, apex_ep_uses_trial)
+
+
+def _plain_core(e3, ep_prev, shared, eta, c, e0, literals, apply_plastic_strain,
+                apex_ep_uses_trial):
+    """The body of the plain versions, on (..., k, n) components: `shared`
+    the 0-d constants of `_material_constants`, `literals` those of
+    `_LITERALS`, eta and c 0-d (one material) or (B, 1) (a member each),
+    e0 four initial-strain components shaped like eta."""
+    two_g, bulk_t, shear_t, sqrt2, sg, ca_k, e_diag, e_off, three_bulk = shared
+    zero, one, two, three, half, two_thirds, minus_third = literals
+    e0_0, e0_1, e0_2, e0_3 = e0
+    row = lambda t, k: t[..., k, :]  # noqa: E731
+
+    e4_0 = row(e3, 0) + e0_0
+    e4_1 = row(e3, 1) + e0_1
+    e4_2 = row(e3, 2) + e0_2
     e4_3 = e0_3 + torch.zeros_like(e4_0)
 
-    et0 = e4_0 - ep_prev[0]
-    et1 = e4_1 - ep_prev[1]
-    et2 = e4_2 - ep_prev[2]
-    et3 = e4_3 - ep_prev[3]
+    et0 = e4_0 - row(ep_prev, 0)
+    et1 = e4_1 - row(ep_prev, 1)
+    et2 = e4_2 - row(ep_prev, 2)
+    et3 = e4_3 - row(ep_prev, 3)
 
     tr = et0 + et1 + et3
     dev0 = et0 - tr / three
@@ -158,7 +207,7 @@ def dp_return_map_plain(
         torch.where(ind_s, st1 - lam_s * m1, torch.where(ind_a, apex, st1)),
         torch.where(ind_s, st2 - lam_s * m2, torch.where(ind_a, zero, st2)),
         torch.where(ind_s, st3 - lam_s * m3, torch.where(ind_a, apex, st3)),
-    ])
+    ], dim=-2)
 
     safe_rho = torch.where(rho_tr > 0.0, rho_tr, one)
     ca = torch.where(ind_s, ca_k * lam_s / safe_rho, zero)
@@ -171,7 +220,7 @@ def dp_return_map_plain(
         (e_off - ca * (minus_third - n0 * n1) - m0 * m1 * ms) * not_a,
         (ca * n0 * n2 - m0 * m2 * ms) * not_a,
         (ca * n1 * n2 - m1 * m2 * ms) * not_a,
-    ])
+    ], dim=-2)
 
     if apply_plastic_strain:
         eta_third = eta / three
@@ -180,23 +229,24 @@ def dp_return_map_plain(
         ab = (et0, et1, et2, et3) if apex_ep_uses_trial else (e4_0, e4_1, e4_2, e4_3)
         shift = c / (three_bulk * eta)
         ep = torch.stack([
-            torch.where(ind_s, ep_prev[k] + lam_s * f[k],
-                        torch.where(ind_a, ab[k] - shift if k != 2 else ab[k], ep_prev[k]))
+            torch.where(ind_s, row(ep_prev, k) + lam_s * f[k],
+                        torch.where(ind_a, ab[k] - shift if k != 2 else ab[k], row(ep_prev, k)))
             for k in range(4)
-        ])
+        ], dim=-2)
     else:
         ep = ep_prev.clone()
     return s, ds6, lam, ep
 
 
 def unpack_tangent(ds6: torch.Tensor) -> torch.Tensor:
-    """(6, n) unique entries [d00, d11, d22, d01, d02, d12] -> (3, 3, n)."""
-    d00, d11, d22, d01, d02, d12 = ds6
+    """(..., 6, n) unique entries [d00, d11, d22, d01, d02, d12] ->
+    (..., 3, 3, n)."""
+    d00, d11, d22, d01, d02, d12 = ds6.unbind(-2)
     return torch.stack([
-        torch.stack([d00, d01, d02]),
-        torch.stack([d01, d11, d12]),
-        torch.stack([d02, d12, d22]),
-    ])
+        torch.stack([d00, d01, d02], dim=-2),
+        torch.stack([d01, d11, d12], dim=-2),
+        torch.stack([d02, d12, d22], dim=-2),
+    ], dim=-3)
 
 
 def pack_tangent(D: torch.Tensor) -> torch.Tensor:
@@ -212,6 +262,9 @@ def _library() -> ctypes.CDLL:
     for fn in (lib.dp_return_map_f32, lib.dp_return_map_f64):
         fn.argtypes = ([ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                        + [ctypes.c_double] + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+    for fn in (lib.dp_return_map_batched_f32, lib.dp_return_map_batched_f64):
+        fn.argtypes = ([ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11)
         fn.restype = ctypes.c_int
     return lib
 
@@ -285,6 +338,75 @@ def dp_return_map_cuda(
     return s.view(4, n), D.view(3, 3, n), ind_p, lam, ep.view(4, n)
 
 
+@functools.lru_cache(maxsize=None)
+def _shared_constants(shear: float, bulk: float):
+    """The batched instance's shared constants as a ctypes array of doubles:
+    `_material_constants` (eta and c come from the device params)."""
+    values = _material_constants(shear, bulk)
+    return (ctypes.c_double * len(values))(*values)
+
+
+def dp_return_map_batched_cuda(
+    e3: torch.Tensor,
+    ep_prev: torch.Tensor,
+    shear: float,
+    bulk: float,
+    params: torch.Tensor,
+    e0_dir: Optional[torch.Tensor] = None,
+    apply_plastic_strain: bool = False,
+    apex_ep_uses_trial: bool = False,
+):
+    """Launch K2's member-batched instance on e3's device and PyTorch's
+    current stream; no sync.
+
+    e3 (B, 3, n) and ep_prev (B, 4, n) contiguous, of one dtype; params
+    (B, 3) contiguous float64 on the same card, each member's (eta, c,
+    zeta); e0_dir (4,) in e3's dtype, or None.  One launch covers B x n
+    points.  Returns (s (B, 4, n), D (B, 3, 3, n), ind_p (B, n) bool, lam
+    (B, n), ep (B, 4, n)); member b's values are bitwise a single K2 launch
+    with its eta, c and zeta."""
+    if not e3.is_cuda:
+        raise ValueError(f"dp_return_map_batched_cuda needs a CUDA tensor; got one on {e3.device}")
+    dt = e3.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"dp_return_map_batched: dtype {dt} is not float32 or float64")
+    if e3.dim() != 3:
+        raise ValueError(f"dp_return_map_batched: e3 has shape {tuple(e3.shape)}, not (B, 3, n)")
+    n_b, n = e3.shape[0], e3.shape[-1]
+    inputs = [("e3", e3, (n_b, 3, n), dt), ("ep_prev", ep_prev, (n_b, 4, n), dt),
+              ("params", params, (n_b, 3), torch.float64)]
+    if e0_dir is not None:
+        inputs.append(("e0_dir", e0_dir, (4,), dt))
+    for name, t, shape, want in inputs:
+        if t.device != e3.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(
+                f"dp_return_map_batched: {name} must be a contiguous {want} tensor on "
+                f"{e3.device}; got {t.dtype} on {t.device}"
+            )
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"dp_return_map_batched: {name} has shape {tuple(t.shape)}, not {shape}")
+    lib = _library()
+    fn = lib.dp_return_map_batched_f32 if dt == torch.float32 else lib.dp_return_map_batched_f64
+    s = torch.empty((n_b, 4, n), dtype=dt, device=e3.device)
+    D = torch.empty((n_b, 3, 3, n), dtype=dt, device=e3.device)
+    lam = torch.empty((n_b, n), dtype=dt, device=e3.device)
+    ep = torch.empty((n_b, 4, n), dtype=dt, device=e3.device)
+    ind_p = torch.empty((n_b, n), dtype=torch.bool, device=e3.device)
+    if n_b and n:
+        err = fn(
+            n_b, n, int(apply_plastic_strain), int(apex_ep_uses_trial),
+            _shared_constants(shear, bulk), params.data_ptr(),
+            None if e0_dir is None else e0_dir.data_ptr(), e3.data_ptr(), ep_prev.data_ptr(),
+            s.data_ptr(), D.data_ptr(), lam.data_ptr(), ep.data_ptr(), ind_p.data_ptr(),
+            torch.cuda.current_stream(e3.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"dp_return_map_batched launch failed: cudaError_t {err}")
+        LAUNCHES["dp_return_map_batched"] += 1
+    return s, D, ind_p, lam, ep
+
+
 def _plain_route(e3: torch.Tensor, name: str) -> None:
     if e3.device.type != "cpu":
         raise ValueError(f"{name}: no route for device {e3.device}")
@@ -344,3 +466,32 @@ def dp_return_map_fused(
         e3, ep_prev, shear, bulk, eta, c, e0, 1.0, apply_plastic_strain, apex_ep_uses_trial,
     )
     return s, pack_tangent(D), lam, ep
+
+
+def dp_return_map_newton_batched(
+    e3: torch.Tensor,
+    ep_prev: torch.Tensor,
+    shear: float,
+    bulk: float,
+    params: torch.Tensor,
+    e0_dir: Optional[torch.Tensor] = None,
+    apply_plastic_strain: bool = False,
+    apex_ep_uses_trial: bool = False,
+):
+    """The ensemble Newton loop's return map over B members: (s (B, 4, n),
+    D (B, 3, 3, n), ind_p (B, n) = lam > 0, lam (B, n), ep (B, 4, n)),
+    params (B, 3) float64 each member's (eta, c, zeta).  One launch of K2's
+    member-batched instance on a CUDA tensor; on a CPU tensor its plain
+    version, `unpack_tangent` and `lam > 0`, with the same bits."""
+    if e3.is_cuda:
+        return dp_return_map_batched_cuda(
+            e3.contiguous(), ep_prev.contiguous(), shear, bulk, params.contiguous(), e0_dir,
+            apply_plastic_strain, apex_ep_uses_trial,
+        )
+    if e3.device.type != "cpu":
+        raise ValueError(f"dp_return_map_newton_batched: no route for device {e3.device}")
+    LAUNCHES["dp_return_map_batched_plain"] += 1
+    s, ds6, lam, ep = dp_return_map_plain_batched(
+        e3, ep_prev, shear, bulk, params, e0_dir, apply_plastic_strain, apex_ep_uses_trial,
+    )
+    return s, unpack_tangent(ds6), lam > 0.0, lam, ep

@@ -2,7 +2,9 @@
 
 Port of `fem_elastoplasticity_tpu/solve/cg.py` (`solve_cg` with
 `structure="while"` and its A-DEF2 deflation, `deflation_harvest`, and the
-block-Jacobi preconditioner).  The JAX package
+block-Jacobi preconditioner), and `solve_cg_members`, the same iteration
+for a batch of independent systems (the vmapped solve of a material
+ensemble).  The JAX package
 runs the iteration as a `while_loop` on the device; here the loop is
 Python, and the stopping test reads one boolean back per iteration.  The
 iterates and the iteration count are exactly the while-loop's: `alpha`,
@@ -41,21 +43,25 @@ def block_jacobi_preconditioner(blocks: torch.Tensor, free: torch.Tensor):
 
     Constrained DOFs get identity rows so the inverse stays well-defined;
     the projector removes their effect anyway.  Returns apply(r) on flat
-    (2*n_n,) vectors.
+    (2*n_n,) vectors.  Member-batched blocks (B, n_n, 2, 2) give apply(r)
+    on (B, 2*n_n) rows, each member with its own blocks.
     """
     free2 = free.reshape(-1, 2)
     eye = torch.eye(2, dtype=blocks.dtype, device=blocks.device)
     mask = free2[:, :, None] & free2[:, None, :]
     b = torch.where(mask, blocks, torch.zeros_like(blocks))
     b = b + eye * (~free2).to(blocks.dtype)[:, :, None]
-    a_, b_, c_, d_ = b[:, 0, 0], b[:, 0, 1], b[:, 1, 0], b[:, 1, 1]
+    a_, b_, c_, d_ = b[..., 0, 0], b[..., 0, 1], b[..., 1, 0], b[..., 1, 1]
     det = a_ * d_ - b_ * c_
     inv = (
         torch.stack(
             [torch.stack([d_, -b_], dim=-1), torch.stack([-c_, a_], dim=-1)], dim=-2
         )
-        / det[:, None, None]
+        / det[..., None, None]
     )
+    if blocks.dim() == 4:
+        n_b = blocks.shape[0]
+        return lambda r: torch.einsum("bnij,bnj->bni", inv, r.reshape(n_b, -1, 2)).reshape(n_b, -1)
 
     def apply(r):
         return torch.einsum("nij,nj->ni", inv, r.reshape(-1, 2)).reshape(-1)
@@ -226,6 +232,82 @@ def solve_cg(
         rel_residual=res_rep / torch.where(bnorm > 0.0, bnorm, one),
         z=z * bscale,
     )
+
+
+class MembersCGResult(NamedTuple):
+    """`solve_cg_members`: each field with a leading member axis, on the
+    device."""
+
+    x: torch.Tensor  # (B, n_dofs)
+    iters: torch.Tensor  # (B,) int64, the iterations each member took
+    converged: torch.Tensor  # (B,) bool
+    host_reads: int  # stopping tests read back to the host: one an iteration
+
+
+def solve_cg_members(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    free: torch.Tensor,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tol=1e-12,
+    maxiter: int = 1000,
+) -> MembersCGResult:
+    """`solve_cg` (x0 None, no deflation) for B independent systems at once.
+
+    matvec and precond map (B, n_dofs) rows to rows, member by member; b is
+    (B, n_dofs), free the shared mask; tol a float or a (B,) tensor (each
+    member's forcing term).  Each member follows its own `solve_cg` loop:
+    its scale, its tolerance, its breakdown guard and its count.  A member
+    whose own test stops its loop keeps its iterate, residual and search
+    direction from then on, bit for bit, as the JAX package's vmapped
+    while-loop keeps a finished lane, while the others run on.  One host
+    read an iteration serves the whole batch: whether any member runs."""
+    fmask = free.reshape(-1)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    proj = lambda v: torch.where(fmask, v, zero)  # noqa: E731
+    A = lambda v: proj(matvec(proj(v)))  # noqa: E731
+    M = precond if precond is not None else (lambda r: r)
+    dot = lambda u, v: (u * v).sum(dim=-1)  # noqa: E731
+
+    b = proj(b)
+    bscale = b.abs().amax(dim=-1)
+    ok_b = bscale > 0.0
+    inv_s = torch.where(ok_b, one / torch.where(ok_b, bscale, one), zero)
+    b = b * inv_s[:, None]
+    x = torch.zeros_like(b)
+    r = b
+    z = proj(M(r))
+    gamma = dot(r, z)
+    limit = torch.as_tensor(tol, dtype=b.dtype, device=b.device) * torch.sqrt(gamma.abs())
+    p = z
+    iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    run = torch.sqrt(gamma.abs()) > limit
+    k, reads = 0, 1
+    go = k < maxiter and bool(run.any())
+    while go:
+        Ap = A(p)
+        pAp = dot(p, Ap)
+        ok = pAp > 0.0
+        alpha = torch.where(ok, gamma / torch.where(ok, pAp, one), zero)[:, None]
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z_new = proj(M(r_new))
+        gamma_new = torch.where(ok, dot(r_new, z_new), gamma)
+        beta = torch.where(ok, gamma_new / torch.where(gamma != 0.0, gamma, one), zero)
+        p_new = z_new + beta[:, None] * p
+        keep = run[:, None]
+        x, r, z = torch.where(keep, x_new, x), torch.where(keep, r_new, r), torch.where(keep, z_new, z)
+        p = torch.where(keep, p_new, p)
+        gamma = torch.where(run, gamma_new, gamma)
+        iters = iters + run.to(torch.int64)
+        k += 1
+        run = run & ok & (torch.sqrt(gamma.abs()) > limit)
+        go = k < maxiter and bool(run.any())
+        reads += 1
+    converged = torch.sqrt(gamma.abs()) <= limit
+    return MembersCGResult(x=x * bscale[:, None], iters=iters, converged=converged,
+                           host_reads=reads)
 
 
 def deflation_harvest(W: torch.Tensor, ring: int, vecs, gates=None):

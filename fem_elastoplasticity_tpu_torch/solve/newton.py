@@ -38,9 +38,15 @@ arithmetic: zeta, d_zeta and the stop thresholds are rounded to float32 at
 every step.  In every precision the criterion's elastic stress is
 2G (e - tr/3) + K tr and the warm start divides by d_zeta_old as a tensor,
 as the JAX loop does.
+
+`build_ensemble_stepper` runs B materials over one geometry (the JAX
+package's `vmap` of this stepper, `parallel/ensemble.py`): a sweep is one
+Newton iteration of every member still running, batched, and each member
+keeps the trajectory of its single solve.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -49,9 +55,9 @@ import torch
 
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
-from ..ops.return_map import dp_return_map_newton
+from ..ops.return_map import dp_return_map_newton, dp_return_map_newton_batched
 from ..ops.spmv import CsrMatrix, NodeBlockMatrix, sp_matvec
-from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg
+from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg, solve_cg_members
 
 
 # Eisenstat-Walker forcing: the share of the last Newton criterion that the
@@ -680,6 +686,362 @@ def build_load_stepper(
             newton_trips=tuple(newton_trips), crit_trips=tuple(crit_trips),
             zeta_trips=tuple(zeta_trips), cg_trips=tuple(cg_trips),
             defl_w=None if defl is None else defl[0], defl_ring=0 if defl is None else defl[1],
+        )
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the member-batched controller of material ensembles
+# ---------------------------------------------------------------------------
+# per process: the ensemble runs' Newton sweeps and host reads, summed over
+# runs ("runs", "sweeps", "host_reads"); `chip_smoke.py` reads them
+ENSEMBLE_STATS: collections.Counter = collections.Counter()
+
+
+class EnsembleSteppingResult(NamedTuple):
+    """`build_ensemble_stepper`: device fields with a leading member axis,
+    counts as host numpy arrays."""
+
+    u: torch.Tensor  # (B, 2*n_n)
+    ep: torch.Tensor  # (B, 4, n_int)
+    zeta_hist: torch.Tensor  # (B, max_steps)
+    monitor_hist: torch.Tensor  # (B, max_steps)
+    n_steps: np.ndarray  # (B,) accepted steps
+    n_newton_total: np.ndarray  # (B,)
+    zeta: np.ndarray  # (B,) final accepted load factor
+    n_plastic: np.ndarray  # (B,)
+    n_cg_total: np.ndarray  # (B,) CG iterations (0 on the dense solver)
+    newton_trips: tuple  # per member: the Newton iterations of each load trip
+    sweeps: int  # Newton sweeps: one Newton iteration of every running member
+    host_reads: int  # values read back to the host, all sweeps together
+
+
+def build_ensemble_stepper(
+    geom: asm.Geometry,
+    free_idx: torch.Tensor,
+    plan: Optional[asm.DensePlan],
+    shear: float,
+    bulk: float,
+    etas: np.ndarray,
+    cs: np.ndarray,
+    settings: NewtonSettings,
+    monitor: Callable,
+    e0_dir: Optional[torch.Tensor] = None,
+    elastic_factor=None,
+    smw_cap: Optional[int] = None,
+    precision: str = "native",
+    accumulate_ep: bool = True,
+    solver: str = "dense",
+    cg_tol: float = 1e-10,
+    cg_maxiter: int = 2000,
+    cg_eta0: Optional[float] = None,
+):
+    """The load-stepping solver of B materials over one geometry.
+
+    The JAX package gets its ensemble by `vmap` of `build_load_stepper`: a
+    vmapped while-loop runs until every member is done, and a member whose
+    own condition fails keeps its carry.  Here a host loop of sweeps gives
+    each member exactly the trajectory of its own single solve (its zeta,
+    d_zeta, halving and stop, NaN guard, warm start and Newton count, the
+    rules of `build_load_stepper`).  A sweep is one Newton iteration of
+    every member still running, batched over them.  A member whose Newton
+    loop ends in that sweep (converged, maxit, or a NaN / failed solve)
+    takes its accept or reject and its controller update in the same sweep,
+    with the others that end there, and starts its next load trip in the
+    next.  The number of sweeps is the largest member Newton total.  Members
+    never interact, so a member's result does not depend on this schedule,
+    and a member that has stopped keeps its state bit for bit.  Batched
+    products may round a member's values in other last bits than its
+    single solve's (on the card and in the batch's matrix products).
+
+    Per member, zeta, d_zeta, d_zeta_old and the step live on the host as
+    float64 numpy arrays (native float32 rounds them through float32 as the
+    single stepper does); each sweep copies every running member's (eta, c,
+    zeta) to the card once, without a sync, where the return map and
+    e0 = zeta e0_dir read them.  A sweep reads back one (B,) vector: the
+    criterion, with the solve's convergence flag and CG count where there
+    is a CG solve.  The dense float32 path reads a (B,) plastic flag
+    before its solve too (the plastic members are factored afresh, the
+    elastic ones reuse the shared factor), and each batched CG iteration
+    reads whether any member runs.
+
+    Args (as `build_load_stepper` unless said):
+      etas, cs: (B,) float64 Drucker-Prager parameters of the members.
+      monitor:  (U (B, 2*n_n), s) -> (B,) recorded per accepted step.
+      elastic_factor: None (every member's tangent factored afresh every
+                iteration: native f64), ("cho", L): the shared elastic
+                Cholesky factor, reused by members with no plastic point
+                (native f32), or ("inv", Ki) with `smw_cap`: the shared
+                explicit elastic inverse and Woodbury solves over
+                `smw_cap` plastic slots for every member, with no fresh
+                factor past the cap (df32, the JAX ensemble's
+                smw_fallback=False).
+      solver:   "dense" or "cg" (block-Jacobi PCG on the matrix-free
+                tangent, `solve.cg.solve_cg_members`).
+      cg_eta0:  each member's Eisenstat-Walker forcing from its own last
+                criterion.
+
+    Returns run(U_it0 (2*n_n,), d_zeta0) -> EnsembleSteppingResult; U_it0
+    is the shared elastic predictor scaled by d_zeta0.
+    """
+    df_mode = precision == "df32"
+    if precision not in ("native", "df32"):
+        raise ValueError(f"precision {precision!r}")
+    if solver not in ("dense", "cg"):
+        raise NotImplementedError(f"ensemble solver {solver!r}")
+    if elastic_factor is not None and elastic_factor[0] not in ("inv", "cho"):
+        raise NotImplementedError("elastic_factor must be None, ('inv', Ki) or ('cho', L)")
+    if elastic_factor is not None and elastic_factor[0] == "inv" and smw_cap is None:
+        raise NotImplementedError("the ensemble's ('inv', Ki) needs smw_cap")
+    etas = np.asarray(etas, np.float64)
+    cs = np.asarray(cs, np.float64)
+    n_b = etas.shape[0]
+    sdtype = geom.B.dtype
+    geom_t = geom.to(torch.float32) if df_mode else geom
+    tdtype = geom_t.B.dtype
+    device = geom.B.device
+    n_dofs, n_int = 2 * geom.n_nodes, geom.n_int
+    native_f32 = tdtype == torch.float32 and not df_mode
+    f32 = np.float32
+    rnd = (lambda x: np.asarray(x, f32).astype(np.float64)) if native_f32 else (lambda x: x)
+    three = torch.full((), 3.0, dtype=tdtype, device=device)
+    as_t = lambda x: float(torch.tensor(x, dtype=tdtype))  # noqa: E731
+    newton_tol, accept_tol = as_t(settings.newton_tol), as_t(settings.accept_tol)
+    free_mask = torch.zeros(n_dofs, dtype=torch.bool, device=device)
+    free_mask[free_idx] = True
+    d_el = elastic_tangent_lanes(shear, bulk, n_int, tdtype, device)
+    slot_map = asm.node_slot_map(geom_t) if solver == "cg" else None
+    pinned = device.type == "cuda"
+
+    def to_dev(x: np.ndarray, dtype=None) -> torch.Tensor:
+        """A host array on the card, copied without a sync."""
+        t = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+        if pinned:
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    def return_map(u, ep, params, apply=False):
+        """-> (s, ds in the tangent dtype, ind_p, lam, ep') of the members
+        whose (eta, c, zeta) are the rows of params."""
+        e = asm.strains(geom, u)
+        if native_f32:
+            return dp_return_map_newton_batched(e, ep, shear, bulk, params, e0_dir, apply)
+        eta, c = params[:, 0:1].to(sdtype), params[:, 1:2].to(sdtype)
+        e0 = None
+        if e0_dir is not None:
+            e0 = (e0_dir[None, :] * params[:, 2:3].to(e0_dir.dtype))[..., None]
+        s, ds, ind_p, lam, ep_ = dp_return_map_lanes(
+            e, ep, shear, bulk, eta, c, e0=e0, apply_plastic_strain=apply)
+        return s, ds.to(tdtype), ind_p, lam, ep_
+
+    def residual_force(s):
+        return asm.internal_force(geom, s[:, :3]).to(tdtype)
+
+    def elastic_force(v):
+        """`build_load_stepper`'s elastic_force, member by member."""
+        e = asm.strains(geom_t, v)
+        t = e[:, 0] + e[:, 1]
+        s = torch.stack([
+            2.0 * shear * (e[:, 0] - t / three) + bulk * t,
+            2.0 * shear * (e[:, 1] - t / three) + bulk * t,
+            shear * e[:, 2],
+        ], dim=1)
+        return asm.internal_force(geom_t, s)
+
+    def criterion(dU, U_head):
+        dot = lambda a, b: (a * b).sum(dim=-1)  # noqa: E731
+        KdU, KU = elastic_force(dU), elastic_force(U_head)
+        q1sq, q2sq = dot(dU, KdU), dot(U_head, KU)
+        q3sq = torch.clamp(q2sq + 2.0 * dot(dU, KU) + q1sq, min=0.0)
+        return torch.sqrt(q1sq) / (torch.sqrt(q2sq) + torch.sqrt(q3sq))
+
+    def fresh(d, rhs):
+        """Each member's tangent assembled and factored: (Bp, n_free)."""
+        K = asm.assemble_dense_free(asm.element_stiffness(geom_t, d), plan)
+        L, info = torch.linalg.cholesky_ex(K)
+        x = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+        return torch.where((info == 0)[:, None], x, torch.full_like(x, math.nan))
+
+    def smw(Ki, d, ind_p, rhs):
+        """`build_load_stepper`'s Woodbury solve for every member: the
+        shared Ki r of all members as one (n_free x B) product, the
+        capacitance systems as one batched (B, 3P, 3P) solve.  A member with
+        no plastic point has zero corrections, y = 0 and dU = Ki r."""
+        P, n_a = smw_cap, d.shape[0]
+        idx_p, valid_p = asm.plastic_slots(ind_p, P)
+        Bp, wdelta, edp = asm.plastic_correction_gather(geom_t, d - d_el, idx_p, valid_p)
+        n_p2 = Bp.shape[2]
+        cols = (torch.arange(3, device=device)[:, None, None] * P
+                + torch.arange(P, device=device)[None, None, :]).expand(n_a, 3, n_p2, P)
+        rows = edp[:, None].expand(n_a, 3, n_p2, P)
+        mem = torch.arange(n_a, device=device)[:, None, None, None].expand(n_a, 3, n_p2, P)
+        # each (member, row, col) occurs once: a plain index write
+        U = torch.zeros((n_a, n_dofs, 3 * P), dtype=tdtype, device=device)
+        U[mem.reshape(-1), rows.reshape(-1), cols.reshape(-1)] = Bp.reshape(-1)
+        Uf = U[:, free_idx]
+        KiU = Ki @ Uf  # (B, n_free, 3P)
+        M = Uf.transpose(1, 2) @ KiU
+        CM = torch.einsum("zabp,zbpj->zapj", wdelta, M.reshape(n_a, 3, P, 3 * P))
+        A = torch.eye(3 * P, dtype=tdtype, device=device) + CM.reshape(n_a, 3 * P, 3 * P)
+        Z = (Ki @ rhs.T).T
+        t = (Uf.transpose(1, 2) @ Z[..., None])[..., 0]
+        Ct = torch.einsum("zabp,zbp->zap", wdelta, t.reshape(n_a, 3, P)).reshape(n_a, -1)
+        y = torch.linalg.solve(A, Ct)
+        return Z - (KiU @ y[..., None])[..., 0]
+
+    def dense_solve(d, f_int, ind_p):
+        """Newton steps of the members: (dU (Ba, n_dofs), host reads)."""
+        rhs = -f_int[:, free_idx]
+        reads = 0
+        if elastic_factor is None:
+            dU_free = fresh(d, rhs)
+        elif elastic_factor[0] == "inv":
+            dU_free = smw(elastic_factor[1], d, ind_p, rhs)
+        else:
+            plastic = ind_p.any(dim=1).cpu().numpy()
+            reads = 1
+            dU_free = torch.empty_like(rhs)
+            el, pl = np.nonzero(~plastic)[0], np.nonzero(plastic)[0]
+            if el.size:
+                e_idx = to_dev(el)
+                dU_free[e_idx] = torch.cholesky_solve(
+                    rhs[e_idx].T.contiguous(), elastic_factor[1]).T
+            if pl.size:
+                p_idx = to_dev(pl)
+                dU_free[p_idx] = fresh(d[p_idx], rhs[p_idx])
+        dU = torch.zeros((d.shape[0], n_dofs), dtype=tdtype, device=device)
+        dU[:, free_idx] = dU_free
+        return dU, reads
+
+    def cg_tolerances(crit_prev: np.ndarray) -> np.ndarray:
+        """Each member's CG tolerance: `build_load_stepper`'s forcing, in
+        float32, from its own last criterion."""
+        if cg_eta0 is None:
+            return np.full(crit_prev.shape, cg_tol)
+        t = crit_prev.astype(f32) * f32(CG_ETA_SAFETY)
+        t = np.where(np.isposinf(t), f32(cg_eta0), np.nan_to_num(t))
+        return np.clip(t, f32(cg_tol), f32(cg_eta0)).astype(np.float64)
+
+    def run(U_it0: torch.Tensor, d_zeta0: float) -> EnsembleSteppingResult:
+        U_it = U_it0.to(sdtype).expand(n_b, n_dofs).clone()
+        U = torch.zeros_like(U_it)
+        U_old = -U_it
+        ep = torch.zeros((n_b, 4, n_int), dtype=sdtype, device=device)
+        zeta_hist = torch.zeros((n_b, settings.max_steps), dtype=sdtype, device=device)
+        mon_hist = torch.zeros_like(zeta_hist)
+        zeta_old = np.zeros(n_b)
+        d_zeta = rnd(np.full(n_b, float(d_zeta0)))
+        d_zeta_old = d_zeta.copy()
+        step = np.full(n_b, settings.step0, np.int64)
+        trips = np.zeros(n_b, np.int64)
+        nits_total = np.zeros(n_b, np.int64)
+        ncg_total = np.zeros(n_b, np.int64)
+        it = np.zeros(n_b, np.int64)
+        crit_prev = np.full(n_b, math.inf)
+        newton_trips = [[] for _ in range(n_b)]
+        zeta_stop = rnd(settings.zeta_max - 1e-12)
+        d_zeta_min = rnd(settings.d_zeta_min)
+        running = np.ones(n_b, bool) & (trips < settings.max_trips)
+        zeta = rnd(zeta_old + d_zeta)
+        sweeps = reads = 0
+        while running.any():
+            act = np.nonzero(running)[0]
+            whole = act.size == n_b
+            a_idx = None if whole else to_dev(act)
+            take = (lambda t: t) if whole else (lambda t: t.index_select(0, a_idx))  # noqa: E731
+            params = to_dev(np.stack([etas[act], cs[act], zeta[act]], axis=1), torch.float64)
+            Ui = take(U_it)
+            s, ds, ind_p, _, _ = return_map(Ui, take(ep), params)
+            f_int = residual_force(s)
+            if solver == "dense":
+                dU, n_read = dense_solve(ds, f_int, ind_p)
+                reads += n_read
+                ok = its = None
+            else:
+                res = solve_cg_members(
+                    lambda v: asm.tangent_matvec(geom_t, ds, v), -f_int, free_mask,
+                    precond=block_jacobi_preconditioner(
+                        asm.node_block_diagonal(geom_t, ds, slot_map), free_mask),
+                    tol=to_dev(cg_tolerances(crit_prev[act]), torch.float64).to(tdtype),
+                    maxiter=cg_maxiter,
+                )
+                dU, ok, its = res.x, res.converged, res.iters
+                reads += res.host_reads
+            crit = criterion(dU, Ui.to(tdtype))
+            fail = torch.isnan(crit) if ok is None else torch.isnan(crit) | ~ok
+            U_next = torch.where(fail[:, None], Ui, Ui + dU.to(sdtype))
+            if whole:
+                U_it = U_next
+            else:
+                U_it.index_copy_(0, a_idx, U_next)
+            # the sweep's one read: the criterion (and the CG flag and count)
+            back = [crit.to(torch.float64)]
+            if ok is not None:
+                back += [ok.to(torch.float64), its.to(torch.float64)]
+            host = torch.stack(back).cpu().numpy()
+            reads += 1
+            sweeps += 1
+            crit_h = host[0]
+            failed = np.isnan(crit_h)
+            if ok is not None:
+                failed |= host[1] < 0.5
+                ncg_total[act] += host[2].astype(np.int64)
+            it[act] += 1
+            crit_prev[act] = crit_h
+            ends = failed | ~(crit_h >= newton_tol) | (it[act] >= settings.maxit)
+            fin = act[ends]
+            if not fin.size:
+                continue
+            crit_fin = np.where(failed[ends], math.nan, crit_h[ends])
+            acc = fin[crit_fin < accept_tol]  # NaN compares False
+            rej = fin[~(crit_fin < accept_tol)]
+            if acc.size:
+                c_idx = to_dev(acc)
+                U_conv = U_it.index_select(0, c_idx)
+                acc_params = to_dev(np.stack([etas[acc], cs[acc], zeta[acc]], axis=1),
+                                    torch.float64)
+                s_rm, _, _, _, ep_new = return_map(U_conv, ep.index_select(0, c_idx), acc_params,
+                                                   apply=accumulate_ep)
+                h_idx = to_dev(np.minimum(step[acc], settings.max_steps - 1))
+                zeta_hist[c_idx, h_idx] = to_dev(zeta[acc], sdtype)
+                mon_hist[c_idx, h_idx] = monitor(U_conv, s_rm).to(sdtype)
+                U_old.index_copy_(0, c_idx, U.index_select(0, c_idx))
+                U.index_copy_(0, c_idx, U_conv)
+                if accumulate_ep:
+                    ep.index_copy_(0, c_idx, ep_new)
+                zeta_old[acc] = zeta[acc]
+                d_zeta_old[acc] = d_zeta[acc]
+                step[acc] += 1
+            d_zeta[rej] = d_zeta[rej] * 0.5
+            # warm start; the divisor is a tensor, as in the single stepper
+            f_idx = to_dev(fin)
+            Uf, Uof = U.index_select(0, f_idx), U_old.index_select(0, f_idx)
+            dz = to_dev(d_zeta[fin], sdtype)[:, None]
+            dz_old = to_dev(d_zeta_old[fin], sdtype)[:, None]
+            if df_mode:
+                U_it.index_copy_(0, f_idx, (Uf - Uof) * (dz / dz_old) + Uf)
+                stop = ((zeta_old[fin] - settings.zeta_max) >= -1e-12) | (
+                    d_zeta[fin] < settings.d_zeta_min)
+            else:
+                U_it.index_copy_(0, f_idx, dz * (Uf - Uof) / dz_old + Uf)
+                stop = (zeta_old[fin] >= zeta_stop) | (d_zeta[fin] < d_zeta_min)
+            nits_total[fin] += it[fin]
+            for b in fin:
+                newton_trips[b].append(int(it[b]))
+            trips[fin] += 1
+            running[fin] = ~stop & (trips[fin] < settings.max_trips)
+            nxt = fin[running[fin]]
+            zeta[nxt] = rnd(zeta_old[nxt] + d_zeta[nxt])
+            it[nxt] = 0
+            crit_prev[nxt] = math.inf
+        n_plastic = (ep != 0.0).any(dim=1).sum(dim=1).cpu().numpy()
+        ENSEMBLE_STATS.update(runs=1, sweeps=sweeps, host_reads=reads)
+        return EnsembleSteppingResult(
+            u=U, ep=ep, zeta_hist=zeta_hist, monitor_hist=mon_hist, n_steps=step,
+            n_newton_total=nits_total, zeta=zeta_old, n_plastic=n_plastic,
+            n_cg_total=ncg_total, newton_trips=tuple(tuple(t) for t in newton_trips),
+            sweeps=sweeps, host_reads=reads,
         )
 
     return run

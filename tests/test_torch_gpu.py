@@ -165,6 +165,82 @@ def test_k2_refuses_wrong_inputs(cuda_k2):
         rm.dp_return_map_cuda(e3, ep, *args, torch.zeros(3, device=cuda_k2))
 
 
+@pytest.mark.parametrize("n", [896, 1000])
+@pytest.mark.parametrize("apex", [False, True])
+@pytest.mark.parametrize("apply", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_batched_matches_single_launches(cuda_k2, dtype, apply, apex, n):
+    """K2's member-batched instance over 5 materials, each with its own
+    zeta: member b's s, D, ind_p, lam and ep are `torch.equal` to a single
+    K2 launch with its eta, c and zeta, and to the batched plain version;
+    two launches bit-identical."""
+    shear, bulk = lame_moduli(60000.0, 0.2)
+    mats = [drucker_prager_fit(cc, ff * np.pi / 180)
+            for cc, ff in ((18.7, 49), (14.0, 40), (25.0, 55), (4.0, 45), (20.0, 50))]
+    zetas = [float(np.float32(k / 17)) for k in (7, 1, 17, 12, 3)]
+    rng = np.random.default_rng(n + 1)
+    e3 = torch.as_tensor(rng.normal(0, 2e-3, (5, 3, n)), dtype=dtype, device=cuda_k2)
+    ep = torch.as_tensor(rng.normal(0, 2e-4, (5, 4, n)), dtype=dtype, device=cuda_k2)
+    e0_dir = torch.as_tensor(rng.normal(0, 1e-3, 4), dtype=dtype, device=cuda_k2)
+    params = torch.tensor([[e, c, z] for (e, c), z in zip(mats, zetas)], dtype=torch.float64,
+                          device=cuda_k2)
+    rm.LAUNCHES.clear()
+    got = rm.dp_return_map_batched_cuda(e3, ep, shear, bulk, params, e0_dir, apply, apex)
+    assert dict(rm.LAUNCHES) == {"dp_return_map_batched": 1}
+    for b, ((eta, c), zeta) in enumerate(zip(mats, zetas)):
+        one = rm.dp_return_map_cuda(e3[b], ep[b], shear, bulk, eta, c, e0_dir, zeta, apply, apex)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+    s, ds6, lam, ep_ = rm.dp_return_map_plain_batched(e3, ep, shear, bulk, params, e0_dir, apply,
+                                                      apex)
+    exp = (s, rm.unpack_tangent(ds6), lam > 0.0, lam, ep_)
+    assert all(torch.equal(g, x) for g, x in zip(got, exp))
+    again = rm.dp_return_map_batched_cuda(e3, ep, shear, bulk, params, e0_dir, apply, apex)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+def test_k2_batched_refuses_wrong_inputs(cuda_k2):
+    e3 = torch.zeros((2, 3, 8), device=cuda_k2)
+    ep = torch.zeros((2, 4, 8), device=cuda_k2)
+    params = torch.ones((2, 3), dtype=torch.float64, device=cuda_k2)
+    with pytest.raises(ValueError):  # params not f64
+        rm.dp_return_map_batched_cuda(e3, ep, 1.0, 1.0, params.float())
+    with pytest.raises(ValueError):  # one member short
+        rm.dp_return_map_batched_cuda(e3, ep[:1], 1.0, 1.0, params)
+    with pytest.raises(ValueError):  # params of another member count
+        rm.dp_return_map_batched_cuda(e3, ep, 1.0, 1.0, params[:1])
+    with pytest.raises(ValueError):  # single-member shape
+        rm.dp_return_map_batched_cuda(e3[0], ep[0], 1.0, 1.0, params)
+    with pytest.raises(ValueError):  # device
+        rm.dp_return_map_batched_cuda(e3, ep, 1.0, 1.0, params.cpu())
+    with pytest.raises(ValueError):  # contiguity
+        rm.dp_return_map_batched_cuda(e3.transpose(0, 1).contiguous().transpose(0, 1), ep, 1.0,
+                                      1.0, params)
+    with pytest.raises(ValueError):  # a CPU tensor never routes to the plain version here
+        rm.dp_return_map_batched_cuda(e3.cpu(), ep.cpu(), 1.0, 1.0, params.cpu())
+
+
+def test_f32_ensemble_runs_through_batched_k2(cuda_k2):
+    """A 4-member f32 ensemble: K2's batched instance is the only return
+    map route (no single launch, no plain version); every member ends with
+    its single f32 solve's steps, Newton iterations and plastic points."""
+    from fem_elastoplasticity_tpu_torch.parallel import ensemble as ens
+
+    coh, fr = np.array([4.0, 18.7]), np.array([40.0, 49.0]) * np.pi / 180
+    eta, c = ens.material_grid(coh, fr)
+    rm.LAUNCHES.clear()
+    e = ens.solve_tsx_ensemble(eta, c, TsxTunnelConfig.fast_f32(), device=cuda_k2)
+    launches = dict(rm.LAUNCHES)
+    assert set(launches) == {"dp_return_map_batched"}
+    assert int(e.n_newton_total.max()) < launches["dp_return_map_batched"]
+    for k, (cc, ff) in enumerate((a, b) for a in coh for b in fr):
+        r = tsx.solve(TsxTunnelConfig.fast_f32(cohesion=float(cc), friction_angle=float(ff)),
+                      device=cuda_k2)
+        assert (int(e.n_steps[k]), int(e.n_newton_total[k]), int(e.n_plastic[k])) == (
+            r.n_steps, r.n_newton_total, r.n_plastic)
+        assert np.abs(e.u[k] - r.u).max() <= 1e-5 * np.abs(r.u).max()
+
+
 def test_f32_solves_run_through_k2(cuda_k2):
     rm.LAUNCHES.clear()
     r = tsx.solve(TsxTunnelConfig.fast_f32(), device=cuda_k2)

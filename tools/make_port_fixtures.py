@@ -109,6 +109,16 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   after its one load trip (`save_checkpoint`), on the route's permuted node
   order.
 
+* ensemble_f64.npz, ensemble_df32.npz, ensemble_df32_weak.npz,
+  ensemble_df32_cg_l1.npz — material ensembles (`parallel/ensemble.py`)
+  over `material_grid(cohesions, friction angles)`: the native f64 dense
+  ensemble of (15, 18.7) x 49 deg, the df32 dense ensembles of (18.7, 25)
+  x 49 deg and of the weak member (4, 18.7) x 49 deg, and the df32
+  matrix-free CG ensemble `fast(solver="cg", refine_levels=1,
+  zeta_max=2/17)` of (16, 18.7) x (45, 49) deg: per member u (n_b, n_n,
+  2), zeta_hist, monitor_hist and the step, Newton and plastic counts,
+  beside the grid (cohesions, frictions) and its (eta, c).
+
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
 Pallas kernels in interpret mode and take about 35 s and 45 s, the packed
@@ -252,6 +262,23 @@ def main(names) -> None:
             if name in names:
                 np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "displ_hist"), **extra,
                                     n_cg_total=r.n_cg_total)
+    for name, (cohesions, frictions, df32, cfg_kw) in ENSEMBLES.items():
+        if name in names:
+            from fem_elastoplasticity_tpu.parallel import ensemble as ens
+
+            # radians as TsxTunnelConfig's default forms 49 deg: 49.0 * pi / 180
+            eta, c = ens.material_grid(np.asarray(cohesions),
+                                       np.asarray(frictions) * np.pi / 180.0)
+            cfg = (TsxTunnelConfig.fast if df32 else TsxTunnelConfig)(**cfg_kw)
+            e = (ens.solve_tsx_ensemble_df32(eta, c, cfg=cfg) if df32
+                 else ens.solve_tsx_ensemble(eta, c, cfg))
+            np.savez_compressed(
+                OUT / f"{name}.npz", cohesions=np.asarray(cohesions, np.float64),
+                frictions_deg=np.asarray(frictions, np.float64), eta=eta, c=c,
+                u=np.asarray(e.u, np.float64), zeta_hist=np.asarray(e.zeta_hist, np.float64),
+                monitor_hist=np.asarray(e.monitor_hist, np.float64),
+                n_steps=np.asarray(e.n_steps), n_newton_total=np.asarray(e.n_newton_total),
+                n_plastic=np.asarray(e.n_plastic), config=json.dumps(dict(df32=df32, **cfg_kw)))
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -418,13 +445,22 @@ HIGH_ORDER_CUTS = (("P2", 2, tuple(HIGH_ORDER_ROUTES)), ("P4", 1, tuple(HIGH_ORD
                    ("P2", 17, tuple(HIGH_ORDER_ROUTES)), ("P4", 12, ("native", "cg", "acg")))
 HIGH_ORDER = {f"tsx_{et.lower()}_{route}_z{steps}": (et, steps, route)
               for et, steps, routes in HIGH_ORDER_CUTS for route in routes}
+# material ensembles: name -> (cohesions, friction angles in degrees, df32,
+# TsxTunnelConfig keywords; df32 ones on top of `fast`)
+ENSEMBLES = {
+    "ensemble_f64": ((15.0, 18.7), (49.0,), False, {}),
+    "ensemble_df32": ((18.7, 25.0), (49.0,), True, {}),
+    "ensemble_df32_weak": ((4.0, 18.7), (49.0,), True, {}),
+    "ensemble_df32_cg_l1": ((16.0, 18.7), (45.0, 49.0), True,
+                            dict(solver="cg", refine_levels=1, zeta_max=2.0 / 17.0)),
+}
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
     *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg", *HIGH_ORDER,
-    "tsx_p4_pmg_carry1",
+    "tsx_p4_pmg_carry1", *ENSEMBLES,
 )
 
 if __name__ == "__main__":
