@@ -228,14 +228,15 @@ them against the repository's anchors:
                 assembled one K3's product (once a CG iteration at least)
                 and K1, p-multigrid as phase 27;
  29. high-order plastic routes — the routes past the first plastic step
-                (load step 11), once each, by phase 28's rules: P2 on the
-                five routes at the full schedule (fixtures
-                tsx_p2_*_z17.npz) and P4 on the three block-Jacobi routes
-                cut at zeta 12/17 (tsx_p4_*_z12.npz), each against its own
-                route's JAX run; P4 p-multigrid with gs_tangent True and
+                (load step 11), once each, by phase 28's rules: P2
+                p-multigrid with gs_tangent True and False at the full
+                schedule (fixtures tsx_p2_pmg_*_z17.npz) against its own
+                route's JAX run, and P4 p-multigrid with gs_tangent True and
                 False at 12/17 against the JAX matrix-free df32 run (CG
                 not held: another preconditioner); plastic points and a
-                trip of more than one Newton iteration in every run;
+                trip of more than one Newton iteration in every run; the
+                block-Jacobi routes (P2 full schedule, P4 cut at 12/17)
+                run in `tools/high_order_plastic.py` since phases 34-36;
  30. 228,112 DOFs — `fast(etype=P4, solver="ell", refine_levels=2)` and
                 `fast(etype=P2, solver="ell", refine_levels=3)` (the P1
                 refine-4 lattice), full schedule, twice each: 17 steps, u40
@@ -270,6 +271,40 @@ them against the repository's anchors:
                 launch, no plain version); walls, solves/s, the 64 single
                 solves' serial wall, device busy and idle share, kernels
                 and host reads a sweep, peak device memory.
+ 34. footing element types — Q1, P2 and Q2 at level 0 with
+                `bug_compatible_apex=True`, native f64 dense: the accepted
+                schedule equal to the reference's
+                (`footing_reference_by_etype.json`) and the pressures within
+                1e-11; the same under `FootingConfig.fast()` against the
+                f64 runs (steps and schedule equal, u within 1e-9, the
+                pressures within 1e-5); Q1 and Q2 at level 1 cut at zeta
+                0.05 under `fast(solver="cg", assembled_cg=True)`, Q1 with
+                residual_fmt "slot" and "rslot" (one CSR route: the two
+                runs bitwise equal, which also holds the run repeated), Q2
+                with "slot" (`FOOTING_ACG_RUNS`), against
+                `fast(solver="cg")` (last pressure within 5e-3, the first
+                six within 1e-5), K1 and K3's product launched, no plain
+                version;
+ 35. tsx options — `TsxTunnelConfig(solver="mg", refine_levels=1)` full
+                schedule (u within 1e-14 of the port's solver="cg" run),
+                `fast(solver="mg", refine_levels=1)` (17 steps, 20
+                plastic, u40 within 1e-8 of -2.166787295662e-03), the
+                support pressure (P1 full schedule, u40 within 1e-9 of
+                -1.922609586e-03 and its JAX fixture; P2 and P4 cut at
+                2/17: less closure), the W-cycle at L1 (JAX fixture) and L4
+                (phase 16's anchor), its CG totals and K3 / K4 launches
+                beside the V-cycle's, the deflated CG at L1 (cut at 3/17
+                and full schedule, JAX fixtures), `cg_structure="scan"`
+                bitwise the "while" run, P2 p-multigrid on ELL residual
+                operators (K6 f64 and f32, no CSR product) against the CSR
+                route, and a chunked run interrupted and finished from its
+                checkpoint in a fresh executor, bitwise the single run;
+ 36. option kernels — K1 on the footing's G and S at Q1,
+                P2 and Q2 (level 1), K3's product on their assembled
+                elastic K (node blocks a node printed), K4 on the levels
+                the W-cycle visits twice (L4 levels 1-3), K6 f64 and f32 on
+                P2 and P4 G, S and their f32 heads, each by the earlier
+                phases' rules.
 
 Every phase prints its lines with the card line beside its numbers, and
 the later phases their seconds.  Before
@@ -1524,19 +1559,28 @@ def high_order_route_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, devic
     return launches_by
 
 
-def high_order_plastic_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card):
+# phase 29 runs the p-multigrid routes only: the block-Jacobi ones (P2 at
+# the full schedule, 38 s, and P4 cut at 12/17, 59 s, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W) made room for phases 34-36 and are held to their
+# JAX runs by `python tools/high_order_plastic.py` on the card
+PLASTIC_ROUTES = ("pmg_gs", "pmg_mf")
+
+
+def high_order_plastic_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card,
+                             routes=PLASTIC_ROUTES):
     """Phase 29: the routes past the first plastic step (load step 11),
-    once each: P2 on the five routes at the full schedule and P4 on the
-    three block-Jacobi routes cut at zeta 12/17, each against the JAX run
-    of its own route (fixtures tsx_p2_*_z17, tsx_p4_*_z12); the two P4
-    p-multigrid routes at 12/17 against the JAX matrix-free df32 run
-    (tsx_p4_cg_z12), CG not held (another preconditioner) -> {route:
-    launches}."""
+    once each: P2 at the full schedule against the JAX run of its own route
+    (fixtures tsx_p2_*_z17), the routes of `routes` (all five:
+    `tools/high_order_plastic.py`); with the block-Jacobi routes, P4 on the
+    three cut at zeta 12/17 (tsx_p4_*_z12); the two P4 p-multigrid routes at
+    12/17 against the JAX matrix-free df32 run (tsx_p4_cg_z12), CG not held
+    (another preconditioner) -> {route: launches}."""
     import numpy as np
 
     launches_by = {}
     runs = [(f, None) for f in sorted(FIXTURES.glob("tsx_p2_*_z17.npz"))
-            + sorted(FIXTURES.glob("tsx_p4_*_z12.npz"))]
+            + sorted(FIXTURES.glob("tsx_p4_*_z12.npz"))
+            if f.stem.split("_", 2)[2].rsplit("_", 1)[0] in routes]
     runs += [(FIXTURES / "tsx_p4_cg_z12.npz", gs) for gs in (True, False)]
     for f, gs in runs:
         want = np.load(f)
@@ -1682,12 +1726,13 @@ def ensemble_runs(TsxTunnelConfig):
 
 
 # the CG ensemble's single solves take ~7.5 s each on the card (about
-# 10,000 CG iterations a solve): the smoke compares these ten members
-# (ENSEMBLE_HELD and two more) and times their sequence;
-# tools/ensemble_phases.py --all-singles compares all 64.  Its profile
-# covers the first ENSEMBLE_CG_PROFILE_TRIPS load trips: the full schedule
-# is ~700,000 kernels, too many events for the profiler in the smoke's time
-ENSEMBLE_CG_SINGLES = ENSEMBLE_HELD + (27, 36)
+# 10,000 CG iterations a solve): the smoke compares the eight members of
+# ENSEMBLE_HELD (ten, with members 27 and 36, before phases 34-36) and times
+# their sequence; tools/ensemble_phases.py --all-singles compares all 64.
+# Its profile covers the first ENSEMBLE_CG_PROFILE_TRIPS load trips: the
+# full schedule is ~700,000 kernels, too many events for the profiler in
+# the smoke's time
+ENSEMBLE_CG_SINGLES = ENSEMBLE_HELD
 ENSEMBLE_CG_PROFILE_TRIPS = 4
 
 
@@ -1798,6 +1843,311 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
             f"{sweeps} sweeps, {o['host_reads_per_sweep']:.2f} host reads a sweep | K2 "
             f"{launches} | peak {peak / 2**30:.3f} GiB | phase {o['phase_s']:.1f} s | {card}")
     return out, k2_launches
+
+
+FOOTING_ETYPES = ("Q1", "P2", "Q2")
+# tests/test_footing.py:246-265: the assembled quads cut at zeta 0.05
+# against the matrix-free CG: the last pressure, the first six
+FOOTING_ACG_ZETA = 0.05
+ANCHOR_U40_SUPPORT = -1.922609586e-03  # tests/test_tsx_tunnel.py:346-355
+# the level-1 assembled runs of phase 34 by element type: Q1 twice, as
+# "slot" and "rslot" (one CSR route, so also the repeat, held bitwise); Q2
+# once (81 s a run on an NVIDIA H100 80GB HBM3 at 700.00 W; its "slot" /
+# "rslot" pair is held bitwise at level 0 by tests/test_torch_gpu.py)
+FOOTING_ACG_RUNS = {"Q1": ("slot", "rslot"), "Q2": ("slot",)}
+
+
+def footing_etypes_phase(torch, spmv, footing, FootingConfig, ElementType, device, card):
+    """Phase 34 -> ({run: launches}, {et: the level-1 assembled build's
+    extras}).  See the module docstring."""
+    import dataclasses
+
+    import numpy as np
+
+    ref = json.loads((FIXTURES / "footing_reference_by_etype.json").read_text())
+    for et in FOOTING_ETYPES:
+        cfg = FootingConfig(etype=ElementType[et], level=0, bug_compatible_apex=True)
+        spmv.LAUNCHES.clear()
+        r, wall = timed(torch, lambda: footing.solve(cfg, device=device))
+        check_no_plain(f"footing {et} f64", dict(spmv.LAUNCHES))
+        n, z, p = r.n_steps, np.asarray(ref[et]["zeta"]), np.asarray(ref[et]["pressure"])
+        check(n == len(z) and np.array_equal(r.zeta_hist[1:n + 1], z),
+              f"footing {et} f64: schedule {r.zeta_hist[1:n + 1]} is not the reference's")
+        p_gap = float(np.abs(r.pressure_hist[1:n + 1] - p).max() / p.max())
+        check(p_gap < 1e-11, f"footing {et} f64: pressures {p_gap:.3e} from the reference's")
+        fcfg = dataclasses.replace(FootingConfig.fast(), etype=ElementType[et], level=0,
+                                   bug_compatible_apex=True)
+        spmv.LAUNCHES.clear()
+        rf, fwall = timed(torch, lambda: footing.solve(fcfg, device=device))
+        check_no_plain(f"footing {et} df32", dict(spmv.LAUNCHES))
+        check(rf.n_steps == n and np.allclose(rf.zeta_hist[1:n + 1], z, rtol=1e-12, atol=0),
+              f"footing {et} df32: {rf.n_steps} steps off the f64 schedule")
+        u_rel = float(np.abs(rf.u - r.u).max() / np.abs(r.u).max())
+        fp_gap = float(np.abs(rf.pressure_hist[1:n + 1] - r.pressure_hist[1:n + 1]).max()
+                       / np.abs(r.pressure_hist[1:n + 1]).max())
+        check(u_rel < 1e-9 and fp_gap < 1e-5,
+              f"footing {et} df32: u {u_rel:.3e} / pressures {fp_gap:.3e} from the f64 run")
+        say("footing etypes", f"{et} level 0 ({r.mesh.n_nodes} nodes): f64 {n} steps / "
+            f"{r.n_newton_total} Newton, schedule equal to the reference's, pressures "
+            f"{p_gap:.3e} from it, wall {wall:.3f} s; fast() {rf.n_steps} steps / "
+            f"{rf.n_newton_total} Newton, u {u_rel:.3e} and pressures {fp_gap:.3e} from the "
+            f"f64 run, wall {fwall:.3f} s | {card}")
+    launches_by, extras_by = {}, {}
+    for et, fmts in FOOTING_ACG_RUNS.items():
+        kw = dict(etype=ElementType[et], level=1, zeta_max=FOOTING_ACG_ZETA, solver="cg")
+        runs = {}
+        for fmt in fmts:
+            ex = {}
+            run, _ = footing.build_df32(FootingConfig.fast(assembled_cg=True, residual_fmt=fmt,
+                                                           **kw), device=device, extras=ex)
+            spmv.LAUNCHES.clear()
+            runs[fmt], wall = timed(torch, run)
+            launches = dict(spmv.LAUNCHES)
+            check_scale_launches(f"footing {et} acg {fmt}", launches, FOOTING_ACG_KERNELS)
+            check(launches["node_block_spmv"] >= runs[fmt].n_cg_total,
+                  f"footing {et} acg: fewer K3 products than CG iterations ({launches})")
+            launches_by[f"footing_{et}_acg_{fmt}"] = launches
+            extras_by[et] = ex
+            say("footing etypes", f"{et} level 1 acg residual_fmt={fmt!r}: steps / Newton / CG "
+                f"/ plastic {footing_counts(runs[fmt])}, launches {launches}, wall {wall:.3f} s "
+                f"| {card}")
+        a = runs["slot"]
+        if "rslot" in runs:
+            b = runs["rslot"]
+            check(np.array_equal(a.u, b.u) and footing_counts(a) == footing_counts(b),
+                  f"footing {et} acg: 'slot' and 'rslot' differ")
+        spmv.LAUNCHES.clear()
+        mf, wall = timed(torch, lambda: footing.solve(FootingConfig.fast(**kw), device=device))
+        check(not spmv.LAUNCHES, f"footing {et} mf: launches {dict(spmv.LAUNCHES)}")
+        p_a, p_m = float(a.pressure_hist[a.n_steps]), float(mf.pressure_hist[mf.n_steps])
+        last = abs(p_a - p_m) / abs(p_m)
+        n6 = min(a.n_steps, mf.n_steps, 6)
+        first = float(np.abs(a.pressure_hist[1:n6 + 1] - mf.pressure_hist[1:n6 + 1]).max()
+                      / np.abs(mf.pressure_hist[1:n6 + 1]).max())
+        check(last < 5e-3 and first < 1e-5,
+              f"footing {et} acg: last pressure {last:.3e}, first six {first:.3e} from mf's")
+        same = "'slot' and 'rslot' bitwise equal" if "rslot" in runs else "'slot'"
+        say("footing etypes", f"{et} level 1 cut at zeta {FOOTING_ACG_ZETA}: acg {same} (u "
+            f"sha256 {u_digest(a.u)}), against matrix-free CG "
+            f"{footing_counts(mf)} (wall {wall:.3f} s): last pressure {p_a:.9f} vs {p_m:.9f} "
+            f"({last:.3e}), first {n6} within {first:.3e} | {card}")
+    return launches_by, extras_by
+
+
+def tsx_options_phase(torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card,
+                      v_counts: dict):
+    """Phase 35 -> ({run: launches}, {tag: extras of builds phase 36
+    reads}).  v_counts: the V-cycle's (steps, Newton, CG) at L1 and L4 from
+    phases 14 and 16.  See the module docstring."""
+    import tempfile
+
+    import numpy as np
+
+    launches_by, builds = {}, {}
+    fx = lambda name: np.load(FIXTURES / f"{name}.npz")  # noqa: E731
+    counts = lambda r: (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)  # noqa: E731
+
+    def native(tag, cfg):
+        spmv.LAUNCHES.clear()
+        r, wall = timed(torch, lambda: tsx.solve(cfg, device=device))
+        check_no_plain(tag, dict(spmv.LAUNCHES))
+        check(bool(np.isfinite(r.u).all()), f"{tag}: non-finite field")
+        return r, wall
+
+    def against_fixture(tag, r, res, cfg, name, hold_cg=True):
+        want = fx(name)
+        check(r.n_steps == int(want["n_steps"]) and r.n_plastic == int(want["n_plastic"]),
+              f"{tag}: steps / plastic {r.n_steps} / {r.n_plastic}, JAX "
+              f"{int(want['n_steps'])} / {int(want['n_plastic'])}")
+        if res is None:
+            check_newton(tag, r, cfg, int(want["n_newton_total"]), None)
+        else:
+            check_newton(tag, res, cfg, int(want["n_newton_total"]),
+                         tuple(int(k) for k in want["newton_trips"]))
+        n_cg = int(want["n_cg_total"])
+        if hold_cg:
+            check(abs(r.n_cg_total - n_cg) <= 0.05 * n_cg, f"{tag}: {r.n_cg_total} CG, JAX {n_cg}")
+        u_rel = float(np.abs(r.u - want["u"]).max() / np.abs(want["u"]).max())
+        check(u_rel < 1e-9, f"{tag}: u {u_rel:.3e} from JAX's")
+        return (f"JAX {int(want['n_steps'])} / {int(want['n_newton_total'])} / {n_cg} / "
+                f"{int(want['n_plastic'])} (CG {'held to 5%' if hold_cg else 'not held'}), "
+                f"u {u_rel:.3e} from JAX's")
+
+    # the matrix-free multigrid, native f64, against the port's block-Jacobi CG
+    mg, mg_wall = native("tsx mg f64", TsxTunnelConfig(solver="mg", refine_levels=1))
+    cg, cg_wall = native("tsx cg f64 L1", TsxTunnelConfig(solver="cg", refine_levels=1))
+    gap = float(np.abs(mg.u - cg.u).max())
+    check(mg.n_steps == cg.n_steps == 17 and gap <= 1e-14,
+          f"tsx mg f64: {mg.n_steps} steps, u {gap:.3e} from the cg run's")
+    say("tsx options", f"TsxTunnelConfig(solver='mg', refine_levels=1): {counts(mg)} against "
+        f"solver='cg' {counts(cg)}, u within {gap:.3e} (absolute), walls {mg_wall:.3f} / "
+        f"{cg_wall:.3f} s | {card}")
+    # the same in df32: the f32 hierarchy built once at setup
+    r, res, setup, first, warm, launches, _, _, _ = df32_twice(
+        torch, spmv, tsx, TsxTunnelConfig.fast(solver="mg", refine_levels=1), device)
+    check_no_plain("tsx mg df32", launches)
+    rel = abs(float(r.u[40, 0]) - ANCHOR_U40_SCALE_L1) / abs(ANCHOR_U40_SCALE_L1)
+    check(r.n_steps == 17 and r.n_plastic == 20 and rel <= 1e-8,
+          f"tsx mg df32: {counts(r)}, u40 {float(r.u[40, 0])!r} ({rel:.3e})")
+    say("tsx options", f"fast(solver='mg', refine_levels=1): {counts(r)}, u40 "
+        f"{float(r.u[40, 0]):.12e} (rel {rel:.3e}), repeat bit-identical, setup {setup:.2f} s, "
+        f"walls {first:.3f} / {warm:.3f} s | {card}")
+    # the support pressure
+    sp, wall = native("tsx support P1", TsxTunnelConfig(solver="cg", support_pressure=2.0))
+    line = against_fixture("tsx support P1", sp, None, TsxTunnelConfig(solver="cg"),
+                           "tsx_support_p1")
+    gap = abs(float(sp.u[40, 0]) - ANCHOR_U40_SUPPORT)
+    check(sp.n_steps == 17 and gap < 1e-9, f"tsx support P1: u40 {float(sp.u[40, 0])!r}")
+    say("tsx options", f"TsxTunnelConfig(solver='cg', support_pressure=2.0): {counts(sp)}, u40 "
+        f"{float(sp.u[40, 0]):.12e} ({gap:.3e} from {ANCHOR_U40_SUPPORT}); {line}; wall "
+        f"{wall:.3f} s | {card}")
+    for et in ("P2", "P4"):
+        kw = dict(etype=ElementType[et], solver="cg", zeta_max=2 / 17)
+        r0, w0 = native(f"tsx {et} unsupported", TsxTunnelConfig(**kw))
+        r1, w1 = native(f"tsx {et} supported", TsxTunnelConfig(support_pressure=3.0, **kw))
+        check(abs(float(r1.u[40, 0])) < abs(float(r0.u[40, 0])),
+              f"tsx {et} support: no less closure ({float(r1.u[40, 0])!r} against "
+              f"{float(r0.u[40, 0])!r})")
+        say("tsx options", f"{et} support_pressure=3.0 cut at 2/17: u40 {float(r1.u[40, 0]):.9e} "
+            f"against {float(r0.u[40, 0]):.9e} unsupported, walls {w1:.3f} / {w0:.3f} s | {card}")
+    # the W-cycle
+    for level in (1, 4):
+        cfg = TsxTunnelConfig.fast_scale(level, mg_cycle="w")
+        r, res, setup, first, warm, launches, ex, _, _ = df32_twice(torch, spmv, tsx, cfg, device)
+        check_scale_launches(f"tsx W L{level}", launches)
+        launches_by[f"scale_W_L{level}"] = launches
+        if level == 1:
+            line = against_fixture("tsx W L1", r, res, cfg, "tsx_scale_l1_w")
+        else:
+            rel = abs(float(r.u[40, 0]) - ANCHOR_U40_SCALE_L4) / abs(ANCHOR_U40_SCALE_L4)
+            check(r.n_steps == 17 and rel <= 1e-6, f"tsx W L4: {counts(r)}, u40 rel {rel:.3e}")
+            line = f"u40 {float(r.u[40, 0]):.9e} (rel {rel:.3e} to {ANCHOR_U40_SCALE_L4})"
+            builds["W_L4"] = ex
+        v = v_counts[level]
+        per_cg = {k: round(launches.get(k, 0) / max(r.n_cg_total, 1), 2)
+                  for k in ("block_jacobi_sweep", "node_transfer")}
+        say("tsx options", f"fast_scale({level}, mg_cycle='w'): {counts(r)} against the V-cycle's "
+            f"{v} (steps / Newton / CG / plastic); {line}; launches {launches} ({per_cg} a CG "
+            f"iteration), repeat bit-identical, setup {setup:.2f} s, walls {first:.3f} / "
+            f"{warm:.3f} s | {card}")
+    # the deflated CG
+    for name, cfg, hold in (
+            ("tsx_scale_l1_defl4_z3", TsxTunnelConfig.fast_scale(1, cg_deflate=4,
+                                                                 zeta_max=3 / 17), False),
+            ("tsx_scale_l1_defl4", TsxTunnelConfig.fast_scale(1, cg_deflate=4), True)):
+        r, res, setup, first, warm, launches, _, _, _ = df32_twice(torch, spmv, tsx, cfg, device)
+        check_scale_launches(f"tsx {name}", launches)
+        launches_by[name] = launches
+        line = against_fixture(f"tsx {name}", r, res, cfg, name, hold_cg=hold)
+        say("tsx options", f"{name} (cg_deflate=4): {counts(r)}; {line}; repeat bit-identical, "
+            f"walls {first:.3f} / {warm:.3f} s | {card}")
+    # the fixed-trip CG loop
+    runs = {}
+    for structure in ("while", "scan"):
+        cfg = TsxTunnelConfig.fast_scale(1, cg_maxiter=200, cg_structure=structure,
+                                         zeta_max=3 / 17)
+        run, _ = tsx.build_df32(cfg, device=device)
+        spmv.LAUNCHES.clear()
+        runs[structure], wall = timed(torch, run)
+        check_no_plain(f"tsx {structure}", dict(spmv.LAUNCHES))
+        launches_by[f"scale_L1_{structure}_z3"] = dict(spmv.LAUNCHES)
+        say("tsx options", f"fast_scale(1, cg_maxiter=200, cg_structure={structure!r}) cut at "
+            f"3/17: {counts(runs[structure])}, launches {dict(spmv.LAUNCHES)}, wall {wall:.3f} s "
+            f"| {card}")
+    w, sc = runs["while"], runs["scan"]
+    check(counts(w) == counts(sc) and torch.equal(w.u, sc.u),
+          "tsx scan: not bitwise the while run")
+    # P2 p-multigrid on ELL residual operators against the CSR route
+    ell_cfg = TsxTunnelConfig.fast(etype=ElementType.P2, solver="ell", residual_fmt="ell",
+                                   zeta_max=2 / 17)
+    re_, res_e, _, first, _, l_ell, ex_ell, _, _ = df32_twice(torch, spmv, tsx, ell_cfg, device)
+    check_scale_launches("tsx P2 ELL residual", l_ell, ELL_KERNELS)
+    launches_by["p2_res_ell_z2"] = l_ell
+    builds["P2_ell"] = ex_ell
+    rc, res_c, _, _, _, l_csr, ex_csr, _, _ = df32_twice(
+        torch, spmv, tsx, TsxTunnelConfig.fast(etype=ElementType.P2, solver="ell",
+                                               gs_tangent=False, zeta_max=2 / 17), device)
+    builds["P2_csr"] = ex_csr
+    u_rel = float(np.abs(re_.u - rc.u).max() / np.abs(rc.u).max())
+    check(re_.n_steps == rc.n_steps and res_e.newton_trips == res_c.newton_trips
+          and u_rel < 1e-9, f"tsx P2 ELL residual: {counts(re_)} / {res_e.newton_trips}, CSR "
+          f"route {counts(rc)} / {res_c.newton_trips}, u {u_rel:.3e}")
+    say("tsx options", f"P2 p-multigrid on ELL G/S cut at 2/17: {counts(re_)} against the CSR "
+        f"route's {counts(rc)}, Newton by trip {res_e.newton_trips}, u {u_rel:.3e} from it, "
+        f"launches {l_ell} (CSR route {l_csr}), repeat bit-identical, wall {first:.3f} s | {card}")
+    p4_ex = {}
+    tsx.build_df32(TsxTunnelConfig.fast(etype=ElementType.P4, solver="ell", residual_fmt="ell",
+                                        zeta_max=1 / 17), device=device, extras=p4_ex)
+    p4_csr = {}
+    tsx.build_df32(TsxTunnelConfig.fast(etype=ElementType.P4, solver="ell", zeta_max=1 / 17),
+                   device=device, extras=p4_csr)
+    builds["P4_ell"], builds["P4_csr"] = p4_ex, p4_csr
+    # a chunked run, interrupted and finished from its checkpoint
+    cfg = TsxTunnelConfig.fast_scale(1)
+    single, _ = tsx.build_df32(cfg, device=device)
+    full, _ = timed(torch, single)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = pathlib.Path(tmp) / "carry.npz"
+        ex1, _ = tsx.build_df32_chunked(cfg, trips_per_chunk=3, max_chunks=2, device=device)
+        part, w1 = timed(torch, lambda: ex1(checkpoint_path=ck))
+        check(ck.exists() and part.n_steps < full.n_steps,
+              f"tsx chunked: not interrupted ({part.n_steps} steps)")
+        ex2, _ = tsx.build_df32_chunked(cfg, trips_per_chunk=3, device=device)
+        spmv.LAUNCHES.clear()
+        done, w2 = timed(torch, lambda: ex2(checkpoint_path=ck))
+        launches_by["scale_L1_chunked"] = dict(spmv.LAUNCHES)
+    check((done.n_steps, done.n_newton_total, done.n_cg_total)
+          == (full.n_steps, full.n_newton_total, full.n_cg_total)
+          and torch.equal(done.u, full.u), "tsx chunked: not bitwise the single run")
+    say("tsx options", f"build_df32_chunked(fast_scale(1), trips_per_chunk=3, max_chunks=2) "
+        f"stopped at step {part.n_steps} ({w1:.3f} s); a fresh executor finished from the "
+        f"checkpoint ({w2:.3f} s): {done.n_steps} / {done.n_newton_total} / {done.n_cg_total}, "
+        f"u bitwise the single run's | {card}")
+    return launches_by, builds
+
+
+def option_kernels_phase(torch, spmv, adf, footing, FootingConfig, footing_extras: dict,
+                          builds: dict, device, card, ElementType, volume_element):
+    """Phase 36 -> (CSR records, their max error, K3 records, K4 records,
+    K4 max error, K6 records, K6 max errors).  See the module docstring."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.models.materials import lame_moduli
+
+    fx = {}
+    for et, ex in footing_extras.items():
+        G, S = ex["residual_op"]
+        fx[f"footing_G_{et}_L1"], fx[f"footing_S_{et}_L1"] = G, S
+    csr, csr_err = csr_phase(torch, spmv, fx, device, card)
+    shear, bulk = lame_moduli(FootingConfig().young, FootingConfig().poisson)
+    k3 = {}
+    for et in FOOTING_ETYPES:
+        ex = footing_extras.get(et)
+        if ex is None:  # P2: the operator of a build of its own
+            ex = {}
+            footing.build_df32(FootingConfig.fast(etype=ElementType[et], level=1, solver="cg",
+                                                  assembled_cg=True), device=device, extras=ex)
+        B, mesh = ex["elastic_op"], ex["solver_mesh"]
+        K = spmv.build_elastic_csr(mesh.coords, mesh.elems, volume_element(ElementType[et]),
+                                   shear, bulk, free=mesh.free)
+        say("K3", f"footing {et} level-1 assembled elastic K: {B.n_nodes} nodes, "
+            f"{B.block_cols.numel()} blocks, width {B.width}, blocks a node "
+            f"{blocks_histogram(torch, B)} | {card}")
+        k3[f"K_footing_{et}_L1"] = (B, spmv.csr_to_device(K, device, np.float32), None, False)
+    k3_shapes = k3_phase(torch, spmv, k3, device, card)
+    w4 = builds["W_L4"]
+    levels = w4["hierarchy"].levels
+    k4, k4_err = k4_phase(torch, spmv, {
+        f"W_L4_level{i}": (spmv.csr_to_device(w4["host_levels"][i]["K"], device, np.float32),
+                           levels[i]) for i in range(1, len(levels) - 1)}, device, card)
+    k6 = {}
+    for et in ("P2", "P4"):
+        (Ge, Se), (Gc, Sc) = builds[f"{et}_ell"]["residual_op"], builds[f"{et}_csr"]["residual_op"]
+        (Ge32, Se32), (Gc32, Sc32) = adf.f32_heads(Ge, Se), adf.f32_heads(Gc, Sc)
+        k6.update({f"G_{et}_ell": (Ge, Gc), f"S_{et}_ell": (Se, Sc),
+                   f"G32_{et}_ell": (Ge32, Gc32), f"S32_{et}_ell": (Se32, Sc32)})
+    k6_shapes, k6_err = k6_phase(torch, spmv, k6, device, card)
+    return csr, csr_err, k3_shapes, k4, k4_err, k6_shapes, k6_err
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -2564,6 +2914,33 @@ def main() -> int:
     ens_runs, k2_ens = ensemble_phase(torch, tsx, TsxTunnelConfig, device, card)
     say("phase time", f"ensembles {time.perf_counter() - t_phase:.1f} s | {card}")
 
+    # phase 34: the footing's Q1, P2 and Q2 elements
+    t_phase = time.perf_counter()
+    et_launches, et_extras = footing_etypes_phase(torch, spmv, footing, FootingConfig,
+                                                  ElementType, device, card)
+    say("phase time", f"footing element types {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 35: the tsx's last single-card options
+    t_phase = time.perf_counter()
+    opt_launches, opt_builds = tsx_options_phase(
+        torch, spmv, tsx, TsxTunnelConfig, ElementType, device, card,
+        {1: (s1.n_steps, s1.n_newton_total, s1.n_cg_total, s1.n_plastic), 4: counts4(a1)})
+    say("phase time", f"tsx options {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 36: the kernels at the shapes of phases 34-35
+    t_phase = time.perf_counter()
+    (csr_o, csr_o_err, k3_o, k4_o, k4_o_err, k6_o, k6_o_err) = option_kernels_phase(
+        torch, spmv, adf, footing, FootingConfig, et_extras, opt_builds, device, card,
+        ElementType, volume_element)
+    k3_shapes.update(k3_o)
+    k4_shapes.update(k4_o)
+    k4_err = max(k4_err, k4_o_err)
+    k6_shapes.update(k6_o)
+    k6_err = {k: max(v, k6_o_err[k]) for k, v in k6_err.items()}
+    del et_extras, opt_builds
+    say("phase time", f"option kernels {time.perf_counter() - t_phase:.1f} s | {card}")
+    new_launches = {**et_launches, **opt_launches}
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -2581,9 +2958,10 @@ def main() -> int:
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches),
-        "max_abs_err": max(k1_err, max(v["max_abs_err"] for k, v in csr_shapes.items()
-                                       if k.startswith("footing_")),
+                                    **hi_launches, **new_launches),
+        "max_abs_err": max(k1_err, csr_o_err,
+                           max(v["max_abs_err"] for k, v in csr_shapes.items()
+                               if k.startswith("footing_")),
                            max(v["max_abs_err"] for k, v in ho_csr.items()
                                if not k[1:].startswith("32"))),
         # one residual evaluation of the main path: G u then S s, level 0
@@ -2594,7 +2972,7 @@ def main() -> int:
         "library_ms": sum(k1_shapes[k]["library_ms"] for k in l0),
         "shapes": {**k1_shapes, **{k: v for k, v in csr_shapes.items()
                                    if k.startswith("footing_")},
-                   **{k: v for k, v in ho_csr.items() if not k[1:].startswith("32")}},
+                   **{k: v for k, v in ho_csr.items() if not k[1:].startswith("32")}, **csr_o},
     }, {
         "name": "dp_return_map",
         "route": "cuda",
@@ -2642,7 +3020,7 @@ def main() -> int:
                                     scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches),
+                                    **hi_launches, **new_launches),
         # bitwise equal to its plain version (and to the earlier design)
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
         # the CG operator of the level-5 solve; the bound is the node-block
@@ -2663,7 +3041,7 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
         "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
-                                    **hi_launches),
+                                    **hi_launches, **new_launches),
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
                            if not k.startswith("K_")),
         # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
@@ -2680,7 +3058,7 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
         "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
-                                    **hi_launches),
+                                    **hi_launches, **new_launches),
         "max_abs_err": k4_err,
         # one smoother sweep on the fine level of the level-4 solve; the
         # bound is the node-block layout's bytes, the CSR entries' beside it
@@ -2737,7 +3115,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:417",
         "launches_by_path": by_path("ell_spmv_f32", scale_ELL_L1=e1_launches,
-                                    scale_ELL_L4=e4_launches),
+                                    scale_ELL_L4=e4_launches, **new_launches),
         "max_abs_err": k6_err["float32"],
         # the CG operator of the level-4 ELL solve
         "ms": k6_shapes["K_L4"]["ms"],
@@ -2753,7 +3131,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:902",
         "launches_by_path": by_path("ell_spmv_f64", scale_ELL_L1=e1_launches,
-                                    scale_ELL_L4=e4_launches),
+                                    scale_ELL_L4=e4_launches, **new_launches),
         "max_abs_err": k6_err["float64"],
         # one residual evaluation of the level-4 ELL solve: G u, then S s
         "ms": k6_shapes["G_L4"]["ms"] + k6_shapes["S_L4"]["ms"],

@@ -4,25 +4,34 @@ Port of `fem_elastoplasticity_tpu/models/config.py` (`ElasticityConfig` at
 :16, `FootingConfig` at :39, `TsxTunnelConfig` at :188) with the same field
 names and defaults, so a configuration reads the same in both packages.
 The elasticity problem runs P1, P2, Q1 and Q2 elements, dense or by
-matrix-free CG.  The footing runs P1 elements: dense in native f64 and
-f32 and in "df32", and with block-Jacobi or tangent-multigrid CG tangent
-solves (`FootingConfig`).  The tsx runs P1, P2 and P4 triangles: dense in
-native f64 and f32 and in df32; with `solver="cg"` (block-Jacobi PCG
-tangent solves) in native precision and in df32, matrix-free or, with
-`assembled_cg`, on the assembled elastic operator plus the gathered
-plastic correction; and with `solver="ell"` (multigrid-preconditioned CG,
-`TsxTunnelConfig.fast_scale`) in df32, at P1 on refined meshes with the
-hierarchy in CSR (`spmv_fmt="slot"`) or ELL (`"ell"`) and the plastic
-tangent correction scattered into the operator's values once a Newton
-iteration (`corr_mode="scatter"`) or gathered in every CG product
+matrix-free CG.  The footing runs P1, P2, Q1 and Q2 elements: dense in
+native f64 and f32 and in "df32", and with block-Jacobi CG tangent solves
+(matrix-free or, in df32, `assembled_cg`), and at P1 with the
+tangent-multigrid CG of `FootingConfig.fast_scale`.  The tsx runs P1, P2
+and P4 triangles: dense in native f64 and f32 and in df32; with
+`solver="cg"` (block-Jacobi PCG tangent solves) in native precision and in
+df32, matrix-free or, with `assembled_cg`, on the assembled elastic
+operator plus the gathered plastic correction; with `solver="mg"` at P1
+(CG preconditioned by the matrix-free geometric multigrid V-cycle of the
+refinement hierarchy) in native precision and in df32; and with
+`solver="ell"` (multigrid-preconditioned CG, `TsxTunnelConfig.fast_scale`)
+in df32, at P1 on refined meshes with the hierarchy in CSR
+(`spmv_fmt="slot"`) or ELL (`"ell"`), V- or W-cycles (`mg_cycle`), and the
+plastic tangent correction scattered into the operator's values once a
+Newton iteration (`corr_mode="scatter"`) or gathered in every CG product
 (`"gather"`), and at P2/P4 as p-multigrid: the P1 hierarchy of the same
 node lattice preconditions the high-order tangent, which is applied on the
 f32 heads of the residual operators (`gs_tangent`) or matrix-free.  The
 residual operators are CSR (`residual_fmt` None, "slot" or "rslot": the
 JAX package's slot layouts are TPU tile geometry, and the card takes the
-CSR) or ELL.  A field whose value selects something the port does not
-implement raises NotImplementedError when the config is built; no field is
-ignored.
+CSR) or ELL.  Every CG route takes `cg_structure="scan"` (fixed trip
+counts) and, in df32, a recycled deflation basis (`cg_deflate`); the tsx
+takes a ramped support pressure on the tunnel wall (`support_pressure`).
+A field whose value selects something the port does not implement raises
+NotImplementedError when the config is built; no field is ignored.  Still
+refused: multi-device runs (`shard_devices` is no field here) and the
+footing's `tangent_mg` beyond P1, which the JAX package does not run
+either (`solve/multigrid.py:493` asserts n_q == 1).
 """
 from __future__ import annotations
 
@@ -60,21 +69,20 @@ class ElasticityConfig:
             raise NotImplementedError(f"ElasticityConfig.dtype={self.dtype!r}")
 
 
-# fields of paths that later slices port: only their defaults are accepted
-_NOT_PORTED = dict(
-    cg_structure="while",
-    cg_deflate=0,
-    mg_cycle="v",
-    support_pressure=0.0,
-)
-# fields that only the multigrid-CG path (solver="ell") reads
-_ELL_ONLY = dict(spmv_fmt="slot", corr_mode="gather", mg_nu=2)
-# fields that only the iterative tangent solves (solver="cg" or "ell") read
+# the CG loop's forms (`solve.cg.solve_cg` structure)
+CG_STRUCTURES = ("while", "scan")
+# fields that only the assembled multigrid-CG path (solver="ell") reads;
+# solver="mg" reads mg_nu too
+_ELL_ONLY = dict(spmv_fmt="slot", corr_mode="gather", mg_cycle="v")
+_MG_ONLY = dict(mg_nu=2)
+# fields that only the iterative tangent solves (solver "cg", "mg" or
+# "ell") read
 _ITERATIVE_ONLY = dict(predictor_ir_iters=4, cg_tol=None, cg_maxiter=2000, cg_eta0=None,
-                       cg_cap_relax=None)
+                       cg_cap_relax=None, cg_structure="while", cg_deflate=0)
 # fields that the native CG path never passes on (JAX `models/tsx_tunnel.py
-# solve`): its predictor is one PCG solve, its stepper takes no forcing
-_DF32_ONLY = dict(predictor_ir_iters=4, cg_eta0=None, cg_cap_relax=None)
+# solve`): its predictor is one PCG solve, its stepper takes no forcing and
+# no deflation basis
+_DF32_ONLY = dict(predictor_ir_iters=4, cg_eta0=None, cg_cap_relax=None, cg_deflate=0)
 # the P1 hierarchy levels that a high-order element's node lattice adds:
 # the P2 / P4 lattice of a mesh is its P1 lattice refined once / twice
 P_EXTRA = {ElementType.P1: 0, ElementType.P2: 1, ElementType.P4: 2}
@@ -132,9 +140,12 @@ class TsxTunnelConfig:
 
     def __post_init__(self):
         dtype_policy(self.precision, self.dtype)  # raises on what is not ported
-        for name, default in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(f"TsxTunnelConfig.{name}={getattr(self, name)!r}")
+        if self.cg_structure not in CG_STRUCTURES:
+            raise NotImplementedError(f"TsxTunnelConfig.cg_structure={self.cg_structure!r}")
+        if self.mg_cycle not in ("v", "w"):
+            raise NotImplementedError(f"TsxTunnelConfig.mg_cycle={self.mg_cycle!r}")
+        if self.cg_deflate < 0:
+            raise ValueError("cg_deflate must be >= 0")
         if self.etype not in P_EXTRA:
             raise NotImplementedError(f"TsxTunnelConfig.etype={self.etype}: the tsx mesh "
                                       "promotes to P1, P2 or P4 triangles")
@@ -146,11 +157,19 @@ class TsxTunnelConfig:
             raise ValueError(f"gs_tangent {self.gs_tangent!r} not in (None, True, False)")
         if not 0.0 <= self.ell_overflow_frac < 1.0:
             raise ValueError(f"ell_overflow_frac {self.ell_overflow_frac!r} not in [0, 1)")
-        if self.solver not in ("dense", "cg", "ell"):
-            # "mg", the matrix-free multigrid (`build_hierarchy`, `make_vcycle`)
+        if self.solver not in ("dense", "cg", "mg", "ell"):
             raise NotImplementedError(f"TsxTunnelConfig.solver={self.solver!r}")
         if self.solver != "ell":
             self._refuse_defaults(_ELL_ONLY, "solver='ell'")
+        if self.solver not in ("mg", "ell"):
+            self._refuse_defaults(_MG_ONLY, "a multigrid solver")
+        if self.solver == "mg":
+            # the matrix-free hierarchy refines the P1 mesh (JAX
+            # `models/tsx_tunnel.py:201`, `:645`)
+            if self.etype != ElementType.P1:
+                raise NotImplementedError("solver='mg' needs P1")
+            if self.assembled_cg:
+                raise NotImplementedError("assembled_cg=True with solver='mg'")
         if self.solver == "dense":
             self._refuse_defaults(_ITERATIVE_ONLY, "an iterative solver")
         elif self.precision == "native":
@@ -187,12 +206,9 @@ class TsxTunnelConfig:
         if self.residual_fmt is not None and self.precision == "native":
             # the JAX package's native path never reads residual_fmt
             raise NotImplementedError("residual_fmt with precision='native'")
-        if self.residual_fmt == "ell" and self.etype != ElementType.P1:
-            # the high-order predictor and tangent run on the CSR heads
-            raise NotImplementedError("residual_fmt='ell' at P2/P4")
         if self.gs_tangent:
-            # the tangent S (d (G v)) needs the CSR residual operators and a
-            # tangent that no assembled elastic operator takes
+            # the tangent S (d (G v)) needs the residual operators (CSR or
+            # ELL) and a tangent that no assembled elastic operator takes
             # (`solve/newton.py:666-751`)
             if self.solver != "ell" or self.etype == ElementType.P1:
                 raise NotImplementedError("gs_tangent=True needs solver='ell' at P2 or P4")
@@ -217,11 +233,14 @@ class TsxTunnelConfig:
         """Whether the tangent CG operator is S (d (G v)) on the f32 heads
         of the residual operators: gs_tangent, or with None the JAX
         package's auto rule, on at P2/P4 where the CSR residual operators
-        carry a tangent that no assembled elastic operator takes
-        (`models/tsx_tunnel.py:893-903`)."""
+        carry a tangent that no assembled elastic operator takes, and off
+        on ELL residual operators (`models/tsx_tunnel.py:893-903`: the JAX
+        package takes the heads of its slot layouts only).  Set True, the
+        port runs it on the ELL heads as well."""
         if self.gs_tangent is not None:
             return self.gs_tangent
-        return self.solver == "ell" and self.etype != ElementType.P1
+        return (self.solver == "ell" and self.etype != ElementType.P1
+                and self.residual_fmt != "ell")
 
     @classmethod
     def fast(cls, **kw):
@@ -258,32 +277,33 @@ class TsxTunnelConfig:
         return cls.fast(refine_levels=refine_levels, **kw)
 
 
-# footing fields of paths the port does not run yet: only their defaults are
-# accepted
-_FOOTING_NOT_PORTED = dict(
-    cg_structure="while",
-    residual_fmt=None,
-)
 # fields that only the footing's iterative tangent solves (solver="cg")
 # read: with the dense solver only their defaults are accepted
 _FOOTING_CG_ONLY = dict(cg_eta0=None, cg_tol=None, cg_maxiter=2000, cg_cap_relax=None,
-                        cg_deflate=0)
+                        cg_deflate=0, cg_structure="while")
+# the footing's element types: the structured square meshes of
+# `mesh.structured.square_mesh`
+FOOTING_ETYPES = (ElementType.P1, ElementType.P2, ElementType.Q1, ElementType.Q2)
 
 
 @dataclass(frozen=True)
 class FootingConfig:
     """Drucker-Prager strip footing (`Plasticity2D_DP/pythonFEM.py:901-1157`).
 
-    Ported: the dense solver in native f64 and f32 and in "df32"
-    (`fast()`), and `solver="cg"` (block-Jacobi preconditioned CG tangent
-    solves, matrix-free) in native precision and in df32, where
-    `assembled_cg=True` runs CG on the assembled elastic operator refreshed
-    from every integration point once per Newton iteration (kernel K3), and
-    `tangent_mg=True` (`fast_scale`) preconditions it with a multigrid
-    V-cycle whose every level is refreshed from the consistent tangent once
-    per Newton iteration (kernels K3 and K4).  `cg_deflate` recycles a
-    Krylov deflation basis across the CG solves, `newton_damping` halves a
-    Newton step while the residual norm grows.
+    Ported, for P1, P2, Q1 and Q2 elements: the dense solver in native f64
+    and f32 and in "df32" (`fast()`), and `solver="cg"` (block-Jacobi
+    preconditioned CG tangent solves, matrix-free) in native precision and
+    in df32, where `assembled_cg=True` runs CG on the assembled elastic
+    operator refreshed from every integration point once per Newton
+    iteration (kernel K3), and `tangent_mg=True` (`fast_scale`)
+    preconditions it with a multigrid V-cycle whose every level is
+    refreshed from the consistent tangent once per Newton iteration
+    (kernels K3 and K4; P1 only, as in the JAX package).  `residual_fmt`
+    ("slot", "rslot": the port's CSR) is read where the JAX package reads
+    it, by the df32 assembled routes.  `cg_structure="scan"` runs every CG
+    solve as fixed trips.  `cg_deflate` recycles a Krylov deflation basis
+    across the CG solves, `newton_damping` halves a Newton step while the
+    residual norm grows.
     """
 
     etype: ElementType = ElementType.P1
@@ -337,12 +357,20 @@ class FootingConfig:
     precision: str = "native"
 
     def __post_init__(self):
-        for name, default in _FOOTING_NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(f"FootingConfig.{name}={getattr(self, name)!r}")
         dtype_policy(self.precision, self.dtype)  # raises on what is not ported
-        if self.etype != ElementType.P1:
+        if self.etype not in FOOTING_ETYPES:
             raise NotImplementedError(f"FootingConfig.etype={self.etype}")
+        if self.cg_structure not in CG_STRUCTURES:
+            raise NotImplementedError(f"FootingConfig.cg_structure={self.cg_structure!r}")
+        if self.residual_fmt is not None:
+            # read by the df32 assembled routes only (JAX
+            # `models/footing.py:297-313`); "ell" is the tsx's
+            if self.residual_fmt not in ("slot", "rslot"):
+                raise NotImplementedError(f"FootingConfig.residual_fmt={self.residual_fmt!r}")
+            if not (self.solver == "cg" and self.precision == "df32"
+                    and (self.assembled_cg or self.tangent_mg)):
+                raise NotImplementedError("residual_fmt needs solver='cg', precision='df32' "
+                                          "and assembled_cg or tangent_mg")
         if self.dense_mode not in ("f64", "mixed"):
             raise ValueError(f"dense_mode {self.dense_mode!r}")
         if self.solver == "dense":
@@ -371,6 +399,10 @@ class FootingConfig:
                                           "precision='df32' and assembled_cg=False")
             if self.level < 2:
                 raise ValueError("tangent_mg needs level >= 2: at least one refinement")
+            if self.etype != ElementType.P1:
+                # the JAX package's tangent hierarchy is a P1 hierarchy
+                # (`solve/multigrid.py:493` asserts n_q == 1)
+                raise NotImplementedError("tangent_mg needs P1")
         if self.cg_deflate < 0 or self.newton_damping < 0:
             raise ValueError("cg_deflate and newton_damping must be >= 0")
         if (self.cg_deflate or self.newton_damping) and self.precision != "df32":

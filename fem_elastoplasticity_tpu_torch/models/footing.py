@@ -1,6 +1,7 @@
 """Drucker-Prager strip footing (benchmark B).
 
-Port of `fem_elastoplasticity_tpu/models/footing.py`.  A rigid footing
+Port of `fem_elastoplasticity_tpu/models/footing.py`, for P1, P2, Q1 and
+Q2 elements (the tangent multigrid for P1 only).  A rigid footing
 (inhomogeneous Dirichlet on the top edge, x <= 1.0001) is pushed into a
 near-incompressible (nu = 0.48) elastoplastic half-space; the load factor
 ramps adaptively with the reference's pressure-based d_zeta doubling rule
@@ -25,7 +26,10 @@ ramps adaptively with the reference's pressure-based d_zeta doubling rule
   G/S (K1), and the result stays on the hierarchy's fine mesh (fine-RCM
   node order), as the JAX package returns it.  `run(resume=carry)`
   continues from a carry (`FootingResult.carry`, or
-  `utils.convert.load_checkpoint` of a JAX package checkpoint).
+  `utils.convert.load_checkpoint` of a JAX package checkpoint), and
+  `build_df32_chunked` runs a build in chunks of load trips with an
+  optional checkpoint file (`solve.chunked`).
+* Every CG solve takes `cg_structure` ("while" or "scan", fixed trips).
 
 Anchors of the f64 run: 16 accepted steps, zeta ending at 1.032, the
 reference's pressure curve within 1e-4; the dense df32 run follows the
@@ -35,6 +39,7 @@ take other schedules; their limit pressures agree with the f64 one to
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple, Optional
 
@@ -48,6 +53,7 @@ from ..ops import spmv
 from ..ops.elements import volume_element
 from ..solve import multigrid as mg
 from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
+from ..solve.chunked import run_chunked
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper, carry_of
 from ..utils.precision import dtype_policy, resolve_device
 from .config import FootingConfig
@@ -227,6 +233,7 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
         U_it0 = ud + solve_cg(
             lambda v: asm.tangent_matvec(geom, D, v), f, free_mask,
             precond=stiffness_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
+            structure=cfg.cg_structure,
         ).x
 
     stepper = build_load_stepper(
@@ -236,7 +243,7 @@ def solve(cfg: FootingConfig = FootingConfig(), device=None) -> FootingResult:
         dense_mode=cfg.dense_mode,
         elastic_factor=("cho", L) if dtype == torch.float32 and L is not None else None,
         solver=cfg.solver, cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter,
-        cg_cap_relax=cfg.cg_cap_relax,
+        cg_cap_relax=cfg.cg_cap_relax, cg_structure=cfg.cg_structure,
     )
     return _result(stepper(U_it0, 0.0, cfg.d_zeta), mesh)
 
@@ -312,7 +319,9 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
     hierarchy's fine mesh (`tangent_mg_mesh`).  `run(resume=carry)` skips
     the predictor and continues from the carry (on the solver's node order:
     `FootingResult.carry`, or `utils.convert.load_checkpoint`).  `extras`,
-    if given, receives the residual operators G/S ("residual_op") and, with
+    if given, receives the residual operators G/S ("residual_op"), with
+    assembled_cg the elastic node blocks ("elastic_op") on the RCM-ordered
+    mesh ("solver_mesh") and, with
     tangent_mg, the host levels and the hierarchies.
     """
     if cfg.precision != "df32":
@@ -342,7 +351,12 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
         pad = corr.new_full((geom.n_elems - corr.shape[0],) + tuple(corr.shape[1:]), -1)
         corr_dest = torch.cat([corr, pad])
         elem_sort = (esort, int(geom.n_q), int(geom.n_real))
+    if cfg.assembled_cg and extras is not None:
+        extras.update(elastic_op=elastic_op, solver_mesh=mesh)
     if cfg.assembled_cg or cfg.tangent_mg:
+        # residual_fmt "slot" and "rslot" (the JAX package's choice by n_q,
+        # `models/footing.py:311-313`) are TPU tile layouts of one operator:
+        # both are the port's CSR
         residual_op = spmv.residual_operators(geom, device)
         if extras is not None:
             extras["residual_op"] = residual_op
@@ -381,7 +395,7 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
             U_it0 = adf.refine_elastic_solve_with(
                 apply_fn,
                 lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
-                                     maxiter=cfg.cg_maxiter).x,
+                                     maxiter=cfg.cg_maxiter, structure=cfg.cg_structure).x,
                 ud, zero_f,
             )
         stepper = build_load_stepper(
@@ -400,6 +414,7 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
             tangent_mg=(None if th is None else functools.partial(
                 mg.tangent_vcycle, th, hier, shear=shear, bulk=bulk)),
             cg_deflate=cfg.cg_deflate, newton_damping=cfg.newton_damping,
+            cg_structure=cfg.cg_structure,
         )
         res = stepper(U_it0, 0.0, cfg.d_zeta, resume=resume)
         out = _result(res, reference_mesh)._replace(carry=carry_of(res))
@@ -409,6 +424,26 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
         return out._replace(u=u, ep=ep)
 
     return run, reference_mesh
+
+
+def build_df32_chunked(cfg: FootingConfig, trips_per_chunk: int = 3, max_chunks: int = 2000,
+                       device=None):
+    """The df32 footing run in chunks of `trips_per_chunk` load trips (JAX
+    `models/footing.py:682`): returns (execute, mesh).
+    `execute(checkpoint_path=None)` drives `build_df32` of cfg with
+    max_trips = trips_per_chunk through `solve.chunked.run_chunked` and
+    returns the last chunk's FootingResult (counts and histories of the
+    whole run, `*_trips` of the chunk); with a checkpoint path an
+    interrupted run continues from the last chunk written.  The trajectory
+    is the single run's, bit for bit."""
+    run, mesh = build_df32(dataclasses.replace(cfg, max_trips=trips_per_chunk), device)
+
+    def execute(checkpoint_path=None) -> FootingResult:
+        return run_chunked(run, zeta_max=cfg.zeta_max,
+                           d_zeta_min=cfg.d_zeta * cfg.d_zeta_min_ratio,
+                           max_chunks=max_chunks, checkpoint_path=checkpoint_path)
+
+    return execute, mesh
 
 
 def _result(res: LoadSteppingResult, mesh: Mesh) -> FootingResult:

@@ -16,7 +16,13 @@ through K1; K6 for every operator with `spmv_fmt="ell"` and
 `residual_fmt="ell"`), and at P2/P4 p-multigrid: the P1 hierarchy of the
 high-order node lattice preconditions the high-order tangent, applied as
 S (d (G v)) on the f32 heads of the residual operators (`gs_tangent`, K3's
-CSR kernel) or matrix-free.
+CSR kernel) or matrix-free; and `solver="mg"` at P1, native or df32: CG
+preconditioned by the matrix-free geometric multigrid V-cycle of the
+refinement hierarchy with a dense Cholesky coarse solve.  Every route
+takes `support_pressure` (a normal traction on the tunnel wall, ramped
+with the load factor), the CG routes `cg_structure="scan"` and, in df32,
+a recycled deflation basis (`cg_deflate`); `build_df32_chunked` runs a
+df32 build in chunks of load trips with an optional checkpoint file.
 Anchors: 17 accepted load steps, 28
 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
 reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
@@ -30,22 +36,25 @@ results back in the reference order.
 """
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..mesh.boundary import boundary_edges
 from ..mesh.midpoints import promote
 from ..mesh.refine import refine_uniform
 from ..mesh.structured import Mesh
 from ..ops import assembly as asm
 from ..ops import assembly_df as adf
 from ..ops import spmv
-from ..ops.elements import ElementType, volume_element
+from ..ops.elements import ElementType, surface_element, volume_element
 from ..ops.spmv import sp_matvec
 from ..solve import multigrid as mgm
 from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
+from ..solve.chunked import run_chunked
 from ..solve.newton import LoadSteppingResult, NewtonSettings, build_load_stepper
 from ..utils.precision import dtype_policy, resolve_device
 from .config import P_EXTRA, TsxTunnelConfig
@@ -88,6 +97,66 @@ def _free_of(coords: np.ndarray) -> np.ndarray:
     free[np.abs(coords[:, 0]) > 49.99, 0] = False
     free[np.abs(coords[:, 1]) > 49.99, 1] = False
     return free
+
+
+def tunnel_wall_edges(mesh: Mesh) -> np.ndarray:
+    """Boundary edges of the tunnel wall, the interior boundary: those whose
+    end nodes lie strictly inside the +-50 box (JAX `models/tsx_tunnel.py
+    :79`), with their higher-order nodes on P2/P4 meshes."""
+    edges = boundary_edges(np.asarray(mesh.elems), mesh.etype)
+    c = np.asarray(mesh.coords)
+    inner = (np.abs(c[edges[:, 0]]) < 49.0).all(axis=1) & (
+        np.abs(c[edges[:, 1]]) < 49.0).all(axis=1)
+    return edges[inner]
+
+
+def support_force(cfg: TsxTunnelConfig, mesh: Mesh, dtype: torch.dtype,
+                  device) -> Optional[torch.Tensor]:
+    """The support-pressure load direction f_ext (2 n_n,) of `mesh` in
+    `dtype`: the normal traction cfg.support_pressure on the tunnel wall
+    with the arc-length measure of its (curved) edges, which the stepper
+    ramps with the load factor (JAX `:188-196` native, `:623-639` df32,
+    there a DF pair of the f64 traction); None without a support
+    pressure."""
+    if cfg.support_pressure == 0.0:
+        return None
+    coords = torch.as_tensor(mesh.coords, dtype=dtype, device=device)
+    return asm.pressure_traction_vector(coords, tunnel_wall_edges(mesh),
+                                        surface_element(cfg.etype), cfg.support_pressure,
+                                        mesh.n_nodes)
+
+
+def _mg_preconditioner(cfg: TsxTunnelConfig, mesh: Mesh, dtype: torch.dtype, device):
+    """solver="mg": the matrix-free V-cycle of the red-refinement hierarchy
+    of the tsx mesh (JAX `:199-257` native, `:641-690` and `:760-777`
+    df32), its levels' geometry, elastic tangent and smoother in `dtype`
+    (the state's natively, f32 from f32 coordinates in df32, built once
+    here), level 0 solved by the Cholesky factor of its dense free-DOF
+    stiffness.  Checks that the fine level is `mesh`."""
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    with np.load(_DATA) as raw:
+        base_coords, base_elems = raw["coords"].astype(np_dtype), raw["elems"]
+    hier = mgm.build_hierarchy(base_coords, base_elems, cfg.refine_levels, _free_of)
+    if not (np.array_equal(hier[-1].elems, np.asarray(mesh.elems))
+            and np.allclose(hier[-1].coords, mesh.coords, rtol=0, atol=1e-5)):
+        raise AssertionError("the hierarchy's fine level is not the tsx mesh")
+    levels = mgm.build_mg_levels(
+        hier, volume_element(ElementType.P1),
+        lambda g: elastic_tangent_lanes(shear, bulk, g.n_int, dtype, device), device)
+    lev0 = levels[0]
+    fmap0, n_free0 = asm.free_dof_map(hier[0].free)
+    idx0 = torch.as_tensor(np.nonzero(hier[0].free.reshape(-1))[0], device=device)
+    K0 = asm.assemble_dense_free(asm.element_stiffness(lev0.geom, lev0.d),
+                                 asm.dense_free_plan(lev0.geom, fmap0, n_free0))
+    L0 = torch.linalg.cholesky(K0)
+
+    def coarse_solve(r: torch.Tensor) -> torch.Tensor:
+        z = torch.zeros_like(r)
+        z[idx0] = torch.cholesky_solve(r[idx0, None], L0)[:, 0]
+        return z
+
+    return mgm.make_vcycle(levels, coarse_solve, nu=cfg.mg_nu)
 
 
 def initial_state(cfg: TsxTunnelConfig):
@@ -220,16 +289,22 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
     n_dofs = 2 * geom.n_nodes
 
     f0, D = _initial_force(p), elastic_tangent_lanes(shear, bulk, geom.n_int, dtype, device)
-    L = None
+    f_ext = support_force(cfg, p.mesh, dtype, device)
+    rhs0 = -f0 if f_ext is None else -f0 + f_ext
+    L = mg_pre = None
     cg_tol = plastic_cg_tol(cfg.cg_tol, dtype)
     if cfg.solver == "dense":
-        u_elast, L = _dense_predictor(p, f0, D)
+        u_elast, L = _dense_predictor(p, rhs0, D)
     else:
-        # matrix-free block-Jacobi PCG predictor (JAX `:265-285`)
+        # matrix-free PCG predictor, block-Jacobi or the V-cycle (JAX
+        # `:265-285`)
         free_mask = torch.as_tensor(p.mesh.free.reshape(-1), device=device)
+        if cfg.solver == "mg":
+            mg_pre = _mg_preconditioner(cfg, p.mesh, dtype, device)
         u_elast = solve_cg(
-            lambda v: asm.tangent_matvec(geom, D, v), -f0, free_mask,
-            precond=stiffness_block_jacobi(geom, D, free_mask), tol=cg_tol, maxiter=cfg.cg_maxiter,
+            lambda v: asm.tangent_matvec(geom, D, v), rhs0, free_mask,
+            precond=mg_pre or stiffness_block_jacobi(geom, D, free_mask), tol=cg_tol,
+            maxiter=cfg.cg_maxiter, structure=cfg.cg_structure,
         ).x
     stepper = build_load_stepper(
         geom, p.free_idx, p.plan, shear, bulk, eta, c, p.settings,
@@ -237,6 +312,7 @@ def solve(cfg: TsxTunnelConfig = TsxTunnelConfig(), device=None) -> TsxResult:
         elastic_factor=("cho", L) if dtype == torch.float32 and L is not None else None,
         accumulate_ep=not cfg.bug_compatible_ep_reset,
         solver=cfg.solver, cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter,
+        mg_preconditioner=mg_pre, cg_structure=cfg.cg_structure, f_ext_dir=f_ext,
     )
     res = stepper(cfg.d_zeta * u_elast, 0.0, cfg.d_zeta)
     return _result(res, p.mesh)
@@ -248,28 +324,30 @@ def _initial_force(p: _Problem) -> torch.Tensor:
     return asm.internal_force(p.geom, p.s0[:3, None].expand(3, p.geom.n_int))
 
 
-def _dense_predictor(p: _Problem, f0: torch.Tensor, D: torch.Tensor):
+def _dense_predictor(p: _Problem, rhs: torch.Tensor, D: torch.Tensor):
     """The native dense elastic predictor: (u_elast, L), L the Cholesky
-    factor of the elastic K_free (tangent D) and u_elast = K^-1 (-F0) on
-    the free DOFs."""
+    factor of the elastic K_free (tangent D) and u_elast = K^-1 rhs on
+    the free DOFs (rhs = -F0, plus the support traction)."""
     K_free = asm.assemble_dense_free(asm.element_stiffness(p.geom, D), p.plan)
     L = torch.linalg.cholesky(K_free)
     u_elast = _scatter_free(
-        p.free_idx, torch.cholesky_solve(-f0[p.free_idx, None], L)[:, 0], 2 * p.geom.n_nodes
+        p.free_idx, torch.cholesky_solve(rhs[p.free_idx, None], L)[:, 0], 2 * p.geom.n_nodes
     )
     return u_elast, L
 
 
 def _df32_cg_predictor(cfg: TsxTunnelConfig, p: _Problem, free_mask: torch.Tensor,
-                       f0: torch.Tensor, apply_fn, elastic_op=None) -> torch.Tensor:
-    """The df32 CG routes' elastic predictor K u = -F0: block-Jacobi PCG
-    on the f32 elastic operator (matrix-free, or `elastic_op`'s node
-    blocks) as the inner solve, refined against the f64 residual
-    `apply_fn` (JAX `models/tsx_tunnel.py:796-822`)."""
+                       rhs: torch.Tensor, apply_fn, elastic_op=None, pre=None) -> torch.Tensor:
+    """The df32 CG routes' elastic predictor K u = rhs (-F0, plus the
+    support traction): PCG on the f32 elastic operator (matrix-free, or
+    `elastic_op`'s node blocks), preconditioned by block-Jacobi or `pre`,
+    as the inner solve, refined against the f64 residual `apply_fn` (JAX
+    `models/tsx_tunnel.py:796-822`)."""
     shear, bulk = p.consts[:2]
     geom32 = p.geom.to(torch.float32)
     D = elastic_tangent_lanes(shear, bulk, p.geom.n_int, torch.float32, free_mask.device)
-    pre = stiffness_block_jacobi(geom32, D, free_mask)
+    if pre is None:
+        pre = stiffness_block_jacobi(geom32, D, free_mask)
     if elastic_op is not None:
         K_op = lambda v: sp_matvec(elastic_op, v)  # noqa: E731
     else:
@@ -278,8 +356,8 @@ def _df32_cg_predictor(cfg: TsxTunnelConfig, p: _Problem, free_mask: torch.Tenso
     return adf.refine_elastic_solve_with(
         apply_fn,
         lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
-                             maxiter=cfg.cg_maxiter).x,
-        torch.zeros(2 * p.geom.n_nodes, dtype=torch.float64, device=free_mask.device), -f0,
+                             maxiter=cfg.cg_maxiter, structure=cfg.cg_structure).x,
+        torch.zeros(2 * p.geom.n_nodes, dtype=torch.float64, device=free_mask.device), rhs,
         iters=cfg.predictor_ir_iters,
     )
 
@@ -352,23 +430,25 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
         elastic_op = fine.op
         K_op = lambda v: sp_matvec(fine.op, v)  # noqa: E731
     else:
-        # the high-order elastic operator on the f32 heads of G and S
+        # the high-order elastic operator on the f32 heads of G and S (CSR:
+        # K3's CSR kernel; ELL: K6)
         elastic_op = None
         G32, S32 = adf.f32_heads(*residual_op)
         K_op = lambda v: adf.elastic_apply_gs32(G32, S32, v, shear, bulk)  # noqa: E731
+    f_ext = support_force(cfg, mesh, torch.float64, device)
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
             s0_field = p.s0[:3, None].expand(3, n_int)
             f0 = sp_matvec(residual_op[1], s0_field.reshape(-1))
-            # elastic predictor K u = -F0: CG preconditioned by the V-cycle
-            # as the f32 inner solve, refined against the f64 residual
+            # elastic predictor K u = -F0 (+ f_ext): CG preconditioned by the
+            # V-cycle as the f32 inner solve, refined against the f64 residual
             u_elast = adf.refine_elastic_solve_with(
                 lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk),
                 lambda r32: solve_cg(K_op, r32, free_mask, precond=pre, tol=cg_tol,
-                                     maxiter=cfg.cg_maxiter).x,
-                zero_u, -f0, iters=cfg.predictor_ir_iters,
+                                     maxiter=cfg.cg_maxiter, structure=cfg.cg_structure).x,
+                zero_u, -f0 if f_ext is None else -f0 + f_ext, iters=cfg.predictor_ir_iters,
             )
         else:
             u_elast = zero_u  # unused: the carry supplies the state
@@ -383,6 +463,7 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
             cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
             cg_cap_relax=cfg.cg_cap_relax,
             gs_tangent=(G32, S32) if cfg.gs_tangent_on else None,
+            cg_structure=cfg.cg_structure, cg_deflate=cfg.cg_deflate, f_ext_dir=f_ext,
         )
         return stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta, resume=resume)
 
@@ -397,8 +478,11 @@ def _residual_fmt(cfg: TsxTunnelConfig) -> Optional[str]:
 
 def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
     """`build_df32` for `solver="cg"` (JAX `models/tsx_tunnel.py:454-481`,
-    `:796-822`): block-Jacobi PCG tangent solves, the preconditioner rebuilt
-    from the tangent every Newton iteration.  Matrix-free by default; with
+    `:796-822`) and `solver="mg"`: block-Jacobi PCG tangent solves, the
+    preconditioner rebuilt from the tangent every Newton iteration, or
+    ("mg", JAX `:641-690`, `:760-777`) PCG on the matrix-free tangent
+    preconditioned by the f32 V-cycle of the refinement hierarchy, built
+    once here.  Matrix-free by default; with
     `assembled_cg`, for any element type, the problem moves onto an RCM
     node order with sorted elements, the elastic stiffness is assembled once
     on the host into f32 node blocks (K3's product: CG's operator, the
@@ -433,6 +517,9 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
         apply_fn = lambda u: adf.elastic_apply_csr(*residual_op, u, shear, bulk)  # noqa: E731
     else:
         apply_fn = lambda u: adf.elastic_apply(geom, u, shear, bulk)  # noqa: E731
+    mg_pre = (_mg_preconditioner(cfg, mesh, torch.float32, device) if cfg.solver == "mg"
+              else None)
+    f_ext = support_force(cfg, mesh, torch.float64, device)
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         if resume is None:
@@ -440,7 +527,8 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
                 f0 = sp_matvec(residual_op[1], p.s0[:3, None].expand(3, n_int).reshape(-1))
             else:
                 f0 = _initial_force(p)
-            u_elast = _df32_cg_predictor(cfg, p, free_mask, f0, apply_fn, elastic_op)
+            rhs = -f0 if f_ext is None else -f0 + f_ext
+            u_elast = _df32_cg_predictor(cfg, p, free_mask, rhs, apply_fn, elastic_op, mg_pre)
         else:
             # unused: the carry supplies the state
             u_elast = torch.zeros(n_dofs, dtype=torch.float64, device=device)
@@ -450,10 +538,11 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
             precision="df32",
             accumulate_ep=not cfg.bug_compatible_ep_reset,
             residual_op=residual_op,
-            solver="cg", elastic_op=elastic_op,
+            solver=cfg.solver, mg_preconditioner=mg_pre, elastic_op=elastic_op,
             plastic_cap=min(n_int, max(1024, n_int // 64)),
             cg_tol=cg_tol, cg_maxiter=cfg.cg_maxiter, cg_eta0=cfg.cg_eta0,
-            cg_cap_relax=cfg.cg_cap_relax,
+            cg_cap_relax=cfg.cg_cap_relax, cg_structure=cfg.cg_structure,
+            cg_deflate=cfg.cg_deflate, f_ext_dir=f_ext,
         )
         return stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta, resume=resume)
 
@@ -477,6 +566,8 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     `solver="cg"` (`_build_df32_cg`): block-Jacobi PCG tangent solves,
     matrix-free or, with `assembled_cg`, on the elastic node blocks (K3)
     and the gathered plastic correction, on an RCM node order.
+    `solver="mg"` (`_build_df32_cg`): PCG on the matrix-free tangent
+    preconditioned by the f32 matrix-free V-cycle, in the reference order.
     `solver="ell"` (`_build_df32_ell`; `TsxTunnelConfig.fast_scale` at P1,
     p-multigrid at P2/P4): the setup also builds the
     multigrid hierarchy (in `cfg.spmv_fmt`, its levels of 500,000 rows or
@@ -496,7 +587,7 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     device = resolve_device(device)
     if cfg.solver == "ell":
         return _build_df32_ell(cfg, device, extras)
-    if cfg.solver == "cg":
+    if cfg.solver in ("cg", "mg"):
         return _build_df32_cg(cfg, device, extras)
     p = _problem(cfg, device)
     shear, bulk, eta, c = p.consts
@@ -507,6 +598,7 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
         spmv.residual_operators(geom, device, _residual_fmt(cfg), cfg.ell_overflow_frac)
         if cfg.assembled_cg else None
     )
+    f_ext = support_force(cfg, p.mesh, torch.float64, device)
 
     def run(resume: Optional[dict] = None) -> LoadSteppingResult:
         s0_field = p.s0[:3, None].expand(3, n_int)
@@ -524,7 +616,8 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
 
         zero_u = torch.zeros(n_dofs, dtype=torch.float64, device=device)
         if resume is None:
-            u_elast = adf.refine_elastic_solve_df(L, p.free_idx, apply_fn, zero_u, -f0)
+            u_elast = adf.refine_elastic_solve_df(
+                L, p.free_idx, apply_fn, zero_u, -f0 if f_ext is None else -f0 + f_ext)
         else:
             u_elast = zero_u  # unused: the carry supplies the state
         stepper = build_load_stepper(
@@ -536,11 +629,44 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
             smw_cap=64,
             precision="df32",
             accumulate_ep=not cfg.bug_compatible_ep_reset,
-            residual_op=residual_op,
+            residual_op=residual_op, f_ext_dir=f_ext,
         )
         return stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta, resume=resume)
 
     return run, p.mesh
+
+
+def build_df32_chunked(cfg: TsxTunnelConfig, trips_per_chunk: int = 3, max_chunks: int = 200,
+                       device=None):
+    """A df32 build run in chunks of `trips_per_chunk` load trips (JAX
+    `models/tsx_tunnel.py:1101`): returns (execute, mesh).
+
+    `execute(checkpoint_path=None)` runs `build_df32` of cfg with max_trips
+    = trips_per_chunk through `solve.chunked.run_chunked`, each chunk
+    resumed from the carry of the one before, and returns the last chunk's
+    LoadSteppingResult (on the build's node order; its counts and
+    histories are the whole run's, its `*_trips` the chunk's).  With a
+    checkpoint path each chunk's carry is written there, and a run that
+    finds the file continues from it, in a new process too.  The trajectory
+    is the single run's, bit for bit.  The JAX package's split predictor is
+    a dispatch-size workaround of its device runtime and has no
+    counterpart."""
+    run, mesh = build_df32(dataclasses.replace(cfg, max_trips=trips_per_chunk), device)
+
+    def execute(checkpoint_path=None) -> LoadSteppingResult:
+        return run_chunked(run, zeta_max=cfg.zeta_max,
+                           d_zeta_min=cfg.d_zeta * cfg.d_zeta_min_ratio,
+                           max_chunks=max_chunks, checkpoint_path=checkpoint_path)
+
+    return execute, mesh
+
+
+def run_df32_chunked(cfg: TsxTunnelConfig, trips_per_chunk: int = 3, max_chunks: int = 200,
+                     device=None):
+    """`build_df32_chunked` run once: (LoadSteppingResult, mesh) (JAX
+    `:1165`)."""
+    execute, mesh = build_df32_chunked(cfg, trips_per_chunk, max_chunks, device)
+    return execute(), mesh
 
 
 def _result(res: LoadSteppingResult, mesh: Mesh) -> TsxResult:

@@ -392,6 +392,34 @@ def traction_force_vector(coords: torch.Tensor, edges: np.ndarray, surf: Surface
     return _gather_sum(vals.reshape(-1), torch.as_tensor(table, device=device))
 
 
+def pressure_traction_vector(coords: torch.Tensor, edges: np.ndarray, surf: SurfaceElement,
+                             p: float, n_nodes: int) -> torch.Tensor:
+    """Normal pressure load on (possibly curved) boundary edges, (2*n_n,)
+    (JAX `ops/assembly.py:370`): t = -p n_out at each quadrature point,
+    with the arc-length measure sqrt(j11^2 + j12^2) and the outward normal
+    (t_y, -t_x) / |t| of the edge as its element orients it (a CCW element
+    keeps the domain on its left).  `edges` from `mesh.boundary
+    .boundary_edges` (P1/P2/P4).  Each DOF's contributions are added one
+    after another in the edges' order, from zero, as the JAX package's
+    segment sum adds them (`_gather_fold`)."""
+    dtype, device = coords.dtype, coords.device
+    edges = np.asarray(edges, np.int64)
+    xe = coords[torch.as_tensor(edges, device=device)]  # (n_s, n_p_s, 2)
+    N = torch.as_tensor(surf.N, dtype=dtype, device=device)  # (n_q, n_p_s)
+    dN = torch.as_tensor(surf.dN, dtype=dtype, device=device)
+    tx = torch.einsum("qp,sp->sq", dN, xe[..., 0])
+    ty = torch.einsum("qp,sp->sq", dN, xe[..., 1])
+    arc = torch.sqrt(tx * tx + ty * ty)
+    w = arc * torch.as_tensor(surf.w, dtype=dtype, device=device)[None, :]
+    p = torch.as_tensor(p, dtype=dtype, device=device)
+    # the traction of the pressure on the domain: -p times the outward normal
+    t = torch.stack([-p * ty / arc, p * tx / arc], dim=-1)  # (n_s, n_q, 2)
+    vals = torch.einsum("qp,sq,sqc->spc", N, w, t)
+    dofs = element_dofs(edges).reshape(-1)
+    _, table = _grouped_gather(dofs, np.arange(dofs.size), dofs.size, n_rows=2 * n_nodes)
+    return _gather_fold(vals.reshape(-1), torch.as_tensor(table, device=device))
+
+
 # ---------------------------------------------------------------------------
 # integration-point -> node projection
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import assembly as asm
-from .spmv import sp_matvec
+from .spmv import EllMatrix, sp_matvec
 
 
 def split_f64_np(x) -> tuple:
@@ -53,15 +53,21 @@ def elastic_apply_csr(G, S, u: torch.Tensor, shear: float, bulk: float):
 
 
 def f32_heads(G, S) -> tuple:
-    """The f32 heads of the f64 CSR residual operators (`ops.spmv.CsrMatrix`):
-    the same structure, values rounded to nearest, as the JAX package's
-    `vals_hi` streams are."""
-    return tuple(A._replace(values=A.values.to(torch.float32)) for A in (G, S))
+    """The f32 heads of the f64 residual operators (`ops.spmv.CsrMatrix` or
+    `EllMatrix`): the same structure, values rounded to nearest, as the
+    JAX package's `vals_hi` streams are (an ELL operator's tail too)."""
+    def head(A):
+        if isinstance(A, EllMatrix):
+            return A._replace(values=A.values.to(torch.float32),
+                              tail_values=A.tail_values.to(torch.float32))
+        return A._replace(values=A.values.to(torch.float32))
+
+    return head(G), head(S)
 
 
 def elastic_apply_gs32(G32, S32, v: torch.Tensor, shear: float, bulk: float):
     """f32 K_el v = S32 (D_el (G32 v)) on the f32 heads of the residual
-    operators (`f32_heads`), through K3's CSR kernel: the high-order
+    operators (`f32_heads`), through K3's CSR kernel (K6 on ELL heads): the high-order
     predictor's CG operator (`assembly_df.elastic_apply_gs32`)."""
     e = sp_matvec(G32, v.to(torch.float32)).reshape(3, -1)
     return sp_matvec(S32, elastic_stress(e, shear, bulk).reshape(-1))

@@ -63,7 +63,9 @@ def _refuse(cfg: TsxTunnelConfig, solver: str) -> None:
     if solver not in ("dense", "cg"):
         raise NotImplementedError(f"ensemble solver {solver!r}")
     for name, default in (("assembled_cg", False), ("residual_fmt", None),
-                          ("cg_cap_relax", None), ("dense_mode", "f64")):
+                          ("cg_cap_relax", None), ("dense_mode", "f64"),
+                          ("support_pressure", 0.0), ("cg_structure", "while"),
+                          ("cg_deflate", 0)):
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"the ensemble does not read TsxTunnelConfig.{name}="
                                       f"{getattr(cfg, name)!r}")
@@ -108,7 +110,7 @@ def solve_tsx_ensemble(
     p = tsx._problem(cfg, device, dtype, dense=True)
     shear, bulk = p.consts[:2]
     D = elastic_tangent_lanes(shear, bulk, p.geom.n_int, dtype, device)
-    u_elast, L = tsx._dense_predictor(p, tsx._initial_force(p), D)
+    u_elast, L = tsx._dense_predictor(p, -tsx._initial_force(p), D)
     stepper = build_ensemble_stepper(
         p.geom, p.free_idx, p.plan if solver == "dense" else None, shear, bulk, etas, cs,
         p.settings, monitor=tsx._monitor(cfg.monitor_node), e0_dir=p.e0,
@@ -158,7 +160,7 @@ def solve_tsx_ensemble_df32(
         u_elast = adf.refine_elastic_solve_df(L, p.free_idx, apply_fn, zero_u, -f0)
     else:
         free_mask = torch.as_tensor(p.mesh.free.reshape(-1), device=device)
-        u_elast = tsx._df32_cg_predictor(cfg, p, free_mask, f0, apply_fn)
+        u_elast = tsx._df32_cg_predictor(cfg, p, free_mask, -f0, apply_fn)
     stepper = build_ensemble_stepper(
         geom, p.free_idx, p.plan, shear, bulk, etas, cs, p.settings,
         monitor=tsx._monitor(cfg.monitor_node), e0_dir=p.e0,

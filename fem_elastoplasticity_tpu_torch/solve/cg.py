@@ -1,12 +1,14 @@
 """Projected preconditioned conjugate gradients: a host loop over device tensors.
 
 Port of `fem_elastoplasticity_tpu/solve/cg.py` (`solve_cg` with
-`structure="while"` and its A-DEF2 deflation, `deflation_harvest`, and the
+`structure="while"` or `"scan"` and its A-DEF2 deflation, `deflation_harvest`, and the
 block-Jacobi preconditioner), and `solve_cg_members`, the same iteration
 for a batch of independent systems (the vmapped solve of a material
 ensemble).  The JAX package
 runs the iteration as a `while_loop` on the device; here the loop is
-Python, and the stopping test reads one boolean back per iteration.  The
+Python, and the stopping test reads one boolean back per iteration
+(`structure="while"`), or the loop runs a fixed `maxiter` trips with the
+state frozen once the test fires and no read inside it (`"scan"`).  The
 iterates and the iteration count are exactly the while-loop's: `alpha`,
 `beta`, the breakdown guard and the right-hand-side scale stay device
 tensors, so no scalar passes through a Python float (on CUDA a division by
@@ -106,6 +108,12 @@ def solve_cg(
       tol:    relative residual tolerance on the preconditioned norm; a
               Python float or a 0-d tensor of b's dtype (the Newton
               solver's forcing term).
+      structure: "while" (stop at the test, one host read an iteration) or
+              "scan" (JAX `solve/cg.py:272-303`): `maxiter` trips, each
+              trip's new state taken by `torch.where` only while the test
+              has not fired (converged, or the breakdown guard), so the
+              iterates, the count and the flag are the while loop's, and
+              the loop reads nothing back until it ends.
 
       deflate: optional (n_dofs, k) recycled deflation basis W (orthonormal
               columns, all-zero columns for empty slots): two-level
@@ -134,8 +142,8 @@ def solve_cg(
     """
     if deflate is not None and x0 is not None:
         raise ValueError("solve_cg: deflate needs x0=None")
-    if structure != "while":
-        raise NotImplementedError(f"solve_cg: structure {structure!r} is not ported")
+    if structure not in ("while", "scan"):
+        raise ValueError(f"solve_cg: unknown structure {structure!r}")
     fmask = free.reshape(-1)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -201,11 +209,7 @@ def solve_cg(
         bnorm = torch.sqrt(b @ proj(M(b)))
     limit = tol * bnorm
 
-    p = z
-    k = 0
-    # the stopping test of the while-loop: one host read per iteration
-    go = k < maxiter and bool(torch.sqrt(gamma.abs()) > limit)
-    while go:
+    def step(x, r, z, p, gamma):
         Ap = A(p)
         pAp = p @ Ap
         # breakdown guard: keep the best iterate and the current gamma, and
@@ -217,10 +221,30 @@ def solve_cg(
         z = proj(M(r))
         gamma_new = torch.where(ok, r @ z, gamma)
         beta = torch.where(ok, gamma_new / torch.where(gamma != 0.0, gamma, one), zero)
-        p = z + beta * p
-        gamma = gamma_new
-        k += 1
-        go = k < maxiter and bool(ok & (torch.sqrt(gamma.abs()) > limit))
+        return x, r, z, z + beta * p, gamma_new, ok
+
+    p = z
+    if structure == "scan":
+        # fixed trips; `done` freezes the state, so the trips after the
+        # test fired change nothing (JAX `solve/cg.py:272-303`)
+        k_t = torch.zeros((), dtype=torch.int64, device=b.device)
+        done = torch.sqrt(gamma.abs()) <= limit
+        for _ in range(maxiter):
+            x1, r1, z1, p1, gamma1, ok = step(x, r, z, p, gamma)
+            x, r = torch.where(done, x, x1), torch.where(done, r, r1)
+            z, p = torch.where(done, z, z1), torch.where(done, p, p1)
+            gamma = torch.where(done, gamma, gamma1)
+            k_t = torch.where(done, k_t, k_t + 1)
+            done = done | (torch.sqrt(gamma1.abs()) <= limit) | ~ok
+        k = int(k_t)
+    else:
+        k = 0
+        # the stopping test of the while-loop: one host read per iteration
+        go = k < maxiter and bool(torch.sqrt(gamma.abs()) > limit)
+        while go:
+            x, r, z, p, gamma, ok = step(x, r, z, p, gamma)
+            k += 1
+            go = k < maxiter and bool(ok & (torch.sqrt(gamma.abs()) > limit))
     res = torch.sqrt(gamma.abs())
     # progress in the undeflated preconditioner's norm (one M0 at exit)
     res_rep = res if deflate is None else torch.sqrt((r @ proj(M0(r))).abs())

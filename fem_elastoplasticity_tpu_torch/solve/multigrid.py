@@ -1,9 +1,14 @@
-"""Geometric multigrid V-cycle on assembled operators.
+"""Geometric multigrid V-cycles, matrix-free and on assembled operators.
 
-Port of the assembled-operator half of
-`fem_elastoplasticity_tpu/solve/multigrid.py`: `build_hierarchy_ell`
+Port of `fem_elastoplasticity_tpu/solve/multigrid.py`: the matrix-free
+hierarchy of the tsx's `solver="mg"` (`build_hierarchy` `:42`, `prolong`
+`:100`, `restrict` `:108`, `build_mg_levels` `:131`, `make_vcycle`
+`:1022`): each level keeps its own geometry and material tangent, the
+operator is the matrix-free tangent product, P averages a new node's two
+parents and R = P^T adds half of each new node's residual to its parents
+in a fixed order; and the assembled half, `build_hierarchy_ell`
 (`:206-438`, `order_mode="fine_rcm"`, `pack_bf16`) and `make_vcycle_ell`
-(`:875-1019`, `cycle="v"`).
+(`:875-1019`, `cycle="v"` or `"w"`).
 
 The red-refinement hierarchy gives geometric multigrid for free: every
 fine node is either a coarse node or the midpoint of two coarse parents, so
@@ -152,6 +157,36 @@ def hierarchy_to_device(
     )
 
 
+def _red_refine(coords: np.ndarray, elems: np.ndarray):
+    """One red refinement of a P1 mesh in the dtype of `coords`: (coords
+    with the edge midpoints appended, the four children of every triangle,
+    the (n_new, 2) parents of the new nodes).  New node n_c + k is the
+    midpoint of unique edge k in owner orientation, the edge scan of
+    `mesh.midpoints`."""
+    v = elems
+    directed = np.stack(
+        [v[:, [1, 2]], v[:, [2, 0]], v[:, [0, 1]]], axis=1
+    ).reshape(-1, 2)
+    first_pos, edge_id, _ = _edge_scan(directed)
+    owners = directed[first_pos]
+    mids = 0.5 * (coords[owners[:, 0]] + coords[owners[:, 1]])
+    coords_f = np.concatenate([coords, mids], axis=0)
+    n_c = coords.shape[0]
+    mid_nodes = (n_c + edge_id).reshape(-1, 3)
+    m23, m31, m12 = mid_nodes[:, 0], mid_nodes[:, 1], mid_nodes[:, 2]
+    v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+    children = np.stack(
+        [
+            np.stack([v0, m12, m31], axis=1),
+            np.stack([v1, m23, m12], axis=1),
+            np.stack([v2, m31, m23], axis=1),
+            np.stack([m12, m23, m31], axis=1),
+        ],
+        axis=1,
+    ).reshape(-1, 3)
+    return coords_f, children.astype(np.int64), owners
+
+
 def refinement_chain(coords0: np.ndarray, elems0: np.ndarray, levels: int) -> list:
     """Red refinement of a P1 mesh `levels` times: [(coords, elems,
     parents), ...] from the given mesh (parents None) to the finest, in
@@ -160,30 +195,143 @@ def refinement_chain(coords0: np.ndarray, elems0: np.ndarray, levels: int) -> li
     coords, elems = np.asarray(coords0, np.float64), np.asarray(elems0)
     chain.append((coords, elems, None))
     for _ in range(levels):
-        v = elems
-        directed = np.stack(
-            [v[:, [1, 2]], v[:, [2, 0]], v[:, [0, 1]]], axis=1
-        ).reshape(-1, 2)
-        first_pos, edge_id, _ = _edge_scan(directed)
-        owners = directed[first_pos]
-        mids = 0.5 * (coords[owners[:, 0]] + coords[owners[:, 1]])
-        coords_f = np.concatenate([coords, mids], axis=0)
-        n_c = coords.shape[0]
-        mid_nodes = (n_c + edge_id).reshape(-1, 3)
-        m23, m31, m12 = mid_nodes[:, 0], mid_nodes[:, 1], mid_nodes[:, 2]
-        v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
-        children = np.stack(
-            [
-                np.stack([v0, m12, m31], axis=1),
-                np.stack([v1, m23, m12], axis=1),
-                np.stack([v2, m31, m23], axis=1),
-                np.stack([m12, m23, m31], axis=1),
-            ],
-            axis=1,
-        ).reshape(-1, 3)
-        chain.append((coords_f, children.astype(np.int64), owners))
-        coords, elems = coords_f, children
+        coords, elems, owners = _red_refine(coords, elems)
+        chain.append((coords, elems, owners))
     return chain
+
+
+# ---------------------------------------------------------------------------
+# the matrix-free hierarchy (the tsx's solver="mg")
+# ---------------------------------------------------------------------------
+class HierarchyLevel(NamedTuple):
+    """One level of `build_hierarchy`, on the host (the JAX package's
+    `MGLevelArrays`)."""
+
+    coords: np.ndarray  # (n_n, 2) in the coarsest level's dtype
+    elems: np.ndarray  # (n_e, 3) int64
+    free: np.ndarray  # (n_n, 2) bool
+    parents: np.ndarray  # (n_new, 2) the coarse parents of the new nodes; (0, 2) on level 0
+
+
+def build_hierarchy(coords0: np.ndarray, elems0: np.ndarray, levels: int,
+                    free_fn: Callable[[np.ndarray], np.ndarray]) -> List[HierarchyLevel]:
+    """Coarse-to-fine hierarchy by red refinement (JAX `multigrid.py:42`),
+    index 0 the coarsest; the midpoints are computed in the dtype of
+    `coords0` (the JAX package's df32 hierarchy starts from f32
+    coordinates).  free_fn: coords -> (n_n, 2) free mask of a level."""
+    coords, elems = np.asarray(coords0), np.asarray(elems0).astype(np.int64)
+    out = [HierarchyLevel(coords, elems, np.asarray(free_fn(coords)), np.zeros((0, 2), np.int64))]
+    for _ in range(levels):
+        coords, elems, owners = _red_refine(coords, elems)
+        out.append(HierarchyLevel(coords, elems, np.asarray(free_fn(coords)),
+                                  owners.astype(np.int64)))
+    return out
+
+
+def prolong(v_c: torch.Tensor, parents: torch.Tensor) -> torch.Tensor:
+    """Coarse DOF vector (2 n_c,) -> fine (2 n_f,): the coarse nodes keep
+    their values, a new node takes its parents' mean (JAX `:100`)."""
+    v2 = v_c.reshape(-1, 2)
+    mid = 0.5 * (v2[parents[:, 0]] + v2[parents[:, 1]])
+    return torch.cat([v2, mid]).reshape(-1)
+
+
+def restrict_table(parents: np.ndarray, n_c: int) -> np.ndarray:
+    """The gather table of `restrict`: for each coarse node, the positions
+    in [halves ; halves] (the new nodes as first parents, then as second)
+    that add into it, in the JAX package's segment-sum order."""
+    keys = np.concatenate([parents[:, 0], parents[:, 1]]).astype(np.int64)
+    _, table = asm._grouped_gather(keys, np.arange(keys.size), keys.size, n_rows=n_c)
+    return table
+
+
+def restrict(r_f: torch.Tensor, table: torch.Tensor, n_c: int) -> torch.Tensor:
+    """P^T: fine residual (2 n_f,) -> coarse (2 n_c,) (JAX `:108`): a coarse
+    node's own value plus half of each new node's it is a parent of, added
+    one after another from zero (`restrict_table`; the JAX package's
+    segment sum, without atomics)."""
+    r2 = r_f.reshape(-1, 2)
+    halves = 0.5 * r2[n_c:]
+    both = torch.cat([halves, halves]).T.contiguous()  # (2, 2 n_new)
+    scat = asm._gather_fold(both, table).T
+    return (r2[:n_c] + scat).reshape(-1)
+
+
+class MFLevel(NamedTuple):
+    """A built level of the matrix-free hierarchy (the JAX package's
+    `MGLevel` of `build_mg_levels`)."""
+
+    geom: asm.Geometry
+    d: torch.Tensor  # (3, 3, n_int) material tangent
+    free_flat: torch.Tensor  # (2 n_n,) bool
+    inv_blocks: torch.Tensor  # (n_n, 2, 2) damped block-Jacobi inverse
+    parents: torch.Tensor  # (n_new, 2) int64
+    rtable: torch.Tensor  # `restrict_table` into the level below (level 0: empty)
+
+
+def build_mg_levels(hier: Sequence[HierarchyLevel], ref: ReferenceElement, d_fn, device,
+                    omega: float = 0.7) -> List[MFLevel]:
+    """Per-level geometry (in the dtype of the hierarchy's coordinates),
+    tangent `d_fn(geom)` and damped block-Jacobi smoother (JAX `:131`)."""
+    levels = []
+    for li, lv in enumerate(hier):
+        coords = torch.as_tensor(lv.coords, device=device)
+        geom = asm.compute_geometry(coords, lv.elems, ref)
+        d = d_fn(geom)
+        blocks = asm.node_block_diagonal(geom, d)
+        free2 = torch.as_tensor(lv.free, device=device)
+        mask = free2[:, :, None] & free2[:, None, :]
+        b = torch.where(mask, blocks, torch.zeros_like(blocks))
+        eye = torch.eye(2, dtype=blocks.dtype, device=device)
+        b = b + eye * (~free2).to(blocks.dtype)[:, :, None]
+        a_, b_, c_, dd = b[:, 0, 0], b[:, 0, 1], b[:, 1, 0], b[:, 1, 1]
+        det = a_ * dd - b_ * c_
+        inv = (torch.stack([torch.stack([dd, -b_], -1), torch.stack([-c_, a_], -1)], -2)
+               / det[:, None, None]) * omega
+        n_c = hier[li - 1].coords.shape[0] if li else 0
+        table = restrict_table(lv.parents, n_c) if li else np.zeros((0, 1), np.int64)
+        levels.append(MFLevel(geom, d, free2.reshape(-1), inv,
+                              torch.as_tensor(lv.parents, device=device),
+                              torch.as_tensor(table, device=device)))
+    return levels
+
+
+def make_vcycle(levels: Sequence[MFLevel], coarse_solve, nu=2):
+    """V-cycle preconditioner application r -> z on the matrix-free
+    hierarchy (JAX `:1022`): damped block-Jacobi sweeps on each level's
+    tangent product, `coarse_solve` (masked r -> z) on level 0.  nu: an
+    int or a (pre, post) tuple; the first pre-sweep from z = 0 is the block
+    inverse applied to r."""
+    nu_pre, nu_post = (nu, nu) if isinstance(nu, int) else nu
+
+    def block_apply(lev: MFLevel, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("nij,nj->ni", lev.inv_blocks, x.reshape(-1, 2)).reshape(-1)
+
+    def smooth(lev: MFLevel, z, r, z_is_zero=False):
+        zero = torch.zeros((), dtype=r.dtype, device=r.device)
+        lo = 0
+        if z_is_zero:
+            # the first sweep from z = 0: res = r exactly
+            z = torch.where(lev.free_flat, block_apply(lev, r), zero)
+            lo = 1
+        for _ in range(lo, nu_pre if z_is_zero else nu_post):
+            res = torch.where(lev.free_flat, r - asm.tangent_matvec(lev.geom, lev.d, z), zero)
+            z = z + torch.where(lev.free_flat, block_apply(lev, res), zero)
+        return z
+
+    def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
+        lev = levels[li]
+        zero = torch.zeros((), dtype=r.dtype, device=r.device)
+        r = torch.where(lev.free_flat, r, zero)
+        if li == 0:
+            return torch.where(lev.free_flat, coarse_solve(r), zero)
+        z = smooth(lev, torch.zeros_like(r), r, z_is_zero=True)
+        res = torch.where(lev.free_flat, r - asm.tangent_matvec(lev.geom, lev.d, z), zero)
+        z_c = vcycle(li - 1, restrict(res, lev.rtable, levels[li - 1].geom.n_nodes))
+        z = z + torch.where(lev.free_flat, prolong(z_c, lev.parents), zero)
+        return smooth(lev, z, r)
+
+    return lambda r: vcycle(len(levels) - 1, r)
 
 
 def fine_rcm_orders(chain: list) -> list:
@@ -297,6 +445,10 @@ def build_hierarchy_ell(
 def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
     """V-cycle preconditioner application r -> z (approximate K^{-1} r).
 
+    cycle: "v", or "w": each level below the fine one is visited twice, the
+    second time on the masked residual its first visit left (one more
+    masked-residual sweep and two more transfers a level), except where the
+    level below is the coarsest (JAX `multigrid.py:955-962`).
     nu: smoothing sweeps, an int (symmetric) or a (pre, post) tuple.  The
     first pre-sweep from z = 0 is the damped block inverse applied to r (no
     operator application).  On a slot level the other sweeps and the masked
@@ -308,8 +460,8 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
     the same operations, as the JAX package writes them
     (`multigrid.py:961`, `:1014-1015`).
     """
-    if cycle != "v":
-        raise NotImplementedError(f"make_vcycle_ell: cycle {cycle!r} is not ported")
+    if cycle not in ("v", "w"):
+        raise ValueError(f"make_vcycle_ell: unknown cycle {cycle!r}")
     nu_pre, nu_post = (nu, nu) if isinstance(nu, int) else nu
     levels = hier.levels
     zero = torch.zeros((), dtype=torch.float32, device=hier.inv0.device)
@@ -340,6 +492,14 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
             return spmv.transfer(lev.P, z_c, mask=lev.free, z=z)
         return z + torch.where(lev.free, spmv.sp_matvec(lev.P, z_c), zero)
 
+    def coarse_correct(li: int, r_c: torch.Tensor) -> torch.Tensor:
+        # one visit (V) or two (W) to the level below li
+        z_c = vcycle(li - 1, r_c)
+        if cycle == "w" and li - 1 > 0:
+            lev_c = levels[li - 1]
+            z_c = z_c + vcycle(li - 1, sweep(lev_c, z_c, r_c, update=False))
+        return z_c
+
     def vcycle(li: int, r: torch.Tensor) -> torch.Tensor:
         # r: masked by the level's free DOFs
         lev = levels[li]
@@ -352,7 +512,7 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
         for _ in range(nu_pre - 1):
             z = sweep(lev, z, r)
         res = sweep(lev, z, r, update=False)
-        z = prolong_add(lev, z, vcycle(li - 1, restrict(li, res)))
+        z = prolong_add(lev, z, coarse_correct(li, restrict(li, res)))
         for _ in range(nu_post):
             z = sweep(lev, z, r)
         return z

@@ -56,7 +56,7 @@ import torch
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_newton, dp_return_map_newton_batched
-from ..ops.spmv import CsrMatrix, NodeBlockMatrix, sp_matvec
+from ..ops.spmv import CsrMatrix, EllMatrix, NodeBlockMatrix, sp_matvec
 from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg, solve_cg_members
 
 
@@ -194,6 +194,8 @@ def build_load_stepper(
     cg_deflate: int = 0,
     newton_damping: int = 0,
     gs_tangent: Optional[tuple] = None,
+    cg_structure: str = "while",
+    f_ext_dir: Optional[torch.Tensor] = None,
 ):
     """Build the load-stepping solver (dense or CG tangent solves).
 
@@ -286,12 +288,19 @@ def build_load_stepper(
                 halved up to this many times while the free-DOF residual
                 2-norm does not fall below the current one.  The criterion
                 still measures the undamped dU.  0: the undamped iteration.
-      gs_tangent: (G32, S32), the f32 heads of the CSR `residual_op`
+      gs_tangent: (G32, S32), the f32 heads of the `residual_op`
                 (`ops.assembly_df.f32_heads`), with an iterative solver and
                 no `elastic_op`: the tangent CG operator is S32 (d (G32 v))
-                through K3's CSR kernel; the residual and the criterion keep
-                G and S in f64 (JAX `solve/newton.py:740-761`, where an
-                elastic operator would take the tangent first).
+                through K3's CSR kernel (K6 on ELL heads); the residual and
+                the criterion keep G and S in f64 (JAX
+                `solve/newton.py:740-761`, where an elastic operator would
+                take the tangent first).
+      cg_structure: the CG solves' loop, "while" or "scan"
+                (`solve.cg.solve_cg`).
+      f_ext_dir: optional (2*n_n,) external load direction in the state
+                dtype, ramped with the load factor: the residual is
+                F_int(u) - zeta f_ext_dir (the tsx support pressure; JAX
+                `solve/newton.py:327-329`, `:402-421`).
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -320,9 +329,10 @@ def build_load_stepper(
         raise NotImplementedError("solver='mg' needs mg_preconditioner")
     if gs_tangent is not None and (
             elastic_op is not None or solver == "dense" or residual_op is None
-            or not all(isinstance(A, CsrMatrix) for A in (*residual_op, *gs_tangent))):
+            or not all(isinstance(A, (CsrMatrix, EllMatrix))
+                       for A in (*residual_op, *gs_tangent))):
         raise ValueError("gs_tangent needs an iterative solver without elastic_op and CSR "
-                         "residual operators")
+                         "or ELL residual operators")
     sdtype = geom.B.dtype
     geom_t = geom.to(torch.float32) if df_mode else geom
     tdtype = geom_t.B.dtype
@@ -365,12 +375,15 @@ def build_load_stepper(
         )
         return s, ds.to(tdtype), ind_p, lam, ep_
 
-    def residual_force(s):
-        """Newton residual F_int, in the tangent dtype (df32: the f32 head)."""
+    def residual_force(s, zeta):
+        """Newton residual F_int - zeta f_ext, in the tangent dtype (df32:
+        the f32 head of the f64 difference)."""
         if residual_op is not None:
             f = sp_matvec(residual_op[1], s[:3].reshape(-1))
         else:
             f = asm.internal_force(geom, s[:3])
+        if f_ext_dir is not None:
+            f = f - zeta * f_ext_dir
         return f.to(tdtype)
 
     def elastic_force(v):
@@ -506,7 +519,7 @@ def build_load_stepper(
             op, pre = tangent_operator(d, ind_p), mg_preconditioner
         res = solve_cg(
             op, -f_int, free_mask, precond=pre, tol=tol, maxiter=cg_maxiter,
-            deflate=None if defl is None else defl[0],
+            structure=cg_structure, deflate=None if defl is None else defl[0],
         )
         if defl is not None:
             # the solution (small modes amplified) and, of a solve that did
@@ -553,7 +566,8 @@ def build_load_stepper(
         s = torch.ones((), dtype=tdtype, device=device)
 
         def phi(s):
-            return residual_norm(residual_force(return_map(U_it + (s * dU).to(sdtype), ep, zeta)[0]))
+            return residual_norm(
+                residual_force(return_map(U_it + (s * dU).to(sdtype), ep, zeta)[0], zeta))
 
         t, phi_s = 0, phi(s)
         while t < newton_damping and bool(phi_s >= phi0):  # False for NaN
@@ -568,7 +582,7 @@ def build_load_stepper(
         crit, it, fail, solves = math.inf, 0, False, []
         while not fail and crit >= newton_tol and it < settings.maxit:
             s, ds, ind_p, _, _ = return_map(U_it, ep, zeta)
-            f_int = residual_force(s)
+            f_int = residual_force(s, zeta)
             if solver != "dense":
                 dU, ok, cg_its, defl = cg_solve(ds, f_int, ind_p, crit, defl)
                 solves.append((int(cg_its), bool(ok)))

@@ -14,7 +14,9 @@ packages can compute from identical inputs:
 * `load_checkpoint` / `save_checkpoint`: the npz checkpoint of
   `solve/chunked.py` (`:58`, `:45`) as a port carry, and a port carry
   written in that format (atomic replace), so that either package resumes
-  the other's run (`checkpoints/footing_l5_k16.npz`);
+  the other's run (`checkpoints/footing_l5_k16.npz`); beside the JAX
+  format the port writes each f64 value exactly (`EXACT_SUFFIX`), so that
+  a port run resumed from its own file keeps its bits;
 * `hierarchy_from_numpy`: the host data of the JAX package's multigrid
   hierarchy -> the port's device hierarchy, so that V-cycle and CG tests run
   both packages on identical operators.
@@ -36,6 +38,10 @@ INT_KEYS = ("step", "nits_total", "ncg_total", "defl_ring")
 ARRAY_KEYS = ("u", "u_old", "u_it", "ep", "zeta_hist", "monitor_hist")
 # the recycled deflation basis: an f32 array in both packages
 F32_ARRAY_KEYS = ("defl_w",)
+# the suffix of the exact f64 copy of a carry value in a port checkpoint.
+# The JAX package's loader reads a `__lo` array only beside its `__hi`, so
+# it skips these keys and reads the pairs
+EXACT_SUFFIX = "__f64__lo"
 
 
 def df_to_f64(hi, lo) -> np.ndarray:
@@ -104,17 +110,33 @@ def load_checkpoint(path, device=None) -> dict:
     """A checkpoint npz of the JAX package (`solve/chunked.py
     save_checkpoint`, or `save_checkpoint` here) -> the port's resume carry
     on `device` (`carry_from_jax`): DF pairs summed exactly into f64, the
-    deflation basis and ring included."""
+    deflation basis and ring included; where the file holds a value's exact
+    f64 copy (`EXACT_SUFFIX`, written by the port), that copy."""
     with np.load(path) as raw:
-        return carry_from_jax({k: raw[k] for k in raw.files}, device=device)
+        files = {k: raw[k] for k in raw.files}
+    out = carry_from_jax(files, device=device)
+    for k, v in files.items():
+        if k.endswith(EXACT_SUFFIX):
+            key = k[: -len(EXACT_SUFFIX)]
+            out[key] = (torch.as_tensor(v, device=device) if key in ARRAY_KEYS
+                        else float(v))
+    return out
 
 
 def save_checkpoint(path, carry: Mapping) -> None:
     """Write a port carry (`solve.newton.carry_of`) as the JAX package's
-    checkpoint npz (`carry_to_jax`), atomically: to `path`.tmp.npz, then
-    renamed over `path`."""
+    checkpoint npz (`carry_to_jax`), with the exact f64 copy of every
+    float64 value beside it (`EXACT_SUFFIX`; the pairs keep 48 of its 53
+    bits), atomically: to `path`.tmp.npz, then renamed over `path`."""
+    flat = carry_to_jax(carry)
+    for key, v in carry.items():
+        if key in INT_KEYS or key in F32_ARRAY_KEYS:
+            continue
+        x = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if x.dtype == np.float64:
+            flat[key + EXACT_SUFFIX] = x
     tmp = str(path) + ".tmp.npz"
-    np.savez(tmp, **carry_to_jax(carry))
+    np.savez(tmp, **flat)
     os.replace(tmp, str(path))
 
 

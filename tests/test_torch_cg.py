@@ -120,7 +120,9 @@ def test_zero_right_hand_side_and_tensor_tolerance(system):
     # deflation is ported (tests/test_torch_deflation.py); as in the JAX
     # package it refuses a start vector
     (dict(deflate=torch.zeros(4, 2), x0=torch.ones(4)), ValueError),
-    (dict(structure="scan"), NotImplementedError),
+    # "scan" is ported (tests/test_torch_tsx_options.py); a structure the
+    # JAX package does not have raises, as there
+    (dict(structure="unrolled"), ValueError),
 ], ids=["deflate", "scan"])
 def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):

@@ -237,7 +237,7 @@ def test_node_block_diagonal_equals_jax():
     dict(solver="cg", cg_deflate=4),
     dict(solver="cg", newton_damping=1),
     dict(solver="cg", tangent_mg=True),
-    dict(solver="cg", cg_structure="scan"),
+    dict(cg_structure="scan"),  # dense solver: no CG loop
     dict(solver="cg", residual_fmt="ell"),
     dict(solver="cg", assembled_cg=True),  # native precision
     dict(assembled_cg=True, precision="df32", dtype="float32"),  # dense solver

@@ -835,3 +835,73 @@ def test_p2_routes_on_the_card(cuda_high_order):
         o = tsx.solve(other, device=cuda_high_order)
         assert o.n_steps == r.n_steps == 2
         assert float(np.abs(o.u - r.u).max() / np.abs(r.u).max()) < 1e-9
+
+
+def test_w_cycle_launches_k3_and_k4_twice_a_level(cuda_high_order):
+    """The W-cycle at L2: one cycle is 13 K4 launches (level 2 once, level
+    1 twice with its masked residual between) and 6 transfers, no plain
+    version; its output within 5e-6 of max |z| of the plain cycle on the
+    same hierarchy (the CPU's)."""
+    from fem_elastoplasticity_tpu_torch.solve import multigrid as mgm
+
+    extras = {}
+    tsx.build_df32(TsxTunnelConfig.fast_scale(2, mg_cycle="w"), device=cuda_high_order,
+                   extras=extras)
+    hier = extras["hierarchy"]
+    n = hier.levels[-1].free.shape[0]
+    r = torch.as_tensor(np.random.default_rng(3).standard_normal(n).astype(np.float32),
+                        device=cuda_high_order)
+    vc = mgm.make_vcycle_ell(hier, cycle="w")
+    spmv.LAUNCHES.clear()
+    z = vc(r)
+    assert spmv.LAUNCHES == {"block_jacobi_sweep": 13, "node_transfer": 6}
+    assert torch.equal(z, vc(r))
+    cpu = {}
+    tsx.build_df32(TsxTunnelConfig.fast_scale(2, mg_cycle="w"), device="cpu", extras=cpu)
+    z_plain = mgm.make_vcycle_ell(cpu["hierarchy"], cycle="w")(r.cpu())
+    assert float((z.cpu() - z_plain).abs().max()) <= 5e-6 * float(z_plain.abs().max())
+
+
+def test_slice_options_on_the_card(cuda_high_order):
+    """The matrix-free multigrid, the scan CG and the ELL residual heads at
+    P2 on the card: mg f64 within 1e-14 of block-Jacobi CG (cut at 2/17);
+    scan bitwise the while run; P2 on ELL residual operators through K6 f64
+    and f32 only, u within 1e-9 of the CSR route's."""
+    kw = dict(refine_levels=1, zeta_max=2 / 17)
+    a = tsx.solve(TsxTunnelConfig(solver="mg", **kw), device=cuda_high_order)
+    b = tsx.solve(TsxTunnelConfig(solver="cg", **kw), device=cuda_high_order)
+    assert a.n_steps == b.n_steps == 2 and float(np.abs(a.u - b.u).max()) <= 1e-14
+    runs = [tsx.build_df32(TsxTunnelConfig.fast_scale(1, cg_maxiter=200, cg_structure=s,
+                                                      zeta_max=2 / 17),
+                           device=cuda_high_order)[0]() for s in ("while", "scan")]
+    assert runs[0].n_cg_total == runs[1].n_cg_total and torch.equal(runs[0].u, runs[1].u)
+    spmv.LAUNCHES.clear()
+    e = tsx.solve(TsxTunnelConfig.fast(etype=ElementType.P2, solver="ell", residual_fmt="ell",
+                                       zeta_max=2 / 17), device=cuda_high_order)
+    launches = dict(spmv.LAUNCHES)
+    assert launches["ell_spmv_f64"] > 0 and launches["ell_spmv_f32"] > 0, launches
+    assert not any(k.startswith("csr_spmv") or k.endswith("_plain") for k in launches)
+    c = tsx.solve(TsxTunnelConfig.fast(etype=ElementType.P2, solver="ell", gs_tangent=False,
+                                       zeta_max=2 / 17), device=cuda_high_order)
+    assert e.n_steps == c.n_steps and float(np.abs(e.u - c.u).max() / np.abs(c.u).max()) < 1e-9
+
+
+def test_footing_quads_on_the_card(cuda_high_order):
+    """The footing's Q2 at level 0: the f64 schedule is the reference's
+    first steps, and the assembled CG route launches K3's product and K1,
+    with residual_fmt "slot" and "rslot" bitwise one route."""
+    r = footing.solve(FootingConfig(etype=ElementType.Q2, level=0, bug_compatible_apex=True,
+                                    zeta_max=0.005), device=cuda_high_order)
+    assert r.n_steps == 5
+    np.testing.assert_allclose(r.zeta_hist[1:6], [0.001, 0.002, 0.003, 0.004, 0.005],
+                               rtol=0, atol=1e-15)
+    us = []
+    for fmt in ("slot", "rslot"):
+        spmv.LAUNCHES.clear()
+        a = footing.solve(FootingConfig.fast(etype=ElementType.Q2, level=0, solver="cg",
+                                             assembled_cg=True, residual_fmt=fmt,
+                                             zeta_max=0.002), device=cuda_high_order)
+        assert spmv.LAUNCHES["node_block_spmv"] > 0 and spmv.LAUNCHES["csr_spmv_f64"] > 0
+        assert not any(k.endswith("_plain") for k in spmv.LAUNCHES)
+        us.append(a.u)
+    assert np.array_equal(*us)

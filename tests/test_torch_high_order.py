@@ -357,18 +357,24 @@ def test_configs_accept_the_high_order_routes_and_refuse_the_rest():
         (dict(solver="ell", gs_tangent=True), NotImplementedError),  # P1
         (dict(solver="cg", gs_tangent=True), NotImplementedError),
         (dict(etype=ElementType.Q1), NotImplementedError),
-        (dict(solver="mg"), NotImplementedError),
+        # the matrix-free multigrid refines the P1 mesh only
+        (dict(solver="mg", etype=ElementType.P2), NotImplementedError),
         (dict(etype=ElementType.P4, solver="cg", cg_eta0=1e-2), NotImplementedError),
         (dict(etype=ElementType.P4, solver="cg", residual_fmt="rslot"), NotImplementedError),
     ]
     for kw, exc in refused:
         with pytest.raises(exc):
             TsxTunnelConfig(**kw)
+    # the ELL residual operators at P2/P4: the JAX package's auto rule runs
+    # the tangent matrix-free there; gs_tangent=True takes their f32 heads
+    ell = TsxTunnelConfig.fast(solver="ell", etype=ElementType.P4, residual_fmt="ell")
+    assert not ell.gs_tangent_on
+    assert TsxTunnelConfig.fast(solver="ell", etype=ElementType.P4, gs_tangent=True,
+                                residual_fmt="ell").gs_tangent_on
     for kw, exc in [
         (dict(solver="ell", etype=ElementType.P4, corr_mode="scatter"), ValueError),
-        (dict(solver="ell", etype=ElementType.P4, residual_fmt="ell"), NotImplementedError),
-        (dict(solver="ell", etype=ElementType.P4, gs_tangent=True, residual_fmt="ell"),
-         NotImplementedError),
+        (dict(solver="mg", etype=ElementType.P4), NotImplementedError),
+        (dict(solver="mg", assembled_cg=True), NotImplementedError),
         (dict(solver="cg", residual_fmt="ell"), NotImplementedError),  # matrix-free
         (dict(solver="cg", assembled_cg=True, mg_nu=3), NotImplementedError),
     ]:

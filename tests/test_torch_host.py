@@ -87,8 +87,8 @@ def test_config_defaults_match_jax():
     [
         # solver="cg" and P2/P4 are ported (tests/test_torch_high_order.py);
         # the matrix-free multigrid and the quadrilaterals are not
-        dict(solver="mg"),
-        dict(support_pressure=1.0),
+        dict(solver="mg", etype=pel.ElementType.P2),
+        dict(mg_cycle="w"),  # read by solver="ell" only
         dict(etype=pel.ElementType.Q1),
         dict(dtype="bfloat16"),
         dict(assembled_cg=True),
@@ -126,7 +126,7 @@ def test_config_refuses_unported_presets():
             if f.name != "etype":
                 assert getattr(scale, f.name) == getattr(jscale, f.name), f.name
     with pytest.raises(NotImplementedError):
-        FootingConfig.fast_scale(4, cg_structure="scan")
+        FootingConfig.fast_scale(4, etype=pel.ElementType.P2)
     fast32 = TsxTunnelConfig.fast_f32()
     assert (fast32.dtype, fast32.precision, fast32.newton_tol, fast32.accept_tol) == (
         "float32", "native", 1e-6, 1e-5)
@@ -135,13 +135,13 @@ def test_config_refuses_unported_presets():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(mg_cycle="w"),
-        dict(cg_deflate=4),
+        dict(mg_cycle="f"),
+        dict(cg_deflate=4, precision="native"),
         dict(spmv_fmt="rslot"),
         dict(solver="mg"),
         dict(etype=pel.ElementType.Q2),
         dict(precision="native"),
-        dict(cg_structure="scan"),
+        dict(cg_structure="unrolled"),
     ],
     ids=lambda kw: next(iter(kw)),
 )
@@ -257,7 +257,7 @@ def test_footing_config_defaults_match_jax():
         dict(newton_damping=3),
         dict(residual_fmt="slot"),
         dict(precision="df32", dtype="float32", dense_mode="mixed"),
-        dict(etype=pel.ElementType.P2),
+        dict(etype=pel.ElementType.P4),
     ],
     ids=lambda kw: next(iter(kw)),
 )

@@ -27,7 +27,7 @@ from fem_elastoplasticity_tpu_torch.models.materials import (dp_return_map_lanes
 from fem_elastoplasticity_tpu_torch.mesh.structured import square_mesh
 from fem_elastoplasticity_tpu_torch.ops import assembly as asm
 from fem_elastoplasticity_tpu_torch.ops import spmv
-from fem_elastoplasticity_tpu_torch.ops.elements import volume_element
+from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
 from fem_elastoplasticity_tpu_torch.solve import multigrid as mgm
 from fem_elastoplasticity_tpu_torch.utils.convert import load_checkpoint
 
@@ -314,7 +314,8 @@ def test_galerkin_maps_have_the_restriction_shape(l2):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(cg_structure="scan"), NotImplementedError),
+    # the tangent hierarchy is a P1 hierarchy (JAX `solve/multigrid.py:493`)
+    (dict(etype=ElementType.Q2), NotImplementedError),
     (dict(residual_fmt="ell"), NotImplementedError),
     (dict(assembled_cg=True), NotImplementedError),
     (dict(level=1), ValueError),

@@ -5,7 +5,7 @@ and phase 33 (the four 64-member ensembles against their members' single
 solves), and print their numbers as one JSON line (to FILE too with --out).
 
 With --all-singles the CG ensemble (refine 1) is held against all 64 single
-solves, not the smoke's ten (about 8 min more on an H100).
+solves, not the smoke's eight (about 8 min more on an H100).
 
     python tools/ensemble_phases.py [--all-singles] [--out FILE]
 """

@@ -109,6 +109,16 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   after its one load trip (`save_checkpoint`), on the route's permuted node
   order.
 
+* tsx_mg_native_z2.npz, tsx_mg_df32_z2.npz, tsx_support_p1.npz,
+  tsx_scale_l1_w.npz, tsx_scale_l1_defl4_z3.npz — the tsx options of
+  `TSX_OPTIONS` (the matrix-free multigrid native and df32, the support
+  pressure over the full schedule, the W-cycle, the deflated CG cut at
+  3/17 and over the full schedule, tsx_scale_l1_defl4.npz): the fields, the
+  CG count, the configuration as JSON under `config` and, for df32 runs,
+  newton_trips and cg_trips;
+* tsx_scale_l1_ckpt3.npz — the load-stepping carry of
+  `TsxTunnelConfig.fast_scale(1)` after 3 load trips, written by
+  `solve/chunked.py save_checkpoint` (the port resumes it);
 * ensemble_f64.npz, ensemble_df32.npz, ensemble_df32_weak.npz,
   ensemble_df32_cg_l1.npz — material ensembles (`parallel/ensemble.py`)
   over `material_grid(cohesions, friction angles)`: the native f64 dense
@@ -262,6 +272,22 @@ def main(names) -> None:
             if name in names:
                 np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "displ_hist"), **extra,
                                     n_cg_total=r.n_cg_total)
+    for name, (preset, kw) in TSX_OPTIONS.items():
+        if name in names:
+            cfg = tsx_option_config(TsxTunnelConfig, ElementType, preset, kw)
+            extra = {"config": json.dumps(dict(preset=preset, **kw))}
+            if cfg.precision == "df32":
+                run, args, mesh = tsx.build_df32(cfg, extras=(extras := {}))
+                r = tsx._df32_result(run(args), extras, cfg, mesh)
+                rec = _trip_record(tsx, cfg, r, step0=0)
+                extra.update(newton_trips=rec["newton_trips"], cg_trips=rec["cg_trips"])
+            else:
+                r = tsx.solve(cfg)
+            np.savez_compressed(OUT / f"{name}.npz", **_fields(r, "displ_hist"), **extra,
+                                n_cg_total=r.n_cg_total)
+    if "tsx_scale_l1_ckpt3" in names:
+        run, args, _ = tsx.build_df32(TsxTunnelConfig.fast_scale(1, max_trips=3))
+        save_checkpoint(OUT / "tsx_scale_l1_ckpt3.npz", carry_of(run(args)))
     for name, (cohesions, frictions, df32, cfg_kw) in ENSEMBLES.items():
         if name in names:
             from fem_elastoplasticity_tpu.parallel import ensemble as ens
@@ -454,13 +480,44 @@ ENSEMBLES = {
     "ensemble_df32_cg_l1": ((16.0, 18.7), (45.0, 49.0), True,
                             dict(solver="cg", refine_levels=1, zeta_max=2.0 / 17.0)),
 }
+# the tsx options of the last single-device slice: name -> (preset, keywords);
+# preset None (the plain config), "fast" or ["fast_scale", level]; "etype"
+# by name
+TSX_OPTIONS = {
+    "tsx_mg_native_z2": (None, dict(solver="mg", refine_levels=1, zeta_max=2 / 17)),
+    "tsx_mg_df32_z2": ("fast", dict(solver="mg", refine_levels=1, zeta_max=2 / 17)),
+    "tsx_support_p1": (None, dict(solver="cg", support_pressure=2.0)),
+    "tsx_scale_l1_w": (["fast_scale", 1], dict(mg_cycle="w")),
+    "tsx_scale_l1_defl4_z3": (["fast_scale", 1], dict(cg_deflate=4, zeta_max=3 / 17)),
+    "tsx_scale_l1_defl4": (["fast_scale", 1], dict(cg_deflate=4)),
+}
+# not in TSX_OPTIONS: `fast(etype=P2, solver="ell", residual_fmt="ell")`
+# fails in the JAX package (its elastic_apply_gs32 reads the column-split
+# ELL S as one slot operator: KeyError 'vals_hi', `ops/assembly_df.py:319`
+# from `models/tsx_tunnel.py:817`); the port's run is held against the CSR
+# routes' fixtures (`tsx_p2_pmg_mf_z2`, `tsx_p2_pmg_gs_z2`)
+
+
+def tsx_option_config(config_cls, element_type, preset, kw):
+    """The configuration of a `TSX_OPTIONS` entry (or of its JSON `config`)
+    from a package's `TsxTunnelConfig` and `ElementType`."""
+    kw = dict(kw)
+    if "etype" in kw:
+        kw["etype"] = element_type[kw["etype"]]
+    if preset is None:
+        return config_cls(**kw)
+    if preset == "fast":
+        return config_cls.fast(**kw)
+    return config_cls.fast_scale(preset[1], **kw)
+
+
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
     *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg", *HIGH_ORDER,
-    "tsx_p4_pmg_carry1", *ENSEMBLES,
+    "tsx_p4_pmg_carry1", *ENSEMBLES, *TSX_OPTIONS, "tsx_scale_l1_ckpt3",
 )
 
 if __name__ == "__main__":
