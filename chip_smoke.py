@@ -89,8 +89,8 @@ them against the repository's anchors:
                 against their fixtures: steps and plastic points as the JAX
                 package's runs have them, Newton iterations by trip as in
                 phase 11 (df32) or in total (f64), CG within 5%, the last
-                pressure within 1e-8 (f64) / 1e-6 (df32), the df32 runs
-                twice and bit-identical, the matrix-free runs through no
+                pressure within 1e-8 (f64) / 1e-6 (df32), each run once,
+                the matrix-free runs through no
                 kernel, the assembled run through K3's node-block product
                 (at least once a CG iteration) and K1, no plain version and
                 no CSR K3, its schedule the matrix-free df32 run's;
@@ -263,14 +263,17 @@ them against the repository's anchors:
                 material) through `parallel.ensemble`: f32
                 (`fast_f32()`), f64 and df32 on the dense solver and df32
                 matrix-free CG at refine 1, full schedules, each twice
-                (bit-identical) and once profiled; every member's steps and
-                last zeta those of its single port solve, at least 8
-                (the weakest and the reference among them) also its Newton
+                (bit-identical) and once profiled; the compared members'
+                steps and last zeta those of their single port solves (22
+                members of each dense ensemble, `ENSEMBLE_DENSE_SINGLES`,
+                4 of the CG one), at least 8 (all 4 on the CG run; the
+                weakest and the reference among them) also their Newton
                 and plastic counts with u within `ENSEMBLE_U_GATES`; the
-                f32 run's return maps all K2's batched instance (no single
-                launch, no plain version); walls, solves/s, the 64 single
-                solves' serial wall, device busy and idle share, kernels
-                and host reads a sweep, peak device memory.
+                f32 run's return maps all
+                K2's batched instance (no single launch, no plain version);
+                walls, solves/s, the compared single solves' serial wall,
+                device busy and idle share, kernels and host reads a sweep,
+                peak device memory.
  34. footing element types — Q1, P2 and Q2 at level 0 with
                 `bug_compatible_apex=True`, native f64 dense: the accepted
                 schedule equal to the reference's
@@ -278,7 +281,7 @@ them against the repository's anchors:
                 1e-11; the same under `FootingConfig.fast()` against the
                 f64 runs (steps and schedule equal, u within 1e-9, the
                 pressures within 1e-5); Q1 and Q2 at level 1 cut at zeta
-                0.05 under `fast(solver="cg", assembled_cg=True)`, Q1 with
+                0.01 under `fast(solver="cg", assembled_cg=True)`, Q1 with
                 residual_fmt "slot" and "rslot" (one CSR route: the two
                 runs bitwise equal, which also holds the run repeated), Q2
                 with "slot" (`FOOTING_ACG_RUNS`), against
@@ -304,7 +307,27 @@ them against the repository's anchors:
                 elastic K (node blocks a node printed), K4 on the levels
                 the W-cycle visits twice (L4 levels 1-3), K6 f64 and f32 on
                 P2 and P4 G, S and their f32 heads, each by the earlier
-                phases' rules.
+                phases' rules;
+ 37. sharded runs on one card — `parallel/sharding.py`: N ranks on the
+                card over gloo (every rank's tensors on cuda:0; each
+                rank's backend and device printed, none on the CPU, none
+                with JAX loaded), one spawn a rank count:
+                `solve_sharded` at 2 ranks over the full schedule (the
+                single card's CG solve's 17 steps and Newton iterations, u
+                within 1e-14) and at 3 against 2 ranks at zeta 3/17,
+                `solve_sharded_df32` at 2 ranks (1e-12 relative), the
+                64-member df32 parity ensemble at 2 ranks against phase
+                33's one-card ensemble, `solve_sharded_scale` of
+                fast_scale(4) at 4 ranks and fast_scale(1) at 8, each
+                bitwise the single card's u digest and counts (phases 17
+                and 14), the footing's tangent multigrid at L2 cut at zeta
+                0.004 (its first load trip) at 8 ranks bitwise the
+                single card's run, `dryrun_multichip`'s gates at 8 ranks;
+                walls, gathers and launches of every run;
+                then K4's split-z instance on L4's levels 1-4 cut into 4
+                row slices, each launch bitwise its plain version and the
+                unsharded sweep's rows, times beside the unsharded sweep
+                and the bound.
 
 Every phase prints its lines with the card line beside its numbers, and
 the later phases their seconds.  Before
@@ -1725,15 +1748,20 @@ def ensemble_runs(TsxTunnelConfig):
     )
 
 
-# the CG ensemble's single solves take ~7.5 s each on the card (about
-# 10,000 CG iterations a solve): the smoke compares the eight members of
-# ENSEMBLE_HELD (ten, with members 27 and 36, before phases 34-36) and times
-# their sequence; tools/ensemble_phases.py --all-singles compares all 64.
+# the CG ensemble's single solves take ~8.5 s each on the card (about
+# 10,000 CG iterations a solve): the smoke compares four members, the
+# weakest, two corners and the reference (eight of ENSEMBLE_HELD before
+# phase 37, ten before phases 34-36), and times their sequence;
+# tools/ensemble_phases.py --all-singles compares all 64.
 # Its profile covers the first ENSEMBLE_CG_PROFILE_TRIPS load trips: the
 # full schedule is ~700,000 kernels, too many events for the profiler in
 # the smoke's time
-ENSEMBLE_CG_SINGLES = ENSEMBLE_HELD
+ENSEMBLE_CG_SINGLES = (0, 7, 63, ENSEMBLE_REFERENCE)
 ENSEMBLE_CG_PROFILE_TRIPS = 4
+# the dense ensembles compare every fourth member and ENSEMBLE_HELD (22 of
+# 64; the 64 single solves of the three take ~30 s on the card);
+# tools/ensemble_phases.py --all-singles compares all 64
+ENSEMBLE_DENSE_SINGLES = tuple(sorted(set(range(0, 64, 4)) | set(ENSEMBLE_HELD)))
 
 
 def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool = False):
@@ -1741,11 +1769,13 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
     twice and bit-identical, once more under torch.profiler (the CG
     ensemble over its first ENSEMBLE_CG_PROFILE_TRIPS load trips); each
     compared member's schedule against its single port solve (the same
-    steps and last zeta: every member, but ENSEMBLE_CG_SINGLES' on the CG
-    run unless `all_singles`), and at least 8, ENSEMBLE_HELD's weakest and
+    steps and last zeta: ENSEMBLE_DENSE_SINGLES' members on the dense runs,
+    ENSEMBLE_CG_SINGLES' on the CG run, every member with `all_singles`),
+    and at least 8 (every one of the CG run's), the weakest and the
     reference among them, also Newton- and plastic-equal with u within
-    ENSEMBLE_U_GATES; the f32 ensemble through K2's batched instance only.
-    Returns ({run: its numbers}, the f32 run's K2 launches)."""
+    ENSEMBLE_U_GATES; the f32
+    ensemble through K2's batched instance only.  Returns ({run: its
+    numbers}, the f32 run's K2 launches, {run: its EnsembleResult})."""
     import dataclasses
 
     import numpy as np
@@ -1756,7 +1786,7 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
 
     cc, ff, eta, c = ensemble_grid(np)
     n_b = eta.size
-    out, k2_launches = {}, {}
+    out, k2_launches, results = {}, {}, {}
     for tag, cfg, df32 in ensemble_runs(TsxTunnelConfig):
         t_phase = time.perf_counter()
         entry = ens.solve_tsx_ensemble_df32 if df32 else ens.solve_tsx_ensemble
@@ -1771,9 +1801,10 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
         launches, stats = dict(rm.LAUNCHES), dict(newton.ENSEMBLE_STATS)
         torch.cuda.reset_peak_memory_stats(device)
         e2, warm = timed(torch, solve)
+        results[tag] = e1
         peak = torch.cuda.max_memory_allocated(device)
-        check(all(np.array_equal(getattr(e1, k), getattr(e2, k)) for k in e1._fields),
-              f"ensemble {tag}: two runs differ")
+        check(all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+                  for x, y in zip(e1, e2)), f"ensemble {tag}: two runs differ")
         newton.ENSEMBLE_STATS.clear()
         prof_cfg = dataclasses.replace(cfg, max_trips=ENSEMBLE_CG_PROFILE_TRIPS) if cg else cfg
         busy, idle, n_kernels = idle_share(torch, lambda: solve(prof_cfg))
@@ -1784,7 +1815,8 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
                 "dp_return_map_batched"}, f"ensemble f32: K2 launches {launches}")
         else:
             check(not launches, f"ensemble {tag}: a K2 route ran ({launches})")
-        members = ENSEMBLE_CG_SINGLES if cg and not all_singles else tuple(range(n_b))
+        members = (tuple(range(n_b)) if all_singles
+                   else ENSEMBLE_CG_SINGLES if cg else ENSEMBLE_DENSE_SINGLES)
         t0 = time.perf_counter()
         singles = {k: tsx.solve(dataclasses.replace(cfg, cohesion=float(cc[k]),
                                                     friction_angle=float(ff[k])), device=device)
@@ -1807,7 +1839,7 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
                 moved.append((k, counts, (r.n_steps, r.n_newton_total, r.n_plastic), du))
         check(same_end == len(singles), f"ensemble {tag}: {len(singles) - same_end} members "
               "end where their single solves do not")
-        check(len(held) >= 8 and {0, ENSEMBLE_REFERENCE} <= set(held),
+        check(len(held) >= min(8, len(singles)) and {0, ENSEMBLE_REFERENCE} <= set(held),
               f"ensemble {tag}: members off their single solves: {moved[:12]}")
         sweeps = stats["sweeps"]
         out[tag] = dict(
@@ -1842,13 +1874,15 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
             f"{per_sweep}; "
             f"{sweeps} sweeps, {o['host_reads_per_sweep']:.2f} host reads a sweep | K2 "
             f"{launches} | peak {peak / 2**30:.3f} GiB | phase {o['phase_s']:.1f} s | {card}")
-    return out, k2_launches
+    return out, k2_launches, results
 
 
 FOOTING_ETYPES = ("Q1", "P2", "Q2")
 # tests/test_footing.py:246-265: the assembled quads cut at zeta 0.05
-# against the matrix-free CG: the last pressure, the first six
-FOOTING_ACG_ZETA = 0.05
+# against the matrix-free CG: the last pressure, the first six; the smoke
+# cuts them at 0.01 (Q2's pair took 203 s at 0.05 and 107 s at 0.02 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W): the first steps are the same steps
+FOOTING_ACG_ZETA = 0.01
 ANCHOR_U40_SUPPORT = -1.922609586e-03  # tests/test_tsx_tunnel.py:346-355
 # the level-1 assembled runs of phase 34 by element type: Q1 twice, as
 # "slot" and "rslot" (one CSR route, so also the repeat, held bitwise); Q2
@@ -2150,6 +2184,243 @@ def option_kernels_phase(torch, spmv, adf, footing, FootingConfig, footing_extra
     return csr, csr_err, k3_shapes, k4, k4_err, k6_shapes, k6_err
 
 
+# phase 37: multi-device runs, N ranks on one card over gloo (every rank's
+# tensors on cuda:0; NCCL refuses two ranks on one device).  The runs of one
+# rank count share one spawn (`sharding.run_jobs`): a rank process takes
+# ~8 s to reach the card.  The kernels of the sharded scale paths: K4's
+# split-z instance in place of K4
+SHARD_SCALE_KERNELS = ("node_block_spmv", "node_transfer", "block_jacobi_sweep_split",
+                       "csr_spmv_f64")
+SHARD_Z3 = 3 / 17
+# the footing's L2 tangent multigrid cut at zeta 0.004, over its first
+# load trip: a gather takes ~7 ms at 8 ranks on one card; the whole cut (4
+# trips, 9,512 gathers a rank) took 68 s, its first two trips 24.5 s
+SHARD_FOOTING = dict(solver="cg", level=2, tangent_mg=True, zeta_max=0.004, max_trips=1)
+# the member-sharded 64-member df32 ensemble against the one-card one:
+# members batched with other members round their last bits another way
+SHARD_ENSEMBLE_U_REL = 1e-12
+
+
+def split_z_phase(torch, spmv, sharding, hier, host_levels, n_slices: int, device, card):
+    """K4's split-z instance on every smoothed level of `hier` cut into
+    n_slices row slices (`spmv.shard_rows`): each slice's launch bitwise its
+    plain version and the unsharded launch's rows; CUDA-event times of the
+    n_slices launches (one CUDA graph) beside the unsharded sweep, the
+    plain versions and the bound (the whole sweep's bytes: the slices read
+    each input once together).  Returns {case: record}."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 37)
+    shapes = {}
+    for li in range(1, len(hier.levels)):
+        lev = hier.levels[li]
+        B, aux = lev.sweep_op, lev.aux
+        n = B.shape[0]
+        z = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        r = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+        parts = [spmv.shard_rows(B, sharding.ShardGroup(k, n_slices, device, "gloo"))
+                 for k in range(n_slices)]
+        cut = []
+        for p in parts:
+            rows = slice(p.row0, p.row0 + p.rows)
+            cut.append((p.local, spmv.SweepAux(*(a[rows] for a in aux)), r[rows]))
+        for update in (True, False):
+            case = f"L4_level{li}_x{n_slices}_{'update' if update else 'residual'}"
+            whole = spmv.block_jacobi_sweep_cuda(B, aux, z, r, update)
+            for p, (loc, aux_l, r_l) in zip(parts, cut):
+                got = spmv.block_jacobi_sweep_cuda(loc, aux_l, z, r_l, update)
+                plain = spmv.node_block_sweep_plain(loc, aux_l, z, r_l, update)
+                torch.cuda.synchronize()
+                check(torch.equal(got, plain), f"K4 split {case}: rank {p.group.rank} not "
+                      "bitwise its plain version")
+                check(torch.equal(got, whole[p.row0:p.row0 + p.rows]),
+                      f"K4 split {case}: rank {p.group.rank} not the unsharded rows")
+
+            def slices(update=update):
+                for loc, aux_l, r_l in cut:
+                    spmv.block_jacobi_sweep_cuda(loc, aux_l, z, r_l, update)
+
+            def slices_plain(update=update):
+                for loc, aux_l, r_l in cut:
+                    spmv.node_block_sweep_plain(loc, aux_l, z, r_l, update)
+
+            ms, eager_ms = cuda_ms(torch, slices, reps=100)
+            plain_ms, _ = cuda_ms(torch, slices_plain, reps=20)
+            whole_ms, _ = cuda_ms(torch, lambda: spmv.block_jacobi_sweep_cuda(
+                B, aux, z, r, update), reps=100)
+            nnz = int(host_levels[li]["K"].nnz)
+            _, layout_bytes, flops = sweep_cost(n, nnz, int(B.block_cols.numel()), 4, update)
+            b_ms, b_by = bound_ms(layout_bytes, flops, "float32")
+            shapes[case] = dict(rows=n, slices=n_slices, nodes=[p.local.n_nodes for p in parts],
+                                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                unsharded_ms=whole_ms, bound_ms=b_ms, bound_by=b_by,
+                                bytes=layout_bytes, max_abs_err=0.0,
+                                bitwise_equal_to_plain=True)
+            say("K4 split", f"{case} {n} rows in {n_slices} slices of "
+                f"{shapes[case]['nodes']} nodes: each launch bitwise its plain version and the "
+                f"unsharded sweep's rows | device: {n_slices} launches {ms:.5f} ms, unsharded "
+                f"{whole_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}) | "
+                f"eager {eager_ms:.5f} ms | {card}")
+    return shapes
+
+
+def check_sharded_run(tag: str, m: dict, want_kernels=()) -> None:
+    """A measured sharded run: its kernels launched (summed over the
+    ranks), no plain version on the card."""
+    for name in want_kernels:
+        check(m["launches"].get(name, 0) > 0, f"{tag}: {name} never launched ({m['launches']})")
+    plain = {k: v for k, v in m["launches"].items() if k.endswith("_plain") and v}
+    check(not plain, f"{tag}: a plain version ran on the card ({plain})")
+
+
+def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, refs: dict,
+                  device, card):
+    """Phase 37: the multi-device layer, N ranks on the one card over gloo.
+
+    Prints each rank's backend and device (gloo, cuda:0; no rank on the
+    CPU, none with JAX loaded), then, one spawn a rank count: `solve_sharded`
+    at 2 ranks over the full schedule (the single card's `solve(
+    TsxTunnelConfig(solver="cg"))` steps and Newton iterations, u within
+    1e-14) and at 3 against 2 ranks at zeta 3/17 (1e-14);
+    `solve_sharded_df32` at 2 ranks (1e-12 of max |u| from the single df32
+    CG solve, the same steps); `solve_sharded_scale(fast_scale(1))` at 8
+    ranks and `fast_scale(4)` at 4 ranks, each bitwise the single card's
+    (the u digests of phases 14 and 17, the counts); the footing's tangent
+    multigrid at L2, zeta 0.004 (its first load trip), at 8 ranks, bitwise the
+    single card's run;
+    the 64-member df32 parity ensemble at 2 ranks (32 members a rank)
+    against phase 33's one-card ensemble (steps and Newton equal, u within
+    SHARD_ENSEMBLE_U_REL relative); `dryrun_multichip`'s gates at 8 ranks.
+    Walls (rank 0, between barriers), gathers and kernel launches (all
+    ranks) of each; no profile (rank 0's device idle share per rank count:
+    `tools/sharded_profile.py`).
+    refs: the single-card results {"scale1": phase 14's TsxResult, "scale4":
+    phase 17's, "ensemble_df32": phase 33's EnsembleResult}.  Returns
+    (records, launches by path)."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.parallel import ensemble as ens
+    from fem_elastoplasticity_tpu_torch.parallel import sharding
+
+    counts = lambda r: (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic)  # noqa: E731
+    # the single-card references this phase needs beside refs
+    cg1, cg1_wall = timed(torch, lambda: tsx.solve(TsxTunnelConfig(solver="cg"), device=device))
+    df1 = tsx.solve(TsxTunnelConfig.fast(solver="cg"), device=device)
+    fcfg = FootingConfig.fast(**SHARD_FOOTING)
+    run_f, _ = footing.build_df32(fcfg, device=device)
+    f1, f1_wall = timed(torch, run_f)
+    del run_f
+    say("sharded", f"single-card references: tsx f64 CG {counts(cg1)} in {cg1_wall:.2f} s, "
+        f"df32 CG {counts(df1)}, footing L2 tangent MG zeta 0.004 {f1.n_steps} / "
+        f"{f1.n_newton_total} / {f1.n_cg_total} in {f1_wall:.2f} s | {card}")
+    z3 = TsxTunnelConfig(zeta_max=SHARD_Z3)
+    _, _, eta, c = ensemble_grid(np)
+    m = sharding.measured
+    jobs = {
+        2: [(sharding.describe, ()),
+            (m, (tsx.solve_sharded_rank, (TsxTunnelConfig(),))),
+            (m, (tsx.solve_sharded_rank, (z3,))),
+            (m, (tsx.solve_sharded_df32_rank, (TsxTunnelConfig.fast(solver="cg"),))),
+            (m, (ens.ensemble_rank, (eta, c, TsxTunnelConfig.fast())))],
+        3: [(sharding.describe, ()), (m, (tsx.solve_sharded_rank, (z3,)))],
+        4: [(sharding.describe, ()),
+            (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(4),)))],
+        8: [(sharding.describe, ()),
+            (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(1),))),
+            (m, (footing.solve_sharded_rank, (fcfg,))),
+            (m, (sharding.dryrun_rank, ()))],
+    }
+    out, launches, walls = {}, {}, {}
+    for n, job in jobs.items():
+        devices, backend = sharding.placement(n)
+        t0 = time.perf_counter()
+        res = sharding.spawn(sharding.run_jobs, n, job)
+        walls[n] = time.perf_counter() - t0
+        info, runs = res[0], res[1:]
+        check([i[:3] for i in info] == [(k, backend, str(d)) for k, d in enumerate(devices)],
+              f"sharded x{n}: ranks {info}, expected {backend} on {devices}")
+        check(all(i[2].startswith("cuda") for i in info), f"sharded x{n}: a rank on the CPU")
+        check(not any(i[4] for i in info), f"sharded x{n}: a rank loaded JAX ({info})")
+        say("sharded", f"{n} ranks: backend {backend}, " + ", ".join(
+            f"rank {i[0]} on {i[2]} ({i[3]})" for i in info) + f"; spawn {walls[n]:.1f} s, "
+            f"runs " + ", ".join(f"{r['wall_s']:.2f}" for r in runs) + f" s | {card}")
+        out[n] = runs
+
+    # 2 ranks: the element-sharded solves and the member-sharded ensemble
+    full, z3_2, df2, ens2 = out[2]
+    r = full["result"]
+    du = float(np.abs(r.u - cg1.u).max())
+    check((r.n_steps, r.n_newton_total) == (cg1.n_steps, cg1.n_newton_total) == (17, 28)
+          and du <= 1e-14, f"solve_sharded x2: {counts(r)}, u {du:.3e} from the single card's "
+          f"{counts(cg1)}")
+    r3 = out[3][0]["result"]
+    d32 = float(np.abs(r3.u - z3_2["result"].u).max())
+    check(r3.n_steps == z3_2["result"].n_steps and d32 <= 1e-14,
+          f"solve_sharded x3 against x2 at zeta 3/17: u {d32:.3e}")
+    rd = df2["result"]
+    ddf = float(np.abs(rd.u - df1.u).max()) / float(np.abs(df1.u).max())
+    check(rd.n_steps == df1.n_steps and ddf <= 1e-12,
+          f"solve_sharded_df32 x2: {counts(rd)}, u rel {ddf:.3e} from the single card's "
+          f"{counts(df1)}")
+    e2, e1 = ens2["result"], refs["ensemble_df32"]
+    rel = np.abs(e2.u - e1.u).max(axis=(1, 2)) / np.abs(e1.u).max(axis=(1, 2))
+    off = [(k, int(e2.n_steps[k]), int(e1.n_steps[k]), float(rel[k]))
+           for k in range(e1.u.shape[0])
+           if e2.n_steps[k] != e1.n_steps[k] or not rel[k] <= SHARD_ENSEMBLE_U_REL]
+    check(not off, f"ensemble df32 x2: members off the one-card ensemble: {off}")
+    # a member may part by its Newton count only where its criterion sits at
+    # newton_tol (batched products round its last bits another way)
+    forks = ens.member_forks(e2, e1, TsxTunnelConfig.fast().newton_tol)
+    check(all(f[5] for f in forks), f"ensemble df32 x2: members part off newton_tol: {forks}")
+    for tag, mm in (("solve_sharded x2", full), ("solve_sharded_df32 x2", df2),
+                    ("ensemble df32 x2", ens2)):
+        check_sharded_run(tag, mm)
+    # 4 and 8 ranks: the row-sharded scale paths, bitwise the single card
+    s4, s1 = out[4][0], out[8][0]
+    for tag, mm, ref in (("fast_scale(4) x4", s4, refs["scale4"]),
+                         ("fast_scale(1) x8", s1, refs["scale1"])):
+        check(counts(mm["result"]) == counts(ref) and u_digest(mm["result"].u) == u_digest(ref.u),
+              f"{tag}: {counts(mm['result'])} u {u_digest(mm['result'].u)[:16]}, the single "
+              f"card's {counts(ref)} u {u_digest(ref.u)[:16]}")
+        check_sharded_run(tag, mm, SHARD_SCALE_KERNELS)
+    fm = out[8][1]
+    rf = fm["result"]
+    check((rf.n_steps, rf.newton_trips, rf.n_cg_total) == (f1.n_steps, f1.newton_trips,
+                                                           f1.n_cg_total)
+          and np.array_equal(rf.u, f1.u), f"footing tangent MG x8: {rf.n_steps} / "
+          f"{rf.n_newton_total} / {rf.n_cg_total}, single card {f1.n_steps} / "
+          f"{f1.n_newton_total} / {f1.n_cg_total}, u equal {np.array_equal(rf.u, f1.u)}")
+    check_sharded_run("footing tangent MG x8", fm, SHARD_SCALE_KERNELS + ("csr_spmv_f32",))
+    sharding.check_dryrun(*out[8][2]["result"])
+
+    runs = {"solve_sharded_x2": (full, "17-step f64 CG"), "solve_sharded_z3_x2": (z3_2, "z 3/17"),
+            "solve_sharded_z3_x3": (out[3][0], "z 3/17"), "solve_sharded_df32_x2": (df2, "df32"),
+            "ensemble_df32_x2": (ens2, "64 members"), "scale_L4_x4": (s4, "228,112 DOFs"),
+            "scale_L1_x8": (s1, "3,678 DOFs"), "footing_tmg_L2_x8": (fm, "one trip"),
+            "dryrun_x8": (out[8][2], "two steps each")}
+    records = {}
+    for tag, (mm, what) in runs.items():
+        res = mm["result"]
+        cnt = counts(res) if hasattr(res, "n_cg_total") else None
+        idle = None if mm["busy_s"] is None else 1.0 - mm["busy_s"] / mm["wall_s"]
+        records[tag] = dict(wall_s=mm["wall_s"], busy_s=mm["busy_s"], idle_share=idle,
+                            counts=None if cnt is None else [int(x) for x in cnt],
+                            launches=mm["launches"], collectives=mm["collectives"])
+        launches[f"sharded_{tag}"] = mm["launches"]
+        busy = ("" if mm["busy_s"] is None
+                else f", rank 0 device busy {mm['busy_s']:.4f} s, idle share {idle:.3f}")
+        say("sharded", f"{tag} ({what}): wall {mm['wall_s']:.2f} s{busy}, counts {cnt}, "
+            f"gathers {mm['collectives'].get('gathers', 0)} (all ranks), launches "
+            f"{mm['launches']} | {card}")
+    say("sharded", f"u within 1e-14 (x2 17 steps {du:.3e}, x3 against x2 {d32:.3e}), df32 rel "
+        f"{ddf:.3e}, fast_scale(4) x4 and fast_scale(1) x8 u digests and counts the single "
+        f"card's, footing x8 bitwise, ensemble x2 max rel {float(rel.max()):.3e}, members "
+        f"parting by their Newton count (member, trip, x2's, one card's, the criterion of the "
+        f"one that stopped first, at newton_tol) {forks}; spawns "
+        + ", ".join(f"x{n} {w:.1f} s" for n, w in walls.items()) + f" | {card}")
+    return dict(runs=records, spawn_s=walls), launches
+
+
 def ell_config(TsxTunnelConfig, level: int):
     return TsxTunnelConfig.fast_scale(level, spmv_fmt="ell", corr_mode="gather",
                                       residual_fmt="ell")
@@ -2353,16 +2624,13 @@ def main() -> int:
     }
     foot_launches, foot_res = {}, {}
     for tag, (fcfg, fixture, p_tol) in foot_cg.items():
+        # each runs once (16-30 s a run): the df32 paths' repeats are held
+        # bitwise by phases 11, 13 and the scale phases
         spmv.LAUNCHES.clear()
         c1, c_first = timed(torch, lambda: footing.solve(fcfg, device=device))
         foot_launches[tag] = dict(spmv.LAUNCHES)
         want, p_want, jax_trips = jax_footing(fixture)
         p_rel = check_footing_cg(f"footing {tag}", c1, fcfg, want, p_want, jax_trips, p_tol)
-        repeat = fcfg.precision == "df32"  # the f64 run (39k CG iterations) runs once
-        if repeat:
-            c2, c_warm = timed(torch, lambda: footing.solve(fcfg, device=device))
-            check(footing_counts(c1) == footing_counts(c2) and np.array_equal(c1.u, c2.u),
-                  f"footing {tag}: two runs differ")
         if fcfg.assembled_cg:
             check_scale_launches(f"footing {tag}", foot_launches[tag], FOOTING_ACG_KERNELS)
             check(foot_launches[tag]["node_block_spmv"] >= c1.n_cg_total,
@@ -2370,14 +2638,11 @@ def main() -> int:
         else:
             check(not foot_launches[tag], f"footing {tag}: launches {foot_launches[tag]}")
         foot_res[tag] = c1
-        walls = (f"repeat bit-identical, wall first {c_first:.3f} s warm {c_warm:.3f} s"
-                 if repeat else f"wall {c_first:.3f} s")
         say(f"footing {tag}", f"steps / Newton / CG / plastic {footing_counts(c1)} (JAX "
             f"package's {want}), Newton by trip {c1.newton_trips} (JAX {jax_trips}), last "
             f"pressure {float(c1.pressure_hist[c1.n_steps])!r} (rel "
-            f"{p_rel:.3e} to JAX's), launches {foot_launches[tag]}, {walls}, "
-            f"{1e6 * (c_warm if repeat else c_first) / c1.n_cg_total:.1f} us a CG iteration "
-            f"| {card}")
+            f"{p_rel:.3e} to JAX's), launches {foot_launches[tag]}, wall {c_first:.3f} s, "
+            f"{1e6 * c_first / c1.n_cg_total:.1f} us a CG iteration | {card}")
     ra, rf = foot_res["df32_acg_z002"], foot_res["df32_cg_z002"]
     check(ra.n_steps == rf.n_steps, "footing: the assembled and matrix-free schedules differ")
     acg_p = float(np.abs(ra.pressure_hist[1:ra.n_steps + 1] - rf.pressure_hist[1:rf.n_steps + 1]
@@ -2911,7 +3176,7 @@ def main() -> int:
     # phase 33: the four 64-member ensembles, each against its members'
     # single solves
     t_phase = time.perf_counter()
-    ens_runs, k2_ens = ensemble_phase(torch, tsx, TsxTunnelConfig, device, card)
+    ens_runs, k2_ens, ens_results = ensemble_phase(torch, tsx, TsxTunnelConfig, device, card)
     say("phase time", f"ensembles {time.perf_counter() - t_phase:.1f} s | {card}")
 
     # phase 34: the footing's Q1, P2 and Q2 elements
@@ -2941,6 +3206,19 @@ def main() -> int:
     say("phase time", f"option kernels {time.perf_counter() - t_phase:.1f} s | {card}")
     new_launches = {**et_launches, **opt_launches}
 
+    # phase 37: multi-device runs, N ranks on the card; then K4's split-z
+    # instance on L4's levels cut into 4 row slices
+    t_phase = time.perf_counter()
+    from fem_elastoplasticity_tpu_torch.parallel import sharding
+
+    shard_rec, shard_launches = sharded_phase(
+        torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig,
+        {"scale1": s1, "scale4": a1, "ensemble_df32": ens_results["df32"]}, device, card)
+    k4_split = split_z_phase(torch, spmv, sharding, ex4["hierarchy"], ex4["host_levels"], 4,
+                             device, card)
+    del ens_results
+    say("phase time", f"sharded runs {time.perf_counter() - t_phase:.1f} s | {card}")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -2958,7 +3236,7 @@ def main() -> int:
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches, **new_launches),
+                                    **hi_launches, **new_launches, **shard_launches),
         "max_abs_err": max(k1_err, csr_o_err,
                            max(v["max_abs_err"] for k, v in csr_shapes.items()
                                if k.startswith("footing_")),
@@ -3020,7 +3298,7 @@ def main() -> int:
                                     scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches, **new_launches),
+                                    **hi_launches, **new_launches, **shard_launches),
         # bitwise equal to its plain version (and to the earlier design)
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
         # the CG operator of the level-5 solve; the bound is the node-block
@@ -3041,7 +3319,7 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
         "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
-                                    **hi_launches, **new_launches),
+                                    **hi_launches, **new_launches, **shard_launches),
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
                            if not k.startswith("K_")),
         # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
@@ -3073,13 +3351,33 @@ def main() -> int:
         "library_ms": None,
         "shapes": k4_shapes,
     }, {
+        # K4's split-z instance: the sweep on one rank's row slice of a
+        # row-sharded level (the JAX package's ShardedMeta branch of
+        # slot_sweep); the same source and entry, with a node offset
+        "name": "block_jacobi_sweep_split",
+        "route": "cuda",
+        "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
+        "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1675",
+        "launches_by_path": by_path("block_jacobi_sweep_split", **shard_launches),
+        "max_abs_err": 0.0,
+        # one sweep of L4's fine level as four row slices (four launches)
+        **{key: k4_split["L4_level4_x4_update"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "unsharded_ms")},
+        "bitwise_equal_to_plain": True,
+        "bitwise_equal_to_unsharded_rows": True,
+        # no single PyTorch call computes the sweep
+        "library_ms": None,
+        "shapes": k4_split,
+        "sharded_runs": shard_rec,
+    }, {
         "name": "csr_spmv_f32",
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1431",
         # the Galerkin value maps of the footing's tangent multigrid; the
         # f32 heads of G and S on the tsx's p-multigrid route
-        "launches_by_path": by_path("csr_spmv_f32", **fs_launches, **hi_launches),
+        "launches_by_path": by_path("csr_spmv_f32", **fs_launches, **hi_launches,
+                                    **shard_launches),
         "max_abs_err": max(max(v["max_abs_err"] for k, v in csr_shapes.items()
                                if k.startswith("Mhat_")),
                            max(v["max_abs_err"] for k, v in ho_csr.items()

@@ -29,9 +29,12 @@ counts) and, in df32, a recycled deflation basis (`cg_deflate`); the tsx
 takes a ramped support pressure on the tunnel wall (`support_pressure`).
 A field whose value selects something the port does not implement raises
 NotImplementedError when the config is built; no field is ignored.  Still
-refused: multi-device runs (`shard_devices` is no field here) and the
-footing's `tangent_mg` beyond P1, which the JAX package does not run
-either (`solve/multigrid.py:493` asserts n_q == 1).
+refused: the footing's `tangent_mg` beyond P1, which the JAX package does
+not run either (`solve/multigrid.py:493` asserts n_q == 1).  Multi-device
+runs are no field here, as in the JAX package: they are entry points
+(`tsx_tunnel.solve_sharded`, `solve_sharded_df32`, `solve_sharded_scale`,
+`footing.solve_sharded`) and the `shard_devices` argument of the builders
+and of the df32 ensemble (`parallel/sharding.py`).
 """
 from __future__ import annotations
 

@@ -30,6 +30,11 @@ ramps adaptively with the reference's pressure-based d_zeta doubling rule
   `build_df32_chunked` runs a build in chunks of load trips with an
   optional checkpoint file (`solve.chunked`).
 * Every CG solve takes `cg_structure` ("while" or "scan", fixed trips).
+* `build_df32(shard_devices=...)`, inside a rank of
+  `parallel.sharding.spawn` (`solve_sharded`), runs the tangent multigrid
+  over several devices: the hierarchy, its Galerkin value maps and G/S
+  row-sharded, the fine tangent scatter on each rank's slice of the
+  values; the trajectory is the single-device run's bit for bit.
 
 Anchors of the f64 run: 16 accepted steps, zeta ending at 1.032, the
 reference's pressure curve within 1e-4; the dense df32 run follows the
@@ -51,6 +56,7 @@ from ..ops import assembly as asm
 from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import volume_element
+from ..parallel import sharding
 from ..solve import multigrid as mg
 from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
 from ..solve.chunked import run_chunked
@@ -301,7 +307,8 @@ def _tangent_mg_setup(cfg: FootingConfig, device: torch.device, extras: Optional
     return mesh, hier, th
 
 
-def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
+def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None,
+               shard_devices=None):
     """Build the df32 footing solver: returns (run, mesh).
 
     Host setup happens here: the mesh, the f64 geometry and its f32 heads,
@@ -323,15 +330,32 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
     assembled_cg the elastic node blocks ("elastic_op") on the RCM-ordered
     mesh ("solver_mesh") and, with
     tangent_mg, the host levels and the hierarchies.
+
+    `shard_devices` (inside a rank of `parallel.sharding.spawn`: the group
+    size, or the rank's `ShardGroup`; JAX `models/footing.py:319-380`,
+    `:612-640`): needs `tangent_mg`.  The hierarchy, the Galerkin value
+    maps (the Mhat chain) and G/S are row-sharded over the ranks
+    (`solve.multigrid.shard_hierarchy_ell`, `shard_tangent_hierarchy`,
+    `ops.spmv.shard_rows`); the device is the rank's.
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
+    group = None
+    if shard_devices is not None:
+        if not cfg.tangent_mg:
+            raise ValueError("shard_devices requires tangent_mg")
+        group = (shard_devices if isinstance(shard_devices, sharding.ShardGroup)
+                 else sharding.current_group(shard_devices, device))
+        device = group.device
     device = resolve_device(device)
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     eta, c = drucker_prager_fit(cfg.cohesion, cfg.friction_angle)
     elastic_op = corr_dest = residual_op = hier = th = None
     if cfg.tangent_mg:
         mesh, hier, th = _tangent_mg_setup(cfg, device, extras)
+        if group is not None:
+            hier = mg.shard_hierarchy_ell(hier, group)
+            th = mg.shard_tangent_hierarchy(th, hier, group)
     else:
         mesh = build_mesh(cfg)
     reference_mesh = mesh
@@ -358,6 +382,8 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
         # `models/footing.py:311-313`) are TPU tile layouts of one operator:
         # both are the port's CSR
         residual_op = spmv.residual_operators(geom, device)
+        if group is not None:
+            residual_op = tuple(spmv.shard_rows(A, group) for A in residual_op)
         if extras is not None:
             extras["residual_op"] = residual_op
     dirichlet = torch.as_tensor(mesh.dirichlet.reshape(-1), dtype=torch.float64, device=device)
@@ -424,6 +450,23 @@ def build_df32(cfg: FootingConfig, device=None, extras: Optional[dict] = None):
         return out._replace(u=u, ep=ep)
 
     return run, reference_mesh
+
+
+def solve_sharded_rank(group: sharding.ShardGroup, cfg: FootingConfig) -> FootingResult:
+    """Rank function of `solve_sharded`: `build_df32(cfg,
+    shard_devices=group)` run once, its schedule held equal on every
+    rank."""
+    run, _ = build_df32(cfg, shard_devices=group)
+    r = run()
+    group.same("the schedule", (r.n_steps, r.newton_trips, r.n_cg_total, r.n_plastic))
+    return r
+
+
+def solve_sharded(cfg: FootingConfig, n_devices: int, device=None) -> FootingResult:
+    """The tangent-multigrid footing over `n_devices` ranks
+    (`parallel.sharding.spawn`; device None: the card, "cpu": CPU ranks):
+    rank 0's FootingResult, bit for bit the single-device run's."""
+    return sharding.spawn(solve_sharded_rank, n_devices, cfg, device=device)
 
 
 def build_df32_chunked(cfg: FootingConfig, trips_per_chunk: int = 3, max_chunks: int = 2000,

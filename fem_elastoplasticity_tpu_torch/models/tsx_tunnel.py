@@ -23,6 +23,13 @@ takes `support_pressure` (a normal traction on the tunnel wall, ramped
 with the load factor), the CG routes `cg_structure="scan"` and, in df32,
 a recycled deflation basis (`cg_deflate`); `build_df32_chunked` runs a
 df32 build in chunks of load trips with an optional checkpoint file.
+
+Multi-device runs (`parallel/sharding.py`, ranks over torch.distributed):
+`solve_sharded` and `solve_sharded_df32` shard the elements of the
+matrix-free CG solve (nodal sums reduced in rank order), and
+`solve_sharded_scale` (`build_df32(shard_devices=...)` inside a rank) the
+rows of the scale preset's assembled operators; each returns rank 0's
+result, and the ranks' schedules are held equal.
 Anchors: 17 accepted load steps, 28
 Newton iterations, u[40, 0] = -1.9794499636012143e-03; the f32 preset
 reaches 17 steps and u[40, 0] within ~1e-5; the scale preset at refine
@@ -52,6 +59,7 @@ from ..ops import assembly_df as adf
 from ..ops import spmv
 from ..ops.elements import ElementType, surface_element, volume_element
 from ..ops.spmv import sp_matvec
+from ..parallel import sharding
 from ..solve import multigrid as mgm
 from ..solve.cg import plastic_cg_tol, solve_cg, stiffness_block_jacobi
 from ..solve.chunked import run_chunked
@@ -362,7 +370,8 @@ def _df32_cg_predictor(cfg: TsxTunnelConfig, p: _Problem, free_mask: torch.Tenso
     )
 
 
-def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict]):
+def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[dict],
+                    group=None):
     """`build_df32` for `solver="ell"`: the multigrid hierarchy of assembled
     elastic P1 operators, built on the host with a locality node ordering,
     and the whole problem permuted onto that ordering (coordinates,
@@ -374,7 +383,12 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     so the P1 operator on the same nodes preconditions the high-order
     tangent; the nodes are matched by coordinates (`lattice_order`).  The
     fine P1 operator is then the preconditioner's only: the tangent, the
-    criterion and the predictor's operator stay high-order."""
+    criterion and the predictor's operator stay high-order.
+
+    `group` (a `parallel.sharding.ShardGroup`, P1 only): the hierarchy, with
+    f32 values on every level, and G and S are row-sharded over the ranks
+    (JAX `:518-560`, `:922-985`); the tangent refresh writes the rank's
+    slice of the fine values."""
     shear, bulk = lame_moduli(cfg.young, cfg.poisson)
     with np.load(_DATA) as raw:
         base_coords, base_elems = raw["coords"].astype(np.float64), raw["elems"]
@@ -382,7 +396,11 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     hier, perms, coarse = mgm.build_hierarchy_ell(
         base_coords, base_elems, cfg.refine_levels + P_EXTRA[cfg.etype], _free_of, shear, bulk,
         volume_element(ElementType.P1), device=device, fmt=cfg.spmv_fmt,
+        # K5 has no split-z instance: sharded runs smooth every level in f32
+        **({} if group is None else {"pack_bf16": False}),
     )
+    if group is not None:
+        hier = mgm.shard_hierarchy_ell(hier, group)
     mesh_ref = tsx_mesh(cfg.etype, cfg.refine_levels)
     order = (np.argsort(np.asarray(perms[-1]), kind="stable") if p1
              else lattice_order(mesh_ref, coarse["fine_coords"]))
@@ -412,6 +430,8 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     plastic_cap = min(n_int, max(1024, n_int // 64))
     residual_op = spmv.residual_operators(geom, device, _residual_fmt(cfg),
                                           cfg.ell_overflow_frac)
+    if group is not None:
+        residual_op = tuple(spmv.shard_rows(A, group) for A in residual_op)
     if extras is not None:
         extras["residual_op"] = residual_op
     fine = hier.levels[-1]
@@ -419,7 +439,8 @@ def _build_df32_ell(cfg: TsxTunnelConfig, device: torch.device, extras: Optional
     if cfg.corr_mode == "scatter":
         # the table indexes the exact CSR the fine node blocks were made
         # from, mapped to the blocks' value positions; its rows follow the
-        # sorted element order of the run-time geometry
+        # sorted element order of the run-time geometry (global positions:
+        # on a row slice the stepper shifts them)
         dest = spmv.element_corr_dest(coarse["fine_K"], mesh.elems, coarse["fine_free"])
         corr_dest = spmv.node_block_dest(dest, coarse["fine_K"], device)
     free_mask = torch.as_tensor(mesh.free.reshape(-1), device=device)
@@ -549,7 +570,8 @@ def _build_df32_cg(cfg: TsxTunnelConfig, device: torch.device, extras: Optional[
     return run, mesh
 
 
-def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None):
+def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None,
+               shard_devices=None):
     """Build the df32 solver: returns (run, mesh).
 
     Host setup happens here: the mesh, the f64 geometry, the dense
@@ -581,9 +603,24 @@ def build_df32(cfg: TsxTunnelConfig, device=None, extras: Optional[dict] = None)
     (G, S); on the "ell" route the device `hierarchy` and the host data of
     its levels `host_levels` (`multigrid.build_hierarchy_ell`'s
     `coarse["levels"]`), on the assembled "cg" route the `elastic_op`.
+
+    `shard_devices` (called inside a rank of `parallel.sharding.spawn`: the
+    group size, or the rank's `ShardGroup`): the multi-device build of
+    `solver="ell"` at P1 (JAX `:518-560`), its operators row-sharded, the
+    levels all smoothed from f32 values (`_build_df32_ell`); the device is
+    the rank's.
     """
     if cfg.precision != "df32":
         raise ValueError("build_df32 needs precision='df32'")
+    if shard_devices is not None:
+        if cfg.solver != "ell":
+            raise ValueError(f"shard_devices requires solver='ell'; got {cfg.solver!r}")
+        if cfg.etype != ElementType.P1:
+            raise NotImplementedError("shard_devices: the row-sharded build is the P1 scale "
+                                      "path; P2/P4 p-multigrid runs on one device")
+        group = (shard_devices if isinstance(shard_devices, sharding.ShardGroup)
+                 else sharding.current_group(shard_devices, device))
+        return _build_df32_ell(cfg, group.device, extras, group)
     device = resolve_device(device)
     if cfg.solver == "ell":
         return _build_df32_ell(cfg, device, extras)
@@ -667,6 +704,124 @@ def run_df32_chunked(cfg: TsxTunnelConfig, trips_per_chunk: int = 3, max_chunks:
     `:1165`)."""
     execute, mesh = build_df32_chunked(cfg, trips_per_chunk, max_chunks, device)
     return execute(), mesh
+
+
+def _schedule(res: LoadSteppingResult) -> tuple:
+    """What every rank of a sharded run must have decided alike."""
+    return (res.n_steps, res.newton_trips, res.n_cg_total, res.n_plastic)
+
+
+def solve_sharded_rank(group: sharding.ShardGroup, cfg: TsxTunnelConfig) -> TsxResult:
+    """Rank function of `solve_sharded`: this rank's element shard of the
+    native matrix-free CG solve (JAX `models/tsx_tunnel.py:1248`).  The
+    elastic predictor is the replicated dense solve of the whole mesh on
+    the force of the shards (JAX `:1328`); the stepper reduces its nodal
+    sums over the ranks.  Returns the TsxResult with the whole mesh's ep."""
+    if cfg.precision != "native":
+        raise ValueError("solve_sharded runs precision='native'; df32: solve_sharded_df32")
+    if cfg.solver not in ("dense", "cg") or cfg.assembled_cg:
+        raise NotImplementedError(f"solve_sharded runs matrix-free CG; got solver={cfg.solver!r}"
+                                  f", assembled_cg={cfg.assembled_cg}")
+    device = group.device
+    dtype = dtype_policy(cfg.precision, cfg.dtype).state
+    p = _problem(cfg, device, dtype, dense=True)
+    shear, bulk, eta, c = p.consts
+    coords = torch.as_tensor(p.mesh.coords, dtype=dtype, device=device)
+    geom = sharding.sharded_geometry(coords, p.mesh.elems, volume_element(cfg.etype), group)
+    f0 = asm.internal_force(geom, p.s0[:3, None].expand(3, geom.n_int), group)
+    f_ext = support_force(cfg, p.mesh, dtype, device)
+    u_elast, _ = _dense_predictor(
+        p, -f0 if f_ext is None else -f0 + f_ext,
+        elastic_tangent_lanes(shear, bulk, p.geom.n_int, dtype, device))
+    stepper = build_load_stepper(
+        geom, p.free_idx, None, shear, bulk, eta, c, p.settings,
+        e0_dir=p.e0, monitor=_monitor(cfg.monitor_node),
+        accumulate_ep=not cfg.bug_compatible_ep_reset, solver="cg",
+        cg_tol=plastic_cg_tol(cfg.cg_tol, dtype), cg_maxiter=cfg.cg_maxiter,
+        cg_structure=cfg.cg_structure, f_ext_dir=f_ext, group=group,
+    )
+    res = stepper(cfg.d_zeta * u_elast, 0.0, cfg.d_zeta)
+    return _sharded_result(group, res, p, geom)
+
+
+def _sharded_result(group, res: LoadSteppingResult, p: _Problem, geom) -> TsxResult:
+    """The element-sharded run's TsxResult: the schedule held equal on every
+    rank, ep gathered onto the whole mesh's points."""
+    group.same("the schedule", _schedule(res))
+    ep = sharding.gather_points(res.ep, geom.n_q * p.geom.n_real, p.geom.n_int, group)
+    return _result(res._replace(ep=ep), p.mesh)
+
+
+def solve_sharded(cfg: TsxTunnelConfig, n_devices: int, device=None) -> TsxResult:
+    """Multi-device tsx solve: the elements sharded over `n_devices` ranks
+    (`parallel.sharding.spawn`; device None: the card, "cpu": CPU ranks),
+    the load-stepped Newton with matrix-free block-Jacobi CG on every rank,
+    whatever cfg.solver says (the JAX package's `solve_sharded`); the only
+    collectives are the nodal sums.  Its trajectory is
+    `solve(solver="cg")`'s."""
+    return sharding.spawn(solve_sharded_rank, n_devices, cfg, device=device)
+
+
+def solve_sharded_df32_rank(group: sharding.ShardGroup, cfg: TsxTunnelConfig) -> TsxResult:
+    """Rank function of `solve_sharded_df32` (JAX `:1362`): the df32
+    matrix-free CG solve, elements sharded, the f64 residual's partial
+    forces added in rank order; the predictor is the single-device one on
+    the whole (replicated) geometry."""
+    if cfg.precision != "df32" or cfg.solver != "cg" or cfg.assembled_cg:
+        raise ValueError("solve_sharded_df32 runs precision='df32' with matrix-free "
+                         f"solver='cg'; got {cfg.precision!r}, {cfg.solver!r}, "
+                         f"assembled_cg={cfg.assembled_cg}")
+    device = group.device
+    p = _problem(cfg, device)
+    shear, bulk, eta, c = p.consts
+    coords = torch.as_tensor(p.mesh.coords, dtype=torch.float64, device=device)
+    geom = sharding.sharded_geometry(coords, p.mesh.elems, volume_element(cfg.etype), group)
+    free_mask = torch.as_tensor(p.mesh.free.reshape(-1), device=device)
+    f_ext = support_force(cfg, p.mesh, torch.float64, device)
+    f0 = _initial_force(p)
+    u_elast = _df32_cg_predictor(
+        cfg, p, free_mask, -f0 if f_ext is None else -f0 + f_ext,
+        lambda u: adf.elastic_apply(p.geom, u, shear, bulk))
+    stepper = build_load_stepper(
+        geom, p.free_idx, None, shear, bulk, eta, c, p.settings,
+        e0_dir=p.e0, monitor=_monitor(cfg.monitor_node), precision="df32",
+        accumulate_ep=not cfg.bug_compatible_ep_reset, solver="cg",
+        cg_tol=plastic_cg_tol(cfg.cg_tol, torch.float32), cg_maxiter=cfg.cg_maxiter,
+        cg_eta0=cfg.cg_eta0, cg_cap_relax=cfg.cg_cap_relax, cg_structure=cfg.cg_structure,
+        cg_deflate=cfg.cg_deflate, f_ext_dir=f_ext, group=group,
+    )
+    res = stepper(u_elast * cfg.d_zeta, 0.0, cfg.d_zeta)
+    return _sharded_result(group, res, p, geom)
+
+
+def solve_sharded_df32(cfg: Optional[TsxTunnelConfig], n_devices: int, device=None) -> TsxResult:
+    """Multi-device df32 tsx solve (default `TsxTunnelConfig.fast(solver=
+    "cg")`): elements sharded over `n_devices` ranks, as `solve_sharded`,
+    with the df32 state; its trajectory is the single-device df32 CG
+    solve's."""
+    cfg = cfg if cfg is not None else TsxTunnelConfig.fast(solver="cg")
+    return sharding.spawn(solve_sharded_df32_rank, n_devices, cfg, device=device)
+
+
+def solve_sharded_scale_rank(group: sharding.ShardGroup, cfg: TsxTunnelConfig) -> TsxResult:
+    """Rank function of `solve_sharded_scale`: `build_df32(cfg,
+    shard_devices=group)` run once, its schedule held equal on every rank,
+    the result in the reference order."""
+    extras: dict = {}
+    run, mesh = build_df32(cfg, group.device, extras, shard_devices=group)
+    res = run()
+    group.same("the schedule", _schedule(res))
+    return _df32_result(res, mesh, extras)
+
+
+def solve_sharded_scale(cfg: Optional[TsxTunnelConfig], n_devices: int,
+                        device=None) -> TsxResult:
+    """Multi-device scale solve (default `TsxTunnelConfig.fast_scale(1)`;
+    JAX `:1223`): the assembled hierarchy, its transfers and G/S
+    row-sharded over `n_devices` ranks; the trajectory is the single-device
+    `build_df32` run's bit for bit."""
+    cfg = cfg if cfg is not None else TsxTunnelConfig.fast_scale(1)
+    return sharding.spawn(solve_sharded_scale_rank, n_devices, cfg, device=device)
 
 
 def _result(res: LoadSteppingResult, mesh: Mesh) -> TsxResult:

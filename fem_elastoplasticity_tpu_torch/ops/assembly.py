@@ -227,8 +227,16 @@ def strains(geom: Geometry, u: torch.Tensor) -> torch.Tensor:
     return (geom.B * ui[None, :, :]).sum(dim=1)
 
 
-def internal_force(geom: Geometry, s3: torch.Tensor) -> torch.Tensor:
-    """F = B^T (weight * s) accumulated to (2*n_n,).  s3: (3, n_int)."""
+def internal_force(geom: Geometry, s3: torch.Tensor, group=None) -> torch.Tensor:
+    """F = B^T (weight * s) accumulated to (2*n_n,).  s3: (3, n_int).
+    `group` (a `parallel.sharding.ShardGroup`, the JAX package's
+    `axis_name`): geom is this rank's element shard, and the nodal partial
+    sums of the ranks are added in rank order (`ShardGroup.sum_ranks`)."""
+    f = _internal_force(geom, s3)
+    return f if group is None else group.sum_ranks(f)
+
+
+def _internal_force(geom: Geometry, s3: torch.Tensor) -> torch.Tensor:
     ws = geom.weight[None, :] * s3
     if s3.dim() == 3:
         n_b = s3.shape[0]
@@ -249,9 +257,11 @@ def apply_tangent(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return (d * e[None, :, :]).sum(dim=1)
 
 
-def tangent_matvec(geom: Geometry, d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Matrix-free K v: gather -> strain -> D -> B^T -> gather-sum."""
-    return internal_force(geom, apply_tangent(d, strains(geom, v)))
+def tangent_matvec(geom: Geometry, d: torch.Tensor, v: torch.Tensor,
+                   group=None) -> torch.Tensor:
+    """Matrix-free K v: gather -> strain -> D -> B^T -> gather-sum; with
+    `group` over the element shards (`internal_force`)."""
+    return internal_force(geom, apply_tangent(d, strains(geom, v)), group)
 
 
 def element_stiffness(geom: Geometry, d: torch.Tensor) -> torch.Tensor:
@@ -454,16 +464,20 @@ def node_slot_map(geom: Geometry) -> torch.Tensor:
 
 
 def node_block_diagonal(
-    geom: Geometry, d: torch.Tensor, smap: Optional[torch.Tensor] = None
+    geom: Geometry, d: torch.Tensor, smap: Optional[torch.Tensor] = None, group=None
 ) -> torch.Tensor:
     """2x2 nodal diagonal blocks of K for block-Jacobi preconditioning,
     (n_n, 2, 2), without forming element matrices
     (`assembly.node_block_diagonal`).  Each node's blocks are summed by a
     gather in a fixed order in place of the JAX package's segment sum.
     d: (3, 3, n_int) material tangent; smap: `node_slot_map(geom)`, built
-    here when not given."""
-    if smap is None:
-        smap = node_slot_map(geom)
+    here when not given; `group`: the element shards' blocks added in rank
+    order (`internal_force`)."""
+    out = _node_block_diagonal(geom, d, node_slot_map(geom) if smap is None else smap)
+    return out if group is None else group.sum_ranks(out)
+
+
+def _node_block_diagonal(geom: Geometry, d: torch.Tensor, smap: torch.Tensor) -> torch.Tensor:
     n_p = geom.n_p2 // 2
     wd = geom.weight[None, None, :] * d
     if d.dim() == 4:  # (B, 3, 3, n_int) -> (B, n_n, 2, 2)

@@ -60,6 +60,14 @@
 // products, and an entry missing from a present block adds +0 exactly (the
 // FEM operators have none: every block of an element pattern is whole).
 //
+// Split z (K4 on one rank's row slice of a row-sharded operator, the JAX
+// package's ShardedMeta branch of slot_sweep with split_z): the slice holds
+// nodes node_offset .. node_offset + n_nodes - 1 with global block columns.
+// The product reads z at those global columns; the update term reads the
+// slice's own rows of z, 2 (node_offset + node); r, mask, msf, mpr and out
+// are the slice's rows.  With node_offset 0 on a whole operator the launch
+// and its bits are the unsharded sweep's.
+//
 // Jacobi: every row reads the old z, so `out` must not alias z.  No
 // atomics: two launches give bit-identical output.  The file is built with
 // -fmad=false.  TMA and wgmma do not apply: there is no matrix product and
@@ -100,7 +108,8 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
                           const int* __restrict__ block_cols, const V* __restrict__ values,
                           const float* __restrict__ z, const float* __restrict__ r,
                           const float* __restrict__ mask, const float* __restrict__ msf,
-                          const float* __restrict__ mpr, float* __restrict__ out, int mode) {
+                          const float* __restrict__ mpr, float* __restrict__ out, int mode,
+                          int node_offset) {
   // a group's products, a float4 a lane (row 2k: x, y; row 2k+1: z, w); the
   // slot after each group keeps the row walkers of a warp on distinct banks
   __shared__ float4 prod[kGroups * (G + 1)];
@@ -118,7 +127,8 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
     rr = __ldg(reinterpret_cast<const float2*>(r + i0));
     mk = __ldg(reinterpret_cast<const float2*>(mask + i0));
     if (mode == kUpdate) {
-      zz = __ldg(reinterpret_cast<const float2*>(z + i0));
+      // the slice's own rows of z (split z); i0 itself on a whole operator
+      zz = __ldg(reinterpret_cast<const float2*>(z + 2 * (node_offset + node)));
       sf = __ldg(reinterpret_cast<const float2*>(msf + i0));
       pr = __ldg(reinterpret_cast<const float2*>(mpr + i0));
     }
@@ -177,29 +187,31 @@ block_jacobi_sweep_kernel(int n_nodes, const int* __restrict__ node_ptr,
 template <typename V>
 int launch(int n_nodes, const int* node_ptr, const int* block_cols, const V* values,
            const float* z, const float* r, const float* mask, const float* msf,
-           const float* mpr, float* out, int mode, void* stream) {
+           const float* mpr, float* out, int mode, int node_offset, void* stream) {
   if (n_nodes <= 0) return 0;
   // 16 nodes a block: level 1 (1,839 nodes) spreads over 115 blocks
   const int blocks = (n_nodes + kGroups - 1) / kGroups;
   block_jacobi_sweep_kernel<V><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out, mode);
+      n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out, mode, node_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // All launch on `stream` (a cudaStream_t passed as a pointer) and return the
-// cudaError_t of the launch; 0 means the kernel was queued.  All vectors
-// have 2*n_nodes entries; z, r, mask, msf, mpr and out are 8-byte aligned,
-// the f32 block values 16-byte aligned.
+// cudaError_t of the launch; 0 means the kernel was queued.  r, mask, msf,
+// mpr and out have 2*n_nodes entries, z (and the product's x) one pair a
+// node of the whole operator; z, r, mask, msf, mpr and out are 8-byte
+// aligned, the f32 block values 16-byte aligned.  `node_offset`: the first
+// node of a row slice (0 on a whole operator).
 extern "C" int block_jacobi_sweep(int n_nodes, const int* node_ptr,
                                   const int* block_cols, const float* values,
                                   const float* z, const float* r,
                                   const float* mask, const float* msf,
                                   const float* mpr, float* out, int update,
-                                  void* stream) {
+                                  int node_offset, void* stream) {
   return launch(n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out,
-                update ? kUpdate : kResidual, stream);
+                update ? kUpdate : kResidual, node_offset, stream);
 }
 
 // The product y = A x on f32 blocks: the sweep's row walk, no epilogue input.
@@ -207,7 +219,7 @@ extern "C" int node_block_spmv(int n_nodes, const int* node_ptr, const int* bloc
                                const float* values, const float* x, float* y,
                                void* stream) {
   return launch(n_nodes, node_ptr, block_cols, values, x, nullptr, nullptr, nullptr,
-                nullptr, y, kProduct, stream);
+                nullptr, y, kProduct, 0, stream);
 }
 
 // K5: `values` are bf16 bit patterns (torch.bfloat16 storage), four a block.
@@ -219,5 +231,5 @@ extern "C" int block_jacobi_sweep_bf16(int n_nodes, const int* node_ptr,
                                        const float* mpr, float* out, int update,
                                        void* stream) {
   return launch(n_nodes, node_ptr, block_cols, values, z, r, mask, msf, mpr, out,
-                update ? kUpdate : kResidual, stream);
+                update ? kUpdate : kResidual, 0, stream);
 }

@@ -55,7 +55,18 @@ Device half:
 * `sp_matvec` dispatches on the operator type, as `sp_matvec` /
   `sp_matvec_df` (`spmv.py:350`, `:975`) do: `CsrMatrix`,
   `NodeBlockMatrix` or `EllMatrix` (the JAX package's `SplitCols` S is
-  one `EllMatrix` here).
+  one `EllMatrix` here), or a `RowShard` of one.
+
+Row sharding (`ShardedMeta`, `shard_rows`, `_gather_rows`,
+`_sharded_matvec` of `spmv.py:2015-2107`): `shard_rows` cuts an operator
+into one rank's contiguous row slice with global columns, in the port's
+own formats (CSR rows with their row blocks rebuilt, node rows of node
+blocks and node transfers, ELL slices of 32 rows with their tails), and
+`sp_matvec`, `block_jacobi_sweep` and `transfer` run the local rows and
+gather them (`parallel.sharding.ShardGroup.gather`, a concatenation).  Each
+row is summed as in the whole operator, so the bits do not change.  The
+sweep on a slice is K4's split-z instance: its product reads z at global
+columns, its update term the rank's own rows of z (`node_offset`).
 
 On a CUDA tensor a wrapper launches its hand-written kernel; on a CPU
 tensor it runs the plain PyTorch version beside it.  It never falls back
@@ -448,8 +459,11 @@ def _library_sweep() -> ctypes.CDLL:
     from ..utils.cuda_build import build_library
 
     lib = build_library(SWEEP_SOURCE, "block_jacobi_sweep", ("-fmad=false",))
+    lib.block_jacobi_sweep.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # ..., update, node_offset, stream
+    lib.block_jacobi_sweep_bf16.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.block_jacobi_sweep, lib.block_jacobi_sweep_bf16):
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.node_block_spmv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
     lib.node_block_spmv.restype = ctypes.c_int
@@ -617,12 +631,16 @@ class NodeBlockMatrix(NamedTuple):
     in ascending neighbour node m = block_cols[b]; block_values[b] holds
     a(2k,2m), a(2k,2m+1), a(2k+1,2m), a(2k+1,2m+1), f32 (K4) or bf16 (K5).
     `width` is the most blocks a node has (kept so that the plain version
-    needs no host read)."""
+    needs no host read).  A row slice (`shard_rows`) holds nodes
+    node_offset .. node_offset + n_nodes - 1 of an operator over
+    `col_nodes` nodes; its columns stay global."""
 
     node_ptr: torch.Tensor  # (n_nodes + 1,) int32
     block_cols: torch.Tensor  # (n_blocks,) int32
     block_values: torch.Tensor  # (n_blocks, 4) float32 or bfloat16
     width: int
+    node_offset: int = 0  # the slice's first node in the whole operator
+    col_nodes: int = 0  # nodes of the whole operator (0: n_nodes, square)
 
     @property
     def n_nodes(self) -> int:
@@ -630,7 +648,11 @@ class NodeBlockMatrix(NamedTuple):
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return (2 * self.n_nodes, 2 * self.n_nodes)
+        return (2 * self.n_nodes, 2 * (self.col_nodes or self.n_nodes))
+
+    @property
+    def is_slice(self) -> bool:
+        return self.node_offset != 0 or self.shape[0] != self.shape[1]
 
     def blocks_per_node(self) -> torch.Tensor:
         return self.node_ptr[1:] - self.node_ptr[:-1]
@@ -759,8 +781,16 @@ def node_block_sweep_plain(
     B: NodeBlockMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
 ) -> torch.Tensor:
     """Plain PyTorch sweep on the node-block layout: the kernel's order and
-    rounding (`_node_block_accumulate`), so the two agree bit for bit."""
-    return _sweep_epilogue(aux, z, r, _node_block_accumulate(B, z), update)
+    rounding (`_node_block_accumulate`), so the two agree bit for bit.  On
+    a row slice z is the whole operator's, r and aux the slice's rows, and
+    the update adds to z's rows of the slice (`B.node_offset`)."""
+    return _sweep_epilogue(aux, _own_rows(z, B.node_offset, B.n_nodes), r,
+                           _node_block_accumulate(B, z), update)
+
+
+def _own_rows(z: torch.Tensor, node_offset: int, n_nodes: int) -> torch.Tensor:
+    """The rows of nodes node_offset .. node_offset + n_nodes - 1 of z."""
+    return z[2 * node_offset:2 * (node_offset + n_nodes)]
 
 
 def node_block_matvec_plain(B: NodeBlockMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -778,16 +808,20 @@ def _sweep_epilogue(aux: SweepAux, z, r, Az, update: bool):
 
 
 def block_jacobi_sweep_plain(
-    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True
+    A: CsrMatrix, aux: SweepAux, z: torch.Tensor, r: torch.Tensor, update: bool = True,
+    node_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch sweep on the CSR operator the node blocks were made
     from: res = mask (r - A z); with `update` z + mask (msf res + mpr
     res_partner), else res.  The second reference of K4 and K5: its row sum
     (`index_add_`) may take another order than the kernel's.  bf16 values
-    are widened to f32 (exactly) and the arithmetic is f32."""
+    are widened to f32 (exactly) and the arithmetic is f32.  A may be the
+    row slice of nodes node_offset .. of an operator whose vector z is: the
+    update adds to z's rows of the slice."""
     if A.values.dtype == torch.bfloat16:
         A = A._replace(values=A.values.to(torch.float32))
-    return _sweep_epilogue(aux, z, r, csr_matvec_plain(A, z), update)
+    return _sweep_epilogue(aux, _own_rows(z, node_offset, A.n_rows // 2), r,
+                           csr_matvec_plain(A, z), update)
 
 
 def _sweep_kernel(B) -> str:
@@ -799,6 +833,21 @@ def _sweep_kernel(B) -> str:
     if name is None:
         raise ValueError(f"block_jacobi_sweep: no kernel for {B.block_values.dtype} values")
     return name
+
+
+def _sweep_name(B) -> str:
+    """The sweep launch's name: `_sweep_kernel`'s, or on a row slice of f32
+    blocks the split-z instance's, "block_jacobi_sweep_split"; raises on a
+    bf16 slice or a slice outside its operator."""
+    name = _sweep_kernel(B)
+    if not B.is_slice:
+        return name
+    if name != "block_jacobi_sweep":
+        raise ValueError(f"{name}: no split-z instance (row slices smooth f32 blocks)")
+    if B.node_offset < 0 or B.node_offset + B.n_nodes > B.shape[1] // 2:
+        raise ValueError(f"block_jacobi_sweep_split: nodes {B.node_offset} .. "
+                         f"{B.node_offset + B.n_nodes} outside the operator's {B.shape[1] // 2}")
+    return "block_jacobi_sweep_split"
 
 
 def _check_args(name: str, device: torch.device, named) -> None:
@@ -832,16 +881,23 @@ def block_jacobi_sweep_cuda(
 
     The sweep is Jacobi: every row reads the old z, so `out` (allocated
     here unless given) must not share memory with z.
+
+    On a row slice of f32 blocks (`NodeBlockMatrix.is_slice`) this is the
+    split-z instance, counted as "block_jacobi_sweep_split": z is the whole
+    operator's vector, which the product reads at global columns; r, aux
+    and out are the slice's rows, and the update reads z at the slice's
+    own rows (`node_offset`).  The bf16 instance has no split form (the
+    JAX package refuses a packed hierarchy under sharding).
     """
     if not z.is_cuda:
         raise ValueError(f"block_jacobi_sweep needs a CUDA tensor; got one on {z.device}")
-    name = _sweep_kernel(B)
+    name = _sweep_name(B)
     n2 = 2 * B.n_nodes
     if out is None:
         out = torch.empty(n2, dtype=torch.float32, device=z.device)
-    _check_args(name, z.device, _node_block_args(B) + [
+    _check_args(name, z.device, _node_block_args(B) + [("z", z, torch.float32, (B.shape[1],))] + [
         (nm, t, torch.float32, (n2,)) for nm, t in (
-            ("z", z), ("r", r), ("mask", aux.mask), ("msf", aux.msf), ("mpr", aux.mpr),
+            ("r", r), ("mask", aux.mask), ("msf", aux.msf), ("mpr", aux.mpr),
             ("out", out))])
     if _aliases(out, z):
         raise ValueError(f"{name}: out must not alias z")
@@ -852,10 +908,13 @@ def block_jacobi_sweep_cuda(
         raise ValueError(f"{name}: vectors must be 8-byte aligned, block values "
                          f"{4 * B.block_values.element_size()}-byte aligned")
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    err = getattr(_library_sweep(), name)(
+    # the f32 entry takes the slice's node offset; the bf16 one has none
+    f32 = name != "block_jacobi_sweep_bf16"
+    err = getattr(_library_sweep(), "block_jacobi_sweep" if f32 else name)(
         B.n_nodes, B.node_ptr.data_ptr(), B.block_cols.data_ptr(),
         B.block_values.data_ptr(), z.data_ptr(), r.data_ptr(), aux.mask.data_ptr(),
-        aux.msf.data_ptr(), aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)), stream,
+        aux.msf.data_ptr(), aux.mpr.data_ptr(), out.data_ptr(), int(bool(update)),
+        *((B.node_offset,) if f32 else ()), stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -868,12 +927,19 @@ def block_jacobi_sweep(
 ) -> torch.Tensor:
     """One fused smoother sweep, or the masked residual, on a node-block
     operator with f32 values (K4) or bf16 values (K5): the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor.  On a `RowShard` of node
+    blocks: the split-z sweep of the rank's rows (r and aux cut to them, z
+    whole), then the gather of every rank's."""
+    if isinstance(B, RowShard):
+        if not B.rows:
+            return B.gather(z.new_zeros(0))
+        return B.gather(block_jacobi_sweep(B.local, SweepAux(*(a[B.own] for a in aux)), z,
+                                           r[B.own], update))
     if z.is_cuda:
         return block_jacobi_sweep_cuda(B, aux, z, r, update)
     if z.device.type != "cpu":
         raise ValueError(f"block_jacobi_sweep: no route for device {z.device}")
-    LAUNCHES[_sweep_kernel(B) + "_plain"] += 1
+    LAUNCHES[_sweep_name(B) + "_plain"] += 1
     return node_block_sweep_plain(B, aux, z, r, update)
 
 
@@ -909,7 +975,7 @@ def node_block_spmv_cuda(B: NodeBlockMatrix, x: torch.Tensor,
     if out is None:
         out = torch.empty(n2, dtype=torch.float32, device=x.device)
     _check_args(name, x.device, _node_block_args(B) + [
-        ("x", x, torch.float32, (n2,)), ("out", out, torch.float32, (n2,))])
+        ("x", x, torch.float32, (B.shape[1],)), ("out", out, torch.float32, (n2,))])
     if _aliases(out, x):
         raise ValueError(f"{name}: out must not alias x")
     if x.data_ptr() % 8 or out.data_ptr() % 8 or B.block_values.data_ptr() % 16:
@@ -1071,7 +1137,13 @@ def transfer(T: NodeTransfer, x: torch.Tensor, mask: Optional[torch.Tensor] = No
     `mask` (bool, the output level's free DOFs) where(mask, T x, 0), the
     restriction's right-hand side; with `mask` and `z` z + where(mask, T x,
     0), the prolongated correction.  K3's transfer kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor.  On a `RowShard` of a transfer: the
+    rank's output rows (mask and z cut to them), then the gather."""
+    if isinstance(T, RowShard):
+        if not T.rows:
+            return T.gather(x.new_zeros(0))
+        return T.gather(transfer(T.local, x, None if mask is None else mask[T.own],
+                                 None if z is None else z[T.own]))
     if x.is_cuda:
         return node_transfer_cuda(T, x, mask, z)
     if x.device.type != "cpu":
@@ -1241,10 +1313,158 @@ def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     return ell_matvec_plain(A, x)
 
 
+# ---------------------------------------------------------------------------
+# row sharding
+# ---------------------------------------------------------------------------
+class RowShard(NamedTuple):
+    """One rank's row slice of an operator (`shard_rows`).
+
+    `local` is the slice in the operator's own format, with global columns:
+    a `CsrMatrix` (its row blocks rebuilt), a `NodeBlockMatrix` (its
+    `node_offset` and `col_nodes` set), a `NodeTransfer` or an `EllMatrix`
+    (whole slices of ELL_SLICE rows, the tails of those rows).  Its output
+    rows are row0 .. row0 + rows - 1 of the whole operator's; `counts` holds
+    every rank's, in rank order.  `group` is the ranks'
+    `parallel.sharding.ShardGroup`.  `entry0` is the slice's first stored
+    entry in the whole operator's (CSR entry, node block, transfer entry or
+    ELL slot): the tangent refresh shifts its global destinations by it."""
+
+    local: object
+    row0: int
+    counts: Tuple[int, ...]
+    group: object
+    entry0: int = 0
+
+    @property
+    def rows(self) -> int:
+        return self.counts[self.group.rank]
+
+    @property
+    def own(self) -> slice:
+        """This rank's rows of a vector over the whole operator's rows."""
+        return slice(self.row0, self.row0 + self.rows)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (sum(self.counts), self.local.shape[1])
+
+    def gather(self, y_local: torch.Tensor) -> torch.Tensor:
+        """Every rank's output rows concatenated: the whole product."""
+        return self.group.gather(y_local, self.counts)
+
+
+# each `_slice_*` returns (the slice's first stored entry, the slice) of
+# rows or nodes [first, end)
+def _parts(n_units: int, size: int) -> list:
+    """[first, end) of each of `size` ranks over `n_units` units: ceil(n /
+    size) each in order, the last ones shorter (or empty)."""
+    per = -(-n_units // size)
+    return [(min(r * per, n_units), min((r + 1) * per, n_units)) for r in range(size)]
+
+
+def _host_int(t: torch.Tensor, i: int) -> int:
+    return int(t[i].item())
+
+
+def _slice_csr(A: CsrMatrix, r0: int, r1: int) -> Tuple[int, CsrMatrix]:
+    p0, p1 = _host_int(A.indptr, r0), _host_int(A.indptr, r1)
+    indptr = (A.indptr[r0:r1 + 1] - p0).contiguous()
+    return p0, CsrMatrix(
+        indptr=indptr, indices=A.indices[p0:p1].contiguous(), values=A.values[p0:p1].contiguous(),
+        shape=(r1 - r0, A.shape[1]),
+        row_blocks=torch.as_tensor(row_blocks(indptr.cpu().numpy()), device=A.indptr.device),
+    )
+
+
+def _slice_nodes(B: NodeBlockMatrix, k0: int, k1: int) -> Tuple[int, NodeBlockMatrix]:
+    b0, b1 = _host_int(B.node_ptr, k0), _host_int(B.node_ptr, k1)
+    node_ptr = (B.node_ptr[k0:k1 + 1] - b0).contiguous()
+    per_node = (node_ptr[1:] - node_ptr[:-1])
+    return b0, NodeBlockMatrix(
+        node_ptr=node_ptr, block_cols=B.block_cols[b0:b1].contiguous(),
+        block_values=B.block_values[b0:b1].contiguous(),
+        width=int(per_node.max()) if k1 > k0 else 0,
+        node_offset=B.node_offset + k0, col_nodes=B.shape[1] // 2,
+    )
+
+
+def _slice_transfer(T: NodeTransfer, k0: int, k1: int) -> Tuple[int, NodeTransfer]:
+    e0, e1 = _host_int(T.node_ptr, k0), _host_int(T.node_ptr, k1)
+    node_ptr = (T.node_ptr[k0:k1 + 1] - e0).contiguous()
+    return e0, NodeTransfer(
+        node_ptr=node_ptr, node_cols=T.node_cols[e0:e1].contiguous(),
+        weights=T.weights[e0:e1].contiguous(), shape=(2 * (k1 - k0), T.shape[1]),
+        width=int((node_ptr[1:] - node_ptr[:-1]).max()) if k1 > k0 else 0,
+    )
+
+
+def _slice_ell(A: EllMatrix, s0: int, s1: int) -> Tuple[int, EllMatrix]:
+    r0, r1 = s0 * ELL_SLICE, min(s1 * ELL_SLICE, A.n_rows)
+    p0, p1 = _host_int(A.slice_ptr, s0), _host_int(A.slice_ptr, s1)
+    t0, t1 = _host_int(A.tail_ptr, r0), _host_int(A.tail_ptr, r1)
+    slice_ptr = (A.slice_ptr[s0:s1 + 1] - p0).contiguous()
+    widths = ((slice_ptr[1:] - slice_ptr[:-1]) // ELL_SLICE).cpu().numpy()
+    return p0, A._replace(
+        values=A.values[p0:p1].contiguous(), cols=A.cols[p0:p1].contiguous(),
+        slice_ptr=slice_ptr, tail_ptr=(A.tail_ptr[r0:r1 + 1] - t0).contiguous(),
+        tail_cols=A.tail_cols[t0:t1].contiguous(), tail_values=A.tail_values[t0:t1].contiguous(),
+        shape=(r1 - r0, A.shape[1]),
+        width=int(widths[0]) if widths.size and (widths == widths[0]).all() else 0,
+    )
+
+
+def shard_rows(A, group) -> RowShard:
+    """This rank's `RowShard` of A (`shard_rows`, JAX `spmv.py:2033`): a
+    `CsrMatrix` cut by rows, a `NodeBlockMatrix` or `NodeTransfer` by
+    nodes (two rows each), an `EllMatrix` by slices of ELL_SLICE rows, so
+    that no slice changes its width; ceil(units / ranks) units a rank, the
+    last ranks' slices shorter.  Every row keeps its entries and their
+    order, so each row's sum has the whole operator's bits; the gather pads
+    the shorter slices for the transport only (`ShardGroup.gather`)."""
+    if isinstance(A, RowShard):
+        raise ValueError("shard_rows: the operator is sharded already")
+    if isinstance(A, (NodeBlockMatrix, NodeTransfer)):
+        unit, n_units = 2, A.n_nodes
+        cut = _slice_nodes if isinstance(A, NodeBlockMatrix) else _slice_transfer
+    elif isinstance(A, CsrMatrix):
+        unit, n_units, cut = 1, A.n_rows, _slice_csr
+    elif isinstance(A, EllMatrix):
+        unit, n_units, cut = ELL_SLICE, A.n_slices, _slice_ell
+    else:
+        raise TypeError(f"shard_rows: no route for {type(A).__name__}")
+    parts = _parts(n_units, group.size)
+    n_rows = A.shape[0]
+    counts = tuple(min(e * unit, n_rows) - min(f * unit, n_rows) for f, e in parts)
+    first, end = parts[group.rank]
+    entry0, local = cut(A, first, end)
+    return RowShard(local=local, row0=min(first * unit, n_rows), counts=counts, group=group,
+                    entry0=entry0)
+
+
+def local_of(A):
+    """A's format: this rank's slice of a RowShard, else A itself."""
+    return A.local if isinstance(A, RowShard) else A
+
+
+def block_values(A) -> torch.Tensor:
+    """The node-block values of A, or of this rank's slice of it."""
+    return local_of(A).block_values
+
+
+def with_block_values(A, values: torch.Tensor):
+    """A with new node-block values (this rank's slice's on a RowShard)."""
+    if isinstance(A, RowShard):
+        return A._replace(local=A.local._replace(block_values=values))
+    return A._replace(block_values=values)
+
+
 def sp_matvec(A, x: torch.Tensor) -> torch.Tensor:
     """Format-generic y = A x, by the operator's type: `CsrMatrix` through
     K1 (or the f32 CSR kernel), f32 `NodeBlockMatrix` through K3's
-    product, `EllMatrix` through K6."""
+    product, `EllMatrix` through K6; a `RowShard` of one: its rows here,
+    then the gather of every rank's."""
+    if isinstance(A, RowShard):
+        return A.gather(sp_matvec(A.local, x) if A.rows else x.new_zeros(0))
     if isinstance(A, NodeBlockMatrix):
         return node_block_matvec(A, x)
     if isinstance(A, CsrMatrix):

@@ -1,1 +1,2 @@
-"""Material ensembles of the tsx tunnel (`ensemble.py`)."""
+"""Material ensembles of the tsx tunnel (`ensemble.py`) and multi-device
+runs over torch.distributed (`sharding.py`)."""

@@ -15,8 +15,11 @@ predictor.  The shear and bulk moduli are shared; each member's (eta, c)
 come from `material_grid` on the host in float64 and reach the card as a
 float64 tensor with a member axis.
 
-The member axis runs on one card; `shard_devices` (sharding the members
-over cards) is not ported and raises.
+With `shard_devices=n` the df32 ensemble runs its members over n ranks
+(`parallel.sharding.spawn`, JAX `:151-168`, `:328-345`): the member count
+is padded to a multiple of n with copies of member 0, each rank runs its
+slice with the batched stepper, and the members' results are gathered in
+order (the only collective) and the copies trimmed.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..models import tsx_tunnel as tsx
 from ..models.config import TsxTunnelConfig
 from ..models.materials import drucker_prager_fit, elastic_tangent_lanes
 from ..ops import assembly_df as adf
+from ..parallel import sharding
 from ..solve.cg import plastic_cg_tol
 from ..solve.newton import EnsembleSteppingResult, build_ensemble_stepper
 from ..utils.precision import dtype_policy, resolve_device
@@ -43,6 +47,10 @@ class EnsembleResult(NamedTuple):
     n_steps: np.ndarray  # (n_b,)
     n_newton_total: np.ndarray  # (n_b,)
     n_plastic: np.ndarray  # (n_b,)
+    # per member: the Newton iterations and the last criterion of each load
+    # trip (the port's; the JAX ensemble returns neither)
+    newton_trips: tuple = ()
+    crit_trips: tuple = ()
 
 
 def material_grid(cohesions, friction_angles) -> tuple:
@@ -137,16 +145,39 @@ def solve_tsx_ensemble_df32(
     JAX ensemble does; a member with more plastic points than that
     converges more slowly, it does not refactor.  solver="cg" (refined
     meshes): matrix-free block-Jacobi PCG for the shared elastic predictor
-    and every member's tangent solves.  `shard_devices` other than None
-    raises NotImplementedError."""
-    if shard_devices is not None:
-        raise NotImplementedError("shard_devices: the members run on one card")
+    and every member's tangent solves.  `shard_devices`: the members over
+    that many ranks (module docstring; `device` as `sharding.spawn` reads
+    it: None the card, "cpu" CPU ranks).  A member's batch mates change with
+    the rank count, and batched products may round its last bits another
+    way (`build_ensemble_stepper`)."""
     cfg = cfg if cfg is not None else TsxTunnelConfig.fast()
     if cfg.precision != "df32":
         raise ValueError("solve_tsx_ensemble_df32 needs precision='df32'")
     _refuse(cfg, cfg.solver)
     etas, cs = _members(etas, cs)
-    device = resolve_device(device)
+    if shard_devices is not None:
+        return sharding.spawn(ensemble_rank, int(shard_devices), etas, cs, cfg, device=device)
+    return _ensemble_df32(etas, cs, cfg, resolve_device(device))
+
+
+def ensemble_rank(group: sharding.ShardGroup, etas: np.ndarray, cs: np.ndarray,
+                   cfg: TsxTunnelConfig) -> EnsembleResult:
+    """Rank function of the member-sharded ensemble: members padded to a
+    multiple of the group size with copies of member 0, this rank's
+    contiguous slice solved, every rank's results gathered in order and
+    the copies trimmed."""
+    n_b = etas.shape[0]
+    per = -(-n_b // group.size)
+    pad = np.zeros(per * group.size - n_b, np.int64)
+    mine = np.concatenate([np.arange(n_b), pad])[group.rank * per:(group.rank + 1) * per]
+    parts = group.objects(_ensemble_df32(etas[mine], cs[mine], cfg, group.device))
+    return EnsembleResult(*(sum(f, ())[:n_b] if isinstance(f[0], tuple)
+                            else np.concatenate(f)[:n_b] for f in zip(*parts)))
+
+
+def _ensemble_df32(etas: np.ndarray, cs: np.ndarray, cfg: TsxTunnelConfig,
+                   device: torch.device) -> EnsembleResult:
+    """The df32 ensemble of (etas, cs) on one device."""
     p = tsx._problem(cfg, device)
     shear, bulk = p.consts[:2]
     geom = p.geom
@@ -173,6 +204,27 @@ def solve_tsx_ensemble_df32(
     return ensemble_result(stepper(u_elast * cfg.d_zeta, cfg.d_zeta))
 
 
+def member_forks(a: EnsembleResult, b: EnsembleResult, newton_tol: float) -> list:
+    """The members whose Newton iterations part between two runs of one
+    ensemble (on other batches: batched products may round a member's last
+    bits another way): [(member, trip (1-based, the first that differs),
+    a's count, b's count, the last criterion of the run that stopped first
+    on that trip, whether it lies within a decade below newton_tol)].  A
+    member that stops one iteration earlier where its criterion sits at
+    newton_tol forks without a fault."""
+    out = []
+    for m, (ta, tb) in enumerate(zip(a.newton_trips, b.newton_trips)):
+        if ta == tb:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), min(len(ta), len(tb)))
+        if t >= min(len(ta), len(tb)):
+            out.append((m, t + 1, len(ta), len(tb), float("nan"), False))
+            continue
+        crit = (a if ta[t] < tb[t] else b).crit_trips[m][t]
+        out.append((m, t + 1, ta[t], tb[t], crit, newton_tol / 10.0 <= crit < newton_tol))
+    return out
+
+
 def ensemble_result(res: EnsembleSteppingResult) -> EnsembleResult:
     """EnsembleSteppingResult -> EnsembleResult of float64 numpy arrays."""
     f64 = lambda t: t.detach().to("cpu", torch.float64).numpy()  # noqa: E731
@@ -183,4 +235,6 @@ def ensemble_result(res: EnsembleSteppingResult) -> EnsembleResult:
         n_steps=np.asarray(res.n_steps, np.int64),
         n_newton_total=np.asarray(res.n_newton_total, np.int64),
         n_plastic=np.asarray(res.n_plastic, np.int64),
+        newton_trips=res.newton_trips,
+        crit_trips=res.crit_trips,
     )

@@ -44,6 +44,15 @@ the same hierarchy a tangent multigrid: every level refreshed from the
 consistent tangent once a Newton iteration, the fine level by the element
 scatter and each coarser one through a Galerkin value map (K3's CSR kernel),
 with the smoother constants and the coarsest inverse rebuilt on the card.
+
+`shard_hierarchy_ell` (`:821`) row-shards a hierarchy over the ranks of a
+multi-device run (`parallel/sharding.py`): every level's operator, P and R
+become `ops.spmv.RowShard`s, whose products, sweeps (K4's split-z
+instance) and transfers run the rank's rows and gather them, so
+`make_vcycle_ell` runs unchanged; the block inverses, the masks and the
+coarse direct solve stay replicated.  `shard_tangent_hierarchy` does the
+same for the tangent refresh: the fine element scatter lands on the rank's
+slice of the values, and the Galerkin value maps run row-sharded.
 """
 from __future__ import annotations
 
@@ -483,12 +492,12 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
     def restrict(li: int, res: torch.Tensor) -> torch.Tensor:
         # the right-hand side of level li - 1, masked by its free DOFs
         lev, free_c = levels[li], levels[li - 1].free
-        if isinstance(lev.R, spmv.NodeTransfer):
+        if isinstance(spmv.local_of(lev.R), spmv.NodeTransfer):
             return spmv.transfer(lev.R, res, mask=free_c)
         return torch.where(free_c, spmv.sp_matvec(lev.R, res), zero)
 
     def prolong_add(lev: MGLevel, z: torch.Tensor, z_c: torch.Tensor) -> torch.Tensor:
-        if isinstance(lev.P, spmv.NodeTransfer):
+        if isinstance(spmv.local_of(lev.P), spmv.NodeTransfer):
             return spmv.transfer(lev.P, z_c, mask=lev.free, z=z)
         return z + torch.where(lev.free, spmv.sp_matvec(lev.P, z_c), zero)
 
@@ -522,12 +531,42 @@ def make_vcycle_ell(hier: Hierarchy, nu=2, cycle: str = "v"):
 
 
 # ---------------------------------------------------------------------------
+# row sharding over the ranks of a multi-device run
+# ---------------------------------------------------------------------------
+def shard_hierarchy_ell(hier: Hierarchy, group) -> Hierarchy:
+    """This rank's row-sharded copy of `hier` (`shard_hierarchy_ell`, JAX
+    `multigrid.py:821`): every level's `op`, `sweep_op`, P and R as
+    `ops.spmv.RowShard`s of `group` (`ops.spmv.shard_rows`; the fine slot
+    level's op and sweep_op stay one object); `inv`, `free`, `aux` (cut at
+    each sweep), `inv0` and `free_idx0` replicated.  Raises on a level
+    smoothed from bf16 values: K5 has no split-z instance."""
+    for lev in hier.levels:
+        if lev.sweep_op is not None and lev.sweep_op.block_values.dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16-packed smoother streams are not row-sharded: build the hierarchy with "
+                "pack_bf16=False for multi-device runs")
+
+    def cut(A):
+        return None if A is None else spmv.shard_rows(A, group)
+
+    levels = []
+    for lev in hier.levels:
+        sweep_op = cut(lev.sweep_op)
+        op = sweep_op if (lev.op is not None and lev.op is lev.sweep_op) else cut(lev.op)
+        levels.append(lev._replace(op=op, sweep_op=sweep_op, P=cut(lev.P), R=cut(lev.R)))
+    return hier._replace(levels=levels)
+
+
+# ---------------------------------------------------------------------------
 # the tangent hierarchy: every level refreshed once a Newton iteration
 # ---------------------------------------------------------------------------
 class TangentHierarchy(NamedTuple):
     """Device tables of the per-Newton-iteration tangent refresh
     (`build_tangent_hierarchy`), all positions in the levels' flat node-block
-    values (`MGLevel.sweep_op.block_values.reshape(-1)`)."""
+    values (`MGLevel.sweep_op.block_values.reshape(-1)`).  Row-sharded
+    (`shard_tangent_hierarchy`): `dest` indexes the rank's slice of the fine
+    values, `mhat` are `ops.spmv.RowShard`s, and `fine_counts` holds every
+    rank's count of fine values."""
 
     geom: asm.Geometry  # the fine level's f32 geometry, from f32 coordinates
     # (n_elems, 2n_p, 2n_p) int64: each element-block entry's position in the
@@ -540,6 +579,7 @@ class TangentHierarchy(NamedTuple):
     d0_idx: torch.Tensor  # flat positions in the coarsest (n_free0, n_free0)
     pos0_ff: torch.Tensor  # the level-0 values that land there
     n_free0: int
+    fine_counts: Optional[tuple] = None
 
 
 def _prolongation_rows(P) -> tuple:
@@ -649,6 +689,20 @@ def build_tangent_hierarchy(hier: Hierarchy, coarse: dict, ref: ReferenceElement
     )
 
 
+def shard_tangent_hierarchy(th: TangentHierarchy, hier_sh: Hierarchy, group) -> TangentHierarchy:
+    """The tangent tables for `hier_sh` (`shard_hierarchy_ell` of the
+    elastic hierarchy): the fine scatter's destinations shifted by the
+    rank's first block (other ranks' blocks and dropped entries past the
+    slice's values, so dropped), every Galerkin value map row-sharded (JAX
+    `multigrid.py:669-700`, the sharded Mhat chain)."""
+    fine = hier_sh.levels[-1].sweep_op
+    n_local = spmv.block_values(fine).numel()
+    dest = th.dest - 4 * fine.entry0
+    dest = torch.where((dest >= 0) & (dest < n_local), dest, n_local)
+    return th._replace(dest=dest, mhat=[spmv.shard_rows(M, group) for M in th.mhat],
+                       fine_counts=tuple(4 * c for c in group.objects(n_local // 4)))
+
+
 def refresh_hierarchy(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tensor,
                       shear: float, bulk: float, omega: float = 0.7) -> Hierarchy:
     """The hierarchy refreshed from the consistent tangent d_fine ((3, 3,
@@ -663,7 +717,11 @@ def refresh_hierarchy(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tenso
     (closed-form 2x2 inverse times omega), and the coarsest level's solve
     from the explicit inverse of its Jacobi-scaled free-free matrix, one
     f32 factorization (`torch.linalg`; NaN where it fails, which CG
-    reports)."""
+    reports).  On a row-sharded hierarchy (`shard_tangent_hierarchy`) the
+    scatter writes the rank's slice of the fine values and is gathered,
+    each Galerkin value map runs its rows and gathers, and each level keeps
+    its slice of the refreshed values: the whole values and the constants
+    are the unsharded refresh's bit for bit."""
     from .newton import refreshed_values
 
     f32 = torch.float32
@@ -673,16 +731,23 @@ def refresh_hierarchy(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tenso
     ke = asm.element_stiffness(g, d_fine - d_el).permute(2, 0, 1)
     top = len(hier.levels) - 1
     vals = [None] * (top + 1)
-    vals[top] = refreshed_values(hier.levels[top].sweep_op.block_values.reshape(-1), ke, th.dest)
+    fine = hier.levels[top].sweep_op
+    vals[top] = refreshed_values(spmv.block_values(fine).reshape(-1), ke, th.dest)
+    if isinstance(fine, spmv.RowShard):
+        vals[top] = fine.group.gather(vals[top], th.fine_counts)
     for l in range(top, 0, -1):
-        vals[l - 1] = spmv.csr_matvec(th.mhat[l - 1], vals[l]) + th.base[l - 1]
+        vals[l - 1] = spmv.sp_matvec(th.mhat[l - 1], vals[l]) + th.base[l - 1]
 
     eye = torch.eye(2, dtype=f32, device=device)
     levels = []
     for l, lev in enumerate(hier.levels):
-        blocks = lev.sweep_op._replace(block_values=vals[l].reshape(-1, 4))
+        own = vals[l]
+        if isinstance(lev.sweep_op, spmv.RowShard):  # the rank's slice of the values
+            e0 = 4 * lev.sweep_op.entry0
+            own = own[e0:e0 + spmv.block_values(lev.sweep_op).numel()]
+        blocks = spmv.with_block_values(lev.sweep_op, own.reshape(-1, 4))
         free2 = lev.free.reshape(-1, 2)
-        b = blocks.block_values[th.diag_blocks[l]].reshape(-1, 2, 2)
+        b = vals[l].reshape(-1, 4)[th.diag_blocks[l]].reshape(-1, 2, 2)
         b = torch.where(free2[:, :, None] & free2[:, None, :], b, torch.zeros_like(b))
         b = b + eye * (~free2).to(f32)[:, :, None]
         a_, b_, c_, d_ = b[:, 0, 0], b[:, 0, 1], b[:, 1, 0], b[:, 1, 1]
@@ -715,4 +780,4 @@ def tangent_vcycle(th: TangentHierarchy, hier: Hierarchy, d_fine: torch.Tensor,
     refreshed levels (`refresh_hierarchy`: K4 sweeps, K3 transfers)."""
     refreshed = refresh_hierarchy(th, hier, d_fine, shear, bulk, omega)
     fine = refreshed.levels[-1].op
-    return (lambda v: spmv.node_block_matvec(fine, v)), make_vcycle_ell(refreshed, nu=nu)
+    return (lambda v: spmv.sp_matvec(fine, v)), make_vcycle_ell(refreshed, nu=nu)

@@ -39,6 +39,18 @@ every step.  In every precision the criterion's elastic stress is
 2G (e - tr/3) + K tr and the warm start divides by d_zeta_old as a tensor,
 as the JAX loop does.
 
+Multi-device runs (`parallel/sharding.py`) take the same loop on every
+rank.  With `group` the geometry is the rank's element shard: the nodal
+partial sums are added over the ranks in rank order (the JAX package's
+`axis_name` sites of its matrix-free CG: the residual, the criterion's
+elastic force, the matrix-free tangent, the preconditioner's blocks and
+the plastic count; its sharded solves run no dense solver).  A
+row-sharded operator (`ops.spmv.RowShard`, the assembled routes) needs no
+`group` here: its products gather inside `sp_matvec`, and the tangent
+refresh writes the rank's slice of the values (global destinations
+shifted by the slice's first block, the others dropped: the JAX package's
+`corr_shard_axis`).
+
 `build_ensemble_stepper` runs B materials over one geometry (the JAX
 package's `vmap` of this stepper, `parallel/ensemble.py`): a sweep is one
 Newton iteration of every member still running, batched, and each member
@@ -56,7 +68,8 @@ import torch
 from ..models.materials import dp_return_map_lanes, elastic_tangent_lanes
 from ..ops import assembly as asm
 from ..ops.return_map import dp_return_map_newton, dp_return_map_newton_batched
-from ..ops.spmv import CsrMatrix, EllMatrix, NodeBlockMatrix, sp_matvec
+from ..ops.spmv import (CsrMatrix, EllMatrix, NodeBlockMatrix, RowShard, block_values,
+                        local_of, sp_matvec, with_block_values)
 from .cg import block_jacobi_preconditioner, deflation_harvest, solve_cg, solve_cg_members
 
 
@@ -196,6 +209,7 @@ def build_load_stepper(
     gs_tangent: Optional[tuple] = None,
     cg_structure: str = "while",
     f_ext_dir: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """Build the load-stepping solver (dense or CG tangent solves).
 
@@ -301,6 +315,12 @@ def build_load_stepper(
                 dtype, ramped with the load factor: the residual is
                 F_int(u) - zeta f_ext_dir (the tsx support pressure; JAX
                 `solve/newton.py:327-329`, `:402-421`).
+      group:    a `parallel.sharding.ShardGroup` when geom is this rank's
+                element shard (JAX `axis_name`): the nodal partial sums
+                are reduced over the ranks (module docstring); plastic
+                strain stays on the shard, nodal vectors are replicated.
+                Matrix-free block-Jacobi CG only (solver="cg", without
+                residual or elastic operators or tangent multigrid).
 
     Returns run(U_it0, aux0, d_zeta0, resume=None) -> LoadSteppingResult.
     """
@@ -323,8 +343,12 @@ def build_load_stepper(
             "an iterative solve on elastic_op needs corr_dest (solver='cg': the full "
             "refresh) or plastic_cap (the plastic slot set)"
         )
-    if corr_dest is not None and not isinstance(elastic_op, NodeBlockMatrix):
+    if corr_dest is not None and not isinstance(local_of(elastic_op), NodeBlockMatrix):
         raise NotImplementedError("the tangent refresh writes the values of f32 node blocks")
+    if group is not None and (solver != "cg" or residual_op is not None or elastic_op is not None
+                              or tangent_mg is not None):
+        raise NotImplementedError("an element-sharded stepper runs matrix-free block-Jacobi CG, "
+                                  "without residual or elastic operators or tangent multigrid")
     if solver == "mg" and mg_preconditioner is None:
         raise NotImplementedError("solver='mg' needs mg_preconditioner")
     if gs_tangent is not None and (
@@ -381,7 +405,7 @@ def build_load_stepper(
         if residual_op is not None:
             f = sp_matvec(residual_op[1], s[:3].reshape(-1))
         else:
-            f = asm.internal_force(geom, s[:3])
+            f = asm.internal_force(geom, s[:3], group)
         if f_ext_dir is not None:
             f = f - zeta * f_ext_dir
         return f.to(tdtype)
@@ -399,7 +423,7 @@ def build_load_stepper(
             2.0 * shear * (e[1] - t / three) + bulk * t,
             shear * e[2],
         ])
-        return asm.internal_force(geom_t, s)
+        return asm.internal_force(geom_t, s, group)
 
     def criterion(dU, U_head):
         # q1 = |dU|_K, q2 = |U_it|_K, q3 = |U_it + dU|_K in the elastic
@@ -456,15 +480,20 @@ def build_load_stepper(
         if solver == "cg" and tangent_mg is None:
             slot_map = asm.node_slot_map(geom_t)
         if corr_dest is not None:
-            # -1 (constrained) destinations go past the block values
-            n_vals = elastic_op.block_values.numel()
-            dest_table = torch.where(corr_dest >= 0, corr_dest, n_vals).to(torch.int64)
+            # -1 (constrained) destinations, and on a row slice those of
+            # the other ranks' blocks, go past the block values
+            n_vals = block_values(elastic_op).numel()
+            dest = corr_dest.to(torch.int64)
+            if isinstance(elastic_op, RowShard):
+                dest = torch.where(dest >= 0, dest - 4 * elastic_op.entry0, -1)
+            dest_table = torch.where((dest >= 0) & (dest < n_vals), dest, n_vals)
 
     def refreshed(corr, dest):
-        """The elastic node blocks with `corr` added at the block-value
-        positions `dest` (`dest_table` rows), `refreshed_values`."""
-        vals = refreshed_values(elastic_op.block_values.reshape(-1), corr, dest)
-        return elastic_op._replace(block_values=vals.reshape(-1, 4))
+        """The elastic node blocks (this rank's slice of them) with `corr`
+        added at the block-value positions `dest` (`dest_table` rows),
+        `refreshed_values`."""
+        vals = refreshed_values(block_values(elastic_op).reshape(-1), corr, dest)
+        return with_block_values(elastic_op, vals.reshape(-1, 4))
 
     def tangent_operator(d, ind_p):
         """v -> K_tangent v.  Without elastic_op: the matrix-free tangent,
@@ -479,7 +508,7 @@ def build_load_stepper(
                 G32, S32 = gs_tangent
                 return lambda v: sp_matvec(S32, asm.apply_tangent(
                     d, sp_matvec(G32, v).reshape(3, n_int)).reshape(-1))
-            return lambda v: asm.tangent_matvec(geom_t, d, v)
+            return lambda v: asm.tangent_matvec(geom_t, d, v, group)
         if solver == "cg" and corr_dest is not None:
             # element_stiffness is (2n_p, 2n_p, n_e): transpose to corr_dest's
             # (n_e, row, col)
@@ -514,7 +543,7 @@ def build_load_stepper(
         elif solver == "cg":
             op = tangent_operator(d, ind_p)
             pre = block_jacobi_preconditioner(
-                asm.node_block_diagonal(geom_t, d, slot_map), free_mask)
+                asm.node_block_diagonal(geom_t, d, slot_map, group), free_mask)
         else:
             op, pre = tangent_operator(d, ind_p), mg_preconditioner
         res = solve_cg(
@@ -691,7 +720,10 @@ def build_load_stepper(
             cg_trips.append(solves)
             trips += 1
 
-        n_plastic = int((ep != 0.0).any(dim=0).sum())
+        n_plastic = (ep != 0.0).any(dim=0).sum()
+        if group is not None:
+            n_plastic = group.sum_ranks(n_plastic)
+        n_plastic = int(n_plastic)
         return LoadSteppingResult(
             u=U, ep=ep, zeta_hist=zeta_hist, monitor_hist=mon_hist,
             n_steps=step, n_newton_total=nits_total, zeta=zeta_old,
@@ -727,6 +759,7 @@ class EnsembleSteppingResult(NamedTuple):
     n_plastic: np.ndarray  # (B,)
     n_cg_total: np.ndarray  # (B,) CG iterations (0 on the dense solver)
     newton_trips: tuple  # per member: the Newton iterations of each load trip
+    crit_trips: tuple  # per member: the last Newton criterion of each trip (NaN: failed)
     sweeps: int  # Newton sweeps: one Newton iteration of every running member
     host_reads: int  # values read back to the host, all sweeps together
 
@@ -954,6 +987,7 @@ def build_ensemble_stepper(
         it = np.zeros(n_b, np.int64)
         crit_prev = np.full(n_b, math.inf)
         newton_trips = [[] for _ in range(n_b)]
+        crit_trips = [[] for _ in range(n_b)]
         zeta_stop = rnd(settings.zeta_max - 1e-12)
         d_zeta_min = rnd(settings.d_zeta_min)
         running = np.ones(n_b, bool) & (trips < settings.max_trips)
@@ -1041,8 +1075,9 @@ def build_ensemble_stepper(
                 U_it.index_copy_(0, f_idx, dz * (Uf - Uof) / dz_old + Uf)
                 stop = (zeta_old[fin] >= zeta_stop) | (d_zeta[fin] < d_zeta_min)
             nits_total[fin] += it[fin]
-            for b in fin:
+            for b, cr in zip(fin, crit_fin):
                 newton_trips[b].append(int(it[b]))
+                crit_trips[b].append(float(cr))
             trips[fin] += 1
             running[fin] = ~stop & (trips[fin] < settings.max_trips)
             nxt = fin[running[fin]]
@@ -1055,7 +1090,7 @@ def build_ensemble_stepper(
             u=U, ep=ep, zeta_hist=zeta_hist, monitor_hist=mon_hist, n_steps=step,
             n_newton_total=nits_total, zeta=zeta_old, n_plastic=n_plastic,
             n_cg_total=ncg_total, newton_trips=tuple(tuple(t) for t in newton_trips),
-            sweeps=sweeps, host_reads=reads,
+            crit_trips=tuple(tuple(t) for t in crit_trips), sweeps=sweeps, host_reads=reads,
         )
 
     return run

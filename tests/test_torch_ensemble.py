@@ -335,8 +335,26 @@ def test_stepper_counts_sweeps_and_reads():
 
 def test_refusals():
     eta, c = ens.material_grid(np.array([18.7]), np.array([49.0 * DEG]))
-    with pytest.raises(NotImplementedError):
-        ens.solve_tsx_ensemble_df32(eta, c, shard_devices=2, device=CPU)
+    # the multi-device refusals of the JAX package: a bf16-packed hierarchy
+    # (its smoother has no row-sharded form), the tsx off solver="ell", the
+    # footing without its tangent multigrid
+    from fem_elastoplasticity_tpu_torch.models import footing
+    from fem_elastoplasticity_tpu_torch.models.config import FootingConfig
+    from fem_elastoplasticity_tpu_torch.ops.elements import volume_element
+    from fem_elastoplasticity_tpu_torch.parallel.sharding import ShardGroup
+    from fem_elastoplasticity_tpu_torch.solve import multigrid as mgm
+
+    shear, bulk = lame_moduli(TsxTunnelConfig().young, TsxTunnelConfig().poisson)
+    with np.load(tsx._DATA) as raw:
+        packed, _, _ = mgm.build_hierarchy_ell(
+            raw["coords"].astype(np.float64), raw["elems"], 1, tsx._free_of, shear, bulk,
+            volume_element(ElementType.P1), device=CPU, pack_bf16=True)
+    with pytest.raises(NotImplementedError, match="bf16-packed"):
+        mgm.shard_hierarchy_ell(packed, ShardGroup(0, 2, CPU, "gloo"))
+    with pytest.raises(ValueError, match="solver='ell'"):
+        tsx.build_df32(TsxTunnelConfig.fast(solver="cg"), device=CPU, shard_devices=2)
+    with pytest.raises(ValueError, match="tangent_mg"):
+        footing.build_df32(FootingConfig.fast(), device=CPU, shard_devices=2)
     with pytest.raises(NotImplementedError):
         ens.solve_tsx_ensemble_df32(eta, c, TsxTunnelConfig.fast_scale(1), device=CPU)
     with pytest.raises(NotImplementedError):

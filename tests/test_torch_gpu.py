@@ -345,6 +345,68 @@ def test_k4_matches_plain(cuda_scale, update):
     assert torch.equal(got, spmv.block_jacobi_sweep(B, lev.aux, z, r, update))
 
 
+@pytest.mark.parametrize("n", [2, 3, 5])
+@pytest.mark.parametrize("update", [True, False], ids=["update", "residual"])
+def test_k4_split_z_matches_plain_and_the_whole_sweep(cuda_scale, update, n):
+    """K4's split-z instance on the level-1 fine operator cut into n row
+    slices (`spmv.shard_rows`): each slice's launch is bit for bit its plain
+    version and the unsharded launch's rows, counted as the split instance;
+    the slice of rank 0 (node_offset 0) too."""
+    from fem_elastoplasticity_tpu_torch.parallel.sharding import ShardGroup
+
+    device, hier, _ = cuda_scale
+    lev = hier.levels[-1]
+    B = lev.sweep_op
+    rng = np.random.default_rng(5)
+    z = torch.as_tensor(rng.standard_normal(B.shape[0]).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.standard_normal(B.shape[0]).astype(np.float32), device=device)
+    whole = spmv.block_jacobi_sweep(B, lev.aux, z, r, update)
+    spmv.LAUNCHES.clear()
+    for rank in range(n):
+        part = spmv.shard_rows(B, ShardGroup(rank, n, device, "gloo"))
+        rows = slice(part.row0, part.row0 + part.rows)
+        aux = spmv.SweepAux(*(a[rows] for a in lev.aux))
+        got = spmv.block_jacobi_sweep(part.local, aux, z, r[rows], update)
+        assert part.local.node_offset == part.row0 // 2
+        assert torch.equal(got, spmv.node_block_sweep_plain(part.local, aux, z, r[rows], update))
+        assert torch.equal(got, whole[rows])
+    assert dict(spmv.LAUNCHES) == {"block_jacobi_sweep_split": n}
+
+
+def test_k4_node_offset_zero_keeps_the_unsharded_bits(cuda_scale):
+    """With node_offset 0 on a whole operator the launch is the unsharded
+    sweep: counted as K4, bit for bit the plain version on the blocks (which
+    the earlier K4 matched bit for bit), on every level of the hierarchy."""
+    device, hier, _ = cuda_scale
+    rng = np.random.default_rng(6)
+    for lev in hier.levels[1:]:
+        B = lev.sweep_op
+        assert B.node_offset == 0 and not B.is_slice
+        z = torch.as_tensor(rng.standard_normal(B.shape[0]).astype(np.float32), device=device)
+        r = torch.as_tensor(rng.standard_normal(B.shape[0]).astype(np.float32), device=device)
+        spmv.LAUNCHES.clear()
+        for update in (True, False):
+            got = spmv.block_jacobi_sweep(B, lev.aux, z, r, update)
+            assert torch.equal(got, spmv.node_block_sweep_plain(B, lev.aux, z, r, update))
+        assert dict(spmv.LAUNCHES) == {"block_jacobi_sweep": 2}
+
+
+def test_sharded_scale_on_the_card_is_bitwise_single_card(cuda_scale):
+    """Two ranks on the card (gloo over cuda:0 tensors) run the row-sharded
+    scale preset bit for bit as the single-card build does."""
+    from fem_elastoplasticity_tpu_torch.parallel import sharding
+
+    device = cuda_scale[0]
+    cfg = TsxTunnelConfig.fast_scale(1, zeta_max=3 / 17)
+    r1 = tsx.solve(cfg, device=device)
+    assert sharding.placement(2)[1] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    r = tsx.solve_sharded_scale(cfg, 2)
+    assert (r.n_steps, r.n_newton_total, r.n_cg_total) == (
+        r1.n_steps, r1.n_newton_total, r1.n_cg_total)
+    np.testing.assert_array_equal(r.zeta_hist, r1.zeta_hist)
+    np.testing.assert_array_equal(r.u, r1.u)
+
+
 def test_k4_and_its_plain_version_replay_in_a_cuda_graph(cuda_scale):
     """The kernel and its plain version on the blocks are captured in a CUDA
     graph, as `chip_smoke.py` times them: neither may read the card from

@@ -43,8 +43,8 @@ def main() -> int:
     print(card, flush=True)
     rm.load_kernel()
     shapes, err = cs.k2_batched_phase(torch, rm, device, card)
-    runs, k2 = cs.ensemble_phase(torch, tsx, TsxTunnelConfig, device, card,
-                                 all_singles=args.all_singles)
+    runs, k2, _ = cs.ensemble_phase(torch, tsx, TsxTunnelConfig, device, card,
+                                    all_singles=args.all_singles)
     line = json.dumps({"card": card, "k2_batched": shapes, "k2_batched_max_abs_err": err,
                        "ensembles": runs, "f32_k2_launches": k2})
     if args.out is not None:

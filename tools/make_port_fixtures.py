@@ -128,6 +128,11 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   zeta_max=2/17)` of (16, 18.7) x (45, 49) deg: per member u (n_b, n_n,
   2), zeta_hist, monitor_hist and the step, Newton and plastic counts,
   beside the grid (cohesions, frictions) and its (eta, c).
+* tsx_sharded_cg_n3_z3.npz — the element-sharded matrix-free CG solve
+  `solve_sharded(TsxTunnelConfig(zeta_max=3/17), n_devices=3)` on a
+  virtual three-device CPU mesh (the run sets
+  `--xla_force_host_platform_device_count=3` before JAX starts): u, ep,
+  zeta_hist, displ_hist and the step, Newton, CG and plastic counts.
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
@@ -144,6 +149,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import sys
 
@@ -167,6 +173,12 @@ def _fields(r, monitor: str) -> dict:
 
 def main(names) -> None:
     sys.path.insert(0, str(ROOT))
+    if SHARDED in (names or FIXTURES):
+        # the virtual devices of the sharded run exist only if XLA reads the
+        # flag before its CPU backend starts
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                                   f"--xla_force_host_platform_device_count={SHARDED_DEVICES}"
+                                   ).strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -305,6 +317,10 @@ def main(names) -> None:
                 monitor_hist=np.asarray(e.monitor_hist, np.float64),
                 n_steps=np.asarray(e.n_steps), n_newton_total=np.asarray(e.n_newton_total),
                 n_plastic=np.asarray(e.n_plastic), config=json.dumps(dict(df32=df32, **cfg_kw)))
+    if SHARDED in names:
+        r = tsx.solve_sharded(TsxTunnelConfig(zeta_max=3 / 17), n_devices=SHARDED_DEVICES)
+        np.savez_compressed(OUT / f"{SHARDED}.npz", **_fields(r, "displ_hist"),
+                            n_cg_total=r.n_cg_total)
     if not names & {"tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9"}:
         _report()
         return
@@ -511,13 +527,16 @@ def tsx_option_config(config_cls, element_type, preset, kw):
     return config_cls.fast_scale(preset[1], **kw)
 
 
+# the element-sharded solve on a virtual CPU mesh of this many devices
+SHARDED, SHARDED_DEVICES = "tsx_sharded_cg_n3_z3", 3
+
 FIXTURES = (
     "tsx_df32_bench", "tsx_f64_maxit2", "tsx_df32_carry9",
     "tsx_f32", "footing_f64", "footing_f32", "tsx_scale_l1", "tsx_scale_l2_2steps",
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
     *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg", *HIGH_ORDER,
-    "tsx_p4_pmg_carry1", *ENSEMBLES, *TSX_OPTIONS, "tsx_scale_l1_ckpt3",
+    "tsx_p4_pmg_carry1", *ENSEMBLES, *TSX_OPTIONS, "tsx_scale_l1_ckpt3", SHARDED,
 )
 
 if __name__ == "__main__":
