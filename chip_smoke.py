@@ -314,20 +314,35 @@ them against the repository's anchors:
                 with JAX loaded), one spawn a rank count:
                 `solve_sharded` at 2 ranks over the full schedule (the
                 single card's CG solve's 17 steps and Newton iterations, u
-                within 1e-14) and at 3 against 2 ranks at zeta 3/17,
-                `solve_sharded_df32` at 2 ranks (1e-12 relative), the
-                64-member df32 parity ensemble at 2 ranks against phase
-                33's one-card ensemble, `solve_sharded_scale` of
-                fast_scale(4) at 4 ranks and fast_scale(1) at 8, each
-                bitwise the single card's u digest and counts (phases 17
-                and 14), the footing's tangent multigrid at L2 cut at zeta
-                0.004 (its first load trip) at 8 ranks bitwise the
-                single card's run, `dryrun_multichip`'s gates at 8 ranks;
-                walls, gathers and launches of every run;
+                within 1e-14), `solve_sharded_df32` at 2 ranks (1e-12
+                relative), the 64-member df32 parity ensemble at 2 ranks
+                against phase 33's one-card ensemble, the dry run's four
+                parts at 2 ranks (`sharding.dryrun_rank`: the JAX
+                package's `dryrun_multichip`) under `check_dryrun`'s
+                gates, its deflated parts (`fast_scale(1, zeta_max=3/17,
+                cg_deflate=4)`, the footing's L3 tangent multigrid with
+                cg_deflate=8 to zeta 0.002) bitwise their single-card
+                runs, `solve_sharded_scale` of fast_scale(4) at 4 ranks
+                and fast_scale(1) at 8, each bitwise the single card's u
+                digest and counts (phases 17 and 14), the footing's
+                tangent multigrid at L2 cut at zeta 0.004 (its first load
+                trip) at 8 ranks bitwise the single card's run; walls,
+                gathers and launches of every run;
                 then K4's split-z instance on L4's levels 1-4 cut into 4
                 row slices, each launch bitwise its plain version and the
                 unsharded sweep's rows, times beside the unsharded sweep
-                and the bound.
+                and the bound;
+ 38. side layers — the example scripts `examples/{elasticity2d,plasticity_dp,
+                tsx_tunnel}_torch.py` in-process at their defaults (Q2
+                energy within 1e-10, the footing's 16 steps and pressures
+                within 1e-4 of the reference's, the tsx's 17 / 28 and u40
+                within 1e-9), with `--draw` under Agg where matplotlib is
+                installed (each figure non-empty); the bench preset split
+                at zeta 8/17 through a `utils.checkpoint` file and resumed,
+                bitwise phase 7's u with 17 / 28 (K1 launched); the
+                preset under `utils.timing`'s Timer, time_call and trace
+                (a Chrome trace written), `utils.metrics.log_run` on it
+                (17 step records).
 
 Every phase prints its lines with the card line beside its numbers, and
 the later phases their seconds.  Before
@@ -349,6 +364,15 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+# the port's measurement helpers; alone, without the repository, the script
+# stops here
+sys.path.insert(0, str(ROOT))
+from fem_elastoplasticity_tpu_torch.utils.timing import (  # noqa: E402
+    cuda_ms,
+    idle_share,
+    profiled_kernels,
+)
+
 ANCHOR_U40_F64 = -1.9794499636012143e-03
 ANCHOR_U40_F32 = -1.979450e-03  # tests/test_pallas_return_map.py:89
 K1_TOL = 1e-13  # normwise relative, kernel vs plain, both f64
@@ -418,35 +442,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps: int = 200):
-    """Mean milliseconds per call of `fn`, from CUDA events:
-    (device, eager).  `device` replays the calls captured in a CUDA graph,
-    so host launch overhead drops out; `eager` launches them back to back
-    from Python, as the solver does, and includes that overhead."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    eager = start.elapsed_time(end) / reps
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, eager
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
@@ -539,9 +534,9 @@ def csr_phase(torch, spmv, cases, device, card, seed: int = SEED):
         else:
             lib_rel = float((y_lib - y_plain).abs().max()) / float(y_plain.abs().max())
         check(lib_rel <= tol, f"{name} {tag}: cuSPARSE differs by {lib_rel:.3e}")
-        ms, eager_ms = cuda_ms(torch, lambda: kernel(A, x))
-        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.csr_matvec_plain(A, x))
-        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(A_lib, x))
+        ms, eager_ms = cuda_ms(lambda: kernel(A, x))
+        plain_ms, plain_eager_ms = cuda_ms(lambda: spmv.csr_matvec_plain(A, x))
+        lib_ms, lib_eager_ms = cuda_ms(lambda: torch.mv(A_lib, x))
         nnz, vsize = int(A.values.numel()), (8 if f64 else 4)
         # entries (value and column) and row offsets, x read and y written once
         n_bytes = (vsize + 4) * nnz + 4 * (A.shape[0] + 1) + vsize * (A.shape[1] + A.shape[0])
@@ -612,7 +607,7 @@ def k2_phase(torch, rm, device, card):
         if n == 896:  # the card's launch floor in this harness
             xf = torch.ones(n, dtype=torch.float32, device=device)
             yf = torch.empty_like(xf)
-            floor_ms = cuda_ms(torch, lambda: torch.neg(xf, out=yf), reps=100)[0]
+            floor_ms = cuda_ms(lambda: torch.neg(xf, out=yf), reps=100)[0]
         for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
             e3 = torch.as_tensor(e3_np, dtype=dt, device=device)
             ep = torch.as_tensor(ep_np, dtype=dt, device=device)
@@ -654,8 +649,8 @@ def k2_phase(torch, rm, device, card):
                     same = all(g.dtype == x.dtype and torch.equal(g, x) for g, x in zip(got, exp))
                     check(same, f"K2 {tag}: s, D, ind_p, lam, ep not bitwise the plain version's")
                     bitwise = bitwise and same
-                    ms, eager_ms = cuda_ms(torch, lambda: rm.dp_return_map_cuda(*args), reps=100)
-                    plain_ms, plain_eager_ms = cuda_ms(torch, plain, reps=100)
+                    ms, eager_ms = cuda_ms(lambda: rm.dp_return_map_cuda(*args), reps=100)
+                    plain_ms, plain_eager_ms = cuda_ms(plain, reps=100)
                     size = 4 if dt == torch.float32 else 8
                     n_bytes = K2_BYTES_PER_POINT[dt_name] * n
                     b_ms, b_by = bound_ms(n_bytes, K2_FLOPS_PER_POINT * n, dt_name)
@@ -684,38 +679,6 @@ def k2_phase(torch, rm, device, card):
     say("K2", f"one Newton return map (`dp_return_map_newton`, 896 f32 points), {how}: "
         f"{len(kernels)} kernel on the card ({kernels[0]}) | {card}")
     return shapes, max_err, bitwise
-
-
-# torch.neg's kernel, launched after the profiled work has finished: the
-# profiled work's kernels are those that start before its last launch, and
-# a profile that lost it saw no device activity and says nothing of the work
-PROFILE_MARKER = "neg_kernel"
-
-
-def profiled_kernels(torch, fn, tries: int = 1):
-    """(kernel events of one run of fn() under torch.profiler, host wall s),
-    or (None, None) if none of `tries` profiles recorded both the marker
-    kernel launched after fn() and a kernel of fn(): the profiler can lose
-    a session's device activity, and such a profile is not read."""
-    from torch.profiler import ProfilerActivity, profile
-
-    x = torch.ones(1024, device="cuda")
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            torch.neg(x)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        marks = [e.time_range.start for e in events if PROFILE_MARKER in e.name]
-        if marks:
-            work = [e for e in events if e.time_range.start < max(marks)]
-            if work:
-                return work, wall
-    return None, None
 
 
 def dispatched_kernels(torch, rm, fn):
@@ -763,7 +726,7 @@ def newton_entry_kernels(torch, rm, device, shear, bulk, eta, c, zeta):
     entry()
     torch.cuda.synchronize()
     tries = 3
-    events, _ = profiled_kernels(torch, entry, tries)
+    events, _ = profiled_kernels(entry, tries)
     if events is not None:
         return [e.name for e in events], "under torch.profiler"
     return (dispatched_kernels(torch, rm, entry),
@@ -864,12 +827,12 @@ def k3_phase(torch, spmv, cases, device, card):
         lib_rel = lib_err / float(y_csr.abs().max())
         check(lib_rel <= K3_TOL, f"K3 {tag}: cuSPARSE differs by {lib_rel:.3e}")
         # in turns: kernel, earlier design, cuSPARSE, plain, then again
-        ms, eager_ms = cuda_ms(torch, kernel)
-        csr_ms, csr_eager_ms = cuda_ms(torch, earlier)
-        lib_ms, lib_eager_ms = cuda_ms(torch, lambda: torch.mv(C_lib, x))
-        plain_ms, plain_eager_ms = cuda_ms(torch, plain, reps=50)
-        ms2, _ = cuda_ms(torch, kernel)
-        csr_ms2, _ = cuda_ms(torch, earlier)
+        ms, eager_ms = cuda_ms(kernel)
+        csr_ms, csr_eager_ms = cuda_ms(earlier)
+        lib_ms, lib_eager_ms = cuda_ms(lambda: torch.mv(C_lib, x))
+        plain_ms, plain_eager_ms = cuda_ms(plain, reps=50)
+        ms2, _ = cuda_ms(kernel)
+        csr_ms2, _ = cuda_ms(earlier)
         rows, cols, nnz = C.shape[0], C.shape[1], int(C.values.numel())
         # the epilogue's inputs: a mask byte a row, z
         vec = 4 * (rows + cols) + (rows if mask is not None else 0) + (4 * rows if adds else 0)
@@ -957,9 +920,9 @@ def k4_phase(torch, spmv, levels, device, card):
             check(torch.equal(got, spmv.block_jacobi_sweep_cuda(B, aux, z, r, update)),
                   f"K4 {case}: not bitwise repeatable")
             ms, eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_cuda(B, aux, z, r, update))
+                lambda: spmv.block_jacobi_sweep_cuda(B, aux, z, r, update))
             plain_ms, plain_eager_ms = cuda_ms(
-                torch, lambda: spmv.node_block_sweep_plain(B, aux, z, r, update))
+                lambda: spmv.node_block_sweep_plain(B, aux, z, r, update))
             nnz, n_blocks = int(A.values.numel()), int(B.block_cols.numel())
             csr_bytes, layout_bytes, flops = sweep_cost(n, nnz, n_blocks, 4, update)
             b_ms, b_by = bound_ms(layout_bytes, flops, "float32")
@@ -1029,13 +992,13 @@ def k6_phase(torch, spmv, cases, device, card):
         csr_rel = float((y_csr - y_plain).abs().max() / y_plain.abs().max())
         check(csr_rel <= 2e-6, f"K6 {tag}: the CSR product differs by {csr_rel:.3e}")
         # in turns: kernel, cuSPARSE, K3/K1, plain, then again
-        ms, eager_ms = cuda_ms(torch, lambda: spmv.sp_matvec(A, x))
-        lib_ms, _ = cuda_ms(torch, lambda: torch.mv(C_lib, x))
-        csr_ms, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
-        plain_ms, plain_eager_ms = cuda_ms(torch, lambda: spmv.ell_matvec_plain(A, x))
-        ms2, _ = cuda_ms(torch, lambda: spmv.sp_matvec(A, x))
-        lib_ms2, _ = cuda_ms(torch, lambda: torch.mv(C_lib, x))
-        csr_ms2, _ = cuda_ms(torch, lambda: spmv.csr_matvec(C, x))
+        ms, eager_ms = cuda_ms(lambda: spmv.sp_matvec(A, x))
+        lib_ms, _ = cuda_ms(lambda: torch.mv(C_lib, x))
+        csr_ms, _ = cuda_ms(lambda: spmv.csr_matvec(C, x))
+        plain_ms, plain_eager_ms = cuda_ms(lambda: spmv.ell_matvec_plain(A, x))
+        ms2, _ = cuda_ms(lambda: spmv.sp_matvec(A, x))
+        lib_ms2, _ = cuda_ms(lambda: torch.mv(C_lib, x))
+        csr_ms2, _ = cuda_ms(lambda: spmv.csr_matvec(C, x))
         vsize = 8 if dt == torch.float64 else 4
         nnz = int(C.values.numel())
         n_bytes, flops, layout = ell_cost(A, nnz, vsize)
@@ -1104,11 +1067,11 @@ def k5_phase(torch, spmv, cases, device, card):
                   f"K5 {case}: not bitwise repeatable")
             same_k4 = torch.equal(got, k4)
             check(same_k4, f"K5 {case}: not bitwise equal to K4 on the widened values")
-            ms, eager_ms = cuda_ms(torch, lambda: spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update))
+            ms, eager_ms = cuda_ms(lambda: spmv.block_jacobi_sweep_cuda(pk, aux, z, r, update))
             k4_ms, k4_eager_ms = cuda_ms(
-                torch, lambda: spmv.block_jacobi_sweep_cuda(B32, aux, z, r, update))
+                lambda: spmv.block_jacobi_sweep_cuda(B32, aux, z, r, update))
             plain_ms, plain_eager_ms = cuda_ms(
-                torch, lambda: spmv.node_block_sweep_plain(pk, aux, z, r, update), reps=reps)
+                lambda: spmv.node_block_sweep_plain(pk, aux, z, r, update), reps=reps)
             nnz, n_blocks = int(A.values.numel()), int(pk.block_cols.numel())
             csr_bytes, layout_bytes, flops = sweep_cost(n, nnz, n_blocks, 2, update)
             b_ms, b_by = bound_ms(layout_bytes, flops, "float32")
@@ -1218,14 +1181,14 @@ def k7_phase(torch, chol, cases, per_factor, card):
               f"solve {gap_solve:.3e}")
         check(gap64 <= tol64, f"K7 {tag}: solve {gap64:.3e} from the f64 solve")
         reps = 20 if n <= 1000 else 10
-        f_ms, f_eager = cuda_ms(torch, lambda: chol.cholesky_factor_cuda(K), reps=reps)
-        s_ms, s_eager = cuda_ms(torch, lambda: chol.cholesky_solve_cuda(L, inv, b, n), reps=reps)
-        fp_ms, fp_eager = cuda_ms(torch, lambda: chol.cholesky_factor_plain(K), reps=2)
-        sp_ms, sp_eager = cuda_ms(torch, lambda: chol.cholesky_solve_plain(L, inv, b, n), reps=5)
+        f_ms, f_eager = cuda_ms(lambda: chol.cholesky_factor_cuda(K), reps=reps)
+        s_ms, s_eager = cuda_ms(lambda: chol.cholesky_solve_cuda(L, inv, b, n), reps=reps)
+        fp_ms, fp_eager = cuda_ms(lambda: chol.cholesky_factor_plain(K), reps=2)
+        sp_ms, sp_eager = cuda_ms(lambda: chol.cholesky_solve_plain(L, inv, b, n), reps=5)
         # the yardstick: cuSOLVER, the calls the dense paths make
         # (cholesky_ex: the same factor without the host read of its info)
-        fl_ms, fl_eager = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(K), reps=reps)
-        sl_ms, sl_eager = cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)
+        fl_ms, fl_eager = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps=reps)
+        sl_ms, sl_eager = cuda_ms(lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)
         n_pad = L.shape[0]
         fb_ms, fb_by = bound_ms(8 * n * n, n ** 3 / 3, "float32")
         # the solve reads, once, L below its diagonal blocks and the lower
@@ -1437,19 +1400,6 @@ def fixture_config(TsxTunnelConfig, ElementType, want):
     c = json.loads(want["config"].item())
     kw = {k: v for k, v in c.items() if k not in ("etype", "steps", "route")}
     return TsxTunnelConfig(etype=ElementType[c["etype"]], zeta_max=c["steps"] / 17, **kw)
-
-
-def idle_share(torch, fn):
-    """(device busy s, idle share, kernels) of one run of fn() under
-    torch.profiler: the share of its host wall in which no kernel ran;
-    (None, None, None) where the profile lost the device's activity
-    (`profiled_kernels`; one try: a profile of a long run costs tens of
-    seconds)."""
-    kernels, wall = profiled_kernels(torch, fn)
-    if kernels is None:
-        return None, None, None
-    busy = 1e-6 * sum(e.device_time_total for e in kernels)
-    return busy, 1.0 - busy / wall, len(kernels)
 
 
 def busy_line(busy, idle, n_kernels) -> str:
@@ -1667,7 +1617,7 @@ def k2_batched_phase(torch, rm, device, card):
     n_b = eta.size
     xf = torch.ones(896, dtype=torch.float32, device=device)
     yf = torch.empty_like(xf)
-    floor_ms = cuda_ms(torch, lambda: torch.neg(xf, out=yf), reps=100)[0]
+    floor_ms = cuda_ms(lambda: torch.neg(xf, out=yf), reps=100)[0]
     shapes, max_err = {}, 0.0
     for n in (896, 3584):
         rng = np.random.default_rng(SEED + 7 * n)
@@ -1715,10 +1665,10 @@ def k2_batched_phase(torch, rm, device, card):
                           f"K2 batched {tag}: not bitwise the {n_b} single launches")
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"K2 batched {tag}: two launches differ")
-                    ms, eager_ms = cuda_ms(torch, lambda: rm.dp_return_map_batched_cuda(*args),
+                    ms, eager_ms = cuda_ms(lambda: rm.dp_return_map_batched_cuda(*args),
                                            reps=100)
-                    plain_ms = cuda_ms(torch, plain, reps=10)[0]
-                    singles_ms, singles_eager_ms = cuda_ms(torch, singles, reps=10)
+                    plain_ms = cuda_ms(plain, reps=10)[0]
+                    singles_ms, singles_eager_ms = cuda_ms(singles, reps=10)
                     n_bytes = K2_BYTES_PER_POINT[dt_name] * n_b * n
                     b_ms, b_by = bound_ms(n_bytes, K2_FLOPS_PER_POINT * n_b * n, dt_name)
                     shapes[tag] = dict(
@@ -1807,7 +1757,7 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
                   for x, y in zip(e1, e2)), f"ensemble {tag}: two runs differ")
         newton.ENSEMBLE_STATS.clear()
         prof_cfg = dataclasses.replace(cfg, max_trips=ENSEMBLE_CG_PROFILE_TRIPS) if cg else cfg
-        busy, idle, n_kernels = idle_share(torch, lambda: solve(prof_cfg))
+        busy, idle, n_kernels = idle_share(lambda: solve(prof_cfg))
         prof_stats = dict(newton.ENSEMBLE_STATS)
         if tag == "f32":
             k2_launches = launches
@@ -2191,7 +2141,6 @@ def option_kernels_phase(torch, spmv, adf, footing, FootingConfig, footing_extra
 # split-z instance in place of K4
 SHARD_SCALE_KERNELS = ("node_block_spmv", "node_transfer", "block_jacobi_sweep_split",
                        "csr_spmv_f64")
-SHARD_Z3 = 3 / 17
 # the footing's L2 tangent multigrid cut at zeta 0.004, over its first
 # load trip: a gather takes ~7 ms at 8 ranks on one card; the whole cut (4
 # trips, 9,512 gathers a rank) took 68 s, its first two trips 24.5 s
@@ -2244,9 +2193,9 @@ def split_z_phase(torch, spmv, sharding, hier, host_levels, n_slices: int, devic
                 for loc, aux_l, r_l in cut:
                     spmv.node_block_sweep_plain(loc, aux_l, z, r_l, update)
 
-            ms, eager_ms = cuda_ms(torch, slices, reps=100)
-            plain_ms, _ = cuda_ms(torch, slices_plain, reps=20)
-            whole_ms, _ = cuda_ms(torch, lambda: spmv.block_jacobi_sweep_cuda(
+            ms, eager_ms = cuda_ms(slices, reps=100)
+            plain_ms, _ = cuda_ms(slices_plain, reps=20)
+            whole_ms, _ = cuda_ms(lambda: spmv.block_jacobi_sweep_cuda(
                 B, aux, z, r, update), reps=100)
             nnz = int(host_levels[li]["K"].nnz)
             _, layout_bytes, flops = sweep_cost(n, nnz, int(B.block_cols.numel()), 4, update)
@@ -2281,16 +2230,19 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
     CPU, none with JAX loaded), then, one spawn a rank count: `solve_sharded`
     at 2 ranks over the full schedule (the single card's `solve(
     TsxTunnelConfig(solver="cg"))` steps and Newton iterations, u within
-    1e-14) and at 3 against 2 ranks at zeta 3/17 (1e-14);
-    `solve_sharded_df32` at 2 ranks (1e-12 of max |u| from the single df32
-    CG solve, the same steps); `solve_sharded_scale(fast_scale(1))` at 8
-    ranks and `fast_scale(4)` at 4 ranks, each bitwise the single card's
-    (the u digests of phases 14 and 17, the counts); the footing's tangent
-    multigrid at L2, zeta 0.004 (its first load trip), at 8 ranks, bitwise the
-    single card's run;
-    the 64-member df32 parity ensemble at 2 ranks (32 members a rank)
-    against phase 33's one-card ensemble (steps and Newton equal, u within
-    SHARD_ENSEMBLE_U_REL relative); `dryrun_multichip`'s gates at 8 ranks.
+    1e-14); `solve_sharded_df32` at 2 ranks (1e-12 of max |u| from the
+    single df32 CG solve, the same steps); the 64-member df32 parity
+    ensemble at 2 ranks (32 members a rank) against phase 33's one-card
+    ensemble (steps and Newton equal, u within SHARD_ENSEMBLE_U_REL
+    relative); the dry run's four parts at 2 ranks (`dryrun_rank`, the JAX
+    package's `dryrun_multichip`), held to `check_dryrun`'s gates, its two
+    deflated row-sharded parts (`fast_scale(1, zeta_max=3/17,
+    cg_deflate=4)`, the footing's level-3 tangent multigrid with
+    cg_deflate=8 to zeta 0.002) bitwise their single-card runs;
+    `solve_sharded_scale(fast_scale(1))` at 8 ranks and `fast_scale(4)` at
+    4 ranks, each bitwise the single card's (the u digests of phases 14
+    and 17, the counts); the footing's tangent multigrid at L2, zeta 0.004
+    (its first load trip), at 8 ranks, bitwise the single card's run.
     Walls (rank 0, between barriers), gathers and kernel launches (all
     ranks) of each; no profile (rank 0's device idle share per rank count:
     `tools/sharded_profile.py`).
@@ -2310,25 +2262,33 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
     run_f, _ = footing.build_df32(fcfg, device=device)
     f1, f1_wall = timed(torch, run_f)
     del run_f
+    # the dry run's deflated row-sharded parts on the single card
+    dry_cfg = sharding.dryrun_configs()
+    ex_d = {}
+    run_d, mesh_d = tsx.build_df32(dry_cfg["scale"][1], device=device, extras=ex_d)
+    d1, d1_wall = timed(torch, run_d)
+    d1 = tsx._df32_result(d1, mesh_d, ex_d)
+    run_f, _ = footing.build_df32(dry_cfg["footing"][1], device=device)
+    fd1, fd1_wall = timed(torch, run_f)
+    del run_d, run_f, ex_d
     say("sharded", f"single-card references: tsx f64 CG {counts(cg1)} in {cg1_wall:.2f} s, "
         f"df32 CG {counts(df1)}, footing L2 tangent MG zeta 0.004 {f1.n_steps} / "
-        f"{f1.n_newton_total} / {f1.n_cg_total} in {f1_wall:.2f} s | {card}")
-    z3 = TsxTunnelConfig(zeta_max=SHARD_Z3)
+        f"{f1.n_newton_total} / {f1.n_cg_total} in {f1_wall:.2f} s, the dry run's "
+        f"fast_scale(1) deflated {counts(d1)} in {d1_wall:.2f} s and footing L3 tangent MG "
+        f"deflated {counts(fd1)} in {fd1_wall:.2f} s | {card}")
     _, _, eta, c = ensemble_grid(np)
     m = sharding.measured
     jobs = {
         2: [(sharding.describe, ()),
             (m, (tsx.solve_sharded_rank, (TsxTunnelConfig(),))),
-            (m, (tsx.solve_sharded_rank, (z3,))),
             (m, (tsx.solve_sharded_df32_rank, (TsxTunnelConfig.fast(solver="cg"),))),
-            (m, (ens.ensemble_rank, (eta, c, TsxTunnelConfig.fast())))],
-        3: [(sharding.describe, ()), (m, (tsx.solve_sharded_rank, (z3,)))],
+            (m, (ens.ensemble_rank, (eta, c, TsxTunnelConfig.fast()))),
+            (m, (sharding.dryrun_rank, ()))],
         4: [(sharding.describe, ()),
             (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(4),)))],
         8: [(sharding.describe, ()),
             (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(1),))),
-            (m, (footing.solve_sharded_rank, (fcfg,))),
-            (m, (sharding.dryrun_rank, ()))],
+            (m, (footing.solve_sharded_rank, (fcfg,)))],
     }
     out, launches, walls = {}, {}, {}
     for n, job in jobs.items():
@@ -2346,17 +2306,14 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
             f"runs " + ", ".join(f"{r['wall_s']:.2f}" for r in runs) + f" s | {card}")
         out[n] = runs
 
-    # 2 ranks: the element-sharded solves and the member-sharded ensemble
-    full, z3_2, df2, ens2 = out[2]
+    # 2 ranks: the element-sharded solves, the member-sharded ensemble and
+    # the dry run
+    full, df2, ens2, dry = out[2]
     r = full["result"]
     du = float(np.abs(r.u - cg1.u).max())
     check((r.n_steps, r.n_newton_total) == (cg1.n_steps, cg1.n_newton_total) == (17, 28)
           and du <= 1e-14, f"solve_sharded x2: {counts(r)}, u {du:.3e} from the single card's "
           f"{counts(cg1)}")
-    r3 = out[3][0]["result"]
-    d32 = float(np.abs(r3.u - z3_2["result"].u).max())
-    check(r3.n_steps == z3_2["result"].n_steps and d32 <= 1e-14,
-          f"solve_sharded x3 against x2 at zeta 3/17: u {d32:.3e}")
     rd = df2["result"]
     ddf = float(np.abs(rd.u - df1.u).max()) / float(np.abs(df1.u).max())
     check(rd.n_steps == df1.n_steps and ddf <= 1e-12,
@@ -2375,6 +2332,16 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
     for tag, mm in (("solve_sharded x2", full), ("solve_sharded_df32 x2", df2),
                     ("ensemble df32 x2", ens2)):
         check_sharded_run(tag, mm)
+    sharding.check_dryrun(dry["result"])
+    ds, dfo = dry["result"]["scale"], dry["result"]["footing"]
+    check(counts(ds) == counts(d1) and u_digest(ds.u) == u_digest(d1.u),
+          f"dryrun x2 fast_scale(1) deflated: {counts(ds)} u {u_digest(ds.u)[:16]}, the single "
+          f"card's {counts(d1)} u {u_digest(d1.u)[:16]}")
+    check((dfo.n_steps, dfo.newton_trips, dfo.n_cg_total, dfo.n_plastic)
+          == (fd1.n_steps, fd1.newton_trips, fd1.n_cg_total, fd1.n_plastic)
+          and np.array_equal(dfo.u, fd1.u), f"dryrun x2 footing L3 deflated: {counts(dfo)}, "
+          f"single card {counts(fd1)}, u equal {np.array_equal(dfo.u, fd1.u)}")
+    check_sharded_run("dryrun x2", dry, SHARD_SCALE_KERNELS)
     # 4 and 8 ranks: the row-sharded scale paths, bitwise the single card
     s4, s1 = out[4][0], out[8][0]
     for tag, mm, ref in (("fast_scale(4) x4", s4, refs["scale4"]),
@@ -2391,34 +2358,192 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
           f"{rf.n_newton_total} / {rf.n_cg_total}, single card {f1.n_steps} / "
           f"{f1.n_newton_total} / {f1.n_cg_total}, u equal {np.array_equal(rf.u, f1.u)}")
     check_sharded_run("footing tangent MG x8", fm, SHARD_SCALE_KERNELS + ("csr_spmv_f32",))
-    sharding.check_dryrun(*out[8][2]["result"])
 
-    runs = {"solve_sharded_x2": (full, "17-step f64 CG"), "solve_sharded_z3_x2": (z3_2, "z 3/17"),
-            "solve_sharded_z3_x3": (out[3][0], "z 3/17"), "solve_sharded_df32_x2": (df2, "df32"),
-            "ensemble_df32_x2": (ens2, "64 members"), "scale_L4_x4": (s4, "228,112 DOFs"),
-            "scale_L1_x8": (s1, "3,678 DOFs"), "footing_tmg_L2_x8": (fm, "one trip"),
-            "dryrun_x8": (out[8][2], "two steps each")}
+    runs = {"solve_sharded_x2": (full, "17-step f64 CG"), "solve_sharded_df32_x2": (df2, "df32"),
+            "ensemble_df32_x2": (ens2, "64 members"),
+            "dryrun_x2": (dry, "four parts: f64, df32, scale L1 and footing L3 deflated"),
+            "scale_L4_x4": (s4, "228,112 DOFs"),
+            "scale_L1_x8": (s1, "3,678 DOFs"), "footing_tmg_L2_x8": (fm, "one trip")}
     records = {}
     for tag, (mm, what) in runs.items():
         res = mm["result"]
-        cnt = counts(res) if hasattr(res, "n_cg_total") else None
+        if isinstance(res, dict):  # the dry run: counts by part
+            cnt = {part: counts(v) for part, v in res.items()}
+            kept = {part: [int(x) for x in v] for part, v in cnt.items()}
+        else:
+            cnt = counts(res) if hasattr(res, "n_cg_total") else None
+            kept = None if cnt is None else [int(x) for x in cnt]
         idle = None if mm["busy_s"] is None else 1.0 - mm["busy_s"] / mm["wall_s"]
         records[tag] = dict(wall_s=mm["wall_s"], busy_s=mm["busy_s"], idle_share=idle,
-                            counts=None if cnt is None else [int(x) for x in cnt],
-                            launches=mm["launches"], collectives=mm["collectives"])
+                            counts=kept, launches=mm["launches"],
+                            collectives=mm["collectives"])
         launches[f"sharded_{tag}"] = mm["launches"]
         busy = ("" if mm["busy_s"] is None
                 else f", rank 0 device busy {mm['busy_s']:.4f} s, idle share {idle:.3f}")
         say("sharded", f"{tag} ({what}): wall {mm['wall_s']:.2f} s{busy}, counts {cnt}, "
             f"gathers {mm['collectives'].get('gathers', 0)} (all ranks), launches "
             f"{mm['launches']} | {card}")
-    say("sharded", f"u within 1e-14 (x2 17 steps {du:.3e}, x3 against x2 {d32:.3e}), df32 rel "
+    say("sharded", f"u within 1e-14 (x2 17 steps {du:.3e}), df32 rel "
         f"{ddf:.3e}, fast_scale(4) x4 and fast_scale(1) x8 u digests and counts the single "
-        f"card's, footing x8 bitwise, ensemble x2 max rel {float(rel.max()):.3e}, members "
+        f"card's, footing x8 bitwise, the dry run's deflated parts x2 bitwise, ensemble x2 "
+        f"max rel {float(rel.max()):.3e}, members "
         f"parting by their Newton count (member, trip, x2's, one card's, the criterion of the "
         f"one that stopped first, at newton_tol) {forks}; spawns "
         + ", ".join(f"x{n} {w:.1f} s" for n, w in walls.items()) + f" | {card}")
     return dict(runs=records, spawn_s=walls), launches
+
+
+# phase 38: the side layers.  The bench preset's checkpoint splits its
+# schedule where the JAX package's resume test does (tests/test_utils.py)
+SIDE_SPLIT_ZETA = 8 / 17
+# the example scripts, each with the figures its `--draw` makes
+SIDE_EXAMPLES = (("elasticity2d_torch", 2), ("plasticity_dp_torch", 1), ("tsx_tunnel_torch", 3))
+
+
+def load_example(name: str):
+    """`examples/<name>.py` as a module, for its `main(argv)` in-process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_example(name: str, res, out: str) -> None:
+    """An example script's printout at its defaults against its anchor."""
+    import numpy as np
+
+    if name == "elasticity2d_torch":  # Q2 level 1
+        energy = float(out.split("Stored energy: ")[1].split()[0])
+        want = ELASTICITY_ANCHORS[("Q2", 1)]
+        check(abs(energy - want) / want < 1e-10, f"{name}: energy {energy!r}, anchor {want}")
+    elif name == "plasticity_dp_torch":  # P1 level 1, f64
+        check(out.startswith("accepted steps: 16\n") and res.n_steps == 16
+              and "Maximal load factor was achieved." in out, f"{name}: {out!r}")
+        p_rel = float(np.abs(res.pressure_hist[1:17] - np.asarray(FOOTING_PRESSURES)).max()
+                      / max(FOOTING_PRESSURES))
+        check(p_rel <= 1e-4, f"{name}: pressures {p_rel:.3e} from the reference")
+    else:  # the tsx, P1 f64
+        u40 = float(out.split("u_x(node 40): ")[1].split()[0])
+        rel = abs(u40 - ANCHOR_U40_F64) / abs(ANCHOR_U40_F64)
+        check(out.startswith("accepted steps: 17\nNewton iterations: 28\n") and rel < 1e-9,
+              f"{name}: {out!r}, u40 {rel:.3e} from the anchor")
+
+
+def side_layers_phase(torch, spmv, tsx, TsxTunnelConfig, bench_digest: str, device, card):
+    """Phase 38: the side layers on the card.
+
+    The three example scripts (`examples/*_torch.py`) in-process at their
+    defaults, each printing its anchor (`check_example`), with `--draw --figdir` under
+    Agg where matplotlib is installed (each figure non-empty); the bench
+    preset `TsxTunnelConfig.fast(assembled_cg=True)` run to zeta 8/17, its
+    carry written through `utils.checkpoint.SolverCheckpoint`, read back and
+    resumed to 1: 17 / 28 and u bitwise the uninterrupted run's (phase 7's
+    digest), K1 launched and no plain version; `utils.timing`'s Timer,
+    time_call and trace around the same preset, and `utils.metrics.log_run`
+    on its result (17 step records).  Returns the split run's launches."""
+    import contextlib
+    import dataclasses
+    import importlib.util
+    import io
+    import logging
+    import tempfile
+
+    from fem_elastoplasticity_tpu_torch.solve.newton import carry_of
+    from fem_elastoplasticity_tpu_torch.utils import checkpoint as ckpt
+    from fem_elastoplasticity_tpu_torch.utils import metrics, timing
+
+    draw = importlib.util.find_spec("matplotlib") is not None
+    if draw:
+        import matplotlib
+
+        matplotlib.use("Agg")
+    with tempfile.TemporaryDirectory(prefix="side_layers_") as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, n_figs in SIDE_EXAMPLES:
+            argv = ["--draw", "--figdir", str(tmp / name)] if draw else []
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = load_example(name).main(argv)
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            check_example(name, res, out)
+            figs = "matplotlib is not installed: --draw not run"
+            if draw:
+                sizes = [f.stat().st_size for f in sorted((tmp / name).glob("*.png"))]
+                check(len(sizes) == n_figs and all(sizes), f"{name}: figures {sizes}")
+                figs = f"figures {sizes} bytes"
+            say("side layers", f"{name} {' '.join(argv)} in {wall:.2f} s: "
+                + " / ".join(" ".join(line.split()) for line in out.strip().splitlines())
+                + f"; {figs} | {card}")
+
+        # the bench preset split by a checkpoint file
+        cfg = TsxTunnelConfig.fast(assembled_cg=True)
+        run, _ = tsx.build_df32(cfg, device=device)
+        run_a, _ = tsx.build_df32(dataclasses.replace(cfg, zeta_max=SIDE_SPLIT_ZETA),
+                                  device=device)
+        spmv.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        part1 = run_a()
+        path = tmp / "bench_split.npz"
+        ckpt.save(str(path), ckpt.from_carry(carry_of(part1)))
+        part2 = run(resume=ckpt.to_carry(ckpt.load(str(path)), device))
+        torch.cuda.synchronize()
+        split_wall = time.perf_counter() - t0
+        split_launches = dict(spmv.LAUNCHES)
+        r = tsx._df32_result(part2, None)
+        check((int(part1.n_steps), r.n_steps, r.n_newton_total) == (8, 17, 28)
+              and u_digest(r.u) == bench_digest,
+              f"checkpoint: {int(part1.n_steps)} + {r.n_steps} steps / {r.n_newton_total} its, u "
+              f"{u_digest(r.u)[:16]}, the uninterrupted run's {bench_digest[:16]}")
+        check(split_launches.get("csr_spmv_f64", 0) > 0
+              and not split_launches.get("csr_spmv_f64_plain", 0),
+              f"checkpoint: launches {split_launches}")
+        say("side layers", f"bench preset split at zeta 8/17 ({int(part1.n_steps)} steps) "
+            f"through a SolverCheckpoint file ({path.stat().st_size} bytes) and resumed: "
+            f"{r.n_steps} steps / {r.n_newton_total} its, u sha256 {u_digest(r.u)} (bitwise "
+            f"the uninterrupted run's), launches {split_launches}, wall {split_wall:.3f} s "
+            f"(both parts) | {card}")
+
+        # utils.timing and utils.metrics around the same preset
+        t = timing.Timer()
+        for _ in range(3):
+            with t.lap("bench") as box:
+                box["sync"] = run()
+        call_s = timing.time_call(run, reps=3, warmup=1)
+        with timing.trace(str(tmp / "trace")):
+            traced = run()
+            timing.host_sync(traced)
+        traces = list((tmp / "trace").glob("trace.*.json"))
+        check(len(traces) == 1 and traces[0].stat().st_size > 0, f"trace: files {traces}")
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        rb = tsx._df32_result(traced, None)
+        check(u_digest(rb.u) == bench_digest, "timing: a timed run differs from phase 7's")
+        records = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                records.append(record.getMessage())
+
+        keep, level = Keep(), metrics.log.level
+        metrics.log.addHandler(keep)
+        metrics.log.setLevel(logging.INFO)
+        try:
+            metrics.log_run(rb, monitor_name="u40")
+        finally:
+            metrics.log.removeHandler(keep)
+            metrics.log.setLevel(level)
+        n_steps = sum(m.startswith("step: ") for m in records)
+        check(n_steps == 17 and any(m.startswith("run summary: ") and '"n_steps": 17' in m
+                                    for m in records), f"metrics: {records[:2]}")
+        say("side layers", f"bench preset: Timer laps {t.laps['bench']} s (median "
+            f"{t.median('bench'):.4f}), time_call median {call_s:.4f} s, trace "
+            f"{traces[0].stat().st_size} bytes with {len(events)} events, {n_kernels} of them "
+            f"kernels, log_run {len(records)} records ({n_steps} steps) | {card}")
+    return split_launches
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -2433,7 +2558,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     import numpy as np
 
     from fem_elastoplasticity_tpu_torch.models import footing
@@ -2520,6 +2644,7 @@ def main() -> int:
     check(counts(r1) == counts(r2),
           "bench: two runs differ in their counts")
     check(torch.equal(res1.u, res2.u), "bench: two runs differ in u")
+    bench_digest = u_digest(r1.u)
     field = float(abs(r1.u - r64.u).max() / abs(r64.u).max())
     check(field < 1e-11, f"bench: field differs from the f64 solve by {field:.3e}")
     say("bench", f"17 steps / 28 its, u40 rel {rel_df:.3e}, field vs f64 {field:.3e}, "
@@ -3051,7 +3176,7 @@ def main() -> int:
     p4, p4_res, p4_setup, p4_first, p4_warm, l_p4, ex_p4, run_p4, _ = df32_twice(
         torch, spmv, tsx, cfg_p4, device)
     hi_launches["tsx_P4_pmg"] = l_p4
-    p4_busy, p4_idle, p4_kernels = idle_share(torch, run_p4)
+    p4_busy, p4_idle, p4_kernels = idle_share(run_p4)
     check(p4.u.shape == (7226, 2) and bool(np.isfinite(p4.u).all() and np.isfinite(p4.ep).all()),
           f"tsx P4: bad field {p4.u.shape}")
     p4_counts = (p4.n_steps, p4.n_newton_total, p4.n_plastic)
@@ -3219,6 +3344,13 @@ def main() -> int:
     del ens_results
     say("phase time", f"sharded runs {time.perf_counter() - t_phase:.1f} s | {card}")
 
+    # phase 38: the side layers (the example scripts, checkpoint, timing,
+    # metrics)
+    t_phase = time.perf_counter()
+    side_launches = side_layers_phase(torch, spmv, tsx, TsxTunnelConfig, bench_digest,
+                                      device, card)
+    say("phase time", f"side layers {time.perf_counter() - t_phase:.1f} s | {card}")
+
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
 
@@ -3231,7 +3363,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/csr_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1370",
-        "launches_by_path": by_path("csr_spmv_f64", bench=launches, scale_L1=l1_launches,
+        "launches_by_path": by_path("csr_spmv_f64", bench=launches,
+                                    bench_checkpoint_resumed=side_launches, scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_ELL_L1=e1_launches,
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],

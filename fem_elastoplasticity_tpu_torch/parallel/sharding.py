@@ -327,35 +327,68 @@ def gather_points(x: torch.Tensor, n_real_points: int, n_int: int,
 # ---------------------------------------------------------------------------
 # the multi-device dry run
 # ---------------------------------------------------------------------------
-def dryrun_rank(group: ShardGroup) -> tuple:
-    """Rank function of `dryrun_multichip`: (f64 result, df32 result)."""
+# its parts, in the order of the JAX package's `__graft_entry__.py:116-170`
+DRYRUN_PARTS = ("f64", "df32", "scale", "footing")
+# the fewest accepted steps each part must reach
+DRYRUN_MIN_STEPS = {"f64": 2, "df32": 2, "scale": 3, "footing": 2}
+
+
+def dryrun_configs() -> dict:
+    """{part: (rank function, configuration)} of the dry run: two load steps
+    of the element-sharded f64 and df32 solves; three of the row-sharded
+    scale preset at refine level 1 with a deflation basis of 4; the
+    footing's level-3 tangent multigrid, row-sharded, with a deflation
+    basis of 8, to zeta 0.002."""
+    from ..models import footing
     from ..models import tsx_tunnel as tsx
-    from ..models.config import TsxTunnelConfig
+    from ..models.config import FootingConfig, TsxTunnelConfig
 
     zeta_max = 2.0 / 17.0  # two load steps: tiny
-    r = tsx.solve_sharded_rank(group, TsxTunnelConfig(zeta_max=zeta_max))
-    r_df = tsx.solve_sharded_df32_rank(group, TsxTunnelConfig.fast(solver="cg",
-                                                                   zeta_max=zeta_max))
-    return r, r_df
+    return {
+        "f64": (tsx.solve_sharded_rank, TsxTunnelConfig(zeta_max=zeta_max)),
+        "df32": (tsx.solve_sharded_df32_rank,
+                 TsxTunnelConfig.fast(solver="cg", zeta_max=zeta_max)),
+        "scale": (tsx.solve_sharded_scale_rank,
+                  TsxTunnelConfig.fast_scale(1, zeta_max=3.0 / 17.0, cg_deflate=4)),
+        "footing": (footing.solve_sharded_rank,
+                    FootingConfig.fast(solver="cg", level=3, tangent_mg=True, zeta_max=0.002,
+                                       cg_deflate=8)),
+    }
 
 
-def dryrun_multichip(n_devices: int, device=None) -> tuple:
-    """Two load steps of the element-sharded solves on `n_devices` ranks
-    (the counterpart of the JAX package's `__graft_entry__.dryrun_multichip`):
-    `solve_sharded` (f64) and `solve_sharded_df32`, at zeta_max = 2/17,
-    both finite with at least two accepted steps and the df32 field within
-    1e-9 of max |u| of the f64 one.  Returns (f64 result, df32 result)."""
-    r, r_df = spawn(dryrun_rank, n_devices, device=device)
-    check_dryrun(r, r_df)
-    return r, r_df
+def dryrun_rank(group: ShardGroup, parts: Sequence[str] = DRYRUN_PARTS) -> dict:
+    """Rank function of `dryrun_multichip`: {part: result} of `parts`."""
+    configs = dryrun_configs()
+    out = {}
+    for part in parts:
+        fn, cfg = configs[part]
+        out[part] = fn(group, cfg)
+    return out
 
 
-def check_dryrun(r, r_df) -> None:
-    """`dryrun_multichip`'s gates; raises AssertionError."""
-    for tag, res in (("f64", r), ("df32", r_df)):
-        if res.n_steps < 2 or not np.isfinite(res.u).all():
-            raise AssertionError(f"dryrun {tag}: {res.n_steps} steps, finite "
-                                 f"{bool(np.isfinite(res.u).all())}")
-    d = float(np.abs(r_df.u - r.u).max())
-    if not d < 1e-9 * max(float(np.abs(r.u).max()), 1e-30):
-        raise AssertionError(f"dryrun: df32 field {d:.3e} from the f64 one")
+def dryrun_multichip(n_devices: int, device=None, parts: Sequence[str] = DRYRUN_PARTS) -> dict:
+    """The JAX package's `__graft_entry__.dryrun_multichip` on `n_devices`
+    ranks, its four parts (`dryrun_configs`): `solve_sharded` (f64) and
+    `solve_sharded_df32` at zeta_max = 2/17, `solve_sharded_scale` of
+    `fast_scale(1, zeta_max=3/17, cg_deflate=4)` and the footing's
+    `solve_sharded` of its level-3 tangent multigrid with cg_deflate=8 to
+    zeta 0.002; `parts` picks some of them.  Each is held to
+    `check_dryrun`'s gates.  Returns {part: result}."""
+    out = spawn(dryrun_rank, n_devices, tuple(parts), device=device)
+    check_dryrun(out)
+    return out
+
+
+def check_dryrun(results: dict) -> None:
+    """`dryrun_multichip`'s gates on {part: result}: each part finite with
+    at least `DRYRUN_MIN_STEPS` accepted steps, and the df32 field within
+    1e-9 of max |u| of the f64 one where both ran; raises AssertionError."""
+    for part, res in results.items():
+        finite = bool(np.isfinite(res.u).all())
+        if res.n_steps < DRYRUN_MIN_STEPS[part] or not finite:
+            raise AssertionError(f"dryrun {part}: {res.n_steps} steps, finite {finite}")
+    if "f64" in results and "df32" in results:
+        r, r_df = results["f64"], results["df32"]
+        d = float(np.abs(r_df.u - r.u).max())
+        if not d < 1e-9 * max(float(np.abs(r.u).max()), 1e-30):
+            raise AssertionError(f"dryrun: df32 field {d:.3e} from the f64 one")

@@ -291,6 +291,10 @@ def test_port_imports_without_jax():
         "import fem_elastoplasticity_tpu_torch.models.footing\n"
         "import fem_elastoplasticity_tpu_torch.ops.return_map\n"
         "import fem_elastoplasticity_tpu_torch.utils.convert\n"
+        "import fem_elastoplasticity_tpu_torch.utils.timing\n"
+        "import fem_elastoplasticity_tpu_torch.utils.metrics\n"
+        "import fem_elastoplasticity_tpu_torch.utils.checkpoint\n"
+        "import fem_elastoplasticity_tpu_torch.viz\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('fem_elastoplasticity_tpu.') or m == 'fem_elastoplasticity_tpu']\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

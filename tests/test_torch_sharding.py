@@ -129,9 +129,47 @@ def test_ranks_import_no_jax():
     assert not any(i[4] for i in info), info
 
 
+# the dry run's parts on CPU ranks: the footing's level-3 part takes ~30 s
+# on two CPU ranks here and runs on the card (`chip_smoke.py` phase 37)
+DRYRUN_CPU_PARTS = ("f64", "df32", "scale")
+
+
+@functools.lru_cache(maxsize=None)
+def _dryrun():
+    return sharding.dryrun_multichip(2, device=CPU, parts=DRYRUN_CPU_PARTS)
+
+
 def test_dryrun_multichip():
-    r, r_df = sharding.dryrun_multichip(2, device=CPU)
-    assert r.n_steps == r_df.n_steps == 2
+    out = _dryrun()
+    assert tuple(out) == DRYRUN_CPU_PARTS
+    assert out["f64"].n_steps == out["df32"].n_steps == 2
+    assert out["scale"].n_steps == 3
+
+
+def test_sharded_deflation_is_bitwise_single_device():
+    """The dry run's third part: `fast_scale(1, zeta_max=3/17,
+    cg_deflate=4)` row-sharded over two ranks, its deflation basis and
+    ring replicated, bit for bit the single-device build and held to the
+    JAX package's run of the same configuration."""
+    from test_torch_tsx_options import ELASTIC_CUTS, check_run, config_of, fixture
+
+    cfg = sharding.dryrun_configs()["scale"][1]
+    want = fixture("tsx_scale_l1_defl4_z3")
+    assert config_of(want) == cfg
+    extras = {}
+    run, mesh = tsx.build_df32(cfg, device=CPU, extras=extras)
+    res = run()
+    r1 = tsx._df32_result(res, mesh, extras)
+    r = _dryrun()["scale"]
+    assert (r.n_steps, r.n_newton_total, r.n_cg_total, r.n_plastic) == (
+        r1.n_steps, r1.n_newton_total, r1.n_cg_total, r1.n_plastic)
+    np.testing.assert_array_equal(r.u, r1.u)
+    np.testing.assert_array_equal(r.ep, r1.ep)
+    np.testing.assert_array_equal(r.zeta_hist, r1.zeta_hist)
+    # its schedule is the single build's, whose load trips `check_run` reads;
+    # an elastic cut, whose CG count is printed, not held
+    assert "tsx_scale_l1_defl4_z3" in ELASTIC_CUTS
+    check_run(want, res, r, cfg, hold_cg=False)
 
 
 # ---------------------------------------------------------------------------

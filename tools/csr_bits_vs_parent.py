@@ -123,10 +123,10 @@ def main() -> int:
         all_equal &= all(equal)
         A_lib = torch.sparse_csr_tensor(A.indptr, A.indices, A.values, A.shape,
                                         check_invariants=False)
-        t_old = [cuda_ms(torch, lambda: old(A, x))[0]]
-        t_new = [cuda_ms(torch, lambda: new(A, x))[0] for _ in range(2)]
-        t_old.append(cuda_ms(torch, lambda: old(A, x))[0])
-        t_lib = cuda_ms(torch, lambda: torch.mv(A_lib, x))[0]
+        t_old = [cuda_ms(lambda: old(A, x))[0]]
+        t_new = [cuda_ms(lambda: new(A, x))[0] for _ in range(2)]
+        t_old.append(cuda_ms(lambda: old(A, x))[0])
+        t_lib = cuda_ms(lambda: torch.mv(A_lib, x))[0]
         nnz, vsize = int(A.values.numel()), A.values.element_size()
         n_bytes = (vsize + 4) * nnz + 4 * (A.shape[0] + 1) + vsize * (A.shape[1] + A.shape[0])
         b_ms, _ = bound_ms(n_bytes, 2 * nnz, dt)

@@ -15,7 +15,7 @@ Jacobi-scaled tsx K_free at 908, the footing's f32 K_free at 816), the
 earlier one-block solve in DIR against this tree's cooperative one: the
 gap between the two and to the f64 solve, and the times in turns beside
 cuSOLVER's `cholesky_solve`.  CUDA events over a CUDA graph of the launches
-(`chip_smoke.cuda_ms`).  Prints one line a case and one JSON line (`--out
+(`utils.timing.cuda_ms`).  Prints one line a case and one JSON line (`--out
 FILE` writes it too); exits 1 if a K2 output differs.
 
     python tools/k2_k7_vs_parent.py --parent DIR [--out FILE]
@@ -149,15 +149,15 @@ def main() -> int:
                 got, want = rm.dp_return_map_cuda(*new_args), old_path()
                 equal = all(torch.equal(g, w) for g, w in zip(got, want))
                 all_equal &= equal
-                t_old = [cuda_ms(torch, lambda: old_k2(e3, ep, params, shear, bulk, apply,
+                t_old = [cuda_ms(lambda: old_k2(e3, ep, params, shear, bulk, apply,
                                                        apex), reps=100)[0]]
-                t_old_path = [cuda_ms(torch, old_path, reps=100)[0]]
-                t_new = [cuda_ms(torch, lambda: rm.dp_return_map_cuda(*new_args),
+                t_old_path = [cuda_ms(old_path, reps=100)[0]]
+                t_new = [cuda_ms(lambda: rm.dp_return_map_cuda(*new_args),
                                  reps=100)[0] for _ in range(2)]
-                t_old_path.append(cuda_ms(torch, old_path, reps=100)[0])
-                t_old.append(cuda_ms(torch, lambda: old_k2(e3, ep, params, shear, bulk, apply,
+                t_old_path.append(cuda_ms(old_path, reps=100)[0])
+                t_old.append(cuda_ms(lambda: old_k2(e3, ep, params, shear, bulk, apply,
                                                            apex), reps=100)[0])
-                floor = cuda_ms(torch, lambda: torch.neg(xf, out=yf), reps=100)[0]
+                floor = cuda_ms(lambda: torch.neg(xf, out=yf), reps=100)[0]
                 tag = (f"n{n}_{str(dt)[6:]}_{'ep' if apply else 'noep'}"
                        f"{'_trial' if apex else ''}")
                 k2[tag] = dict(bitwise_equal=equal, ms=t_new, earlier_ms=t_old,
@@ -179,11 +179,11 @@ def main() -> int:
         between = float((x_new - x_old).abs().max() / x_old.abs().max())
         L_lib = torch.linalg.cholesky(K)
         reps = 20 if n <= 1000 else 10
-        t_old = [cuda_ms(torch, lambda: old_solve(L, inv, b, n), reps=reps)[0]]
-        t_new = [cuda_ms(torch, lambda: chol.cholesky_solve(L, inv, b, n), reps=reps)[0]
+        t_old = [cuda_ms(lambda: old_solve(L, inv, b, n), reps=reps)[0]]
+        t_new = [cuda_ms(lambda: chol.cholesky_solve(L, inv, b, n), reps=reps)[0]
                  for _ in range(2)]
-        t_old.append(cuda_ms(torch, lambda: old_solve(L, inv, b, n), reps=reps)[0])
-        t_lib = cuda_ms(torch, lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)[0]
+        t_old.append(cuda_ms(lambda: old_solve(L, inv, b, n), reps=reps)[0])
+        t_lib = cuda_ms(lambda: torch.cholesky_solve(b[:, None], L_lib), reps=reps)[0]
         blocks, _ = chol._solve_grid(L.device.index, L.shape[0])
         k7[tag] = dict(n=n, n_pad=L.shape[0], blocks=blocks, gap_between=between,
                        gap_f64=gap(x_new), earlier_gap_f64=gap(x_old), ms=t_new,
