@@ -266,7 +266,7 @@ them against the repository's anchors:
                 (bit-identical) and once profiled; the compared members'
                 steps and last zeta those of their single port solves (22
                 members of each dense ensemble, `ENSEMBLE_DENSE_SINGLES`,
-                4 of the CG one), at least 8 (all 4 on the CG run; the
+                2 of the CG one), at least 8 (both on the CG run; the
                 weakest and the reference among them) also their Newton
                 and plastic counts with u within `ENSEMBLE_U_GATES`; the
                 f32 run's return maps all
@@ -281,7 +281,7 @@ them against the repository's anchors:
                 1e-11; the same under `FootingConfig.fast()` against the
                 f64 runs (steps and schedule equal, u within 1e-9, the
                 pressures within 1e-5); Q1 and Q2 at level 1 cut at zeta
-                0.01 under `fast(solver="cg", assembled_cg=True)`, Q1 with
+                0.005 (0.01 before phase 39) under `fast(solver="cg", assembled_cg=True)`, Q1 with
                 residual_fmt "slot" and "rslot" (one CSR route: the two
                 runs bitwise equal, which also holds the run repeated), Q2
                 with "slot" (`FOOTING_ACG_RUNS`), against
@@ -322,8 +322,9 @@ them against the repository's anchors:
                 gates, its deflated parts (`fast_scale(1, zeta_max=3/17,
                 cg_deflate=4)`, the footing's L3 tangent multigrid with
                 cg_deflate=8 to zeta 0.002) bitwise their single-card
-                runs, `solve_sharded_scale` of fast_scale(4) at 4 ranks
-                and fast_scale(1) at 8, each bitwise the single card's u
+                runs, `solve_sharded_scale` of fast_scale(4) at 2 ranks
+                (at 4 in a spawn of their own before phase 39) and
+                fast_scale(1) at 8, each bitwise the single card's u
                 digest and counts (phases 17 and 14), the footing's
                 tangent multigrid at L2 cut at zeta 0.004 (its first load
                 trip) at 8 ranks bitwise the single card's run; walls,
@@ -343,6 +344,31 @@ them against the repository's anchors:
                 preset under `utils.timing`'s Timer, time_call and trace
                 (a Chrome trace written), `utils.metrics.log_run` on it
                 (17 step records).
+ 39. sweeps   — the nine sweeps of `fem_elastoplasticity_tpu_torch/
+                benchmarks/` in-process: the assembly pipeline at levels
+                0-5 (to 908,288 elements, no kernel), the solve sweep
+                (multigrid at levels 0-3, one Newton iteration at 0-2,
+                block-Jacobi at 0-1; level 0 within one CG iteration of
+                the JAX record, `benchmark_sweeps.json`), `spmv_bench` at
+                level 4 (K6 within 2e-6 of the matrix-free product),
+                `run_dp_scale` at levels 1-3 (L1: 17 / 37 / 20, u40
+                within 1e-8, CG within 5% of JAX, the counts of phase 14),
+                the elastic df32 sweeps at levels 0-4 (matrix-free) and
+                0-4 slot / 4 ELL (`u_max` within 1e-11 of an f64 CG solve
+                at level 1, the three within 1e-9 at level 4), the 8 x 8
+                ensemble bench (every member's steps those of phase 33's;
+                its grid keeps the JAX bench's member 28, so the Newton
+                and plastic counts and u of the 63 shared members are
+                printed beside phase 33's), 16 CG members at refine 1 to zeta 3/17, the footing
+                sweep at level 1 to zeta 0.02, one run (JAX's record: steps and
+                plastic points, Newton by trip, CG within 5%, pressure
+                within 1e-6) and its scale preset at level 2 over three
+                trips (phase 23's gates), the P4 bench (17 / 40 / 79, u40
+                within 1e-6, the counts of phase 27); each sweep's
+                kernels launched and no plain version, and one record of
+                each sweep that reaches a kernel under torch.profiler,
+                its kernels among the profile's (the ensemble and P4
+                benches' presets cut at 1/17 for it).
 
 Every phase prints its lines with the card line beside its numbers, and
 the later phases their seconds.  Before
@@ -1699,15 +1725,15 @@ def ensemble_runs(TsxTunnelConfig):
 
 
 # the CG ensemble's single solves take ~8.5 s each on the card (about
-# 10,000 CG iterations a solve): the smoke compares four members, the
-# weakest, two corners and the reference (eight of ENSEMBLE_HELD before
-# phase 37, ten before phases 34-36), and times their sequence;
+# 10,000 CG iterations a solve): the smoke compares two members, the
+# weakest and the reference (four before phase 39, eight of ENSEMBLE_HELD
+# before phase 37, ten before phases 34-36), and times their sequence;
 # tools/ensemble_phases.py --all-singles compares all 64.
 # Its profile covers the first ENSEMBLE_CG_PROFILE_TRIPS load trips: the
 # full schedule is ~700,000 kernels, too many events for the profiler in
-# the smoke's time
-ENSEMBLE_CG_SINGLES = (0, 7, 63, ENSEMBLE_REFERENCE)
-ENSEMBLE_CG_PROFILE_TRIPS = 4
+# the smoke's time (four trips recorded 92,674 kernels, one 53,019)
+ENSEMBLE_CG_SINGLES = (0, ENSEMBLE_REFERENCE)
+ENSEMBLE_CG_PROFILE_TRIPS = 1
 # the dense ensembles compare every fourth member and ENSEMBLE_HELD (22 of
 # 64; the 64 single solves of the three take ~30 s on the card);
 # tools/ensemble_phases.py --all-singles compares all 64
@@ -1830,9 +1856,10 @@ def ensemble_phase(torch, tsx, TsxTunnelConfig, device, card, all_singles: bool 
 FOOTING_ETYPES = ("Q1", "P2", "Q2")
 # tests/test_footing.py:246-265: the assembled quads cut at zeta 0.05
 # against the matrix-free CG: the last pressure, the first six; the smoke
-# cuts them at 0.01 (Q2's pair took 203 s at 0.05 and 107 s at 0.02 on an
-# NVIDIA H100 80GB HBM3 at 700.00 W): the first steps are the same steps
-FOOTING_ACG_ZETA = 0.01
+# cuts them at 0.005 (Q2's pair took 203 s at 0.05, 107 s at 0.02 and
+# 64.8 s at 0.01 on an NVIDIA H100 80GB HBM3 at 700.00 W): the first steps
+# are the same steps
+FOOTING_ACG_ZETA = 0.005
 ANCHOR_U40_SUPPORT = -1.922609586e-03  # tests/test_tsx_tunnel.py:346-355
 # the level-1 assembled runs of phase 34 by element type: Q1 twice, as
 # "slot" and "rslot" (one CSR route, so also the repeat, held bitwise); Q2
@@ -2240,8 +2267,8 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
     cg_deflate=4)`, the footing's level-3 tangent multigrid with
     cg_deflate=8 to zeta 0.002) bitwise their single-card runs;
     `solve_sharded_scale(fast_scale(1))` at 8 ranks and `fast_scale(4)` at
-    4 ranks, each bitwise the single card's (the u digests of phases 14
-    and 17, the counts); the footing's tangent multigrid at L2, zeta 0.004
+    2 ranks (4 ranks, a spawn of their own, before phase 39), each bitwise
+    the single card's (the u digests of phases 14 and 17, the counts); the footing's tangent multigrid at L2, zeta 0.004
     (its first load trip), at 8 ranks, bitwise the single card's run.
     Walls (rank 0, between barriers), gathers and kernel launches (all
     ranks) of each; no profile (rank 0's device idle share per rank count:
@@ -2283,8 +2310,8 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
             (m, (tsx.solve_sharded_rank, (TsxTunnelConfig(),))),
             (m, (tsx.solve_sharded_df32_rank, (TsxTunnelConfig.fast(solver="cg"),))),
             (m, (ens.ensemble_rank, (eta, c, TsxTunnelConfig.fast()))),
-            (m, (sharding.dryrun_rank, ()))],
-        4: [(sharding.describe, ()),
+            (m, (sharding.dryrun_rank, ())),
+            # at 2 ranks since phase 39: a 4-rank spawn took 73-111 s
             (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(4),)))],
         8: [(sharding.describe, ()),
             (m, (tsx.solve_sharded_scale_rank, (TsxTunnelConfig.fast_scale(1),))),
@@ -2308,7 +2335,7 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
 
     # 2 ranks: the element-sharded solves, the member-sharded ensemble and
     # the dry run
-    full, df2, ens2, dry = out[2]
+    full, df2, ens2, dry, s4 = out[2]
     r = full["result"]
     du = float(np.abs(r.u - cg1.u).max())
     check((r.n_steps, r.n_newton_total) == (cg1.n_steps, cg1.n_newton_total) == (17, 28)
@@ -2342,9 +2369,9 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
           and np.array_equal(dfo.u, fd1.u), f"dryrun x2 footing L3 deflated: {counts(dfo)}, "
           f"single card {counts(fd1)}, u equal {np.array_equal(dfo.u, fd1.u)}")
     check_sharded_run("dryrun x2", dry, SHARD_SCALE_KERNELS)
-    # 4 and 8 ranks: the row-sharded scale paths, bitwise the single card
-    s4, s1 = out[4][0], out[8][0]
-    for tag, mm, ref in (("fast_scale(4) x4", s4, refs["scale4"]),
+    # 2 and 8 ranks: the row-sharded scale paths, bitwise the single card
+    s1 = out[8][0]
+    for tag, mm, ref in (("fast_scale(4) x2", s4, refs["scale4"]),
                          ("fast_scale(1) x8", s1, refs["scale1"])):
         check(counts(mm["result"]) == counts(ref) and u_digest(mm["result"].u) == u_digest(ref.u),
               f"{tag}: {counts(mm['result'])} u {u_digest(mm['result'].u)[:16]}, the single "
@@ -2362,7 +2389,7 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
     runs = {"solve_sharded_x2": (full, "17-step f64 CG"), "solve_sharded_df32_x2": (df2, "df32"),
             "ensemble_df32_x2": (ens2, "64 members"),
             "dryrun_x2": (dry, "four parts: f64, df32, scale L1 and footing L3 deflated"),
-            "scale_L4_x4": (s4, "228,112 DOFs"),
+            "scale_L4_x2": (s4, "228,112 DOFs"),
             "scale_L1_x8": (s1, "3,678 DOFs"), "footing_tmg_L2_x8": (fm, "one trip")}
     records = {}
     for tag, (mm, what) in runs.items():
@@ -2384,7 +2411,7 @@ def sharded_phase(torch, spmv, tsx, footing, TsxTunnelConfig, FootingConfig, ref
             f"gathers {mm['collectives'].get('gathers', 0)} (all ranks), launches "
             f"{mm['launches']} | {card}")
     say("sharded", f"u within 1e-14 (x2 17 steps {du:.3e}), df32 rel "
-        f"{ddf:.3e}, fast_scale(4) x4 and fast_scale(1) x8 u digests and counts the single "
+        f"{ddf:.3e}, fast_scale(4) x2 and fast_scale(1) x8 u digests and counts the single "
         f"card's, footing x8 bitwise, the dry run's deflated parts x2 bitwise, ensemble x2 "
         f"max rel {float(rel.max()):.3e}, members "
         f"parting by their Newton count (member, trip, x2's, one card's, the criterion of the "
@@ -2544,6 +2571,296 @@ def side_layers_phase(torch, spmv, tsx, TsxTunnelConfig, bench_digest: str, devi
             f"{traces[0].stat().st_size} bytes with {len(events)} events, {n_kernels} of them "
             f"kernels, log_run {len(records)} records ({n_steps} steps) | {card}")
     return split_launches
+
+
+# phase 39: the sweeps of fem_elastoplasticity_tpu_torch/benchmarks/.  The
+# kernel function each launch name runs (the name torch.profiler records)
+KERNEL_FUNCTIONS = {
+    "csr_spmv_f64": "csr_spmv_kernel", "csr_spmv_f32": "csr_spmv_kernel",
+    "node_block_spmv": "block_jacobi_sweep_kernel",
+    "block_jacobi_sweep": "block_jacobi_sweep_kernel",
+    "block_jacobi_sweep_bf16": "block_jacobi_sweep_kernel",
+    "node_transfer": "node_transfer_kernel",
+    "ell_spmv_f32": "sliced_ell_kernel", "ell_spmv_f64": "sliced_ell_kernel",
+    "dp_return_map_batched": "dp_return_map_batched_kernel",
+}
+SLOT_KERNELS = ("node_block_spmv", "node_transfer", "block_jacobi_sweep")
+
+
+class CutPresets:
+    """A sweep module's TsxTunnelConfig for its profiled record: the fast
+    presets cut after their first load step (every kernel of their routes
+    runs in it)."""
+
+    @staticmethod
+    def fast(**kw):
+        from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+
+        return TsxTunnelConfig.fast(zeta_max=1 / 17, **kw)
+
+    @staticmethod
+    def fast_f32(**kw):
+        from fem_elastoplasticity_tpu_torch.models.config import TsxTunnelConfig
+
+        return TsxTunnelConfig.fast_f32(zeta_max=1 / 17, **kw)
+
+
+def profiled_cut(torch, spmv, rm, tag: str, module, fn, kernels) -> str:
+    """`profiled_sweep` of fn() with `module.TsxTunnelConfig` cut
+    (`CutPresets`)."""
+    full = module.TsxTunnelConfig
+    module.TsxTunnelConfig = CutPresets
+    try:
+        return profiled_sweep(torch, spmv, rm, tag, fn, kernels)
+    finally:
+        module.TsxTunnelConfig = full
+
+
+def sweep_launches(torch, spmv, rm, fn):
+    """(fn(), the launches and plain-version calls of spmv and K2 it made)."""
+    spmv.LAUNCHES.clear()
+    rm.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**spmv.LAUNCHES, **rm.LAUNCHES}
+
+
+def check_sweep_kernels(tag: str, launches: dict, kernels) -> None:
+    for name in kernels:
+        check(launches.get(name, 0) > 0, f"{tag}: {name} never launched ({launches})")
+    check_no_plain(tag, launches)
+
+
+PROFILE_TRIES = 3
+
+
+def profiled_sweep(torch, spmv, rm, tag: str, fn, kernels) -> str:
+    """One record of a sweep under torch.profiler: its kernels launched
+    (the launch counts of every try) and no plain version, and in the first
+    of PROFILE_TRIES profiles that recorded the marker and every kernel
+    function, the count of each.  torch.profiler can lose a session's
+    device activity, or part of it: where every try lost some, the line
+    says so and the launch counts stand alone."""
+    funcs = sorted({KERNEL_FUNCTIONS[k] for k in kernels})
+    lost = []
+    for _ in range(PROFILE_TRIES):
+        spmv.LAUNCHES.clear()
+        rm.LAUNCHES.clear()
+        events, wall = profiled_kernels(fn)
+        check_sweep_kernels(f"{tag} (profiled)", {**spmv.LAUNCHES, **rm.LAUNCHES}, kernels)
+        names = [] if events is None else [e.name for e in events]
+        missing = [f for f in funcs if not any(f in n for n in names)]
+        if events is not None and not missing:
+            return (f"{tag}: {len(events)} kernels in {wall:.3f} s, "
+                    + ", ".join(f"{f} x{sum(f in n for n in names)}" for f in funcs))
+        lost.append("the device's activity" if events is None else f"{missing}")
+    return (f"{tag}: not measured, every profile lost part of the device's activity "
+            f"({'; '.join(lost)}); launch counts only")
+
+
+def sweeps_phase(torch, spmv, rm, tsx, footing, TsxTunnelConfig, FootingConfig, refs: dict,
+                 device, card):
+    """Phase 39: every sweep of the port's `benchmarks/` in-process on the
+    card at the sizes of the module docstring, under the earlier phases'
+    gates.  refs: "scale1" phase 14's counts, "p4" phase 27's, "ensembles"
+    phase 33's f32 and df32 EnsembleResults.  Returns {sweep: launches}."""
+    import numpy as np
+
+    from fem_elastoplasticity_tpu_torch.benchmarks import (
+        assembly_sweep, dp_scale_bench, elastic_df32_sweep, elastic_ell_sweep, ensemble_bench,
+        footing_scale_bench, p4_tsx_bench, solve_sweep, spmv_bench)
+    from fem_elastoplasticity_tpu_torch.models.materials import elastic_tangent_lanes, lame_moduli
+    from fem_elastoplasticity_tpu_torch.ops import assembly as asm
+    from fem_elastoplasticity_tpu_torch.ops.elements import ElementType, volume_element
+    from fem_elastoplasticity_tpu_torch.solve.cg import solve_cg, stiffness_block_jacobi
+
+    jax = json.loads((FIXTURES / "benchmark_sweeps.json").read_text())
+    out, profiles, walls = {}, [], {}
+
+    def record(name: str, rec) -> None:
+        say("sweeps", f"{name} {json.dumps(rec)} | {card}")
+
+    def run(name: str, fn):
+        t0 = time.perf_counter()
+        res, launches = sweep_launches(torch, spmv, rm, fn)
+        walls[name] = time.perf_counter() - t0
+        out[name] = launches
+        for rec in (res if isinstance(res, list) else [res]):
+            record(name, rec)
+        return res
+
+    # the elastic assembly pipeline, levels 0-5 (to 908,288 elements)
+    recs = run("assembly", lambda: assembly_sweep.run_assembly_sweep(levels=5, verbose=False,
+                                                                     device=device))
+    check([r["n_elems"] for r in recs] == [887 * 4**k for k in range(6)]
+          and recs[1]["n_dofs"] == jax["assembly"][1]["n_dofs"]
+          and all(r["assemble_apply_s"] > 0 and np.isfinite(r["gdof_per_s"]) for r in recs),
+          f"assembly sweep: {recs}")
+    check(not out["assembly"], f"assembly sweep: a kernel ran ({out['assembly']})")
+
+    # the elastic PCG solves (and one Newton iteration at levels 0-2)
+    mg = run("solve_mg", lambda: solve_sweep.run_solve_sweep(
+        levels=(0, 1, 2), reps=1, verbose=False, time_newton=True, device=device))
+    mg += run("solve_mg_L3", lambda: solve_sweep.run_solve_sweep(levels=(3,), reps=1,
+                                                                 verbose=False, device=device))
+    jac = run("solve_jacobi", lambda: solve_sweep.run_solve_sweep(
+        levels=(0, 1), reps=1, verbose=False, preconditioner="jacobi", device=device))
+    check(mg[0]["n_dofs"] == 952 and abs(mg[0]["cg_iters"] - jax["solve_mg"]["cg_iters"]) <= 1
+          and abs(jac[0]["cg_iters"] - jax["solve_jacobi"]["cg_iters"]) <= 1,
+          f"solve sweep level 0: CG {mg[0]['cg_iters']} (mg), {jac[0]['cg_iters']} (jacobi); "
+          f"JAX {jax['solve_mg']['cg_iters']}, {jax['solve_jacobi']['cg_iters']}")
+    check(all(0 < r["cg_iters"] < 40 for r in mg) and all("newton_iter_s" in r for r in mg[:3]),
+          f"solve sweep (mg): {mg}")
+
+    # K6 against the matrix-free product, tsx L4 (228,112 DOFs)
+    rec = run("spmv_bench", lambda: spmv_bench.main(4, device=device))
+    check(rec["n_dofs"] == 228112 and rec["max_rel_diff"] <= K6_TOL["float32"],
+          f"spmv_bench L4: {rec}")
+    check_sweep_kernels("spmv_bench", out["spmv_bench"], ("ell_spmv_f32",))
+    profiles.append(profiled_sweep(torch, spmv, rm, "spmv_bench L0",
+                                   lambda: spmv_bench.main(0, reps=1, device=device),
+                                   ("ell_spmv_f32",)))
+
+    # the full scale-preset solves, levels 1-3
+    dps = run("dp_scale", lambda: dp_scale_bench.run_dp_scale(reps=1, verbose=False,
+                                                              device=device))
+    l1 = dps[0]
+    l1_counts = (l1["n_steps"], l1["n_newton_total"], l1["n_cg_total"], l1["n_plastic"])
+    cg_jax = int(np.load(FIXTURES / "tsx_scale_l1.npz")["n_cg_total"])
+    l1_rel = abs(l1["u40"] - ANCHOR_U40_SCALE_L1) / abs(ANCHOR_U40_SCALE_L1)
+    check(l1_counts[:2] == (17, 37) and l1["n_plastic"] == 20 and l1_rel <= 1e-8
+          and abs(l1["n_cg_total"] - cg_jax) <= 0.05 * cg_jax,
+          f"dp_scale L1: {l1_counts}, u40 rel {l1_rel:.3e}, JAX CG {cg_jax}")
+    check(l1_counts == refs["scale1"], f"dp_scale L1: {l1_counts}, phase 14 {refs['scale1']}")
+    check(all(r["n_steps"] == 17 for r in dps), f"dp_scale: {dps}")
+    check_sweep_kernels("dp_scale", out["dp_scale"], SCALE_KERNELS)
+    profiles.append(profiled_sweep(
+        torch, spmv, rm, "dp_scale L1 cut at 3/17",
+        lambda: dp_scale_bench.run_dp_scale(levels=(1,), reps=0, verbose=False, device=device,
+                                            zeta_max=3 / 17), SCALE_KERNELS))
+
+    # the elastic df32 solves: matrix-free, then the assembled hierarchy
+    dfs = run("elastic_df32", lambda: elastic_df32_sweep.run_elastic_df32_sweep(
+        reps=1, verbose=False, device=device))
+    cfg = TsxTunnelConfig()
+    shear, bulk = lame_moduli(cfg.young, cfg.poisson)
+    mesh1 = tsx.tsx_mesh(ElementType.P1, refine_levels=1)
+    geom1 = asm.compute_geometry(torch.as_tensor(mesh1.coords, device=device), mesh1.elems,
+                                 volume_element(ElementType.P1))
+    s0 = torch.as_tensor(tsx.initial_state(cfg)[0][:3], device=device)
+    D1 = elastic_tangent_lanes(shear, bulk, geom1.n_int, torch.float64, device)
+    free1 = torch.as_tensor(mesh1.free, device=device)
+    u64 = solve_cg(lambda v: asm.tangent_matvec(geom1, D1, v),
+                   -asm.internal_force(geom1, s0[:, None].expand(3, geom1.n_int)), free1,
+                   precond=stiffness_block_jacobi(geom1, D1, free1), tol=1e-14, maxiter=4000).x
+    u64_max = float(u64.abs().max())
+    df_rel = abs(dfs[1]["u_max"] - u64_max) / u64_max
+    check(df_rel <= 1e-11, f"elastic_df32 L1: u_max {dfs[1]['u_max']!r} is {df_rel:.3e} from "
+          f"the f64 CG solve's {u64_max!r}")
+    slot = run("elastic_ell_slot", lambda: elastic_ell_sweep.run_elastic_ell_sweep(
+        levels=(0, 1, 2, 3, 4), reps=1, verbose=False, device=device))
+    ell = run("elastic_ell_ell", lambda: elastic_ell_sweep.run_elastic_ell_sweep(
+        levels=(4,), reps=1, verbose=False, fmt="ell", device=device))
+    slot_rel = abs(slot[1]["u_max"] - u64_max) / u64_max
+    l4 = dfs[4]["u_max"]
+    l4_rel = max(abs(slot[4]["u_max"] - l4), abs(ell[0]["u_max"] - l4)) / l4
+    check(slot_rel <= 1e-11 and l4_rel <= 1e-9,
+          f"elastic_ell: L1 u_max {slot_rel:.3e} from the f64 CG solve's, L4 slot / ell "
+          f"{l4_rel:.3e} from the matrix-free sweep's")
+    check_sweep_kernels("elastic_ell slot", out["elastic_ell_slot"], SLOT_KERNELS)
+    check_scale_launches("elastic_ell slot", out["elastic_ell_slot"], SLOT_KERNELS)
+    check_scale_launches("elastic_ell ell", out["elastic_ell_ell"], ("ell_spmv_f32",))
+    check(set(out["elastic_ell_ell"]) == {"ell_spmv_f32"},
+          f"elastic_ell ell: {out['elastic_ell_ell']}")
+    for fmt in ("slot", "ell"):
+        kernels = SLOT_KERNELS if fmt == "slot" else ("ell_spmv_f32",)
+        profiles.append(profiled_sweep(
+            torch, spmv, rm, f"elastic_ell {fmt} L1",
+            lambda fmt=fmt: elastic_ell_sweep.run_elastic_ell_sweep(
+                levels=(1,), reps=0, verbose=False, fmt=fmt, device=device), kernels))
+
+    # the material ensembles: the 8 x 8 grid (f32 and df32), and 16 CG
+    # members at refine 1 cut at 3/17
+    ens = {}
+    rec = run("ensemble", lambda: ensemble_bench.run_ensemble_bench(verbose=False, device=device,
+                                                                     extras=ens))
+    # the bench's grid is the JAX bench's: its member 28 is not phase 33's
+    # reference material, so the batches differ and the other members may
+    # round their last bits another way; every member's steps are held
+    others = np.arange(ens["eta"].size) != ENSEMBLE_REFERENCE
+    same = {}
+    for tag in ("f32", "df32"):
+        e, ref = ens[tag], refs["ensembles"][tag]
+        check(np.array_equal(e.n_steps, ref.n_steps),
+              f"ensemble_bench {tag}: steps {e.n_steps}, phase 33 {ref.n_steps}")
+        counts = (e.n_newton_total == ref.n_newton_total) & (e.n_plastic == ref.n_plastic)
+        same[tag] = (int(counts[others].sum()),
+                     float(np.abs(e.u[others] - ref.u[others]).max()))
+    check((rec["min_steps"], rec["max_steps"], rec["df32_min_steps"], rec["df32_max_steps"])
+          == (17, 17, 17, 17), f"ensemble_bench: {rec}")
+    check(set(out["ensemble"]) == {"dp_return_map_batched"},
+          f"ensemble_bench: K2 launches {out['ensemble']}")
+    say("sweeps", "ensemble_bench against phase 33 (the 63 members it shares): "
+        + ", ".join(f"{tag} steps equal, {n} with equal Newton and plastic counts, u within "
+                    f"{du:.3e}" for tag, (n, du) in same.items()) + f" | {card}")
+    profiles.append(profiled_cut(
+        torch, spmv, rm, "ensemble_bench 2 x 2 cut at 1/17", ensemble_bench,
+        lambda: ensemble_bench.run_ensemble_bench(2, 2, verbose=False, device=device),
+        ("dp_return_map_batched",)))
+    ens_s = {}
+    rec = run("ensemble_scale", lambda: ensemble_bench.run_ensemble_scale_bench(
+        16, 1, zeta_max=3 / 17, verbose=False, device=device, extras=ens_s))
+    check(rec["ensemble_size"] == 16 and (rec["min_steps"], rec["max_steps"]) == (3, 3)
+          and bool(np.isfinite(ens_s["df32"].u).all()), f"ensemble_scale_bench: {rec}")
+    check(not out["ensemble_scale"], f"ensemble_scale_bench: {out['ensemble_scale']}")
+
+    # the footing: matrix-free CG at level 1 cut at zeta 0.02, then the
+    # tangent-multigrid preset at level 2 over three load trips
+    fx = {}
+    # one run (reps=0): ~8 s on the card, the phase's longest
+    f1, = run("footing_L1", lambda: footing_scale_bench.run_footing_scale(
+        (1,), reps=0, verbose=False, device=device, extras=fx, zeta_max=0.02))
+    want = jax["footing"]
+    trips = np.load(FIXTURES / "footing_df32_cg_z002.npz")
+    check((int(trips["n_steps"]), int(trips["n_newton_total"]), int(trips["n_cg_total"]))
+          == (want["n_steps"], want["n_newton_total"], want["n_cg_total"]),
+          "footing L1: the trip record is not the sweep's trajectory")
+    gaps = footing.newton_trip_gaps(fx["results"][0], trips["newton_trips"], fx["configs"][0])
+    p_rel = abs(f1["limit_pressure"] - want["limit_pressure"]) / want["limit_pressure"]
+    check((f1["n_steps"], f1["n_plastic"]) == (want["n_steps"], want["n_plastic"]) and not gaps
+          and abs(f1["n_cg_total"] - want["n_cg_total"]) <= 0.05 * want["n_cg_total"]
+          and p_rel <= 1e-6,
+          f"footing L1: {f1}, JAX {want}, Newton off by trip {gaps}, pressure {p_rel:.3e}")
+    check(not out["footing_L1"], f"footing L1 (matrix-free): {out['footing_L1']}")
+    fx2 = {}
+    f2, = run("footing_scale_L2", lambda: footing_scale_bench.run_footing_scale(
+        (2,), reps=1, verbose=False, scale_preset=True, device=device, extras=fx2, max_trips=3))
+    r2 = fx2["results"][0]
+    check_footing_scale("footing_scale_bench L2", r2, fx2["configs"][0], "footing_scale_l2_t3")
+    check_footing_scale_launches("footing_scale_bench L2", out["footing_scale_L2"], 2,
+                                 2 * r2.n_newton_total, 2 * r2.n_cg_total)
+    profiles.append(profiled_sweep(
+        torch, spmv, rm, "footing_scale_bench L2 one trip",
+        lambda: footing_scale_bench.run_footing_scale(
+            (2,), reps=0, verbose=False, scale_preset=True, device=device, max_trips=1),
+        FOOTING_SCALE_KERNELS))
+
+    # the reference's P4 configuration, full schedule
+    p4 = run("p4_tsx", lambda: p4_tsx_bench.main(device=device))
+    p4_counts = (p4["n_steps"], p4["n_newton_total"], p4["n_cg_total"], p4["n_plastic"])
+    p4_rel = abs(p4["u40"] - ANCHOR_U40_P4) / abs(ANCHOR_U40_P4)
+    check((p4["n_steps"], p4["n_newton_total"], p4["n_plastic"]) == JAX_COUNTS_P4
+          and p4_rel <= 1e-6 and p4_counts == refs["p4"],
+          f"p4_tsx_bench: {p4_counts}, phase 27 {refs['p4']}, u40 rel {p4_rel:.3e}")
+    check_pmg_launches("p4_tsx_bench", out["p4_tsx"], 2 * p4["n_cg_total"], True)
+    profiles.append(profiled_cut(torch, spmv, rm, "p4_tsx_bench cut at 1/17", p4_tsx_bench,
+                                 lambda: p4_tsx_bench.main(device=device), HIGH_ORDER_KERNELS))
+
+    for line in profiles:
+        say("sweeps", f"profiled: {line} | {card}")
+    say("sweeps", "walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; launches {out} | {card}")
+    return out
 
 
 def ell_config(TsxTunnelConfig, level: int):
@@ -3341,6 +3658,7 @@ def main() -> int:
         {"scale1": s1, "scale4": a1, "ensemble_df32": ens_results["df32"]}, device, card)
     k4_split = split_z_phase(torch, spmv, sharding, ex4["hierarchy"], ex4["host_levels"], 4,
                              device, card)
+    ens_ref = {k: ens_results[k] for k in ("f32", "df32")}  # phase 39's
     del ens_results
     say("phase time", f"sharded runs {time.perf_counter() - t_phase:.1f} s | {card}")
 
@@ -3350,6 +3668,16 @@ def main() -> int:
     side_launches = side_layers_phase(torch, spmv, tsx, TsxTunnelConfig, bench_digest,
                                       device, card)
     say("phase time", f"side layers {time.perf_counter() - t_phase:.1f} s | {card}")
+
+    # phase 39: the sweeps of benchmarks/, in-process
+    t_phase = time.perf_counter()
+    sweep_paths = {f"sweeps_{k}": v for k, v in sweeps_phase(
+        torch, spmv, rm, tsx, footing, TsxTunnelConfig, FootingConfig, {
+            "scale1": (s1.n_steps, s1.n_newton_total, s1.n_cg_total, s1.n_plastic),
+            "p4": (p4.n_steps, p4.n_newton_total, p4.n_cg_total, p4.n_plastic),
+            "ensembles": ens_ref}, device, card).items()}
+    del ens_ref
+    say("phase time", f"sweeps {time.perf_counter() - t_phase:.1f} s | {card}")
 
     say("total", f"{time.perf_counter() - t_start:.1f} s from start to here, builds included "
         f"| {card}")
@@ -3369,7 +3697,8 @@ def main() -> int:
                                     scale_ELL_L4=e4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches, **new_launches, **shard_launches),
+                                    **hi_launches, **new_launches, **shard_launches,
+                                    **sweep_paths),
         "max_abs_err": max(k1_err, csr_o_err,
                            max(v["max_abs_err"] for k, v in csr_shapes.items()
                                if k.startswith("footing_")),
@@ -3409,8 +3738,8 @@ def main() -> int:
         # K2's member-batched instance: the Pallas kernel under the JAX
         # ensemble's vmap
         "replaces": "fem_elastoplasticity_tpu/ops/return_map_pallas.py:160",
-        "launches": k2_ens.get("dp_return_map_batched", 0),
-        "launches_by_path": {"ensemble_f32": k2_ens.get("dp_return_map_batched", 0)},
+        "launches_by_path": by_path("dp_return_map_batched", ensemble_f32=k2_ens,
+                                    **sweep_paths),
         "max_abs_err": k2b_err,
         # one Newton sweep of the 64-member f32 ensemble: 64 x 896 points
         **{key: k2b_shapes["B64_n896_float32_noep"][key]
@@ -3431,7 +3760,8 @@ def main() -> int:
                                     scale_L4=l4_launches, scale_L5=l5_launches,
                                     footing_acg_z002=foot_launches["df32_acg_z002"],
                                     footing_acg_L3=foot_launches["df32_acg_L3"], **fs_launches,
-                                    **hi_launches, **new_launches, **shard_launches),
+                                    **hi_launches, **new_launches, **shard_launches,
+                                    **sweep_paths),
         # bitwise equal to its plain version (and to the earlier design)
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items() if k.startswith("K_")),
         # the CG operator of the level-5 solve; the bound is the node-block
@@ -3452,7 +3782,8 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1455",
         "launches_by_path": by_path("node_transfer", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
-                                    **hi_launches, **new_launches, **shard_launches),
+                                    **hi_launches, **new_launches, **shard_launches,
+                                    **sweep_paths),
         "max_abs_err": max(v["max_abs_err"] for k, v in k3_shapes.items()
                            if not k.startswith("K_")),
         # one V-cycle's transfers of the level-5 solve: R and P of levels 1-5
@@ -3469,7 +3800,7 @@ def main() -> int:
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1610",
         "launches_by_path": by_path("block_jacobi_sweep", scale_L1=l1_launches,
                                     scale_L4=l4_launches, scale_L5=l5_launches, **fs_launches,
-                                    **hi_launches, **new_launches),
+                                    **hi_launches, **new_launches, **sweep_paths),
         "max_abs_err": k4_err,
         # one smoother sweep on the fine level of the level-4 solve; the
         # bound is the node-block layout's bytes, the CSR entries' beside it
@@ -3510,7 +3841,7 @@ def main() -> int:
         # the Galerkin value maps of the footing's tangent multigrid; the
         # f32 heads of G and S on the tsx's p-multigrid route
         "launches_by_path": by_path("csr_spmv_f32", **fs_launches, **hi_launches,
-                                    **shard_launches),
+                                    **shard_launches, **sweep_paths),
         "max_abs_err": max(max(v["max_abs_err"] for k, v in csr_shapes.items()
                                if k.startswith("Mhat_")),
                            max(v["max_abs_err"] for k, v in ho_csr.items()
@@ -3526,7 +3857,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/block_jacobi_sweep.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:1936",
-        "launches_by_path": by_path("block_jacobi_sweep_bf16", scale_L5=l5_launches),
+        "launches_by_path": by_path("block_jacobi_sweep_bf16", scale_L5=l5_launches,
+                                    **sweep_paths),
         "max_abs_err": k5_err,
         # one smoother sweep on the fine level of the level-5 solve
         "ms": k5_shapes["L5_update"]["ms"],
@@ -3546,7 +3878,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:417",
         "launches_by_path": by_path("ell_spmv_f32", scale_ELL_L1=e1_launches,
-                                    scale_ELL_L4=e4_launches, **new_launches),
+                                    scale_ELL_L4=e4_launches, **new_launches, **sweep_paths),
         "max_abs_err": k6_err["float32"],
         # the CG operator of the level-4 ELL solve
         "ms": k6_shapes["K_L4"]["ms"],
@@ -3562,7 +3894,7 @@ def main() -> int:
         "source": "fem_elastoplasticity_tpu_torch/ops/csrc/ell_spmv.cu",
         "replaces": "fem_elastoplasticity_tpu/ops/spmv.py:902",
         "launches_by_path": by_path("ell_spmv_f64", scale_ELL_L1=e1_launches,
-                                    scale_ELL_L4=e4_launches, **new_launches),
+                                    scale_ELL_L4=e4_launches, **new_launches, **sweep_paths),
         "max_abs_err": k6_err["float64"],
         # one residual evaluation of the level-4 ELL solve: G u, then S s
         "ms": k6_shapes["G_L4"]["ms"] + k6_shapes["S_L4"]["ms"],

@@ -152,15 +152,23 @@ def make_geometry(B, weight, edofs, n_nodes: int, n_q: int, n_real: int) -> Geom
 
 
 def compute_geometry(
-    coords: torch.Tensor, elems: np.ndarray, ref: ReferenceElement, pad_to: int = LANE_PAD
+    coords: torch.Tensor, elems: np.ndarray, ref: ReferenceElement, pad_to: int = LANE_PAD,
+    like: Optional[Geometry] = None,
 ) -> Geometry:
     """Jacobians, physical gradients, B blocks and weights for all elements.
 
     J = dN^T x_e, dphi = J^{-1} dN, weight = |det J| * w_q, in the dtype and
     on the device of `coords`.  Elements are zero-padded to a lane multiple.
+
+    `like`: a Geometry of the same mesh and element, whose edofs and gather
+    map are taken as they are: the call then does no host work, `elems` may
+    be an index tensor on coords' device, and where ref's `dN` and `w` are
+    tensors there too (an `ElementTables`), it launches only device work
+    (the elastic assembly sweep captures it in a CUDA graph).
     """
     dtype, device = coords.dtype, coords.device
-    elems = np.asarray(elems, np.int64)
+    if like is None:
+        elems = np.asarray(elems, np.int64)
     n_e = elems.shape[0]
     xe = coords[torch.as_tensor(elems, device=device)]  # (n_e, n_p, 2)
     dN = torch.as_tensor(ref.dN, dtype=dtype, device=device)  # (n_q, n_p, 2)
@@ -197,6 +205,9 @@ def compute_geometry(
     if pad_e:
         B = torch.nn.functional.pad(B, (0, pad_e * n_q))
         w = torch.nn.functional.pad(w, (0, pad_e * n_q))
+    if like is not None:
+        return like._replace(B=B, weight=w)
+    if pad_e:
         elems = np.pad(elems, ((0, pad_e), (0, 0)))
     return make_geometry(B, w, element_dofs(elems), coords.shape[0], n_q, n_e)
 

@@ -133,6 +133,17 @@ Runs the JAX package on the CPU and writes, under tests/fixtures/torch_port/:
   virtual three-device CPU mesh (the run sets
   `--xla_force_host_platform_device_count=3` before JAX starts): u, ep,
   zeta_hist, displ_hist and the step, Newton, CG and plastic counts.
+* benchmark_sweeps.json (name `sweeps`) — the JAX package's sweeps
+  (`fem_elastoplasticity_tpu/benchmarks/`) at the port's test sizes, their
+  deterministic fields only (no time): the assembly sweep at levels 0-1 (elements, DOFs),
+  `run_solve_sweep` at level 0 with the multigrid and the block-Jacobi
+  preconditioner (DOFs, CG iterations), `spmv_bench.main(0)` (its printed
+  line: DOFs, nnz), `run_dp_scale` at level 1 cut at zeta 3/17 (steps,
+  Newton, CG, plastic, u40), `run_elastic_df32_sweep` and
+  `run_elastic_ell_sweep` (formats "slot" and "ell") at level 1 (CG
+  iterations a refinement pass, u_max), `run_ensemble_bench` on the 2 x 2
+  grid (min/max steps, f32 and df32) and `run_footing_scale` at level 1 cut
+  at zeta 0.02 (steps, Newton, CG, plastic, limit pressure, zeta_end).
 
 The port's tests compare against these files instead of re-running a JAX
 solve (about 30 s of compilation each; the two scale files run their
@@ -317,6 +328,8 @@ def main(names) -> None:
                 monitor_hist=np.asarray(e.monitor_hist, np.float64),
                 n_steps=np.asarray(e.n_steps), n_newton_total=np.asarray(e.n_newton_total),
                 n_plastic=np.asarray(e.n_plastic), config=json.dumps(dict(df32=df32, **cfg_kw)))
+    if SWEEPS in names:
+        _sweeps()
     if SHARDED in names:
         r = tsx.solve_sharded(TsxTunnelConfig(zeta_max=3 / 17), n_devices=SHARDED_DEVICES)
         np.savez_compressed(OUT / f"{SHARDED}.npz", **_fields(r, "displ_hist"),
@@ -446,6 +459,56 @@ def _trip_cg_prefix(footing, cfg, trip: int, n_newton: int) -> int:
     return int(res.n_cg_total) - cg0
 
 
+def _sweeps() -> None:
+    """benchmark_sweeps.json: the JAX sweeps' deterministic fields at the
+    sizes of tests/test_torch_benchmarks.py (module docstring)."""
+    import io
+
+    import numpy as np
+
+    from fem_elastoplasticity_tpu.benchmarks import (
+        dp_scale_bench, elastic_df32_sweep, elastic_ell_sweep, ensemble_bench,
+        footing_scale_bench, spmv_bench)
+    from fem_elastoplasticity_tpu.benchmarks import run_assembly_sweep, run_solve_sweep
+
+    def keep(rec, keys):
+        return {k: rec[k] for k in keys}
+
+    out = {"assembly": [keep(r, ("level", "n_elems", "n_dofs"))
+                        for r in run_assembly_sweep(levels=1, reps=1, verbose=False)]}
+    for pre in ("mg", "jacobi"):
+        out[f"solve_{pre}"] = keep(
+            run_solve_sweep(levels=(0,), reps=1, verbose=False, preconditioner=pre)[0],
+            ("level", "n_elems", "n_dofs", "cg_iters"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        spmv_bench.main(0, reps=1)
+    out["spmv"] = keep(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                       ("level", "n_dofs", "nnz"))
+    out["dp_scale"] = keep(
+        dp_scale_bench.run_dp_scale(levels=(1,), reps=1, verbose=False, zeta_max=3 / 17)[0],
+        ("level", "n_elems", "n_dofs", "n_steps", "n_newton_total", "n_cg_total",
+         "n_plastic", "u40"))
+    ir = ("level", "n_elems", "n_dofs", "cg_iters_per_ir_pass", "u_max")
+    out["elastic_df32"] = keep(
+        elastic_df32_sweep.run_elastic_df32_sweep(levels=(1,), reps=1, verbose=False)[0], ir)
+    for fmt in ("slot", "ell"):
+        out[f"elastic_ell_{fmt}"] = keep(elastic_ell_sweep.run_elastic_ell_sweep(
+            levels=(1,), reps=1, verbose=False, fmt=fmt)[0], ir)
+    out["ensemble"] = keep(
+        ensemble_bench.run_ensemble_bench(2, 2, verbose=False),
+        ("ensemble_size", "min_steps", "max_steps", "df32_min_steps", "df32_max_steps"))
+    out["footing"] = keep(
+        footing_scale_bench.run_footing_scale(levels=(1,), reps=0, verbose=False,
+                                              zeta_max=0.02)[0],
+        ("level", "n_elems", "n_dofs", "n_steps", "n_newton_total", "n_cg_total",
+         "n_plastic", "limit_pressure", "zeta_end"))
+    out["config"] = {"dp_scale": {"level": 1, "zeta_max": 3 / 17},
+                     "footing": {"level": 1, "zeta_max": 0.02}, "ensemble": [2, 2]}
+    out = json.loads(json.dumps(out, default=lambda x: np.asarray(x).tolist()))
+    (OUT / "benchmark_sweeps.json").write_text(json.dumps(out, indent=1) + "\n")
+
+
 def _report() -> None:
     for f in sorted(OUT.glob("*.npz")):
         print(f.relative_to(ROOT), f.stat().st_size, "bytes")
@@ -527,6 +590,9 @@ def tsx_option_config(config_cls, element_type, preset, kw):
     return config_cls.fast_scale(preset[1], **kw)
 
 
+# the JAX sweeps of fem_elastoplasticity_tpu/benchmarks/ at the port's test sizes
+SWEEPS = "sweeps"  # writes benchmark_sweeps.json
+
 # the element-sharded solve on a virtual CPU mesh of this many devices
 SHARDED, SHARDED_DEVICES = "tsx_sharded_cg_n3_z3", 3
 
@@ -536,7 +602,7 @@ FIXTURES = (
     "tsx_scale_l1_packed", "tsx_scale_l1_ell", "tsx_scale_l1_gather", "tsx_scale_l1_res_ell",
     "tsx_scale_l1_ell_res_csr", "tsx_df32_bench_res_ell", *FOOTING_RUNS, *FOOTING_FULL,
     *FOOTING_SCALE, "footing_scale_l2_ckpt2", "elasticity_cg", *HIGH_ORDER,
-    "tsx_p4_pmg_carry1", *ENSEMBLES, *TSX_OPTIONS, "tsx_scale_l1_ckpt3", SHARDED,
+    "tsx_p4_pmg_carry1", *ENSEMBLES, *TSX_OPTIONS, "tsx_scale_l1_ckpt3", SHARDED, SWEEPS,
 )
 
 if __name__ == "__main__":
